@@ -1,65 +1,58 @@
 """bellpepper_tpu_torch — the PyTorch + CUDA port of bellpepper_tpu.
 
 The JAX package ``bellpepper_tpu`` stays the reference. This package
-imports ``torch`` and never ``jax``: it takes from the reference only its
-JAX-free host layer (the constraint system, fields, linear combinations,
-``util_cs``, ``r1cs``, ``gadgets`` and ``utils.serialize``), re-exported
-here, and carries its own copies of the host code that sits behind JAX
-imports there (native loader, tape types, stage compile, row classifiers,
-field constants).
+imports ``torch`` and never ``jax``, and nothing of the JAX package: it
+carries its own host layer (the fields, the R1CS data types, the native
+builder with its C++ source, the tape types, the stage compile, the row
+classifiers and the field constants). Its functions read templates and
+tapes by their fields alone, so the JAX package's ``R1CS`` objects and
+``TapeCS`` tapes work too. Circuits are synthesized through
+``NativeBuilder``.
 
-The ported slice is the packed sha256 witness+check step:
-``NativeBuilder`` → ``WitnessProgram.build_packed`` →
-``build_templated_check(..., "bits_packed")`` →
-``build_packed_production_step``, with the check's three field kernels in
-CUDA C++ (``csrc/``)."""
+Every entry point runs on the CUDA card unless it is given another
+device (``device="cpu"`` runs the plain PyTorch versions of the kernels).
 
-from bellpepper_tpu import (
-    FIELDS,
-    PALLAS_SCALAR,
-    SCALAR,
-    VESTA_SCALAR,
-    Circuit,
-    ConstraintSystem,
-    Index,
-    LinearCombination,
-    PrimeField,
-    SynthesisError,
-    TestConstraintSystem,
-    Variable,
-)
-from bellpepper_tpu.r1cs import COOMatrix, R1CS, ShapeCS
-from bellpepper_tpu.utils.serialize import load_r1cs, save_r1cs
+Ported paths:
+
+  * the packed sha256 step: ``NativeBuilder`` → ``WitnessProgram.
+    build_packed`` → ``build_templated_check(..., "bits_packed")`` →
+    ``build_packed_production_step``, with the kernels ``bitplane_eq``,
+    ``bits_matvec_semi`` and ``mulcmp``;
+  * the field path (config 1, AllocatedNum mul/add): ``NativeBuilder``'s
+    num gadgets → ``WitnessProgram.build`` → ``build_templated_check(...,
+    "mixed")`` → ``build_production_step``, with the kernels ``chain``,
+    ``mul`` and ``mulcmp``.
+
+The kernels are CUDA C++ (``csrc/``)."""
 
 from .backend.matvec import build_templated_check
 from .backend.words import pack_bits, unpack_bits
-from .compile.pipeline import build_packed_chunked_witness, build_packed_production_step
+from .compile.pipeline import (
+    build_chunked_witness,
+    build_packed_chunked_witness,
+    build_packed_production_step,
+    build_production_step,
+)
 from .compile.witness_program import WitnessProgram
+from .fields import FIELDS, PALLAS_SCALAR, SCALAR, VESTA_SCALAR, PrimeField
 from .native import NativeBuilder
+from .r1cs import R1CS, COOMatrix
 
 __all__ = [
     "COOMatrix",
-    "Circuit",
-    "ConstraintSystem",
     "FIELDS",
-    "Index",
-    "LinearCombination",
     "NativeBuilder",
     "PALLAS_SCALAR",
     "PrimeField",
     "R1CS",
     "SCALAR",
-    "ShapeCS",
-    "SynthesisError",
-    "TestConstraintSystem",
     "VESTA_SCALAR",
-    "Variable",
     "WitnessProgram",
+    "build_chunked_witness",
     "build_packed_chunked_witness",
     "build_packed_production_step",
+    "build_production_step",
     "build_templated_check",
-    "load_r1cs",
     "pack_bits",
-    "save_r1cs",
     "unpack_bits",
 ]

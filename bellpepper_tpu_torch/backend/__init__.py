@@ -1,14 +1,15 @@
 """Device layer of the port: the word contract, host-side layouts, the
-CUDA field kernels and the bits_packed check.
+CUDA field kernels and the templated checks.
 
   - words.py         — int32 words holding uint32 bit patterns
   - field_consts.py  — per-field integer constants of the kernels
   - layout.py        — numpy row classifiers and ELL layouts
   - field_kernels.py — kernel wrappers, plain versions, launch counts
+  - field_backend.py — field arithmetic on [..., 16] limb tensors
   - cuda_lib.py      — nvcc build and ctypes load of ``csrc/``
-  - matvec.py        — the bits_packed check and its reduced verdict
+  - matvec.py        — the bits_packed and mixed checks and their verdicts
 """
 
-from .matvec import PackedBitsCheck, build_templated_check
+from .matvec import MixedCheck, PackedBitsCheck, build_templated_check
 
-__all__ = ["PackedBitsCheck", "build_templated_check"]
+__all__ = ["MixedCheck", "PackedBitsCheck", "build_templated_check"]

@@ -3,7 +3,8 @@
 Copied from ``bellpepper_tpu/backend/field_pallas.py:39-114`` (``_digits``,
 ``_Consts``, ``_QE_ERR``) as plain Python ints, with the exhaustive check
 of the quotient-estimate bound kept as it is. ``kernel_consts`` packs the
-rows the CUDA kernels read into flat uint32 arrays."""
+rows the CUDA kernels read into flat uint32 arrays (the layouts of the
+constant structs in ``csrc/mulcmp.cu`` and ``csrc/field.cuh``)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from bellpepper_tpu.fields import PrimeField
+from ..fields import PrimeField
 
 L16 = 16
 L8 = 32
@@ -102,14 +103,18 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
     * ``semi_fold``  [4·32]: fold rows 0..3 (8-bit digits), for
       bits_matvec_semi;
     * ``mulcmp``     [17 + 18·16 + 18·16 + 3·16 + 16 + 1]: p2_17, fold16,
-      fold16_hi, fold16b, p16, p0inv, for mulcmp."""
+      fold16_hi, fold16b, p16, p0inv, for mulcmp;
+    * ``modmul``     [16·16 + 16·16 + 3·16 + 3·17 + 1]: fold16 and
+      fold16_hi rows 0..15, fold16b, p·2^k (k = 2, 1, 0) as 17 limbs, and
+      the quotient-estimate constant qe, for mul and chain (``None`` for
+      a field without qe)."""
     out = _KERNEL_CONSTS.get(field.p)
     if out is not None:
         return out
     c = consts_for(field)
     if c.p0inv is None:
         raise ValueError("mulcmp's zero-test needs an odd modulus")
-    mul = (
+    mulcmp = (
         c.p2_17
         + [v for row in c.fold16 for v in row]
         + [v for row in c.fold16_hi for v in row]
@@ -117,8 +122,19 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
         + c.p16
         + [c.p0inv]
     )
+    modmul = None
+    if c.qe is not None:
+        modmul = np.asarray(
+            [v for row in c.fold16[:L16] for v in row]
+            + [v for row in c.fold16_hi[:L16] for v in row]
+            + [v for row in c.fold16b for v in row]
+            + [v for k in (2, 1, 0) for v in _digits(field.p << k, 16, 17)]
+            + [c.qe],
+            np.uint32,
+        )
     out = _KERNEL_CONSTS[field.p] = {
         "semi_fold": np.asarray([v for row in c.fold[:4] for v in row], np.uint32),
-        "mulcmp": np.asarray(mul, np.uint32),
+        "mulcmp": np.asarray(mulcmp, np.uint32),
+        "modmul": modmul,
     }
     return out

@@ -1,7 +1,7 @@
-"""The field kernels of the packed check: wrappers, plain versions, counts.
+"""The field kernels of the port: wrappers, plain versions, counts.
 
-Counterpart of the three ``bellpepper_tpu/backend/field_pallas.py``
-kernels on the packed sha256 path, each a CUDA kernel in ``csrc/``:
+Counterparts of the ``bellpepper_tpu/backend/field_pallas.py`` kernels on
+the ported paths, each a CUDA kernel in ``csrc/``:
 
   ============================  ==========================================
   wrapper                       replaces (field_pallas.py)
@@ -10,6 +10,9 @@ kernels on the packed sha256 path, each a CUDA kernel in ``csrc/``:
   ``bits_matvec_semi``          ``make_fold_matvec_bucket`` (:828) via
                                 ``make_bits_matvec_bucket(out_form="semi")``
   ``mulcmp``                    ``make_mulcmp`` (:1009)
+  ``chain``                     ``make_chain_kernel`` (:407)
+  ``mul``                       ``PallasFieldOps.mul`` → ``_mul_kernel``
+                                (:704, :727)
   ============================  ==========================================
 
 Every wrapper checks device, dtype, shape and contiguity, then runs its
@@ -19,21 +22,24 @@ falls back), and counts that launch in ``<wrapper>.launches``. Words are
 int32 tensors holding uint32 bit patterns (see ``words``); the plain
 versions compute in int64 and mask with 2^32 - 1 wherever the TPU
 kernels rely on uint32 wraparound, so they are bit-exact against both
-the Pallas kernels and the CUDA ones."""
+the Pallas kernels and the CUDA ones.
+
+The row helpers below (``_conv16_rows`` … ``_add_canon_rows``) are the
+torch versions of the Pallas kernels' row pipeline: a "row" is an int64
+tensor holding one limb or digit position of every element."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import torch
 
-from bellpepper_tpu.fields import PrimeField
-
+from ..fields import PrimeField
 from .cuda_lib import load_kernels
-from .field_consts import L8, L16, SEMI, consts_for, kernel_consts
+from .field_consts import L8, L16, SEMI, _digits, consts_for, kernel_consts
 from .words import FULL, U32, to_i32, to_u32
 
-KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp")
+KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -68,12 +74,12 @@ def _stream(t: torch.Tensor):
 
 
 def reset_launch_counts() -> None:
-    for fn in (bitplane_eq, bits_matvec_semi, mulcmp):
-        fn.launches = 0
+    for name in KERNELS:
+        globals()[name].launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in (bitplane_eq, bits_matvec_semi, mulcmp)}
+    return {name: globals()[name].launches for name in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -317,3 +323,263 @@ def mulcmp_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, field: Prime
 
 
 mulcmp.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The 16-bit-limb multiply pipeline (field_pallas.py:214-389) in torch.
+# ---------------------------------------------------------------------------
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _table(field_p: int, name: str, rows, device) -> torch.Tensor:
+    """A constant table of one field as an int64 tensor on `device`
+    (cached)."""
+    key = (field_p, name, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(rows, dtype=torch.int64, device=device)
+    return t
+
+
+def _p_of(consts) -> int:
+    return sum(v << (16 * j) for j, v in enumerate(consts.p16))
+
+
+def _conv16_rows(a16: List[torch.Tensor], b16: List[torch.Tensor]) -> List[torch.Tensor]:
+    """field_pallas._conv16_rows: 32 positions of 16-bit-basis digits
+    (each < 2^21) of a·b. Each 16×16-bit product is exact in 32 bits; its
+    lo and hi halves accumulate at positions i+j and i+j+1."""
+    a = torch.stack(a16)
+    shape = a.shape[1:]
+    a = a.reshape(L16, 1, -1)
+    b = torch.stack(b16).reshape(1, L16, -1)
+    t = a * b  # [16, 16, n]
+    n = t.shape[-1]
+    pos = _table(0, "conv16_pos", [i + j for i in range(L16) for j in range(L16)], t.device)
+    acc = torch.zeros((2 * L16, n), dtype=torch.int64, device=t.device)
+    acc.index_add_(0, pos, (t & 0xFFFF).reshape(-1, n))
+    acc.index_add_(0, pos + 1, (t >> 16).reshape(-1, n))
+    return list(acc.reshape((2 * L16,) + tuple(shape)).unbind(0))
+
+
+def _carry16_rows(rows: List[torch.Tensor], n_out: int) -> List[torch.Tensor]:
+    """field_pallas._carry16_rows: carry to n_out 16-bit limbs (positions
+    past the input take the carry alone; the last carry drops). Every
+    caller's rows stay below 2^31, where the uint32 sums of the TPU
+    kernels never wrap."""
+    x = torch.stack(rows[:n_out])
+    if n_out > len(rows):
+        x = torch.cat([x, torch.zeros_like(x[:1]).expand((n_out - len(rows),) + x.shape[1:])])
+    return _signed_carry(x)[0]
+
+
+def _fold_rows_const(acc: List[torch.Tensor], ms: List[torch.Tensor], table: torch.Tensor) -> List[torch.Tensor]:
+    """acc[l] + Σ_i ms[i]·table[i, l] for a constant [len(ms), 16] table
+    (every product < 2^24, so the sums are exact; uint32 as in the TPU
+    kernels)."""
+    m = torch.stack(ms)
+    shape = m.shape[1:]
+    m = m.reshape(m.shape[0], 1, -1)
+    add = (m * table[:, :, None]).sum(0).reshape((L16,) + tuple(shape))
+    return [(acc[l] + add[l]) & U32 for l in range(L16)]
+
+
+def _fold1_split(d: List[torch.Tensor], consts, n_rows: int) -> List[torch.Tensor]:
+    """field_pallas._fold1_split: fold positions 16..16+n_rows−1 into
+    0..15 with each multiplier split as m0 + 2^8·m1 (16 positions, not
+    carried)."""
+    hi = d[L16 : L16 + n_rows]
+    p = _p_of(consts)
+    table = _table(p, f"fold1_{n_rows}", consts.fold16[:n_rows] + consts.fold16_hi[:n_rows], hi[0].device)
+    return _fold_rows_const(list(d[:L16]), [h & 0xFF for h in hi] + [h >> 8 for h in hi], table)
+
+
+def _signed_carry(d: torch.Tensor) -> tuple:
+    """Limbs d [L, ...] of a signed multi-limb value (each |d_i| < 2^40)
+    → (its 16-bit limbs, the final carry): an arithmetic-shift carry
+    chain, exact in int64. The final carry is -1 where the value is
+    negative (a borrow) and 0 where it fits L limbs."""
+    out = []
+    carry = None
+    for i in range(d.shape[0]):
+        tot = d[i] if carry is None else d[i] + carry
+        out.append(tot & 0xFFFF)
+        carry = tot >> 16
+    return out, carry
+
+
+def _cond_sub_rows(x: List[torch.Tensor], ps: List[int]) -> List[torch.Tensor]:
+    """x − ps when that does not borrow, else x (len(ps) limbs,
+    branch-free)."""
+    xs = torch.stack(x[: len(ps)])
+    c = torch.tensor(ps, dtype=torch.int64, device=xs.device).reshape((-1,) + (1,) * (xs.dim() - 1))
+    diff, borrow = _signed_carry(xs - c)
+    return list(torch.where(borrow == 0, torch.stack(diff), xs).unbind(0))
+
+
+def _canon_tail_v2(x: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """field_pallas._canon_tail_v2: 17-limb x < 2^266 → 16 canonical limbs
+    by the quotient estimate q̂ (≤ q, off by at most 6), the subtraction
+    of q̂·p, and conditional subtracts of 4p, 2p and p. The q̂·p limbs
+    subtract as lo/hi halves and one signed carry chain resolves them; x
+    − q̂·p ≥ 0, so the limbs are the reference's exactly."""
+    r = consts.qe
+    qh = ((x[15] * r) >> 28) + ((x[16] * r) >> 12)
+    p = _p_of(consts)
+    p16 = _table(p, "p16", consts.p16, qh.device).reshape((L16,) + (1,) * qh.dim())
+    t = qh.unsqueeze(0) * p16  # [16, ...]
+    zero = torch.zeros_like(t[:1])
+    sub = torch.cat([t & 0xFFFF, zero]) + torch.cat([zero, t >> 16])
+    out, _ = _signed_carry(torch.stack(x[:17]) - sub)
+    for k in (2, 1, 0):
+        out = _cond_sub_rows(out, _digits(p << k, 16, 17))
+    return out[:L16]
+
+
+def _reduce16_rows(digit_rows: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """field_pallas._reduce16_rows: 32 16-bit-basis positions (each
+    < 2^21) → 16 canonical limbs: carry, split fold, carry, fold at 8-bit
+    multiplier granularity, carry, quotient-estimate canonicalization.
+    Only fields with the quotient-estimate constant are supported."""
+    if consts.qe is None:
+        raise ValueError("the 16-bit modmul needs a 253..256-bit field (quotient estimate)")
+    d = _carry16_rows(digit_rows, 2 * L16)
+    acc = _fold1_split(d, consts, L16)
+    d2 = _carry16_rows(acc, 18)
+    table = _table(_p_of(consts), "fold16b", consts.fold16b, d2[0].device)
+    out = _fold_rows_const(list(d2[:L16]), [d2[L16] & 0xFF, d2[L16] >> 8, d2[17]], table)
+    return _canon_tail_v2(_carry16_rows(out, 17), consts)
+
+
+def _add_canon_rows(a16: List[torch.Tensor], b16: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """field_pallas._add_canon_rows: canonical + canonical → canonical
+    (carry to 17 limbs, then one conditional subtract of p)."""
+    s = _carry16_rows([a16[i] + b16[i] for i in range(L16)], 17)
+    return _cond_sub_rows(s, consts.ps[-1])[:L16]
+
+
+def _mul_rows(a16: List[torch.Tensor], b16: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """Canonical a·b mod p of canonical 16-limb rows (the _mul_kernel
+    body)."""
+    return _reduce16_rows(_conv16_rows(a16, b16), consts)
+
+
+def _modmul_consts(field: PrimeField):
+    k = kernel_consts(field)["modmul"]
+    if k is None:
+        raise ValueError(f"no modmul kernel for {field.NUM_BITS}-bit fields (needs 253..256)")
+    return k
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: the fused periodic field chain
+# ---------------------------------------------------------------------------
+MAX_CHAIN_DESCS = 8  # the longest pattern _detect_linear_chain returns
+MAX_CHAIN_EXT = 4  # external operands the CUDA kernel keeps in registers
+
+
+def _chain_code(descs, n_ext: int) -> int:
+    """Validate descs and pack them for the CUDA kernel: 8 bits a pattern
+    position (bit 0: fmul; bits 1-3 and 4-6: the a and b sources, 7 for
+    "prev", else the external operand's index)."""
+    if not 1 <= len(descs) <= MAX_CHAIN_DESCS:
+        raise ValueError(f"chain patterns have 1..{MAX_CHAIN_DESCS} ops, got {len(descs)}")
+    code = 0
+    for j, (op, a, b) in enumerate(descs):
+        if op not in ("fmul", "fadd"):
+            raise ValueError(f"chain op {op!r} is not fmul or fadd")
+        srcs = []
+        for s in (a, b):
+            if s == "prev":
+                srcs.append(7)
+            elif isinstance(s, int) and 0 <= s < n_ext:
+                srcs.append(s)
+            else:
+                raise ValueError(f"chain source {s!r} is not 'prev' or an external index < {n_ext}")
+        code |= ((op == "fmul") | (srcs[0] << 1) | (srcs[1] << 4)) << (8 * j)
+    return code
+
+
+def chain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeField) -> torch.Tensor:
+    """x0 int32[16, N] and ext int32[n_ext·16, N] canonical limb-major
+    (external operand k is rows 16k..16k+15) → int32[n_reps·d·16, N]:
+    the canonical output of every step of n_reps repetitions of the d
+    ops ``descs`` = ((opcode, a_src, b_src), ...), in chain order. A
+    source is "prev" (the previous step's output; x0 before the first
+    step) or an external index."""
+    if x0.dim() != 2:
+        raise ValueError("x0 must be [16, N]")
+    N = x0.shape[1]
+    _check_words("x0", x0, (L16, N))
+    if ext.dim() != 2 or ext.shape[0] % L16 or not ext.shape[0]:
+        raise ValueError("ext must be [n_ext·16, N] with n_ext >= 1")
+    n_ext = ext.shape[0] // L16
+    _check_words("ext", ext, (n_ext * L16, N))
+    code = _chain_code(descs, n_ext)
+    if not _on_cuda(x0, ext):
+        return chain_plain(x0, ext, descs, n_reps, field)
+    if n_ext > MAX_CHAIN_EXT:
+        raise ValueError(f"the chain kernel holds at most {MAX_CHAIN_EXT} external operands")
+    k = _modmul_consts(field)
+    d = len(descs)
+    out = torch.empty((n_reps * d * L16, N), dtype=torch.int32, device=x0.device)
+    if N and n_reps:
+        _launch("bp_chain", x0.data_ptr(), ext.data_ptr(), out.data_ptr(), N, n_reps, d,
+                code, n_ext, k.ctypes.data, stream=_stream(x0))
+        chain.launches += 1
+    return out
+
+
+def chain_plain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeField) -> torch.Tensor:
+    """Plain version: the Pallas chain body (field_pallas.py:439-450)
+    step by step on int64 rows."""
+    consts = consts_for(field)
+    cur = list(to_u32(x0).unbind(0))
+    e = to_u32(ext)
+    exts = [list(e[k * L16 : (k + 1) * L16].unbind(0)) for k in range(ext.shape[0] // L16)]
+    outs = []
+    for _r in range(n_reps):
+        for op, asrc, bsrc in descs:
+            a = cur if asrc == "prev" else exts[asrc]
+            b = cur if bsrc == "prev" else exts[bsrc]
+            cur = _mul_rows(a, b, consts) if op == "fmul" else _add_canon_rows(a, b, consts)
+            outs.extend(cur)
+    if not outs:
+        return torch.zeros((0, x0.shape[1]), dtype=torch.int32, device=x0.device)
+    return to_i32(torch.stack(outs))
+
+
+chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3a: canonical modmul (PallasFieldOps.mul)
+# ---------------------------------------------------------------------------
+def mul(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Canonical a, b int32[16, N] (limb-major 16-bit limbs) → int32[16, N]
+    canonical a·b mod p."""
+    if a.dim() != 2:
+        raise ValueError("a must be [16, N]")
+    N = a.shape[1]
+    _check_words("a", a, (L16, N))
+    _check_words("b", b, (L16, N))
+    if not _on_cuda(a, b):
+        return mul_plain(a, b, field)
+    k = _modmul_consts(field)
+    out = torch.empty((L16, N), dtype=torch.int32, device=a.device)
+    if N:
+        _launch("bp_mul16", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
+                stream=_stream(a))
+        mul.launches += 1
+    return out
+
+
+def mul_plain(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Plain version of _mul_kernel: _reduce16_rows(_conv16_rows(a, b))."""
+    if a.shape[1] == 0:
+        return torch.zeros_like(a)
+    rows = _mul_rows(list(to_u32(a).unbind(0)), list(to_u32(b).unbind(0)), consts_for(field))
+    return to_i32(torch.stack(rows))
+
+
+mul.launches = 0

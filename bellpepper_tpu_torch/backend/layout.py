@@ -11,6 +11,12 @@ hold each one against the reference):
   * ``_sub_rows_r1cs``                             matvec.py:1243
   * ``_classify_bit_row_families``                 matvec.py:2119
   * ``_classify_pow2_eq_rows``                     matvec.py:2284
+  * ``_classify_mixed_rows``                       matvec.py:1537
+
+``_classify_mixed_rows`` adds one guard the reference lacks: a pow2 row
+whose worst-case side values break the bounds that the mixed check's
+borrow-free offset subtraction and 3-limb Montgomery quotient rely on
+raises ``ValueError`` (the reference would check it unsoundly).
 """
 
 from __future__ import annotations
@@ -20,7 +26,16 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 
-from bellpepper_tpu.r1cs import COOMatrix, R1CS
+from ..r1cs import COOMatrix, R1CS
+
+# Source kinds of the mixed check's row terms.
+U32_SRC = 0
+FIELD_SRC = 1
+
+# The mixed check's pow2 rows compute d = A + (p·2^POW2_OFF_BITS − C) and
+# test p | d through a POW2_M_LIMBS-limb Montgomery quotient.
+POW2_OFF_BITS = 34
+POW2_M_LIMBS = 3
 
 # The 8-bit digit row sums accumulate in uint32 lanes; they are exact only
 # while 255·nnz plus the running carry fits 32 bits.
@@ -458,3 +473,157 @@ def _classify_pow2_eq_rows(template: R1CS, big_idx: np.ndarray):
         spec[key + "_cols"] = cols
         spec[key + "_mask"] = mask
     return spec, np.asarray(rest_pos, np.int64)
+
+
+def _pow2_side_max(side, p: int) -> int:
+    """The largest value a pow2 side (const, [(col, exp)], [(fs_idx,
+    neg)]) takes over the mixed domain: u32 slots below 2^32, canonical
+    field terms (a negated one is p − x ≤ p)."""
+    const, u32_terms, f_terms = side
+    return const + sum(((1 << 32) - 1) << e for _col, e in u32_terms) + len(f_terms) * p
+
+
+def _check_pow2_magnitude(row: int, pa, pc, p: int) -> None:
+    """Raise unless the mixed check's pow2 arithmetic is exact for row
+    `row` on every mixed-domain witness: C < p·2^34 (the offset
+    subtraction never borrows), A + p·2^34 < 2^48·p (the quotient fits
+    three 16-bit limbs), and no 16-bit window sum reaches 2^32 (each u32
+    term adds below 2^16 to three windows, each field term to every
+    window, the constant and the offset limb one each)."""
+    off = p << POW2_OFF_BITS
+    if _pow2_side_max(pc, p) >= off:
+        raise ValueError(
+            f"pow2 row {row}: its C side can reach p·2^{POW2_OFF_BITS}, so the "
+            "borrow-free offset subtraction of the mixed check is unsound"
+        )
+    if _pow2_side_max(pa, p) + off >= p << (16 * POW2_M_LIMBS):
+        raise ValueError(
+            f"pow2 row {row}: its A side can push the quotient past "
+            f"{POW2_M_LIMBS} limbs in the mixed check"
+        )
+    for side in (pa, pc):
+        cnt = defaultdict(int)
+        for _col, e in side[1]:
+            for w in range(e // 16, e // 16 + 3):
+                cnt[w] += 1
+        if (max(cnt.values(), default=0) + len(side[2]) + 2) * 0xFFFF >= 1 << 32:
+            raise ValueError(f"pow2 row {row}: a window sum of the mixed check can wrap 32 bits")
+
+
+def _classify_mixed_rows(template: R1CS, field_slots):
+    """Partition rows for the mixed check. Returns a dict:
+      bool_u32: [(row, col)] booleanity rows on u32 slots
+      lin:      [(row, spec_a, spec_c)] rows with B = ONE, both sides
+                ≤2-term trivial — spec = (const, [(src, idx, neg)])
+      mul:      [(row, spec_a, spec_b, spec_c)] trivial product rows
+      pow2:     [(row, side_a, side_c)] — side = (const,
+                [(col, exp)], [(fs_idx, neg)]) integer rows
+      rest:     [row] fallback rows
+    Raises ValueError for a pow2 row outside the bounds of
+    _check_pow2_magnitude."""
+    p = template.field.p
+    R = template.num_constraints
+    fs_row = {int(s): i for i, s in enumerate(field_slots)}
+    table = [int(c) % p for c in template.coeff_table]
+    terms = {}
+    for name in ("a", "b", "c"):
+        m = getattr(template, name)
+        rows = np.asarray(m.rows)
+        cols = np.asarray(m.cols)
+        cids = np.asarray(m.coeff_ids)
+        lst = [dict() for _ in range(R)]
+        for e in np.argsort(rows, kind="stable"):
+            r = int(rows[e])
+            c = int(cols[e])
+            v = (lst[r].get(c, 0) + table[cids[e]]) % p
+            if v:
+                lst[r][c] = v
+            elif c in lst[r]:
+                del lst[r][c]
+        terms[name] = lst
+
+    def triv(d):
+        const = d.get(0, 0)
+        vars_ = []
+        for col, cf in d.items():
+            if col == 0:
+                continue
+            if cf == 1:
+                vars_.append((col, 0))
+            elif cf == p - 1:
+                vars_.append((col, 1))
+            else:
+                return None
+        if len(vars_) > 2:
+            return None
+        src_vars = [
+            (FIELD_SRC, fs_row[col], ng) if col in fs_row else (U32_SRC, col, ng)
+            for col, ng in vars_
+        ]
+        return (const, src_vars)
+
+    def pow2_side(d):
+        """(const, u32_terms [(col, exp)], field_terms [(fs_idx, neg)])
+        or None. u32 slots need positive power-of-two coefficients (the
+        multipack/MultiEq shape); field slots coeff ±1."""
+        const = 0
+        u32_terms = []
+        f_terms = []
+        for col, cf in d.items():
+            if col == 0:
+                const = cf
+            elif col in fs_row:
+                if cf == 1:
+                    f_terms.append((fs_row[col], 0))
+                elif cf == p - 1:
+                    f_terms.append((fs_row[col], 1))
+                else:
+                    return None
+            else:
+                if cf & (cf - 1):
+                    return None  # not a power of two
+                e = cf.bit_length() - 1
+                if e > 256:
+                    return None
+                u32_terms.append((col, e))
+        return (const, u32_terms, f_terms)
+
+    out = {"bool_u32": [], "lin": [], "mul": [], "pow2": [], "rest": []}
+    for r in range(R):
+        A, B, C = terms["a"][r], terms["b"][r], terms["c"][r]
+        sa, sb, sc = triv(A), triv(B), triv(C)
+        if sa is not None and sb is not None and sc is not None:
+            if (
+                sc == (0, [])
+                and sa[0] == 1
+                and len(sa[1]) == 1
+                and sa[1][0][2] == 1
+                and sa[1][0][0] == U32_SRC
+                and sb == (0, [(U32_SRC, sa[1][0][1], 0)])
+            ):
+                out["bool_u32"].append((r, sa[1][0][1]))
+            elif sb == (1, []):
+                out["lin"].append((r, sa, sc))
+            else:
+                out["mul"].append((r, sa, sb, sc))
+            continue
+        if B == {0: 1}:
+            pa = pow2_side(A)
+            pc = pow2_side(C)
+            if pa is not None and pc is not None:
+                # window-accumulation exactness: ≤ 64 overlapping
+                # contributions per 16-bit window per side
+                ok = True
+                for side in (pa, pc):
+                    cnt = defaultdict(int)
+                    for _col, e in side[1]:
+                        for w in range(e // 16, e // 16 + 3):
+                            cnt[w] += 1
+                    if cnt and max(cnt.values()) > 64:
+                        ok = False
+                if ok:
+                    _check_pow2_magnitude(r, pa, pc, p)
+                    out["pow2"].append((r, pa, pc))
+                    continue
+        out["rest"].append(r)
+    return out

@@ -1,4 +1,4 @@
-"""The bits_packed satisfiability check of bit-sliced witnesses.
+"""The templated satisfiability checks: bits_packed and mixed.
 
 Counterpart of ``bellpepper_tpu/backend/matvec.py``:
 
@@ -16,7 +16,14 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
     (``:3252-3320``) in its semi form, for the rows that need field-exact
     arithmetic: per ELL bucket ``bits_matvec_semi``, then ``mulcmp``. It
     runs over the whole chunk in one call, where the reference maps over
-    512-instance blocks.
+    512-instance blocks;
+  * ``build_templated_check(..., "mixed", field_slots=...)`` →
+    ``MixedCheck``, the port of ``_build_mixed_check`` (``:1659-2113``)
+    for witnesses in the evaluator's (u32 values, canonical field limbs)
+    form: booleanity rows as a u32 compare, linear rows by a Montgomery
+    zero-test, product rows through ``mulcmp``, multipack/MultiEq rows as
+    exact integer window sums. Its ``rest`` rows need the limbs form,
+    which is not ported.
 
 Witness words are int32 tensors (see ``words``); the check works
 slot-major (``vals_p`` int32[S_t, Bw]) and the public entry points take
@@ -29,18 +36,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bellpepper_tpu.r1cs import COOMatrix, R1CS
+from ..r1cs import COOMatrix, R1CS
 
+from ..device import resolve
 from .field_consts import _digits
 from .field_kernels import bitplane_eq, bits_matvec_semi, mulcmp, padded_positions
 from .layout import (
+    FIELD_SRC,
+    POW2_M_LIMBS,
+    POW2_OFF_BITS,
     _build_shared_ell,
     _classify_bit_row_families,
+    _classify_mixed_rows,
     _classify_pow2_eq_rows,
     _classify_small_rows,
     _sub_rows_r1cs,
 )
-from .words import ctz32, device_table as _t, popcount32
+from .words import U32, ctz32, device_table as _t, popcount32, to_i32, to_u32
 
 SENTINEL = 0xFFFFFFFF  # "no violation" value of `first`, as in the reference
 NONE = torch.iinfo(torch.int64).max  # int64 stand-in for "no violation yet"
@@ -236,7 +248,7 @@ class PackedBitsCheck:
     through ``BitsSemiCheck`` on their used slots only."""
 
     def __init__(self, template: R1CS, batch: int, device=None):
-        device = torch.device(device or "cpu")
+        device = resolve(device)
         Rt0 = self.Rt0 = template.num_constraints
         self.S_t = template.num_inputs + template.num_aux
         if batch % 32:
@@ -426,13 +438,350 @@ class PackedBitsCheck:
         return nb, torch.where(first == NONE, SENTINEL, first)
 
 
+# ---------------------------------------------------------------------------
+# The mixed check
+# ---------------------------------------------------------------------------
+def _neg_const(x: torch.Tensor, const_limbs) -> torch.Tensor:
+    """const − x with a borrow chain over the limbs of dim 1 (x ≤ const;
+    int64 [n, L, B] holding 16-bit limbs)."""
+    outs = []
+    borrow = None
+    for i in range(x.shape[1]):
+        d = const_limbs[i] - x[:, i] if borrow is None else const_limbs[i] - x[:, i] - borrow
+        d = d & U32
+        borrow = d >> 31
+        outs.append(d & 0xFFFF)
+    return torch.stack(outs, dim=1)
+
+
+def _carry_limbs(x: torch.Tensor) -> torch.Tensor:
+    """Carry to 16-bit limbs along dim 1 in uint32 (the last carry
+    drops)."""
+    outs = []
+    carry = None
+    for i in range(x.shape[1]):
+        tot = x[:, i] if carry is None else (x[:, i] + carry) & U32
+        outs.append(tot & 0xFFFF)
+        carry = tot >> 16
+    return torch.stack(outs, dim=1)
+
+
+def _mont_zero_test(d: torch.Tensor, p: int, m_limbs: int, pinv_limbs) -> torch.Tensor:
+    """d int64[n, L, B] (16-bit limbs; a multiple of p iff the row holds,
+    quotient < 2^(16·m_limbs)) → bool[n, B] bad mask: m̂ = d·p^-1 mod
+    2^(16·m_limbs), then d == m̂·p limb for limb (the reference's
+    _mont_zero_test, in uint32)."""
+    L = d.shape[1]
+    mh = []
+    for i in range(m_limbs):
+        acc = None
+        for j in range(i + 1):
+            t = d[:, j] * pinv_limbs[i - j]
+            acc = t if acc is None else (acc + t) & U32
+        mh.append(acc & U32)
+    m16 = []
+    carry = None
+    for i in range(m_limbs):
+        tot = mh[i] if carry is None else (mh[i] + carry) & U32
+        m16.append(tot & 0xFFFF)
+        carry = tot >> 16
+    pl16 = _digits(p, 16, L)
+    acc = [None] * (L + 1)
+    for j in range(m_limbs):
+        for i in range(L - j):
+            if pl16[i] == 0:
+                continue
+            t = m16[j] * pl16[i]
+            lo, hi = t & 0xFFFF, t >> 16
+            acc[i + j] = lo if acc[i + j] is None else acc[i + j] + lo
+            acc[i + j + 1] = hi if acc[i + j + 1] is None else acc[i + j + 1] + hi
+    bad = None
+    carry = None
+    for i in range(L):
+        tot = acc[i]
+        if carry is not None:
+            tot = carry if tot is None else tot + carry
+        if tot is None:
+            limb, carry = torch.zeros_like(d[:, 0]), None
+        else:
+            limb, carry = tot & 0xFFFF, tot >> 16
+        diff = limb != d[:, i]
+        bad = diff if bad is None else bad | diff
+    return bad
+
+
+class _Operand:
+    """Static tables of one operand of a list of trivial rows (the
+    reference's _operand_spec): const limbs, up to two field-source terms
+    and up to two u32 terms, each with a sign."""
+
+    def __init__(self, rows_specs, oi: int, device):
+        n = len(rows_specs)
+        const = np.zeros((n, 17), np.int64)
+        f_idx = np.zeros((n, 2), np.int64)
+        f_on = np.zeros((n, 2), bool)
+        f_neg = np.zeros((n, 2), bool)
+        u_col = np.zeros((n, 2), np.int64)
+        u_on = np.zeros((n, 2), bool)
+        u_neg = np.zeros((n, 2), bool)
+        for w, (_r, *specs) in enumerate(rows_specs):
+            cv, vars_ = specs[oi]
+            const[w] = _digits(cv, 16, 17)
+            nf = nu = 0
+            for src, idx, ng in vars_:
+                if src == FIELD_SRC:
+                    f_idx[w, nf], f_on[w, nf], f_neg[w, nf] = idx, True, ng
+                    nf += 1
+                else:
+                    u_col[w, nu], u_on[w, nu], u_neg[w, nu] = idx, True, ng
+                    nu += 1
+        self.max_f = int(f_on.any(axis=0).sum()) if n else 0
+        self.max_u = int(u_on.any(axis=0).sum()) if n else 0
+        # every row one positive field term and no constant: the gathered
+        # canonical limbs are the operand
+        self.fast_single_field = bool(
+            n and self.max_f == 1 and self.max_u == 0 and not const.any()
+            and not f_neg.any() and f_on[:, 0].all()
+        )
+        self.const = _t(const, device)[:, :, None]
+        self.f_idx = [_t(f_idx[:, t], device) for t in range(2)]
+        self.f_on = [_t(f_on[:, t], device, torch.bool)[:, None, None] for t in range(2)]
+        self.f_neg = [_t(f_neg[:, t], device, torch.bool)[:, None, None] for t in range(2)]
+        self.u_col = [_t(u_col[:, t], device) for t in range(2)]
+        self.u_on = [_t(u_on[:, t], device, torch.bool)[:, None, None] for t in range(2)]
+        self.u_neg = [_t(u_neg[:, t], device, torch.bool)[:, None, None] for t in range(2)]
+
+    def assemble(self, vals_p, flimbs_p, p17) -> torch.Tensor:
+        """int64[n, 17, B]: the operand's value (< 4p) in 16-bit limbs."""
+        if self.fast_single_field:
+            x = to_u32(flimbs_p.index_select(0, self.f_idx[0]))
+            return torch.nn.functional.pad(x, (0, 0, 0, 1))
+        B = vals_p.shape[1]
+        acc = self.const.expand(-1, -1, B)
+        for t in range(self.max_f):
+            x = torch.nn.functional.pad(to_u32(flimbs_p.index_select(0, self.f_idx[t])), (0, 0, 0, 1))
+            term = torch.where(self.f_neg[t], _neg_const(x, p17), x)
+            acc = acc + torch.where(self.f_on[t], term, 0)
+        for t in range(self.max_u):
+            v = to_u32(vals_p.index_select(0, self.u_col[t]))  # [n, B]
+            x = torch.zeros_like(acc)
+            x[:, 0] = v & 0xFFFF
+            x[:, 1] = v >> 16
+            term = torch.where(self.u_neg[t], _neg_const(x, p17), x)
+            acc = acc + torch.where(self.u_on[t], term, 0)
+        return _carry_limbs(acc & U32)
+
+
+class MixedCheck:
+    """Mixed-form templated check (the reference's _build_mixed_check):
+    witnesses as (vals int32[B, S_t] u32 values, flimbs int32[B, F, 16]
+    canonical field limbs), flimbs row i holding slot field_slots[i].
+
+    Rows route by class: booleanity of u32 slots (a compare), linear rows
+    (a + 8p − c, a one-limb Montgomery zero-test), product rows (``mulcmp``
+    on the semi-reduced operands), multipack/MultiEq rows (exact integer
+    window sums, d = A + p·2^34 − C, a three-limb Montgomery zero-test).
+    Templates with rows of no class raise NotImplementedError (they need
+    the limbs form)."""
+
+    def __init__(self, template: R1CS, batch: int, field_slots, device=None):
+        device = resolve(device)
+        field = template.field
+        p = self.p = field.p
+        if field.NUM_BITS < 250:
+            raise NotImplementedError("the mixed check's product rows need NUM_BITS >= 250 (mulcmp)")
+        self.field = field
+        self.R = template.num_constraints
+        self.S_t = template.num_inputs + template.num_aux
+        self.batch = batch
+        self.n_fs = len(field_slots)
+        cls = _classify_mixed_rows(template, field_slots)
+        if cls["rest"]:
+            raise NotImplementedError(
+                f"{len(cls['rest'])} rows fit no mixed class; they need the limbs form, "
+                "which is not ported"
+            )
+        self.n_bool, self.n_lin = len(cls["bool_u32"]), len(cls["lin"])
+        self.n_mul, self.n_pow2 = len(cls["mul"]), len(cls["pow2"])
+        self.p17 = _digits(p, 16, 17)
+        self.off_lin = _digits(p << 3, 16, 17)
+        self.p0inv = pow(p, -1, 1 << 16)
+        self.bool_cols = _t([c for _r, c in cls["bool_u32"]], device)
+        self.lin = [_Operand(cls["lin"], oi, device) for oi in range(2)]
+        self.mul = [_Operand(cls["mul"], oi, device) for oi in range(3)]
+        if self.n_pow2:
+            self._pow2_tables(cls["pow2"], device)
+        rows = [
+            np.asarray([r for r, *_ in cls[k]], np.int64)
+            for k in ("bool_u32", "lin", "mul", "pow2")
+        ]
+        self.rows = [_t(r, device) for r in rows]
+        order = np.concatenate(rows)
+        inv = np.empty(self.R, np.int64)
+        inv[order] = np.arange(self.R)
+        self.inv = _t(inv, device)
+
+    def _pow2_tables(self, pow2, device):
+        p = self.p
+        e_max = max((e for _r, pa, pc in pow2 for _c, e in pa[1] + pc[1]), default=0)
+        n_win = min(20, (e_max + 32 + 16) // 16 + 2)
+        L = self.L = max(n_win, 17 + (POW2_OFF_BITS + 15) // 16) + 1
+        self.off_limbs = _digits(p << POW2_OFF_BITS, 16, L)
+        self.pinv_limbs = _digits(pow(p, -1, 1 << (16 * POW2_M_LIMBS)), 16, POW2_M_LIMBS)
+        self.sides = []
+        for which in (1, 2):
+            const = np.zeros((len(pow2), L), np.int64)
+            u_cols, u_shift, u_tgt, f_idx, f_neg, f_row = [], [], [], [], [], []
+            for w, row in enumerate(pow2):
+                cv, u32_terms, f_terms = row[which]
+                const[w] = _digits(cv, 16, L)
+                for col, e in u32_terms:
+                    u_cols.append(col)
+                    u_shift.append(e % 16)
+                    u_tgt.append([w * L + e // 16 + k for k in range(3)])
+                for fi, ng in f_terms:
+                    f_idx.append(fi)
+                    f_neg.append(ng)
+                    f_row.append(w)
+            self.sides.append({
+                "const": _t(const, device)[:, :, None],
+                "u_cols": _t(u_cols, device),
+                "u_shift": _t(u_shift, device)[:, None],
+                "u_tgt": _t(np.asarray(u_tgt, np.int64).T.reshape(-1), device),
+                "f_idx": _t(f_idx, device),
+                "f_neg": _t(np.asarray(f_neg, bool), device, torch.bool)[:, None, None],
+                "f_row": _t(f_row, device),
+            })
+
+    # -- per-class bad masks, bool[n, B] ------------------------------------
+    def _lin_bad(self, vals_p, flimbs_p):
+        a = self.lin[0].assemble(vals_p, flimbs_p, self.p17)  # < 4p
+        c = self.lin[1].assemble(vals_p, flimbs_p, self.p17)
+        d = _carry_limbs((a + _neg_const(c, self.off_lin)) & U32)  # a + 8p − c < 12p
+        return _mont_zero_test(d, self.p, 1, [self.p0inv])
+
+    def _mul_bad(self, vals_p, flimbs_p):
+        n, B = self.n_mul, vals_p.shape[1]
+        ops = [
+            to_i32(o.assemble(vals_p, flimbs_p, self.p17).transpose(0, 1).reshape(17, n * B))
+            for o in self.mul
+        ]
+        return (mulcmp(*ops, self.field) != 0).reshape(n, B)
+
+    def _side_sum(self, tab, vals_p, flimbs_p):
+        """Exact integer Σ const + Σ 2^e·u32 + Σ ±field of one side as
+        int64[n_pow2, L, B] unnormalized 16-bit window sums."""
+        L, B = self.L, vals_p.shape[1]
+        acc = tab["const"].expand(-1, -1, B).reshape(-1, B).clone()
+        if tab["u_cols"].numel():
+            v = to_u32(vals_p.index_select(0, tab["u_cols"]))  # [T, B]
+            sh = tab["u_shift"]
+            pieces = torch.cat([
+                (v << sh) & 0xFFFF,
+                torch.where(sh > 0, v >> (16 - sh), v >> 16) & 0xFFFF,
+                torch.where(sh > 0, v >> (32 - sh), 0),
+            ])
+            acc.index_add_(0, tab["u_tgt"], pieces)
+        acc = acc.reshape(self.n_pow2, L, B)
+        if tab["f_idx"].numel():
+            x = torch.nn.functional.pad(to_u32(flimbs_p.index_select(0, tab["f_idx"])), (0, 0, 0, 1))
+            x = torch.where(tab["f_neg"], _neg_const(x, self.p17), x)
+            acc.index_add_(0, tab["f_row"], torch.nn.functional.pad(x, (0, 0, 0, L - 17)))
+        return acc & U32
+
+    def _pow2_bad(self, vals_p, flimbs_p):
+        pos = self._side_sum(self.sides[0], vals_p, flimbs_p)
+        neg = _carry_limbs(self._side_sum(self.sides[1], vals_p, flimbs_p))
+        d = _carry_limbs((pos + _neg_const(neg, self.off_limbs)) & U32)  # A + (p·2^34 − C)
+        return _mont_zero_test(d, self.p, POW2_M_LIMBS, self.pinv_limbs)
+
+    def _class_bads(self, vals_p, flimbs_p):
+        out = []
+        if self.n_bool:
+            out.append((vals_p.index_select(0, self.bool_cols) & -2) != 0)  # u32 > 1
+        if self.n_lin:
+            out.append(self._lin_bad(vals_p, flimbs_p))
+        if self.n_mul:
+            out.append(self._mul_bad(vals_p, flimbs_p))
+        if self.n_pow2:
+            out.append(self._pow2_bad(vals_p, flimbs_p))
+        return out
+
+    # -- entry points -------------------------------------------------------
+    def _check_args(self, vals, flimbs, slot_major: bool):
+        if slot_major:
+            want_v, want_f = (self.S_t, self.batch), (self.n_fs, 16, self.batch)
+            got_f = (flimbs.shape[0], flimbs.shape[1], flimbs.shape[2]) if flimbs.dim() == 3 else None
+            form = f"vals[{self.S_t}, {self.batch}] and flimbs[>= {self.n_fs}, 16, {self.batch}]"
+        else:
+            want_v, want_f = (self.batch, self.S_t), (self.batch, self.n_fs, 16)
+            got_f = tuple(flimbs.shape) if flimbs.dim() == 3 else None
+            form = f"vals[{self.batch}, {self.S_t}] and flimbs[{self.batch}, >= {self.n_fs}, 16]"
+        F_pos = 0 if slot_major else 1
+        ok = (
+            vals.dtype == flimbs.dtype == torch.int32
+            and tuple(vals.shape) == want_v
+            and got_f is not None
+            and all(g == w for i, (g, w) in enumerate(zip(got_f, want_f)) if i != F_pos)
+            and got_f[F_pos] >= want_f[F_pos]
+        )
+        if not ok:
+            raise ValueError(
+                f"mixed z must be int32 {form}, got {vals.dtype}{tuple(vals.shape)} and "
+                f"{flimbs.dtype}{tuple(flimbs.shape)}"
+            )
+
+    def mask_slot_major(self, vals_p: torch.Tensor, flimbs_p: torch.Tensor) -> torch.Tensor:
+        """vals int32[S_t, B], flimbs int32[F, 16, B] → bool[R, B] in the
+        template's row order."""
+        self._check_args(vals_p, flimbs_p, True)
+        if not self.R:
+            return torch.zeros((0, vals_p.shape[1]), dtype=torch.bool, device=vals_p.device)
+        return torch.cat(self._class_bads(vals_p, flimbs_p)).index_select(0, self.inv)
+
+    def __call__(self, vals: torch.Tensor, flimbs: torch.Tensor) -> torch.Tensor:
+        """violations: bool[B·R] in instance-major original row order."""
+        self._check_args(vals, flimbs, False)
+        return self.mask_slot_major(vals.t().contiguous(), flimbs.permute(1, 2, 0).contiguous()).t().reshape(-1)
+
+    def verdict(self, vals: torch.Tensor, flimbs: torch.Tensor):
+        """(n_bad, first) as int64 0-d tensors; first is the least
+        instance-major flat index b·R + row of a violation, or 0xFFFFFFFF
+        when there is none."""
+        self._check_args(vals, flimbs, False)
+        return self.verdict_slot_major(vals.t().contiguous(), flimbs.permute(1, 2, 0).contiguous())
+
+    def verdict_slot_major(self, vals_p: torch.Tensor, flimbs_p: torch.Tensor):
+        """verdict on vals int32[S_t, B], flimbs int32[F, 16, B]; no host
+        sync."""
+        self._check_args(vals_p, flimbs_p, True)
+        dev = vals_p.device
+        nb = torch.zeros((), dtype=torch.int64, device=dev)
+        first = torch.full((), NONE, dtype=torch.int64, device=dev)
+        binst = torch.arange(vals_p.shape[1], dtype=torch.int64, device=dev) * self.R
+        if self.R:
+            for bad, rows in zip(self._class_bads(vals_p, flimbs_p), [r for r in self.rows if r.numel()]):
+                nb = nb + bad.sum()
+                first = torch.minimum(first, torch.where(bad, binst[None, :] + rows[:, None], NONE).min())
+        return nb, torch.where(first == NONE, SENTINEL, first)
+
+
 def build_templated_check(template: R1CS, batch: int, witness_form: str = "bits_packed",
-                          device=None) -> PackedBitsCheck:
-    """The templated satisfiability check. Only the ``bits_packed`` form
-    (bit-sliced packed witnesses of pure-bit templates) is ported."""
-    if witness_form != "bits_packed":
-        raise NotImplementedError(f"witness_form {witness_form!r} is not ported yet")
+                          field_slots=None, device=None):
+    """The templated satisfiability check on `device` (the CUDA card by
+    default). Ported forms: ``bits_packed`` (bit-sliced packed witnesses
+    of pure-bit templates, ``PackedBitsCheck``) and ``mixed`` (the witness
+    program's (vals, flimbs) pair, ``MixedCheck``; needs `field_slots`,
+    the slot of each flimbs row)."""
     if not (template.num_inputs == 1 or batch == 1):
         raise ValueError("multi-instance templates must be input-free")
+    if witness_form == "mixed":
+        if field_slots is None:
+            raise ValueError("witness_form='mixed' needs field_slots (flimbs row → slot)")
+        return MixedCheck(template, batch, field_slots, device)
+    if witness_form != "bits_packed" or field_slots:
+        raise NotImplementedError(
+            f"witness_form {witness_form!r}{' with field_slots' if field_slots else ''} is not ported yet"
+        )
     return PackedBitsCheck(template, batch, device)
 

@@ -1,5 +1,5 @@
-"""Witness tapes and the bit-sliced witness program; the packed
-production step is in ``pipeline``."""
+"""Witness tapes and the witness program (the evaluator of every opcode
+and the bit-sliced one); the production steps are in ``pipeline``."""
 
 from .tape import V_CONST, V_VAR, Op
 from .witness_program import PACKED_OPS, WitnessProgram

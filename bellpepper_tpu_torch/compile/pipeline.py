@@ -1,21 +1,24 @@
-"""The packed production step: witness generation and check over chunks.
+"""The production steps: witness generation and check over chunks.
 
 Counterpart of ``bellpepper_tpu/compile/pipeline.py``:
+``build_production_step`` (``:100-170``, the mixed form),
 ``build_packed_production_step`` (``:173-232``),
-``build_packed_chunked_witness`` (``:235``) and ``_aggregate``
-(``:62-69``). The reference's single jitted ``lax.scan`` over chunks
-becomes a Python loop that enqueues every chunk's work on the current
-stream and reads nothing back: the host first waits when the caller reads
-the verdict. Index arithmetic is int64, so a global violation index past
-2^32 (a fifth chunk of 32768 sha256 instances) does not wrap."""
+``build_packed_chunked_witness`` (``:235``), ``build_chunked_witness``
+(``:253``) and ``_aggregate`` (``:62-69``). The reference's single jitted
+``lax.scan`` over chunks becomes a Python loop that enqueues every
+chunk's work on the current stream and reads nothing back: the host first
+waits when the caller reads the verdict. Index arithmetic is int64, so a
+global violation index past 2^32 (a fifth chunk of 32768 sha256
+instances) does not wrap. Every builder runs on the CUDA card unless it
+is given another device."""
 
 from __future__ import annotations
 
 import torch
 
-from bellpepper_tpu.r1cs import R1CS
-
 from ..backend.matvec import NONE, SENTINEL, build_templated_check
+from ..device import resolve
+from ..r1cs import R1CS
 
 
 def _aggregate(nbs: torch.Tensor, firsts: torch.Tensor, chunk_span: int):
@@ -27,6 +30,62 @@ def _aggregate(nbs: torch.Tensor, firsts: torch.Tensor, chunk_span: int):
     return total, torch.where(glob == NONE, SENTINEL, glob)
 
 
+def build_production_step(prog, template: R1CS, batch: int, device=None):
+    """The field path's production step (the reference's mixed form):
+    free inputs for n_chunks × batch instances → witness generation
+    (``WitnessProgram.build``) → mixed templated check → (total_bad,
+    first_violation), both int64 0-d tensors on `device`; a clean run
+    gives (0, 0xFFFFFFFF).
+
+    free_bits: int32[n_chunks, batch, n_free]; free_field (when the
+    program has free field inputs): int32[n_chunks, batch, n_free_field,
+    16]. Pure-bit programs take ``build_packed_production_step``."""
+    if prog.is_pure_bits:
+        raise NotImplementedError(
+            "the bits form is not ported: pure-bit programs take build_packed_production_step"
+        )
+    device = resolve(device)
+    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) + list(prog.free_field_slots)
+    check = build_templated_check(template, batch, "mixed", field_slots=field_slots, device=device)
+    evaluator = prog.build(device)
+    span = batch * template.num_constraints
+    n_fr, n_ff = prog.n_field_rows, len(prog.free_field_slots)
+
+    def step(free_bits: torch.Tensor, free_field=None):
+        if free_bits.dim() != 3 or free_bits.shape[1] != batch:
+            raise ValueError(
+                f"free_bits must be [n_chunks, {batch}, n_free], got {tuple(free_bits.shape)}"
+            )
+        nbs, firsts = [], []
+        for k, fb in enumerate(free_bits):
+            ff = None if free_field is None else free_field[k]
+            vals, flimbs = evaluator.slot_major(fb, ff)
+            if n_ff:
+                flimbs = torch.cat([flimbs[:n_fr], ff.permute(1, 2, 0)])
+            nb, first = check.verdict_slot_major(vals, flimbs)
+            nbs.append(nb)
+            firsts.append(torch.where(nb > 0, first, 0))
+        return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
+
+    return step
+
+
+def build_chunked_witness(prog, device=None):
+    """Witness generation only: free_bits int32[n_chunks, batch, n_free]
+    (and free_field int32[n_chunks, batch, nf, 16] when the program has
+    free field inputs) → vals int32[n_chunks, batch, S], the u32 value
+    buffer of every instance."""
+    evaluator = prog.build(device)
+
+    def gen(free_bits: torch.Tensor, free_field=None) -> torch.Tensor:
+        return torch.stack([
+            evaluator(fb, None if free_field is None else free_field[k])[0]
+            for k, fb in enumerate(free_bits)
+        ])
+
+    return gen
+
+
 def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
     """Bit-sliced production path: packed free bits for n_chunks × batch
     instances → packed witness generation (32 instances per word) →
@@ -35,6 +94,7 @@ def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
 
     free_packed: int32[n_chunks, batch/32, n_free] words (uint32 bit
     patterns), bit j of word w = instance 32·w + j."""
+    device = resolve(device)
     check = build_templated_check(template, batch, "bits_packed", device=device)
     evaluator = prog.build_packed(device)
     span = batch * template.num_constraints

@@ -5,8 +5,11 @@ backend ``TapeCS`` is not ported yet; ``WitnessProgram`` accepts any tape
 object with ``.field`` and ``.snapshot()``, including the JAX package's.
 
 Operand encodings:
-  bit var           → slot index
-  Boolean view      → (V_CONST, 0/1, 0) | (V_VAR, slot, negated)
+  bit var, field var → slot index
+  Boolean view       → (V_CONST, 0/1, 0) | (V_VAR, slot, negated)
+  small LC (num_iszero, num_inv_or_one) → [(coeff, slot), ...]
+  lookup             → ([index-bit views], (table values, ...))
+  select             → [condition view, slot if true, slot if false]
 """
 
 from __future__ import annotations

@@ -1,23 +1,35 @@
-"""WitnessProgram — compile a witness tape into staged bit-sliced torch code.
+"""WitnessProgram — compile a witness tape into staged torch code.
 
 Counterpart of ``bellpepper_tpu/compile/witness_program.py``:
 
   * ``WitnessProgram.__init__`` / ``_compile`` (reference ``:346-646``):
-    the host stage compile, in numpy. Ops get a dependency level (free
-    slots = level 0, Kahn order), and ops of one (level, opcode[, arity])
-    become a *stage* whose operand and output slots are static arrays.
-    Only the bit opcodes of ``PACKED_OPS`` are compiled here; a tape with
-    field ops raises ``NotImplementedError``.
+    the host stage compile, in numpy, of every opcode. Ops get a
+    dependency level (free slots = level 0, Kahn order), and ops of one
+    (level, opcode[, arity]) become a *stage* whose operand and output
+    slots are static arrays. Field-op outputs get rows of a limb buffer
+    (``field_rows``); free slots read as field operands become free field
+    inputs (``free_field_slots``).
+  * ``WitnessProgram.build`` (reference ``:647-1047``): the evaluator of
+    every opcode, one instance per column: u32 values and canonical
+    16-bit field limbs. Maximal runs of ``SCAN_OPS`` stages that
+    ``_detect_linear_chain`` accepts go to the fused ``chain`` kernel;
+    every other field stage runs on its own, ``fmul`` on the ``mul``
+    kernel. The reference's ``lax.scan`` folding of the other runs
+    (``_find_period``, ``_build_scan_tables``) only bounded XLA's compile
+    time and is not ported: eager torch has no such cost, and the results
+    are the same.
   * ``WitnessProgram.build_packed`` (reference ``_build_packed_impl`` with
-    ``mixed=False``, ``:1116-1362``): the packed evaluator, 32 instances
-    per word, as torch ops on int32 words. Addmany is a carry-save adder
-    tree plus a Kogge-Stone prefix add over bit planes. Stage outputs are
-    written straight to their slots; the reference's scatter-free slot
-    permutation only worked around an XLA:TPU miscompile.
+    ``mixed=False``, ``:1116-1362``): the packed evaluator of pure-bit
+    programs, 32 instances per word, as torch ops on int32 words. Addmany
+    is a carry-save adder tree plus a Kogge-Stone prefix add over bit
+    planes. Stage outputs are written straight to their slots; the
+    reference's scatter-free slot permutation only worked around an XLA:TPU
+    miscompile.
 
-The evaluator works slot-major (``[S, Bw]``), so every gather and every
-stage write moves whole contiguous rows of Bw words; ``__call__`` returns
-the reference's batch-major ``[Bw, S]`` layout."""
+Both evaluators work slot-major (``[S, B]`` values, ``[F, 16, B]`` limbs),
+so every gather and stage write moves whole contiguous rows and the
+kernels read limb-major operands without a transpose; ``__call__``
+returns the reference's batch-major layout."""
 
 from __future__ import annotations
 
@@ -27,15 +39,33 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..backend.words import FULL, U32, device_table as _dev, to_i32
+from ..backend import field_kernels as fk
+from ..backend.field_backend import FieldBackend, get_backend
+from ..backend.words import FULL, U32, device_table as _dev, to_i32, to_u32
+from ..device import resolve
 from .tape import V_CONST, V_VAR, Op
 
+BIT_OUT_OPS = {"xor", "and", "and_not", "nor", "ch", "maj", "addmany",
+               "num_iszero", "fbits_le"}
+FIELD_OUT_OPS = {"fadd", "fmul", "finv", "copy", "pack", "num_inv_or_one",
+                 "select", "lookup"}
 # Opcodes the bit-sliced evaluator supports: each is a pure boolean
 # function per bit, so packing 32 instances per word turns it into
 # full-word ops (negation = ^0xFFFFFFFF); addmany becomes a carry-save
 # adder tree over bit planes.
 PACKED_OPS = {"xor", "and", "and_not", "nor", "ch", "maj", "addmany",
               "num_iszero"}
+
+# field-operand source kinds
+SRC_ROW = 0  # limb-buffer row (a field op's output)
+SRC_LIFT = 1  # a u32 value of the value buffer, as limbs
+SRC_FREE = 2  # a caller-provided free field input
+
+# Field stages that group into runs (reference: the lax.scan folding);
+# a run of at least MIN_SCAN_RUN stages is offered to _detect_linear_chain.
+SCAN_OPS = {"fadd": 0, "fmul": 1, "finv": 2, "copy": 3, "select": 4}
+MIN_SCAN_RUN = 4
+MAX_PATTERN = 8  # longest chain pattern _detect_linear_chain accepts
 
 
 class _Stage:
@@ -50,15 +80,21 @@ class _Stage:
 
 def _operand_slots(op: Op) -> List[int]:
     oc = op.opcode
-    if oc in ("xor", "and", "and_not", "nor"):
+    if oc in ("xor", "and", "and_not", "nor", "fadd", "fmul", "finv", "copy",
+              "fbits_le"):
         return list(op.args)
-    if oc in ("ch", "maj"):
+    if oc in ("ch", "maj", "pack"):
         return [s for (k, s, _n) in op.args if k == V_VAR]
     if oc == "addmany":
         return [s for word in op.args for (k, s, _n) in word if k == V_VAR]
-    if oc == "num_iszero":
+    if oc == "select":
+        (ck, cs_, _cn), x, y = op.args
+        return [x, y] + ([cs_] if ck == V_VAR else [])
+    if oc in ("num_iszero", "num_inv_or_one"):
         return [s for (_c, s) in op.args]
-    raise AssertionError(oc)
+    if oc == "lookup":
+        return [s for (k, s, _n) in op.args[0] if k == V_VAR]
+    raise NotImplementedError(f"witness opcode {oc!r}")
 
 
 def _views_to_arrays(view_lists):
@@ -73,7 +109,115 @@ def _views_to_arrays(view_lists):
     }
 
 
+def _detect_linear_chain(run):
+    """If a run of field stages is a *linear periodic field chain* — every
+    stage has width 1, opcode in {fmul, fadd}, and SRC_ROW operands that
+    are either the IMMEDIATELY preceding stage's output row or
+    rep-invariant external rows — return a spec for
+    ``field_kernels.chain``, else None. A copy of the reference's
+    ``_detect_linear_chain`` (``witness_program.py:76``)."""
+    n = len(run)
+    if n < 2 * MIN_SCAN_RUN:
+        return None
+    raw = []
+    out_rows = []
+    out_slots = []
+    prev_out = None
+    for st in run:
+        if st.opcode not in ("fmul", "fadd"):
+            return None
+        slots = np.asarray(st.arrs["out_slots"])
+        if slots.shape != (1,):
+            return None
+        cls = []
+        for pfx in ("a", "b"):
+            if int(np.asarray(st.arrs[pfx + "_kind"])[0]) != SRC_ROW:
+                return None
+            idx = int(np.asarray(st.arrs[pfx + "_idx"])[0])
+            cls.append(
+                "prev" if prev_out is not None and idx == prev_out else ("row", idx)
+            )
+        prev_out = int(np.asarray(st.outs)[0])
+        out_rows.append(prev_out)
+        out_slots.append(int(slots[0]))
+        raw.append((st.opcode, cls[0], cls[1]))
+
+    produced = set(out_rows)
+    for d in range(1, MAX_PATTERN + 1):
+        if n % d or n // d < 2:
+            continue
+        # Canonical per-position descs come from rep 1 (rep 0's first
+        # stage reads the chain INIT as an external row where later reps
+        # read 'prev' — the only allowed anomaly).
+        descs = raw[d : 2 * d]
+        init_row = None
+        ok = True
+        for i, got in enumerate(raw):
+            exp = descs[i % d]
+            if got == exp:
+                continue
+            if i == 0 and got[0] == exp[0]:
+                rows0 = set()
+                anomaly = False
+                for slot in (1, 2):
+                    if got[slot] == exp[slot]:
+                        continue
+                    if exp[slot] == "prev" and isinstance(got[slot], tuple):
+                        rows0.add(got[slot][1])
+                        anomaly = True
+                    else:
+                        anomaly = False
+                        break
+                if anomaly and len(rows0) == 1:
+                    init_row = rows0.pop()
+                    continue
+            ok = False
+            break
+        if not ok:
+            continue
+        if any(c == "prev" for c in (descs[0][1], descs[0][2])):
+            if init_row is None:
+                continue  # no usable chain entry
+        else:
+            continue  # reps don't actually chain
+        ext_rows = []
+        seen = {}
+        final = []
+        for op, a, b in descs:
+            enc = []
+            for c in (a, b):
+                if c == "prev":
+                    enc.append("prev")
+                else:
+                    row = c[1]
+                    if row in produced:
+                        enc = None
+                        break
+                    if row not in seen:
+                        seen[row] = len(ext_rows)
+                        ext_rows.append(row)
+                    enc.append(seen[row])
+            if enc is None:
+                break
+            final.append((op, enc[0], enc[1]))
+        if len(final) != d or init_row in produced:
+            continue
+        return {
+            "descs": tuple(final),
+            "init_row": init_row,
+            "ext_rows": tuple(ext_rows),
+            "n_reps": n // d,
+            "out_rows": np.asarray(out_rows, np.int32),
+            "out_slots": np.asarray(out_slots, np.int32),
+        }
+    return None
+
+
 class WitnessProgram:
+    """A compiled witness tape: any object with ``.field`` and
+    ``.snapshot()`` → (num_inputs, num_aux, ops, free_slots), such as the
+    native builder's tape or the JAX package's TapeCS."""
+
     def __init__(self, tape):
         self.field = tape.field
         self.num_inputs, self.num_aux, ops, self.free_slots = tape.snapshot()
@@ -81,12 +225,12 @@ class WitnessProgram:
         self._compile(ops)
 
     def _compile(self, op_list: List[Op]) -> None:
-        for op in op_list:
-            if op.opcode not in PACKED_OPS:
-                raise NotImplementedError(
-                    f"witness opcode {op.opcode!r}: only the bit opcodes "
-                    f"{sorted(PACKED_OPS)} are ported"
-                )
+        free_set = set(self.free_slots)
+        field_out = {o for op in op_list if op.opcode in FIELD_OUT_OPS for o in op.outs}
+        self.field_rows: Dict[int, int] = {s: i for i, s in enumerate(sorted(field_out))}
+        field_rows = self.field_rows
+        field_consumed = set()
+
         # Levels: free slots (and ONE) are level 0; resolved
         # topologically (Kahn), since recording order may put a
         # producer after its consumers.
@@ -104,16 +248,41 @@ class WitnessProgram:
         n_processed = 0
         while ready:
             i = ready.popleft()
+            op = op_list[i]
             n_processed += 1
             lv = 1 + max((level[s] for s in op_operands[i]), default=0)
-            for o in op_list[i].outs:
+            for o in op.outs:
                 level[o] = lv
                 for j in consumers.pop(o, ()):
                     unresolved[j] -= 1
                     if unresolved[j] == 0:
                         ready.append(j)
+            if op.opcode in ("fadd", "fmul", "finv", "copy", "select", "fbits_le"):
+                srcs = op.args if op.opcode != "select" else [op.args[1], op.args[2]]
+                field_consumed.update(s for s in srcs if isinstance(s, int) and s in free_set)
         if n_processed != len(op_list):
             raise ValueError("witness tape has an unresolvable dependency cycle")
+
+        self.free_field_slots = sorted(field_consumed)
+        free_field_idx = {s: i for i, s in enumerate(self.free_field_slots)}
+
+        def fop_arrays(slots, prefix):
+            srcs = [
+                (SRC_ROW, field_rows[s]) if s in field_rows
+                else (SRC_FREE, free_field_idx[s]) if s in free_field_idx
+                else (SRC_LIFT, s)  # ONE, bit-domain outputs, free bits
+                for s in slots
+            ]
+            return {
+                prefix + "_kind": np.asarray([k for k, _ in srcs], np.int32),
+                prefix + "_idx": np.asarray([i for _, i in srcs], np.int32),
+            }
+
+        def out_arrays(batch):
+            return {"out_slots": np.asarray([op.outs[0] for op in batch], np.int32)}
+
+        def row_outs(batch):
+            return np.asarray([field_rows[op.outs[0]] for op in batch], np.int32)
 
         groups = defaultdict(list)
         for op in op_list:
@@ -121,8 +290,12 @@ class WitnessProgram:
             oc = op.opcode
             if oc == "addmany":
                 key = (lv, oc, len(op.args), len(op.outs))
-            elif oc == "num_iszero":
+            elif oc == "fbits_le":
+                key = (lv, oc, len(op.outs))
+            elif oc in ("pack", "num_iszero", "num_inv_or_one"):
                 key = (lv, oc, len(op.args))
+            elif oc == "lookup":
+                key = (lv, oc, len(op.args[0]))
             else:
                 key = (lv, oc)
             groups[key].append(op)
@@ -136,15 +309,13 @@ class WitnessProgram:
                     "a": np.asarray([op.args[0] for op in batch], np.int32),
                     "b": np.asarray([op.args[1] for op in batch], np.int32),
                 }
-                outs = np.asarray([op.outs[0] for op in batch], np.int32)
-                stages.append(_Stage(oc, outs, arrs))
+                stages.append(_Stage(oc, np.asarray([op.outs[0] for op in batch], np.int32), arrs))
             elif oc in ("ch", "maj"):
                 arrs = {}
                 for nm, i in (("a", 0), ("b", 1), ("c", 2)):
                     sub = _views_to_arrays([op.args[i] for op in batch])
                     arrs.update({nm + "_" + k: v for k, v in sub.items()})
-                outs = np.asarray([op.outs[0] for op in batch], np.int32)
-                stages.append(_Stage(oc, outs, arrs))
+                stages.append(_Stage(oc, np.asarray([op.outs[0] for op in batch], np.int32), arrs))
             elif oc == "addmany":
                 n_words, n_out = len(batch[0].args), len(batch[0].outs)
                 stages.append(
@@ -155,27 +326,355 @@ class WitnessProgram:
                         meta=(n_words, n_out),
                     )
                 )
-            else:  # num_iszero
+            elif oc in ("fadd", "fmul"):
+                arrs = fop_arrays([op.args[0] for op in batch], "a")
+                arrs.update(fop_arrays([op.args[1] for op in batch], "b"))
+                arrs.update(out_arrays(batch))
+                stages.append(_Stage(oc, row_outs(batch), arrs))
+            elif oc in ("finv", "copy"):
+                arrs = fop_arrays([op.args[0] for op in batch], "a")
+                arrs.update(out_arrays(batch))
+                stages.append(_Stage(oc, row_outs(batch), arrs))
+            elif oc == "select":
+                arrs = _views_to_arrays([[op.args[0]] for op in batch])
+                arrs = {"c_" + k: v[:, 0] for k, v in arrs.items()}
+                arrs.update(fop_arrays([op.args[1] for op in batch], "x"))
+                arrs.update(fop_arrays([op.args[2] for op in batch], "y"))
+                arrs.update(out_arrays(batch))
+                stages.append(_Stage(oc, row_outs(batch), arrs))
+            elif oc == "pack":
+                arrs = _views_to_arrays([op.args for op in batch])
+                arrs.update(out_arrays(batch))
+                stages.append(_Stage(oc, row_outs(batch), arrs, meta=len(batch[0].args)))
+            elif oc == "fbits_le":
+                arrs = fop_arrays([op.args[0] for op in batch], "a")
+                stages.append(
+                    _Stage(oc, np.asarray([op.outs for op in batch], np.int32), arrs,
+                           meta=len(batch[0].outs))
+                )
+            elif oc == "lookup":
+                # views [W, nb] of index bits + per-op constant tables
+                # [W, 2^nb, 16], limb-decomposed on the host
+                arrs = _views_to_arrays([op.args[0] for op in batch])
+                arrs["table"] = np.stack([FieldBackend.to_limbs(list(op.args[1])) for op in batch])
+                arrs.update(out_arrays(batch))
+                stages.append(_Stage(oc, row_outs(batch), arrs, meta=len(batch[0].args[0])))
+            else:  # num_iszero, num_inv_or_one
                 n_terms = len(batch[0].args)
                 idx = np.zeros((len(batch), n_terms), np.int32)
                 cf = np.zeros((len(batch), n_terms), np.uint32)
                 for w, op in enumerate(batch):
                     for i, (coeff, s) in enumerate(op.args):
                         if coeff >= (1 << 20):
-                            raise ValueError(
-                                "num_iszero supports small-coefficient LCs"
-                            )
+                            raise ValueError("num_iszero supports small-coefficient LCs")
                         idx[w, i] = s
                         cf[w, i] = coeff
-                outs = np.asarray([op.outs[0] for op in batch], np.int32)
-                stages.append(_Stage(oc, outs, {"idx": idx, "cf": cf}))
+                arrs = {"idx": idx, "cf": cf}
+                if oc == "num_iszero":
+                    outs = np.asarray([op.outs[0] for op in batch], np.int32)
+                else:
+                    arrs.update(out_arrays(batch))
+                    outs = row_outs(batch)
+                stages.append(_Stage(oc, outs, arrs))
         self.stages = stages
+        self.n_field_rows = len(field_rows)
+
+    @property
+    def is_pure_bits(self) -> bool:
+        """True when every witness slot holds a 0/1 value (no field rows,
+        no free field inputs)."""
+        return self.n_field_rows == 0 and not self.free_field_slots
+
+    @property
+    def is_packable(self) -> bool:
+        """True when the bit-sliced evaluator can run the program."""
+        return self.is_pure_bits and all(st.opcode in PACKED_OPS for st in self.stages)
+
+    def build(self, device=None) -> "Evaluator":
+        """The evaluator on `device` (the CUDA card by default):
+        (free_bits int32[B, n_free], free_field int32[B, nf, 16] or None)
+        → (vals int32[B, S], flimbs int32[B, F, 16]), F = max(n_field_rows,
+        1), words holding uint32 values and canonical limbs."""
+        return Evaluator(self, resolve(device))
 
     def build_packed(self, device=None) -> "PackedEvaluator":
-        """Bit-sliced evaluator on `device`: free_packed int32[Bw, n_free]
-        (bit j of word w = instance 32·w + j, free slots in allocation
-        order) → vals int32[Bw, S] in the same packing."""
-        return PackedEvaluator(self, torch.device(device or "cpu"))
+        """Bit-sliced evaluator on `device` (the CUDA card by default):
+        free_packed int32[Bw, n_free] (bit j of word w = instance 32·w + j,
+        free slots in allocation order) → vals int32[Bw, S] in the same
+        packing."""
+        if not self.is_packable:
+            bad = sorted({st.opcode for st in self.stages} - PACKED_OPS)
+            raise NotImplementedError(
+                f"the packed evaluator runs pure-bit programs of {sorted(PACKED_OPS)}; "
+                f"this one has {bad or 'field rows'}: use build()"
+            )
+        return PackedEvaluator(self, resolve(device))
+
+
+def _lift(v: torch.Tensor) -> torch.Tensor:
+    """u32 words int32[W, B] → limbs int32[W, 16, B]."""
+    out = torch.zeros((v.shape[0], 16) + tuple(v.shape[1:]), dtype=torch.int32, device=v.device)
+    out[:, 0] = v & 0xFFFF
+    out[:, 1] = (v >> 16) & 0xFFFF
+    return out
+
+
+def _low32(r: torch.Tensor) -> torch.Tensor:
+    """limbs int32[W, 16, B] → the u32 word limb0 | limb1 << 16."""
+    return to_i32(r[:, 0].to(torch.int64) | (r[:, 1].to(torch.int64) << 16))
+
+
+class _FieldOperand:
+    """One field operand of a stage: per-position source kinds resolved
+    into one gather per kind present."""
+
+    def __init__(self, kinds, idx, device):
+        kinds, idx = np.asarray(kinds), np.asarray(idx)
+        self.W = len(kinds)
+        self.parts = []
+        for k in (SRC_ROW, SRC_FREE, SRC_LIFT):
+            pos = np.nonzero(kinds == k)[0]
+            if len(pos):
+                self.parts.append((k, _dev(pos, device), _dev(idx[pos], device)))
+
+    def __call__(self, vals, flimbs, free_T):
+        got = []
+        for k, pos, idx in self.parts:
+            if k == SRC_ROW:
+                got.append(flimbs.index_select(0, idx))
+            elif k == SRC_FREE:
+                got.append(free_T.index_select(0, idx))
+            else:
+                got.append(_lift(vals.index_select(0, idx)))
+        if len(got) == 1:
+            return got[0]
+        out = torch.empty((self.W,) + tuple(got[0].shape[1:]), dtype=torch.int32,
+                          device=vals.device)
+        for (_k, pos, _i), g in zip(self.parts, got):
+            out.index_copy_(0, pos, g)
+        return out
+
+
+class Evaluator:
+    """The evaluator of one WitnessProgram (``build``), with its stage
+    tables resident on one device."""
+
+    def __init__(self, prog: WitnessProgram, device: torch.device):
+        self.device = device
+        self.field = prog.field
+        self.num_slots = prog.num_slots
+        self.F = max(prog.n_field_rows, 1)
+        self.n_free = len(prog.free_slots)
+        self.n_free_field = len(prog.free_field_slots)
+        self.free_slots = _dev(prog.free_slots, device)
+        self.be = get_backend(self.field) if prog.n_field_rows else None
+        self.plan = []
+        run: List[_Stage] = []
+
+        def flush():
+            spec = _detect_linear_chain(run) if len(run) >= MIN_SCAN_RUN else None
+            if spec is not None:
+                self.plan.append(("chain", spec, self._chain_tables(spec)))
+            else:
+                self.plan.extend((st.opcode, st.meta, self._tables(st)) for st in run)
+            run.clear()
+
+        for st in prog.stages:
+            if st.opcode in SCAN_OPS:
+                run.append(st)
+            else:
+                flush()
+                self.plan.append((st.opcode, st.meta, self._tables(st)))
+        flush()
+
+    # -- host tables -------------------------------------------------------
+    def _views(self, a, prefix, shape):
+        """(idx, neg, const flag, const value) of Boolean views."""
+        d = self.device
+        return (
+            _dev(a[prefix + "idx"].reshape(-1), d),
+            _dev(a[prefix + "neg"], d, torch.int32).reshape(shape),
+            _dev(a[prefix + "isc"], d, torch.bool).reshape(shape),
+            _dev(a[prefix + "cv"], d, torch.int32).reshape(shape),
+        )
+
+    def _tables(self, st: _Stage) -> dict:
+        d, a, oc = self.device, st.arrs, st.opcode
+        t = {"outs": _dev(st.outs.reshape(-1), d)}
+        if "out_slots" in a:
+            t["out_slots"] = _dev(a["out_slots"], d)
+        if oc in ("xor", "and", "and_not", "nor"):
+            t["a"], t["b"] = _dev(a["a"], d), _dev(a["b"], d)
+        elif oc in ("ch", "maj"):
+            for p in ("a", "b", "c"):
+                t[p] = self._views(a, p + "_", (-1, 1))
+        elif oc in ("addmany", "pack", "lookup"):
+            t["v"] = self._views(a, "", a["idx"].shape + (1,))
+            if oc == "lookup":
+                t["table"] = _dev(a["table"].astype(np.int64), d).reshape(-1, 16)
+        elif oc == "select":
+            t["c"] = self._views(a, "c_", (-1, 1))
+            t["x"] = _FieldOperand(a["x_kind"], a["x_idx"], d)
+            t["y"] = _FieldOperand(a["y_kind"], a["y_idx"], d)
+        elif oc in ("num_iszero", "num_inv_or_one"):
+            t["idx"] = _dev(a["idx"], d)
+            t["cf"] = _dev(a["cf"], d)[:, :, None]
+        if "a_kind" in a:
+            t["fa"] = _FieldOperand(a["a_kind"], a["a_idx"], d)
+        if "b_kind" in a:
+            t["fb"] = _FieldOperand(a["b_kind"], a["b_idx"], d)
+        return t
+
+    def _chain_tables(self, spec) -> dict:
+        d = self.device
+        return {
+            "init": int(spec["init_row"]),
+            "ext": _dev(spec["ext_rows"], d) if spec["ext_rows"] else None,
+            "outs": _dev(spec["out_rows"], d),
+            "out_slots": _dev(spec["out_slots"], d),
+        }
+
+    # -- evaluation --------------------------------------------------------
+    @staticmethod
+    def _bviews(vals, tabs):
+        idx, neg, isc, cv = tabs
+        v = vals.index_select(0, idx).reshape(isc.shape[:-1] + (-1,))
+        return torch.where(isc, cv, v ^ neg)
+
+    def _fmul(self, a, b):
+        """[W, 16, B] × [W, 16, B] through the mul kernel ([16, W·B])."""
+        W, _, B = a.shape
+        if W == 1:
+            return fk.mul(a[0], b[0], self.field).unsqueeze(0)
+        lm = lambda x: x.transpose(0, 1).reshape(16, W * B)  # noqa: E731
+        return fk.mul(lm(a), lm(b), self.field).reshape(16, W, B).transpose(0, 1)
+
+    def slot_major(self, free_bits: torch.Tensor, free_field=None):
+        """free_bits int32[B, n_free], free_field int32[B, nf, 16] or None
+        → (vals int32[S, B], flimbs int32[F, 16, B])."""
+        if free_bits.dim() != 2 or free_bits.dtype != torch.int32 or free_bits.shape[1] != self.n_free:
+            raise ValueError(
+                f"free_bits must be int32[B, {self.n_free}], got "
+                f"{free_bits.dtype}{tuple(free_bits.shape)}"
+            )
+        B = free_bits.shape[0]
+        dev = free_bits.device
+        vals = torch.zeros((self.num_slots, B), dtype=torch.int32, device=dev)
+        vals[0] = 1  # ONE
+        if self.n_free:
+            vals.index_copy_(0, self.free_slots, free_bits.t())
+        flimbs = torch.zeros((self.F, 16, B), dtype=torch.int32, device=dev)
+        free_T = None
+        if self.n_free_field:
+            if free_field is None or tuple(free_field.shape) != (B, self.n_free_field, 16):
+                raise ValueError(f"free_field must be int32[B, {self.n_free_field}, 16]")
+            free_T = free_field.permute(1, 2, 0).contiguous()
+
+        def write_field(t, r):
+            flimbs.index_copy_(0, t["outs"], r)
+            vals.index_copy_(0, t["out_slots"], _low32(r))
+
+        for oc, meta, t in self.plan:
+            if oc == "chain":
+                x0 = flimbs[t["init"]]
+                ext = (flimbs.index_select(0, t["ext"]).reshape(-1, B) if t["ext"] is not None
+                       else torch.zeros_like(x0))
+                out = fk.chain(x0, ext, meta["descs"], meta["n_reps"], self.field)
+                write_field(t, out.reshape(-1, 16, B))
+            elif oc in ("xor", "and", "and_not", "nor"):
+                a = vals.index_select(0, t["a"])
+                b = vals.index_select(0, t["b"])
+                r = (a ^ b if oc == "xor" else a & b if oc == "and"
+                     else a & (b ^ 1) if oc == "and_not" else (a ^ 1) & (b ^ 1))
+                vals.index_copy_(0, t["outs"], r)
+            elif oc in ("ch", "maj"):
+                a, b, c = (self._bviews(vals, t[p]) for p in ("a", "b", "c"))
+                r = (a & b) ^ ((a ^ 1) & c) if oc == "ch" else (a & b) ^ (a & c) ^ (b & c)
+                vals.index_copy_(0, t["outs"], r)
+            elif oc == "addmany":
+                r = _addmany_u32(self._bviews(vals, t["v"]), meta[1])
+                vals.index_copy_(0, t["outs"], r.reshape(-1, B))
+            elif oc in ("fadd", "fmul"):
+                a = t["fa"](vals, flimbs, free_T)
+                b = t["fb"](vals, flimbs, free_T)
+                write_field(t, self.be.add(a, b, dim=1) if oc == "fadd" else self._fmul(a, b))
+            elif oc == "finv":
+                write_field(t, self.be.inv(t["fa"](vals, flimbs, free_T), dim=1))
+            elif oc == "copy":
+                write_field(t, t["fa"](vals, flimbs, free_T))
+            elif oc == "select":
+                cond = self._bviews(vals, t["c"])  # [W, B]
+                x = t["x"](vals, flimbs, free_T)
+                y = t["y"](vals, flimbs, free_T)
+                write_field(t, torch.where((cond == 1)[:, None, :], x, y))
+            elif oc == "pack":
+                write_field(t, _pack_limbs(self._bviews(vals, t["v"]), meta))
+            elif oc == "lookup":
+                bv = to_u32(self._bviews(vals, t["v"]))  # [W, nb, B]
+                w = torch.tensor([1 << i for i in range(meta)], dtype=torch.int64, device=dev)
+                sel = ((bv * w[None, :, None]).sum(1) & U32).clamp(max=(1 << meta) - 1)
+                base = torch.arange(bv.shape[0], device=dev)[:, None] << meta
+                r = t["table"].index_select(0, (base + sel).reshape(-1))
+                write_field(t, to_i32(r.reshape(bv.shape[0], B, 16).transpose(1, 2)))
+            elif oc == "fbits_le":
+                a = t["fa"](vals, flimbs, free_T)
+                bits = [(a[:, k // 16] >> (k % 16)) & 1 for k in range(meta)]
+                vals.index_copy_(0, t["outs"], torch.stack(bits, dim=1).reshape(-1, B))
+            elif oc == "num_iszero":
+                s = _small_lc(vals, t["idx"], t["cf"])
+                vals.index_copy_(0, t["outs"], (s == 0).to(torch.int32))
+            elif oc == "num_inv_or_one":
+                s = _small_lc(vals, t["idx"], t["cf"])
+                inv = self.be.inv(_lift(to_i32(s)), dim=1)
+                one = torch.zeros_like(inv)
+                one[:, 0] = 1
+                write_field(t, torch.where((s == 0)[:, None, :], one, inv))
+            else:  # pragma: no cover
+                raise AssertionError(oc)
+        return vals, flimbs
+
+    def __call__(self, free_bits: torch.Tensor, free_field=None):
+        """The reference's batch-major layout: (vals int32[B, S], flimbs
+        int32[B, F, 16])."""
+        vals, flimbs = self.slot_major(free_bits, free_field)
+        return vals.t().contiguous(), flimbs.permute(2, 0, 1).contiguous()
+
+
+def _small_lc(vals, idx, cf):
+    """Σ cf·vals over each LC's terms, in uint32 (idx [W, T], cf [W, T, 1])
+    → int64[W, B]."""
+    W, T = idx.shape
+    v = to_u32(vals.index_select(0, idx.reshape(-1))).reshape(W, T, -1)
+    return (v * cf).sum(dim=1) & U32
+
+
+def _addmany_u32(bv: torch.Tensor, n_out: int) -> torch.Tensor:
+    """bv int32[W, n_words, 32, B] addend bits → int32[W, n_out, B] sum
+    bits: the reference's two uint32 16-bit-half sums and their carry."""
+    sh = torch.arange(32, dtype=torch.int64, device=bv.device)
+    w = torch.where(sh < 16, 1 << sh, 1 << (sh - 16))[None, None, :, None]
+    v = to_u32(bv) * w
+    lo = v[:, :, :16].sum(dim=(1, 2)) & U32
+    hi = (v[:, :, 16:].sum(dim=(1, 2)) + (lo >> 16)) & U32
+    lo = lo & 0xFFFF
+    outs = [(lo >> k) & 1 if k < 16 else (hi >> (k - 16)) & 1 for k in range(n_out)]
+    return to_i32(torch.stack(outs, dim=1))
+
+
+def _pack_limbs(bv: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """bv int32[W, n_bits, B] bits (LSB first) → limbs int32[W, 16, B]:
+    limb j = Σ_i bit[16j + i]·2^i, in uint32."""
+    v = to_u32(bv)
+    limbs = []
+    for j in range(16):
+        lo = 16 * j
+        if lo >= n_bits:
+            limbs.append(torch.zeros_like(v[:, 0]))
+            continue
+        width = min(16, n_bits - lo)
+        w = (1 << torch.arange(width, dtype=torch.int64, device=bv.device))[None, :, None]
+        limbs.append((v[:, lo : lo + width] * w).sum(dim=1) & U32)
+    return to_i32(torch.stack(limbs, dim=1))
 
 
 class PackedEvaluator:

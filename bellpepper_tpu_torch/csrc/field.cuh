@@ -1,8 +1,9 @@
 // Shared integer helpers of the field kernels: carry passes over digit
-// and limb rows, the semi-reduction of matvec digit sums, and the
-// Montgomery zero-test. Every helper works on one element whose rows live
-// in registers (fixed-size arrays, fully unrolled), with uint32_t
-// wraparound exactly as the JAX package's kernels
+// and limb rows, the semi-reduction of matvec digit sums, the Montgomery
+// zero-test, and the canonical modular multiply and add of 16-bit-limb
+// field elements. Every helper works on one element whose rows live in
+// registers (fixed-size arrays, fully unrolled), with uint32_t wraparound
+// exactly as the JAX package's kernels
 // (bellpepper_tpu/backend/field_pallas.py) compute it.
 #pragma once
 
@@ -88,6 +89,143 @@ static __device__ __forceinline__ uint32_t mont_zero(const uint32_t (&x)[17],
     carry = (tot >> 16) + hi;
   }
   return bad;
+}
+
+// Constants of the canonical modular multiply, in the layout of
+// field_consts.kernel_consts(field)["modmul"]: fold rows 0..15 of the
+// 16-bit basis and their split-multiplier companions, the final fold rows
+// at 8-bit granularity, p·4, p·2 and p as 17 limbs, and the
+// quotient-estimate constant (field_pallas._Consts.qe).
+struct ModConsts {
+  uint32_t fold16[16][16];
+  uint32_t fold16_hi[16][16];
+  uint32_t fold16b[3][16];
+  uint32_t ps[3][17];
+  uint32_t qe;
+};
+
+static inline ModConsts load_mod_consts(const uint32_t* s) {
+  ModConsts k;
+  for (int r = 0; r < 16; ++r)
+    for (int l = 0; l < 16; ++l) k.fold16[r][l] = *s++;
+  for (int r = 0; r < 16; ++r)
+    for (int l = 0; l < 16; ++l) k.fold16_hi[r][l] = *s++;
+  for (int r = 0; r < 3; ++r)
+    for (int l = 0; l < 16; ++l) k.fold16b[r][l] = *s++;
+  for (int r = 0; r < 3; ++r)
+    for (int l = 0; l < 17; ++l) k.ps[r][l] = *s++;
+  k.qe = *s;
+  return k;
+}
+
+// x − ps when the subtraction does not borrow, else x (branch-free).
+template <int N>
+static __device__ __forceinline__ void cond_sub(uint32_t (&x)[N],
+                                                const uint32_t (&ps)[N]) {
+  uint32_t diff[N];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t d = x[i] - ps[i] - borrow;
+    borrow = d >> 31;
+    diff[i] = d & 0xFFFFu;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = borrow ? x[i] : diff[i];
+}
+
+// 17-limb x < 2^266 → 16 canonical limbs (field_pallas._canon_tail_v2):
+// q̂ = floor(x15·qe / 2^28) + floor(x16·qe / 2^12) underestimates x / p by
+// at most 6, so x − q̂·p < 7p, and conditional subtracts of 4p, 2p and p
+// finish. q̂·p is carry-normalized limb by limb inside the borrow chain.
+static __device__ __forceinline__ void canon_tail(const uint32_t (&x)[17],
+                                                  const ModConsts& k,
+                                                  uint32_t (&out)[16]) {
+  const uint32_t qh = ((x[15] * k.qe) >> 28) + ((x[16] * k.qe) >> 12);
+  uint32_t r[17];
+  uint32_t carry = 0, borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 17; ++i) {
+    uint32_t lo = 0, hi = 0;
+    if (i < 16) {
+      const uint32_t t = qh * k.ps[2][i];
+      lo = t & 0xFFFFu;
+      hi = t >> 16;
+    }
+    const uint32_t tot = lo + carry;
+    carry = (tot >> 16) + hi;
+    const uint32_t d = x[i] - (tot & 0xFFFFu) - borrow;
+    borrow = d >> 31;
+    r[i] = d & 0xFFFFu;
+  }
+  cond_sub<17>(r, k.ps[0]);
+  cond_sub<17>(r, k.ps[1]);
+  cond_sub<17>(r, k.ps[2]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = r[i];
+}
+
+// Canonical a·b mod p of canonical 16-limb a, b
+// (field_pallas._reduce16_rows(_conv16_rows(a, b))): the 16×16 limb
+// convolution with each product's lo and hi halves accumulated apart
+// (32 positions < 2^21), a carry, the fold of positions 16..31 with split
+// 8-bit multipliers, a carry, the final fold at 8-bit granularity, a
+// carry, and the quotient-estimate canonicalization.
+static __device__ __forceinline__ void mul_canon(const uint32_t (&a)[16],
+                                                 const uint32_t (&b)[16],
+                                                 const ModConsts& k,
+                                                 uint32_t (&out)[16]) {
+  uint32_t acc[32];
+#pragma unroll
+  for (int p = 0; p < 32; ++p) acc[p] = 0;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+#pragma unroll
+    for (int y = 0; y < 16; ++y) {
+      const uint32_t t = a[x] * b[y];
+      acc[x + y] += t & 0xFFFFu;
+      acc[x + y + 1] += t >> 16;
+    }
+  }
+  uint32_t d[32];
+  carry16<32, 32>(acc, d);
+  uint32_t f[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l) f[l] = d[l];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const uint32_t m0 = d[16 + r] & 0xFFu, m1 = d[16 + r] >> 8;
+#pragma unroll
+    for (int l = 0; l < 16; ++l)
+      f[l] += m0 * k.fold16[r][l] + m1 * k.fold16_hi[r][l];
+  }
+  uint32_t d2[18];
+  carry16<16, 18>(f, d2);
+  const uint32_t m0 = d2[16] & 0xFFu, m1 = d2[16] >> 8, m2 = d2[17];
+  uint32_t fin[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l)
+    fin[l] = d2[l] + m0 * k.fold16b[0][l] + m1 * k.fold16b[1][l] +
+             m2 * k.fold16b[2][l];
+  uint32_t x17[17];
+  carry16<16, 17>(fin, x17);
+  canon_tail(x17, k, out);
+}
+
+// Canonical a + b mod p (field_pallas._add_canon_rows): carry to 17 limbs
+// (< 2p), one conditional subtract of p.
+static __device__ __forceinline__ void add_canon(const uint32_t (&a)[16],
+                                                 const uint32_t (&b)[16],
+                                                 const ModConsts& k,
+                                                 uint32_t (&out)[16]) {
+  uint32_t s[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = a[i] + b[i];
+  uint32_t s17[17];
+  carry16<16, 17>(s, s17);
+  cond_sub<17>(s17, k.ps[2]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = s17[i];
 }
 
 }  // namespace bp

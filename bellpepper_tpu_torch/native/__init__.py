@@ -1,14 +1,17 @@
 """ctypes bindings for the native (C++) synthesis core, without JAX.
 
-Counterpart of ``bellpepper_tpu/native/__init__.py:45-139`` and
-``:332-453``: the same C++ source (``bellpepper_tpu/native/synthesis.cpp``,
-read where it stands) is compiled with g++ into this package's build
-directory, keyed by a content hash of the source, and the bit-gadget
-subset of ``NativeBuilder`` that the sha256 slice needs is bound:
-``alloc_bit``, ``sha256_iv``, ``sha256_compression`` and ``finish``.
+Counterpart of ``bellpepper_tpu/native/__init__.py:45-139``, ``:198-215``,
+``:269`` and ``:332-453``. This package carries its own copy of the C++
+source (``synthesis.cpp`` beside this file), which is compiled with g++
+into the package's build directory, keyed by a content hash of the source.
+Bound: the bit gadgets of the sha256 slice (``alloc_bit``, ``sha256_iv``,
+``sha256_compression``) and the AllocatedNum field gadgets of config 1
+(``alloc_num``, ``num_add``, ``num_mul``, ``num_square``,
+``num_assert_nonzero``, ``pack_bits``).
 
 ``finish`` returns the same ``(R1CS, tape)`` artifacts as the JAX
-package's builder; the tape feeds ``compile.witness_program.WitnessProgram``."""
+package's builder and decodes every opcode the C++ side emits; the tape
+feeds ``compile.witness_program.WitnessProgram``."""
 
 from __future__ import annotations
 
@@ -21,24 +24,20 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from bellpepper_tpu.fields import SCALAR, PrimeField
-from bellpepper_tpu.r1cs import COOMatrix, R1CS
-
 from ..compile.tape import Op
+from ..fields import SCALAR, PrimeField
+from ..r1cs import COOMatrix, R1CS
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCE = os.path.join(
-    os.path.dirname(_PKG), "bellpepper_tpu", "native", "synthesis.cpp"
-)
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+SOURCE = os.path.join(_HERE, "synthesis.cpp")
 
 _OPCODE_NAMES = [
     "xor", "and", "and_not", "nor", "ch", "maj", "addmany",
     "fadd", "fmul", "finv", "copy", "pack",
     "fbits_le", "select", "lookup", "num_iszero", "num_inv_or_one",
 ]
-# Two-slot bit ops, the only plain-slot opcodes the bound gadgets emit.
-_PLAIN_SLOT_OPS = {"xor", "and", "and_not", "nor"}
+_U64 = 0xFFFFFFFFFFFFFFFF
 
 _lib = None
 
@@ -79,6 +78,10 @@ def load_library():
     lib.bp_builder_free.argtypes = [vp]
     for name, args in [
         ("bp_alloc_bit", [vp]),
+        ("bp_alloc_num", [vp]),
+        ("bp_num_add", [vp, i64, i64]),
+        ("bp_num_mul", [vp, i64, i64]),
+        ("bp_num_square", [vp, i64]),
         ("bp_num_inputs", [vp]),
         ("bp_num_aux", [vp]),
         ("bp_num_constraints", [vp]),
@@ -93,7 +96,10 @@ def load_library():
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.bp_pack_bits.restype = i64
+    lib.bp_pack_bits.argtypes = [vp, i64p, i32]
     for name, args in [
+        ("bp_num_assert_nonzero", [vp, i64]),
         ("bp_sha256_compression", [vp, i64p, i64p, i64p]),
         ("bp_sha256_iv", [i64p]),
         ("bp_get_coo", [vp, i32, i32p, i32p, i32p]),
@@ -119,24 +125,24 @@ class _NativeTape:
 
 
 class NativeBuilder:
-    """Native circuit builder. Views are opaque ints (Boolean encodings
-    shared with the C++ side); slot numbering matches the Python path."""
+    """Native circuit builder. Bit views are opaque ints (Boolean
+    encodings shared with the C++ side); num values are slotcodes. Slot
+    numbering matches the Python gadget path."""
 
     def __init__(self, field: PrimeField = SCALAR):
         self.field = field
         lib = load_library()
-        pw = (ctypes.c_uint64 * 4)(
-            *[(field.p >> (64 * i)) & 0xFFFFFFFFFFFFFFFF for i in range(4)]
-        )
+        pw = (ctypes.c_uint64 * 4)(*[(field.p >> (64 * i)) & _U64 for i in range(4)])
         self._lib = lib
         self._b = lib.bp_builder_new(pw)
-        self._free_order: List[int] = []  # slotcodes of free bits, in order
+        self._free_order: List[int] = []  # slotcodes of free slots, in order
 
     def __del__(self):
         if getattr(self, "_b", None):
             self._lib.bp_builder_free(self._b)
             self._b = None
 
+    # -- bit gadgets -----------------------------------------------------------
     def alloc_bit(self) -> int:
         v = self._lib.bp_alloc_bit(self._b)
         self._free_order.append(v >> 2)  # slotcode
@@ -163,6 +169,32 @@ class NativeBuilder:
         )
         return list(out)
 
+    # -- AllocatedNum field gadgets (num.rs) ----------------------------------
+    def alloc_num(self) -> int:
+        """Free field-valued slot; returns its SLOTCODE (not a view)."""
+        sc = self._lib.bp_alloc_num(self._b)
+        self._free_order.append(sc)
+        return sc
+
+    def num_add(self, sa: int, sb: int) -> int:
+        return self._lib.bp_num_add(self._b, sa, sb)
+
+    def num_mul(self, sa: int, sb: int) -> int:
+        return self._lib.bp_num_mul(self._b, sa, sb)
+
+    def num_square(self, sa: int) -> int:
+        return self._lib.bp_num_square(self._b, sa)
+
+    def num_assert_nonzero(self, sa: int) -> None:
+        self._lib.bp_num_assert_nonzero(self._b, sa)
+
+    def pack_bits(self, views: Sequence[int]) -> int:
+        """Pack Boolean views (up to the field's CAPACITY) into one num
+        slot (multipack.rs); returns its slotcode."""
+        vs = np.asarray(list(views)[: self.field.CAPACITY], np.int64)
+        return self._lib.bp_pack_bits(self._b, vs, len(vs))
+
+    # -- extraction -------------------------------------------------------------
     def _slot(self, slotcode: int) -> int:
         """slotcode (idx<<1 | is_aux) → global slot (inputs first)."""
         idx = slotcode >> 1
@@ -237,16 +269,30 @@ class NativeBuilder:
             outs_m = take(opt[sel, 3], n_outs).tolist()
             aoff = opt[sel, 4]
             if name == "addmany":
-                am = take(aoff, -marker * 96).reshape(-1, -marker, 32, 3)
-            elif name in ("ch", "maj"):
-                am = take(aoff, 3 * marker).reshape(-1, marker, 3)
-            elif name in _PLAIN_SLOT_OPS:
-                am = take(aoff, marker)
-            else:
-                raise NotImplementedError(
-                    f"native opcode {name!r} is not decoded by the torch port"
-                )
-            for oi, o_, a_ in zip(sel.tolist(), outs_m, am.tolist()):
+                args = take(aoff, -marker * 96).reshape(-1, -marker, 32, 3).tolist()
+            elif name in ("ch", "maj", "pack"):
+                args = take(aoff, 3 * marker).reshape(-1, marker, 3).tolist()
+            elif name == "select":
+                args = [[tuple(r[:3]), r[3], r[4]] for r in take(aoff, 5).tolist()]
+            elif name == "lookup":
+                # marker index bits, then a table of 2^marker 256-bit words
+                args = []
+                for r in take(aoff, 3 * marker + (4 << marker)).tolist():
+                    views = [tuple(r[3 * k : 3 * k + 3]) for k in range(marker)]
+                    tw = r[3 * marker :]
+                    table = tuple(
+                        sum((tw[4 * e + j] & _U64) << (64 * j) for j in range(4))
+                        for e in range(1 << marker)
+                    )
+                    args.append((views, table))
+            elif name in ("num_iszero", "num_inv_or_one"):
+                args = [
+                    [tuple(t) for t in a]
+                    for a in take(aoff, 2 * marker).reshape(-1, marker, 2).tolist()
+                ]
+            else:  # bit ops, field ops and fbits_le: plain slots
+                args = take(aoff, marker).tolist()
+            for oi, o_, a_ in zip(sel.tolist(), outs_m, args):
                 ops[oi] = Op(name, o_, a_)
 
         produced = {o for op in ops for o in op.outs}

@@ -5,18 +5,23 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every kernel is held bit-exact to its plain version at ragged sizes (the
-kernels mask the edge themselves), its launch is counted, and the whole
-step on the card gives the CPU's verdict, clean and corrupted."""
+kernels mask the edge themselves), its launch is counted, and the packed
+sha256 step and the config-1 field step on the card give the CPU's
+verdicts, clean and corrupted."""
+
+import random
 
 import numpy as np
 import pytest
 import torch
 
 from bellpepper_tpu_torch import (
+    PALLAS_SCALAR,
     SCALAR,
     NativeBuilder,
     WitnessProgram,
     build_packed_production_step,
+    build_production_step,
 )
 from bellpepper_tpu_torch.backend import field_kernels as fk
 from bellpepper_tpu_torch.backend.words import from_numpy_u32
@@ -109,8 +114,91 @@ def test_step_on_card_matches_cpu(cuda):
     words = RNG.integers(0, 1 << 32, size=(2, 16, 512), dtype=np.uint64).astype(np.uint32)
     for t in (tape, _Tape(tape.field, (ni, na, bad_ops, free))):
         prog = WitnessProgram(t)
-        want = build_packed_production_step(prog, template, 512)(from_numpy_u32(words))
+        want = build_packed_production_step(prog, template, 512, device="cpu")(from_numpy_u32(words))
         got = build_packed_production_step(prog, template, 512, device=cuda)(
             from_numpy_u32(words, cuda)
         )
         assert tuple(int(v) for v in got) == tuple(int(v) for v in want)
+
+
+def _canonical(field, n, seed, dev):
+    """int32[16, n] limb-major canonical values, corners (0, 1, p − 1)
+    first."""
+    p = field.p
+    rnd = random.Random(seed)
+    vals = [0, 1, p - 1] + [rnd.randrange(p) for _ in range(n - 3)]
+    x = np.asarray([[(v >> (16 * l)) & 0xFFFF for v in vals] for l in range(16)], np.uint32)
+    return from_numpy_u32(x, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [SCALAR, PALLAS_SCALAR], ids=lambda f: f.name)
+@pytest.mark.parametrize("N", [1000, 3])
+def test_mul_on_card(cuda, field, N):
+    a, b = _canonical(field, N, 1, cuda), _canonical(field, N, 2, cuda).flip(1).contiguous()
+    before = fk.mul.launches
+    got = fk.mul(a, b, field)
+    torch.cuda.synchronize()
+    assert fk.mul.launches == before + 1
+    assert torch.equal(got, fk.mul_plain(a, b, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "descs,n_ext",
+    [
+        ((("fmul", "prev", 0), ("fadd", "prev", 1), ("fmul", "prev", "prev")), 2),
+        ((("fadd", "prev", 0),), 1),
+        ((("fmul", 2, "prev"), ("fadd", 3, "prev"), ("fmul", "prev", 1), ("fadd", 0, "prev")), 4),
+    ],
+    ids=["config1", "fadd", "four_ext"],
+)
+def test_chain_on_card(cuda, descs, n_ext):
+    N = 777
+    x0 = _canonical(SCALAR, N, 3, cuda)
+    ext = torch.cat([_canonical(SCALAR, N, 4 + k, cuda) for k in range(n_ext)])
+    before = fk.chain.launches
+    got = fk.chain(x0, ext, descs, 5, SCALAR)
+    torch.cuda.synchronize()
+    assert fk.chain.launches == before + 1
+    assert torch.equal(got, fk.chain_plain(x0, ext, descs, 5, SCALAR))
+
+
+def _config1(nonzero):
+    nb = NativeBuilder()
+    bits = [nb.alloc_bit() for _ in range(128)]
+    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
+    x = a
+    for _ in range(30):
+        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
+    if nonzero:
+        nb.num_assert_nonzero(x)
+    return nb.finish()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonzero", [False, True], ids=["config1", "nonzero"])
+def test_field_step_on_card_matches_cpu(cuda, nonzero):
+    """Config 1 (through chain and mulcmp) and its variant (through mul)
+    at B = 512 × 2 chunks, clean and with one fadd of the tape computing a
+    product."""
+    template, tape = _config1(nonzero)
+    ni, na, ops, free = tape.snapshot()
+    i = max(k for k, op in enumerate(ops) if op.opcode == "fadd")
+    bad_ops = list(ops)
+    bad_ops[i] = type(ops[i])("fmul", ops[i].outs, ops[i].args)
+    bits = RNG.integers(0, 2, size=(2, 512, 128)).astype(np.uint32)
+    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+        prog = WitnessProgram(t)
+        want = build_production_step(prog, template, 512, device="cpu")(from_numpy_u32(bits))
+        fk.reset_launch_counts()
+        got = build_production_step(prog, template, 512, device=cuda)(from_numpy_u32(bits, cuda))
+        got = tuple(int(v) for v in got)
+        assert got == tuple(int(v) for v in want)
+        assert (got[0] > 0) == corrupt
+        counts = fk.launch_counts()
+        assert counts["mulcmp"] == 2
+        if nonzero:  # the corrupted tape has one fmul more
+            assert counts["mul"] == 2 * (60 + corrupt) and counts["chain"] == 0
+        elif not corrupt:
+            assert counts["chain"] == 2 and counts["mul"] == 0

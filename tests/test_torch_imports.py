@@ -1,10 +1,16 @@
 """The port must load where JAX is not installed: importing the package
-and its modules, and building a native template, pulls in no `jax`."""
+and its modules, building and running the sha256 and config-1 templates
+on the CPU pulls in no `jax` and nothing of the JAX package, and the
+native library builds from the port's own C++ source. Without a card, an
+entry point called without a device raises."""
 
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -12,6 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_never_imports_jax():
     code = textwrap.dedent(
         """
+        import os
         import sys
         import bellpepper_tpu_torch
         import bellpepper_tpu_torch.native
@@ -23,7 +30,18 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.backend.field_kernels
         import bellpepper_tpu_torch.backend.layout
         import bellpepper_tpu_torch.backend.matvec
-        from bellpepper_tpu_torch import NativeBuilder, WitnessProgram
+        import bellpepper_tpu_torch.backend.field_backend
+        import bellpepper_tpu_torch.backend.field_consts
+        import bellpepper_tpu_torch.backend.words
+        import bellpepper_tpu_torch.compile.tape
+        import bellpepper_tpu_torch.device
+        import bellpepper_tpu_torch.fields
+        import bellpepper_tpu_torch.r1cs
+        import torch
+        from bellpepper_tpu_torch import (
+            NativeBuilder, WitnessProgram, build_packed_production_step, build_production_step,
+        )
+        from bellpepper_tpu_torch.native import SOURCE
 
         nb = NativeBuilder()
         bits = [nb.alloc_bit() for _ in range(512)]
@@ -31,8 +49,28 @@ def test_port_never_imports_jax():
         template, tape = nb.finish()
         prog = WitnessProgram(tape)
         assert template.num_constraints == 26352 and prog.num_slots == 26327
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+        free = torch.zeros((1, 1, 512), dtype=torch.int32)
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+
+        nb = NativeBuilder()
+        bits = [nb.alloc_bit() for _ in range(128)]
+        a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
+        x = a
+        for _ in range(30):
+            x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
+        template, tape = nb.finish()
+        prog = WitnessProgram(tape)
+        assert (template.num_constraints, prog.num_slots) == (220, 221)
+        free = torch.randint(0, 2, (1, 32, 128), dtype=torch.int32)
+        assert [int(v) for v in build_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+
+        bad = sorted(
+            m for m in sys.modules
+            if m in ("jax", "bellpepper_tpu") or m.startswith(("jax.", "jaxlib", "bellpepper_tpu."))
+        )
         assert not bad, bad
+        pkg = os.path.dirname(os.path.abspath(bellpepper_tpu_torch.__file__))
+        assert os.path.abspath(SOURCE) == os.path.join(pkg, "native", "synthesis.cpp"), SOURCE
         print("ok")
         """
     )
@@ -44,3 +82,46 @@ def test_port_never_imports_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_entry_points_need_a_device_without_a_card(monkeypatch):
+    """Every entry point runs on the card unless it is given a device;
+    where torch sees no card it raises and does not fall back."""
+    from bellpepper_tpu_torch import (
+        NativeBuilder,
+        WitnessProgram,
+        build_chunked_witness,
+        build_packed_chunked_witness,
+        build_packed_production_step,
+        build_production_step,
+        build_templated_check,
+    )
+    from bellpepper_tpu_torch.backend.matvec import MixedCheck, PackedBitsCheck
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nb = NativeBuilder()
+    bits = [nb.alloc_bit() for _ in range(64)]
+    nb.num_square(nb.pack_bits(bits))
+    field_t, field_tape = nb.finish()
+    field_prog = WitnessProgram(field_tape)
+    fs = sorted(field_prog.field_rows, key=field_prog.field_rows.get)
+    nb = NativeBuilder()
+    bits = [nb.alloc_bit() for _ in range(512)]
+    nb.sha256_compression(bits, nb.sha256_iv())
+    sha_t, sha_tape = nb.finish()
+    sha_prog = WitnessProgram(sha_tape)
+    for make in (
+        lambda: field_prog.build(),
+        lambda: sha_prog.build_packed(),
+        lambda: build_templated_check(sha_t, 32),
+        lambda: build_templated_check(field_t, 32, "mixed", field_slots=fs),
+        lambda: PackedBitsCheck(sha_t, 32),
+        lambda: MixedCheck(field_t, 32, fs),
+        lambda: build_production_step(field_prog, field_t, 32),
+        lambda: build_packed_production_step(sha_prog, sha_t, 32),
+        lambda: build_chunked_witness(field_prog),
+        lambda: build_packed_chunked_witness(sha_prog),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert field_prog.build("cpu").device == torch.device("cpu")

@@ -68,7 +68,7 @@ def sha256_words():
     template, tape = nb.finish()
     prog = WitnessProgram(tape)
     free = _u32((16, len(prog.free_slots)))
-    return template, prog.build_packed()(from_numpy_u32(free))
+    return template, prog.build_packed("cpu")(from_numpy_u32(free))
 
 
 def test_pow2_kernel_form_matches_adder_forms(sha256_words):
@@ -187,7 +187,13 @@ def test_wrappers_use_plain_version_on_cpu():
     a, b, c, _w = (from_numpy_u32(v) if i < 3 else v
                    for i, v in enumerate(_mulcmp_operands(SCALAR, 100)))
     assert torch.equal(fk.mulcmp(a, b, c, SCALAR), fk.mulcmp_plain(a, b, c, SCALAR))
-    assert fk.launch_counts() == {"bitplane_eq": 0, "bits_matvec_semi": 0, "mulcmp": 0}
+    a16, b16 = (from_numpy_u32(RNG.integers(0, 1 << 16, size=(16, 50)).astype(np.uint32) >> (i + 1))
+                for i in range(2))
+    assert torch.equal(fk.mul(a16, b16, SCALAR), fk.mul_plain(a16, b16, SCALAR))
+    descs = (("fadd", "prev", 0), ("fmul", "prev", 0))
+    assert torch.equal(fk.chain(a16, b16, descs, 2, SCALAR), fk.chain_plain(a16, b16, descs, 2, SCALAR))
+    assert fk.launch_counts() == {k: 0 for k in fk.KERNELS}
+    assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul")
 
 
 def test_wrappers_check_their_inputs():

@@ -127,7 +127,7 @@ class _Pair:
 
     def __init__(self, template, with_mask=True):
         self.R = template.num_constraints
-        self.port = mv.build_templated_check(template, B)
+        self.port = mv.build_templated_check(template, B, device="cpu")
         ref = ref_mv.build_templated_check(template, B, False, "bits_packed")
         self.ref_mask = jax.jit(ref) if with_mask else None
         self.ref_verdict = jax.jit(ref.verdict)
@@ -151,7 +151,7 @@ def _witness(prog, free=None):
     if free is None:
         free = RNG.integers(0, 1 << 32, size=(B // 32, len(prog.free_slots)),
                             dtype=np.uint64).astype(np.uint32)
-    return to_numpy_u32(prog.build_packed()(from_numpy_u32(free)))
+    return to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
 
 
 def test_check_matches_reference_sha256(sha256):
@@ -194,8 +194,8 @@ def test_check_matches_reference_fixtures(name, monkeypatch):
 
 def test_check_rejects_wrong_shape(sha256):
     template, _prog = sha256
-    chk = mv.build_templated_check(template, B)
+    chk = mv.build_templated_check(template, B, device="cpu")
     with pytest.raises(ValueError):
         chk.verdict(torch.zeros((B // 32, 10), dtype=torch.int32))
     with pytest.raises(NotImplementedError):
-        mv.build_templated_check(template, B, "bits")
+        mv.build_templated_check(template, B, "bits", device="cpu")

@@ -64,7 +64,7 @@ def test_step_matches_reference_fixtures(name, corrupt, monkeypatch):
     prog = WitnessProgram(tape)
     free = _free(prog)
     want = tuple(int(v) for v in ref_step(ref, template, B, use_pallas=False)(jnp.asarray(free)))
-    got = tuple(int(v) for v in build_packed_production_step(prog, template, B)(from_numpy_u32(free)))
+    got = tuple(int(v) for v in build_packed_production_step(prog, template, B, device="cpu")(from_numpy_u32(free)))
     assert got == want
     if corrupt:
         assert got[0] > 0 and got[1] < N_CHUNKS * B * template.num_constraints
@@ -85,11 +85,11 @@ def test_step_matches_chunk_verdicts_sha256(sha256, corrupt):
     template, tape = sha256
     prog = WitnessProgram(_corrupted(tape, "maj", "ch") if corrupt else tape)
     free = from_numpy_u32(_free(prog))
-    total, first = build_packed_production_step(prog, template, B)(free)
+    total, first = build_packed_production_step(prog, template, B, device="cpu")(free)
     assert total.dtype == first.dtype == torch.int64
-    words = build_packed_chunked_witness(prog)(free)
+    words = build_packed_chunked_witness(prog, device="cpu")(free)
     assert words.shape == (N_CHUNKS, B // 32, prog.num_slots)
-    check = build_templated_check(template, B)
+    check = build_templated_check(template, B, device="cpu")
     span = B * template.num_constraints
     nbs, firsts = zip(*(tuple(int(v) for v in check.verdict(w)) for w in words))
     want_first = min((f + k * span for k, (n, f) in enumerate(zip(nbs, firsts)) if n), default=SENT)
@@ -115,6 +115,6 @@ def test_aggregate_indexes_past_2_32():
 
 def test_step_rejects_wrong_batch(sha256):
     template, tape = sha256
-    step = build_packed_production_step(WitnessProgram(tape), template, B)
+    step = build_packed_production_step(WitnessProgram(tape), template, B, device="cpu")
     with pytest.raises(ValueError):
         step(torch.zeros((1, B // 64, 512), dtype=torch.int32))

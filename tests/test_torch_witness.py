@@ -96,7 +96,7 @@ def test_stages_and_words_match_reference_fixtures(name, monkeypatch):
             0, 1 << 32, size=(B // 32, len(prog.free_slots)), dtype=np.uint64
         ).astype(np.uint32)
         want = np.asarray(ref.build_packed()(jnp.asarray(free)))
-        got = to_numpy_u32(prog.build_packed()(from_numpy_u32(free)))
+        got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
         assert (got == want).all()
 
 
@@ -108,7 +108,7 @@ def test_packed_words_match_reference_sha256(sha_ref, sha_port):
         0, 1 << 32, size=(16, len(prog.free_slots)), dtype=np.uint64
     ).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(free)))
-    got = to_numpy_u32(prog.build_packed()(from_numpy_u32(free)))
+    got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
     assert got.shape == (16, 26327)
     assert (got == want).all()
 
@@ -144,20 +144,24 @@ def test_num_iszero_words_match_reference():
     _assert_same_stages(prog, ref)
     words = RNG.integers(0, 1 << 32, size=(4, n_free), dtype=np.uint64).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(words)))
-    got = to_numpy_u32(prog.build_packed()(from_numpy_u32(words)))
+    got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(words)))
     assert (got == want).all()
 
 
 def test_field_opcodes_are_refused():
+    """The packed evaluator refuses a program with field stages (they
+    compile, and build() evaluates them)."""
     from bellpepper_tpu.fields import SCALAR
 
     snap = (1, 3, [RefOp("fmul", [3], [1, 2])], [1, 2])
+    prog = WitnessProgram(_Tape(SCALAR, snap))
+    assert [st.opcode for st in prog.stages] == ["fmul"] and not prog.is_packable
     with pytest.raises(NotImplementedError):
-        WitnessProgram(_Tape(SCALAR, snap))
+        prog.build_packed("cpu")
 
 
 def test_evaluator_rejects_wrong_input(sha_port):
-    ev = WitnessProgram(sha_port[1]).build_packed()
+    ev = WitnessProgram(sha_port[1]).build_packed("cpu")
     with pytest.raises(ValueError):
         ev(torch.zeros((2, 511), dtype=torch.int32))
     with pytest.raises(ValueError):
