@@ -22,8 +22,8 @@ import torch
 
 from ..fields import PrimeField
 from .field_consts import L16, _digits, consts_for
-from .field_kernels import _add_canon_rows, _carry16_rows, _cond_sub_rows, _mul_rows
-from .words import U32, to_i32, to_u32
+from .field_kernels import _add_canon_rows, _cond_sub_rows, _mul_rows, _signed_carry, _table
+from .words import to_i32, to_u32
 
 
 class FieldBackend:
@@ -39,7 +39,6 @@ class FieldBackend:
         if self.consts.qe is None:
             raise ValueError("the backend's multiply needs a 253..255-bit field")
         p = field.p
-        self._p16 = _digits(p, 16, L16)
         self._p17 = _digits(p, 16, 17)
         nbits = (p - 2).bit_length()
         self._inv_bits = [(p - 2) >> (nbits - 1 - i) & 1 for i in range(nbits)]
@@ -74,32 +73,22 @@ class FieldBackend:
     def add(self, a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return self._join(_add_canon_rows(self._rows(a, dim), self._rows(b, dim), self.consts), dim)
 
+    def _p_limbs(self, x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+        """p's first n limbs, shaped to broadcast against x's stacked limb
+        rows ([n, ...] with x's other dims)."""
+        shape = (n,) + (1,) * (x.dim() - 1)
+        return _table(self.field.p, "p17", self._p17, x.device)[:n].reshape(shape)
+
     def sub(self, a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """(a + p) − b (< 2p, no borrow out), then one conditional
-        subtract of p."""
-        ap = _carry16_rows([r + c for r, c in zip(self._rows(a, dim), self._p16)], 17)
-        bs = self._rows(b, dim)
-        s = []
-        borrow = None
-        for i in range(17):
-            d = ap[i] - bs[i] if i < L16 else ap[i]
-            if borrow is not None:
-                d = d - borrow
-            d = d & U32
-            borrow = d >> 31
-            s.append(d & 0xFFFF)
+        """(a + p) − b (< 2p, positive), then one conditional subtract of
+        p."""
+        d = to_u32(a).movedim(dim, 0) + self._p_limbs(a, L16, dim) - to_u32(b).movedim(dim, 0)
+        s, _ = _signed_carry(torch.cat([d, torch.zeros_like(d[:1])]))
         return self._join(_cond_sub_rows(s, self._p17)[:L16], dim)
 
     def neg(self, a: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """p − a, with 0 mapping to 0."""
-        rows = self._rows(a, dim)
-        out = []
-        borrow = None
-        for i in range(L16):
-            d = self._p16[i] - rows[i] if borrow is None else self._p16[i] - rows[i] - borrow
-            d = d & U32
-            borrow = d >> 31
-            out.append(d & 0xFFFF)
+        out, _ = _signed_carry(self._p_limbs(a, L16, dim) - to_u32(a).movedim(dim, 0))
         res = self._join(out, dim)
         return torch.where(self.is_zero(a, dim).unsqueeze(dim), torch.zeros_like(res), res)
 

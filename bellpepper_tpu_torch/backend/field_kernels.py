@@ -412,7 +412,7 @@ def _cond_sub_rows(x: List[torch.Tensor], ps: List[int]) -> List[torch.Tensor]:
     """x − ps when that does not borrow, else x (len(ps) limbs,
     branch-free)."""
     xs = torch.stack(x[: len(ps)])
-    c = torch.tensor(ps, dtype=torch.int64, device=xs.device).reshape((-1,) + (1,) * (xs.dim() - 1))
+    c = _table(0, tuple(ps), ps, xs.device).reshape((-1,) + (1,) * (xs.dim() - 1))
     diff, borrow = _signed_carry(xs - c)
     return list(torch.where(borrow == 0, torch.stack(diff), xs).unbind(0))
 

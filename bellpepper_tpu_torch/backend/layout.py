@@ -502,12 +502,18 @@ def _check_pow2_magnitude(row: int, pa, pc, p: int) -> None:
             f"{POW2_M_LIMBS} limbs in the mixed check"
         )
     for side in (pa, pc):
-        cnt = defaultdict(int)
-        for _col, e in side[1]:
-            for w in range(e // 16, e // 16 + 3):
-                cnt[w] += 1
-        if (max(cnt.values(), default=0) + len(side[2]) + 2) * 0xFFFF >= 1 << 32:
+        if (_max_window_count(side) + len(side[2]) + 2) * 0xFFFF >= 1 << 32:
             raise ValueError(f"pow2 row {row}: a window sum of the mixed check can wrap 32 bits")
+
+
+def _max_window_count(side) -> int:
+    """The most u32-term contributions any 16-bit window of a pow2 side
+    receives (a term at exponent e adds to windows e//16 .. e//16 + 2)."""
+    cnt = defaultdict(int)
+    for _col, e in side[1]:
+        for w in range(e // 16, e // 16 + 3):
+            cnt[w] += 1
+    return max(cnt.values(), default=0)
 
 
 def _classify_mixed_rows(template: R1CS, field_slots):
@@ -613,15 +619,7 @@ def _classify_mixed_rows(template: R1CS, field_slots):
             if pa is not None and pc is not None:
                 # window-accumulation exactness: ≤ 64 overlapping
                 # contributions per 16-bit window per side
-                ok = True
-                for side in (pa, pc):
-                    cnt = defaultdict(int)
-                    for _col, e in side[1]:
-                        for w in range(e // 16, e // 16 + 3):
-                            cnt[w] += 1
-                    if cnt and max(cnt.values()) > 64:
-                        ok = False
-                if ok:
+                if max(_max_window_count(pa), _max_window_count(pc)) <= 64:
                     _check_pow2_magnitude(r, pa, pc, p)
                     out["pow2"].append((r, pa, pc))
                     continue

@@ -36,11 +36,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..r1cs import COOMatrix, R1CS
-
 from ..device import resolve
+from ..r1cs import COOMatrix, R1CS
 from .field_consts import _digits
-from .field_kernels import bitplane_eq, bits_matvec_semi, mulcmp, padded_positions
+from .field_kernels import _signed_carry, bitplane_eq, bits_matvec_semi, mulcmp, padded_positions
 from .layout import (
     FIELD_SRC,
     POW2_M_LIMBS,
@@ -441,29 +440,23 @@ class PackedBitsCheck:
 # ---------------------------------------------------------------------------
 # The mixed check
 # ---------------------------------------------------------------------------
-def _neg_const(x: torch.Tensor, const_limbs) -> torch.Tensor:
-    """const − x with a borrow chain over the limbs of dim 1 (x ≤ const;
-    int64 [n, L, B] holding 16-bit limbs)."""
-    outs = []
-    borrow = None
-    for i in range(x.shape[1]):
-        d = const_limbs[i] - x[:, i] if borrow is None else const_limbs[i] - x[:, i] - borrow
-        d = d & U32
-        borrow = d >> 31
-        outs.append(d & 0xFFFF)
-    return torch.stack(outs, dim=1)
+def _limb_rows(const_limbs, device) -> torch.Tensor:
+    """Constant limbs as an int64 [1, L, 1] tensor (broadcasts against
+    [n, L, B] limb planes)."""
+    return _t(const_limbs, device).reshape(1, -1, 1)
+
+
+def _neg_const(x: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
+    """const − x in 16-bit limbs along dim 1, the last borrow dropped (x ≤
+    const; int64 [n, L, B] and [1, L, 1])."""
+    return torch.stack(_signed_carry((const - x).transpose(0, 1))[0], dim=1)
 
 
 def _carry_limbs(x: torch.Tensor) -> torch.Tensor:
-    """Carry to 16-bit limbs along dim 1 in uint32 (the last carry
-    drops)."""
-    outs = []
-    carry = None
-    for i in range(x.shape[1]):
-        tot = x[:, i] if carry is None else (x[:, i] + carry) & U32
-        outs.append(tot & 0xFFFF)
-        carry = tot >> 16
-    return torch.stack(outs, dim=1)
+    """Carry to 16-bit limbs along dim 1, the last carry dropped (limbs of
+    the mixed check stay far below 2^31, where the reference's uint32
+    sums never wrap)."""
+    return torch.stack(_signed_carry(x.transpose(0, 1))[0], dim=1)
 
 
 def _mont_zero_test(d: torch.Tensor, p: int, m_limbs: int, pinv_limbs) -> torch.Tensor:
@@ -569,7 +562,7 @@ class _Operand:
             x[:, 1] = v >> 16
             term = torch.where(self.u_neg[t], _neg_const(x, p17), x)
             acc = acc + torch.where(self.u_on[t], term, 0)
-        return _carry_limbs(acc & U32)
+        return _carry_limbs(acc)
 
 
 class MixedCheck:
@@ -603,8 +596,8 @@ class MixedCheck:
             )
         self.n_bool, self.n_lin = len(cls["bool_u32"]), len(cls["lin"])
         self.n_mul, self.n_pow2 = len(cls["mul"]), len(cls["pow2"])
-        self.p17 = _digits(p, 16, 17)
-        self.off_lin = _digits(p << 3, 16, 17)
+        self.p17 = _limb_rows(_digits(p, 16, 17), device)
+        self.off_lin = _limb_rows(_digits(p << 3, 16, 17), device)
         self.p0inv = pow(p, -1, 1 << 16)
         self.bool_cols = _t([c for _r, c in cls["bool_u32"]], device)
         self.lin = [_Operand(cls["lin"], oi, device) for oi in range(2)]
@@ -626,7 +619,7 @@ class MixedCheck:
         e_max = max((e for _r, pa, pc in pow2 for _c, e in pa[1] + pc[1]), default=0)
         n_win = min(20, (e_max + 32 + 16) // 16 + 2)
         L = self.L = max(n_win, 17 + (POW2_OFF_BITS + 15) // 16) + 1
-        self.off_limbs = _digits(p << POW2_OFF_BITS, 16, L)
+        self.off_limbs = _limb_rows(_digits(p << POW2_OFF_BITS, 16, L), device)
         self.pinv_limbs = _digits(pow(p, -1, 1 << (16 * POW2_M_LIMBS)), 16, POW2_M_LIMBS)
         self.sides = []
         for which in (1, 2):
@@ -657,7 +650,7 @@ class MixedCheck:
     def _lin_bad(self, vals_p, flimbs_p):
         a = self.lin[0].assemble(vals_p, flimbs_p, self.p17)  # < 4p
         c = self.lin[1].assemble(vals_p, flimbs_p, self.p17)
-        d = _carry_limbs((a + _neg_const(c, self.off_lin)) & U32)  # a + 8p − c < 12p
+        d = _carry_limbs(a + _neg_const(c, self.off_lin))  # a + 8p − c < 12p
         return _mont_zero_test(d, self.p, 1, [self.p0inv])
 
     def _mul_bad(self, vals_p, flimbs_p):
@@ -692,7 +685,7 @@ class MixedCheck:
     def _pow2_bad(self, vals_p, flimbs_p):
         pos = self._side_sum(self.sides[0], vals_p, flimbs_p)
         neg = _carry_limbs(self._side_sum(self.sides[1], vals_p, flimbs_p))
-        d = _carry_limbs((pos + _neg_const(neg, self.off_limbs)) & U32)  # A + (p·2^34 − C)
+        d = _carry_limbs(pos + _neg_const(neg, self.off_limbs))  # A + (p·2^34 − C)
         return _mont_zero_test(d, self.p, POW2_M_LIMBS, self.pinv_limbs)
 
     def _class_bads(self, vals_p, flimbs_p):

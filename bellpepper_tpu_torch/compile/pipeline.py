@@ -45,8 +45,7 @@ def build_production_step(prog, template: R1CS, batch: int, device=None):
             "the bits form is not ported: pure-bit programs take build_packed_production_step"
         )
     device = resolve(device)
-    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) + list(prog.free_field_slots)
-    check = build_templated_check(template, batch, "mixed", field_slots=field_slots, device=device)
+    check = build_templated_check(template, batch, "mixed", field_slots=prog.field_slots, device=device)
     evaluator = prog.build(device)
     span = batch * template.num_constraints
     n_fr, n_ff = prog.n_field_rows, len(prog.free_field_slots)

@@ -380,6 +380,13 @@ class WitnessProgram:
         self.n_field_rows = len(field_rows)
 
     @property
+    def field_slots(self) -> List[int]:
+        """The slot of each flimbs row the check reads: the field rows in
+        row order, then the free field inputs (the mixed check's
+        ``field_slots``)."""
+        return sorted(self.field_rows, key=self.field_rows.get) + list(self.free_field_slots)
+
+    @property
     def is_pure_bits(self) -> bool:
         """True when every witness slot holds a 0/1 value (no field rows,
         no free field inputs)."""
@@ -611,7 +618,7 @@ class Evaluator:
                 write_field(t, _pack_limbs(self._bviews(vals, t["v"]), meta))
             elif oc == "lookup":
                 bv = to_u32(self._bviews(vals, t["v"]))  # [W, nb, B]
-                w = torch.tensor([1 << i for i in range(meta)], dtype=torch.int64, device=dev)
+                w = 1 << torch.arange(meta, dtype=torch.int64, device=dev)
                 sel = ((bv * w[None, :, None]).sum(1) & U32).clamp(max=(1 << meta) - 1)
                 base = torch.arange(bv.shape[0], device=dev)[:, None] << meta
                 r = t["table"].index_select(0, (base + sel).reshape(-1))

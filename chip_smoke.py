@@ -62,6 +62,7 @@ from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, _detect_linea
 B = 32768  # sha256 instances per chunk
 N_CHUNKS = 4
 B_FIELD = 8192  # config-1 instances per chunk (benchmarks/configs_1_2_3.py:123)
+MUL_WIDE_N = 1 << 20  # mul's second shape: one launch wide enough to fill the card
 SEED = 0x5962BE3D
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
@@ -177,10 +178,6 @@ def config1(nonzero: bool):
         nb.num_assert_nonzero(x)
     template, tape = nb.finish()
     return template, WitnessProgram(tape)
-
-
-def field_slots(prog):
-    return sorted(prog.field_rows, key=prog.field_rows.get) + list(prog.free_field_slots)
 
 
 def path_run(step, *args):
@@ -304,7 +301,7 @@ def field_kernels(dev, bound):
     del out
     rng = np.random.default_rng(SEED)
     top = p >> 240
-    for n in (N, 1 << 20):
+    for n in (N, MUL_WIDE_N):
         # random canonical operands (top limb below p's), then the corner
         # pairs of 0, 1 and p − 1 in the first 9 columns
         ops = []
@@ -389,7 +386,7 @@ def field_synth():
     ):
         template, prog = config1(nonzero)
         rs = (template.num_constraints, prog.num_slots)
-        cls = _classify_mixed_rows(template, field_slots(prog))
+        cls = _classify_mixed_rows(template, prog.field_slots)
         counts = tuple(len(cls[k]) for k in ("bool_u32", "lin", "mul", "pow2", "rest"))
         assert rs == want_rs and counts == want_cls, (name, rs, counts)
         print(f"[synth] {name}: {rs[0]} rows, {rs[1]} slots, {len(prog.stages)} stages, "
@@ -438,7 +435,7 @@ def field_steps(dev, card, built):
             x = s * s % p
             got = [col_int(fl0[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)]
             assert got == [m, s, x], ("chain probe", i, r)
-    check = build_templated_check(template, B_FIELD, "mixed", field_slots=field_slots(prog), device=dev)
+    check = build_templated_check(template, B_FIELD, "mixed", field_slots=prog.field_slots, device=dev)
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
     fbad = fl0.clone()
     mid = int(rows[45])
@@ -480,11 +477,11 @@ def field_steps(dev, card, built):
 
 
 def main() -> int:
-    card = card_line()
-    print(f"[card] {card}")
     if not torch.cuda.is_available():
         print("no CUDA device: nothing runs on the CPU", file=sys.stderr)
         return 1
+    card = card_line()
+    print(f"[card] {card}")
     dev = torch.device(DEVICE)
     name = torch.cuda.get_device_name(0)
     max_mhz = float(nvidia_smi("clocks.max.sm").split()[0])

@@ -104,7 +104,7 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     nb.num_square(nb.pack_bits(bits))
     field_t, field_tape = nb.finish()
     field_prog = WitnessProgram(field_tape)
-    fs = sorted(field_prog.field_rows, key=field_prog.field_rows.get)
+    fs = field_prog.field_slots
     nb = NativeBuilder()
     bits = [nb.alloc_bit() for _ in range(512)]
     nb.sha256_compression(bits, nb.sha256_iv())

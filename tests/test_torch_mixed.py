@@ -76,7 +76,8 @@ def _built(name):
     t, tape = _config1(NativeBuilder, nz)
     tr, tape_r = _config1(RefBuilder, nz)
     prog, ref = WitnessProgram(tape), RefProgram(tape_r)
-    fs = sorted(prog.field_rows, key=prog.field_rows.get) + list(prog.free_field_slots)
+    fs = prog.field_slots
+    assert fs == sorted(ref.field_rows, key=ref.field_rows.get) + list(ref.free_field_slots)
     return name, (t, tape, prog), (tr, tape_r, ref), fs
 
 

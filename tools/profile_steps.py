@@ -19,7 +19,6 @@ Every line names the card and its power limit. Without a CUDA device it
 exits 1."""
 
 import os
-import subprocess
 import sys
 import time
 
@@ -37,16 +36,9 @@ from bellpepper_tpu_torch import (  # noqa: E402
     build_templated_check,
 )
 from bellpepper_tpu_torch.backend.words import from_numpy_u32  # noqa: E402
+from chip_smoke import card_line, config1  # noqa: E402
 
 N_CHUNKS = 4
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
 
 
 def wall(fn, reps=3):
@@ -86,17 +78,6 @@ def profile_step(name, step, free, card):
     print(f"[{name}] device time by op: {top}")
 
 
-def config1():
-    nb = NativeBuilder()
-    bits = [nb.alloc_bit() for _ in range(128)]
-    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
-    x = a
-    for _ in range(30):
-        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
-    template, tape = nb.finish()
-    return template, WitnessProgram(tape)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -106,14 +87,13 @@ def main() -> int:
 
     # config 1: the field path
     B = 8192
-    template, prog = config1()
+    template, prog = config1(nonzero=False)
     free_np = np.random.default_rng(5).integers(0, 2, size=(N_CHUNKS, B, 128)).astype(np.uint32)
     free = from_numpy_u32(free_np, dev)
     step = build_production_step(prog, template, B, device=dev)
     profile_step("config1", step, free, card)
     ev = prog.build(dev)
-    fs = sorted(prog.field_rows, key=prog.field_rows.get)
-    check = build_templated_check(template, B, "mixed", field_slots=fs, device=dev)
+    check = build_templated_check(template, B, "mixed", field_slots=prog.field_slots, device=dev)
     vals, flimbs = ev.slot_major(free[0])
     pieces = {
         "witness": lambda: ev.slot_major(free[0]),
