@@ -35,7 +35,7 @@ ENTRY_POINTS = {
     "bp_bitplane_eq": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp],
     "bp_bits_matvec_semi": [_vp, _vp, _vp, _i32, _i32, _i64, _vp, _vp],
     "bp_mulcmp": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],
-    "bp_chain": [_vp, _vp, _vp, _i64, _i32, _i32, _u64, _i32, _vp, _vp],
+    "bp_chain": [_vp, _vp, _vp, _i64, _i32, _i32, _u64, _u64, _u64, _vp, _vp],
     "bp_mul16": [_vp, _vp, _vp, _i64, _vp, _vp],
 }
 

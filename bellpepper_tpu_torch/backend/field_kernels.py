@@ -474,30 +474,32 @@ def _modmul_consts(field: PrimeField):
 # ---------------------------------------------------------------------------
 # Kernel 1: the fused periodic field chain
 # ---------------------------------------------------------------------------
-MAX_CHAIN_DESCS = 8  # the longest pattern _detect_linear_chain returns
-MAX_CHAIN_EXT = 4  # external operands the CUDA kernel keeps in registers
+MAX_PATTERN = 8  # longest chain pattern: the kernel takes one byte a position
+_PREV = 0xFF  # the kernel's source byte for "prev"
 
 
-def _chain_code(descs, n_ext: int) -> int:
-    """Validate descs and pack them for the CUDA kernel: 8 bits a pattern
-    position (bit 0: fmul; bits 1-3 and 4-6: the a and b sources, 7 for
-    "prev", else the external operand's index)."""
-    if not 1 <= len(descs) <= MAX_CHAIN_DESCS:
-        raise ValueError(f"chain patterns have 1..{MAX_CHAIN_DESCS} ops, got {len(descs)}")
-    code = 0
+def _chain_code(descs, n_ext: int):
+    """Validate descs and pack them for the CUDA kernel as (fmul_mask,
+    a_src, b_src): bit j of fmul_mask set for an fmul, byte j of a_src and
+    b_src the sources (0xFF for "prev", else the external index)."""
+    if not 1 <= len(descs) <= MAX_PATTERN:
+        raise ValueError(f"chain patterns have 1..{MAX_PATTERN} ops, got {len(descs)}")
+    fmul_mask = a_src = b_src = 0
     for j, (op, a, b) in enumerate(descs):
         if op not in ("fmul", "fadd"):
             raise ValueError(f"chain op {op!r} is not fmul or fadd")
         srcs = []
         for s in (a, b):
             if s == "prev":
-                srcs.append(7)
-            elif isinstance(s, int) and 0 <= s < n_ext:
+                srcs.append(_PREV)
+            elif isinstance(s, int) and 0 <= s < min(n_ext, _PREV):
                 srcs.append(s)
             else:
                 raise ValueError(f"chain source {s!r} is not 'prev' or an external index < {n_ext}")
-        code |= ((op == "fmul") | (srcs[0] << 1) | (srcs[1] << 4)) << (8 * j)
-    return code
+        fmul_mask |= (op == "fmul") << j
+        a_src |= srcs[0] << (8 * j)
+        b_src |= srcs[1] << (8 * j)
+    return fmul_mask, a_src, b_src
 
 
 def chain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeField) -> torch.Tensor:
@@ -518,14 +520,12 @@ def chain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeF
     code = _chain_code(descs, n_ext)
     if not _on_cuda(x0, ext):
         return chain_plain(x0, ext, descs, n_reps, field)
-    if n_ext > MAX_CHAIN_EXT:
-        raise ValueError(f"the chain kernel holds at most {MAX_CHAIN_EXT} external operands")
     k = _modmul_consts(field)
     d = len(descs)
     out = torch.empty((n_reps * d * L16, N), dtype=torch.int32, device=x0.device)
     if N and n_reps:
         _launch("bp_chain", x0.data_ptr(), ext.data_ptr(), out.data_ptr(), N, n_reps, d,
-                code, n_ext, k.ctypes.data, stream=_stream(x0))
+                *code, k.ctypes.data, stream=_stream(x0))
         chain.launches += 1
     return out
 

@@ -55,6 +55,7 @@ from .words import U32, ctz32, device_table as _t, popcount32, to_i32, to_u32
 
 SENTINEL = 0xFFFFFFFF  # "no violation" value of `first`, as in the reference
 NONE = torch.iinfo(torch.int64).max  # int64 stand-in for "no violation yet"
+ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2")  # MixedCheck's row classes, in its row order
 
 
 def _unpack_rows(words: torch.Tensor) -> torch.Tensor:
@@ -688,17 +689,16 @@ class MixedCheck:
         d = _carry_limbs(pos + _neg_const(neg, self.off_limbs))  # A + (p·2^34 − C)
         return _mont_zero_test(d, self.p, POW2_M_LIMBS, self.pinv_limbs)
 
+    def class_bad(self, name: str, vals_p: torch.Tensor, flimbs_p: torch.Tensor) -> torch.Tensor:
+        """bool[n, B]: the bad mask of one row class (one of ROW_CLASSES),
+        its rows in the class's order, on slot-major vals and flimbs."""
+        if name == "bool_u32":
+            return (vals_p.index_select(0, self.bool_cols) & -2) != 0  # u32 > 1
+        return {"lin": self._lin_bad, "mul": self._mul_bad, "pow2": self._pow2_bad}[name](vals_p, flimbs_p)
+
     def _class_bads(self, vals_p, flimbs_p):
-        out = []
-        if self.n_bool:
-            out.append((vals_p.index_select(0, self.bool_cols) & -2) != 0)  # u32 > 1
-        if self.n_lin:
-            out.append(self._lin_bad(vals_p, flimbs_p))
-        if self.n_mul:
-            out.append(self._mul_bad(vals_p, flimbs_p))
-        if self.n_pow2:
-            out.append(self._pow2_bad(vals_p, flimbs_p))
-        return out
+        counts = (self.n_bool, self.n_lin, self.n_mul, self.n_pow2)
+        return [self.class_bad(c, vals_p, flimbs_p) for c, n in zip(ROW_CLASSES, counts) if n]
 
     # -- entry points -------------------------------------------------------
     def _check_args(self, vals, flimbs, slot_major: bool):

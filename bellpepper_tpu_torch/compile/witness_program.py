@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..backend import field_kernels as fk
+from ..backend.field_kernels import MAX_PATTERN  # longest chain pattern _detect_linear_chain accepts
 from ..backend.field_backend import FieldBackend, get_backend
 from ..backend.words import FULL, U32, device_table as _dev, to_i32, to_u32
 from ..device import resolve
@@ -65,7 +66,6 @@ SRC_FREE = 2  # a caller-provided free field input
 # a run of at least MIN_SCAN_RUN stages is offered to _detect_linear_chain.
 SCAN_OPS = {"fadd": 0, "fmul": 1, "finv": 2, "copy": 3, "select": 4}
 MIN_SCAN_RUN = 4
-MAX_PATTERN = 8  # longest chain pattern _detect_linear_chain accepts
 
 
 class _Stage:

@@ -7,75 +7,61 @@
 //
 // Inputs x0 u32[16, N] (the chain's entry) and ext u32[n_ext·16, N]
 // (external operand k is rows 16k..16k+15), canonical limb-major; output
-// u32[n_reps·d·16, N]. The pattern is packed 8 bits a position (bit 0:
-// fmul; bits 1-3 and 4-6: the a and b sources, 7 = previous output,
-// else an external index).
+// u32[n_reps·d·16, N]. The pattern arrives as three 64-bit arguments, one
+// byte a position: fmul_mask bit j is set when op j is an fmul, and byte j
+// of a_src and b_src names its operands (0xFF: the previous output, else
+// an external index).
 //
-// Design: one thread per instance. The running value and the external
-// operands stay in registers for the whole chain (N_EXT is a template
-// parameter, so every operand select is a compile-time register move);
-// the pattern is the same for every thread, so its branches are uniform;
-// each step's 16 limbs are stored limb-major, so neighbouring threads
-// write neighbouring words. The TPU kernel's 96-step cap only bounded its
-// VMEM output block; this kernel has none.
-//
-// What bounds it on the card: integer operations. Each fmul step is the
-// ~2,500-operation modmul of field.cuh and each fadd ~150 operations,
-// against 64 bytes written per step and instance.
+// Design: one thread per instance. The running value stays in registers
+// for the whole chain; an external operand is read from global memory at
+// each use (coalesced, and an L1/L2 hit after the first repetition), so
+// any number of external operands works with one kernel. The pattern is
+// the same for every thread, so its branches are uniform; each step's 16
+// limbs are stored limb-major, so neighbouring threads write neighbouring
+// words. The TPU kernel's 96-step cap only bounded its VMEM output block;
+// this kernel has none.
 #include "field.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr unsigned kPrev = 7;
+constexpr unsigned kPrev = 0xFF;
 
-template <int N_EXT>
-static __device__ __forceinline__ void select_operand(
-    unsigned src, const uint32_t (&cur)[16], const uint32_t (&ext)[N_EXT][16],
-    uint32_t (&out)[16]) {
+static __device__ __forceinline__ void load_operand(
+    unsigned src, const uint32_t (&cur)[16], const uint32_t* __restrict__ ext,
+    int64_t n, int64_t i, uint32_t (&out)[16]) {
+  if (src == kPrev) {
 #pragma unroll
-  for (int l = 0; l < 16; ++l) out[l] = cur[l];
+    for (int l = 0; l < 16; ++l) out[l] = cur[l];
+  } else {
+    const uint32_t* e = ext + static_cast<int64_t>(src) * 16 * n + i;
 #pragma unroll
-  for (int e = 0; e < N_EXT; ++e) {
-    if (src == static_cast<unsigned>(e)) {
-#pragma unroll
-      for (int l = 0; l < 16; ++l) out[l] = ext[e][l];
-    }
+    for (int l = 0; l < 16; ++l) out[l] = __ldg(e + l * n);
   }
 }
 
-template <int N_EXT>
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ ext,
              uint32_t* __restrict__ out, int64_t n, int n_reps, int n_desc,
-             uint64_t code, const bp::ModConsts k) {
+             uint64_t fmul_mask, uint64_t a_src, uint64_t b_src,
+             const bp::ModConsts k) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   uint32_t cur[16];
-  uint32_t e[N_EXT][16];
 #pragma unroll
   for (int l = 0; l < 16; ++l) cur[l] = __ldg(x0 + l * n + i);
-#pragma unroll
-  for (int x = 0; x < N_EXT; ++x) {
-#pragma unroll
-    for (int l = 0; l < 16; ++l) e[x][l] = __ldg(ext + (x * 16 + l) * n + i);
-  }
   uint32_t* o = out + i;
   for (int r = 0; r < n_reps; ++r) {
     for (int j = 0; j < n_desc; ++j) {
-      const unsigned c = static_cast<unsigned>(code >> (8 * j)) & 0xFFu;
-      uint32_t a[16], b[16], res[16];
-      select_operand<N_EXT>((c >> 1) & 7u, cur, e, a);
-      select_operand<N_EXT>((c >> 4) & 7u, cur, e, b);
-      if (c & 1u)
-        bp::mul_canon(a, b, k, res);
+      uint32_t a[16], b[16];
+      load_operand(static_cast<unsigned>(a_src >> (8 * j)) & 0xFFu, cur, ext, n, i, a);
+      load_operand(static_cast<unsigned>(b_src >> (8 * j)) & 0xFFu, cur, ext, n, i, b);
+      if ((fmul_mask >> j) & 1u)
+        bp::mul_canon(a, b, k, cur);
       else
-        bp::add_canon(a, b, k, res);
+        bp::add_canon(a, b, k, cur);
 #pragma unroll
-      for (int l = 0; l < 16; ++l) {
-        o[l * n] = res[l];
-        cur[l] = res[l];
-      }
+      for (int l = 0; l < 16; ++l) o[l * n] = cur[l];
       o += 16 * n;
     }
   }
@@ -84,26 +70,12 @@ chain_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ ext,
 }  // namespace
 
 extern "C" int bp_chain(const uint32_t* x0, const uint32_t* ext, uint32_t* out,
-                        int64_t n, int n_reps, int n_desc, uint64_t code,
-                        int n_ext, const uint32_t* consts_host, void* stream) {
+                        int64_t n, int n_reps, int n_desc, uint64_t fmul_mask,
+                        uint64_t a_src, uint64_t b_src, const uint32_t* consts_host,
+                        void* stream) {
   const bp::ModConsts k = bp::load_mod_consts(consts_host);
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_ext) {
-    case 1:
-      chain_kernel<1><<<blocks, kThreads, 0, s>>>(x0, ext, out, n, n_reps, n_desc, code, k);
-      break;
-    case 2:
-      chain_kernel<2><<<blocks, kThreads, 0, s>>>(x0, ext, out, n, n_reps, n_desc, code, k);
-      break;
-    case 3:
-      chain_kernel<3><<<blocks, kThreads, 0, s>>>(x0, ext, out, n, n_reps, n_desc, code, k);
-      break;
-    case 4:
-      chain_kernel<4><<<blocks, kThreads, 0, s>>>(x0, ext, out, n, n_reps, n_desc, code, k);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  chain_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x0, ext, out, n, n_reps, n_desc, fmul_mask, a_src, b_src, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,13 @@
 // field constants arrive as one kernel parameter, so every constant read
 // is a uniform constant-bank operand.
 //
-// What bounds it on the card: integer operations. About 2,500 32-bit
-// integer operations per element (256 products with their lo/hi split,
-// 512 fold multiply-adds, the carries and the canonical tail) against
-// 192 bytes moved. At the witness program's shape (N = B = 8,192, one
-// launch per fmul stage) a launch is too small to fill the card, so the
-// launch itself is what a stage pays.
+// What bounds it on the card: the 192 bytes an element moves. A modmul
+// needs 136 32×32 → 64-bit products at the least (8 × 8 words and a
+// Montgomery reduction), which take the card less time than the bytes;
+// this 16-bit-limb design issues about three times as many multiplies
+// (834). At the witness program's shape (N = B = 8,192, one launch per
+// fmul stage) a launch is too small to fill the card, so the launch
+// itself is what a stage pays.
 #include "field.cuh"
 
 namespace {

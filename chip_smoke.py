@@ -24,15 +24,16 @@ Phases (one line each, or a few):
     path's run and read just after), words equal to the CPU evaluator's,
     planted corruptions found at their instance, a Python-int recurrence
     for the chain;
-  * each step's time and rate; the config-1 witness and check seconds per
-    chunk and peak memory.
+  * each step's time and rate and the device's busy share of it
+    (torch.profiler); the config-1 witness and check seconds per chunk,
+    the check's split by row class, and peak memory.
 
-``bound``: the larger of the bytes a kernel must move (each input read
-once, each output written once) over 3.35 TB/s and the 32-bit integer
-multiplies and multiply-adds its source does on these inputs over 64
-lanes × 132 SMs × the card's maximum SM clock (the other integer ops
-fuse around them, so they are left out of a time the card cannot beat). The line before last
-names the card again; the last line is {"ok": true, "device": {...}}.
+``bound``: the larger of the bytes a kernel's function must move (each
+input read once, each output written once) over 3.35 TB/s and the 32-bit
+integer products that function needs on these inputs (not those of the
+kernel's own design; see ``modmul_products``) over 64 lanes × 132 SMs ×
+the card's maximum SM clock. The line before last names the card again;
+the last line is {"ok": true, "device": {...}}.
 Any failed phase raises and the script exits non-zero. Without a CUDA
 device it exits 1 at once."""
 
@@ -44,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from bellpepper_tpu_torch import (
     SCALAR,
@@ -56,6 +58,7 @@ from bellpepper_tpu_torch import (
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk
 from bellpepper_tpu_torch.backend.layout import _classify_mixed_rows
+from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_u32
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, _detect_linear_chain
 
@@ -80,19 +83,26 @@ KERNEL_INFO = {
             "bellpepper_tpu/backend/field_pallas.py:704"),
 }
 
-# 32-bit integer multiplies and multiply-adds per element, counted from
-# the sources (csrc/field.cuh and each kernel): the operations side of
-# `bound`. Only these count: the compiler fuses the adds, shifts and logic
-# ops around them (IADD3, LOP3, PRMT), but every product is one
-# instruction of its own, so their count gives a time the card cannot
-# beat. modmul (field.cuh mul_canon): 16×16 products, 16×16 × 2 split
-# fold multiply-adds, 3 × 16 final-fold multiply-adds, 2 for q̂ and 16 for
-# q̂·p. mulcmp: 17×17 products, 18×16 × 2 split fold, 3 × 16 final fold,
-# 1 + 16 for the Montgomery zero-test. bits_matvec_semi: 32 digit
-# multiply-adds an entry, then 4 × 32 in the semi reduction. bitplane_eq
-# does logic ops only.
-MODMUL_MULS = 16 * 16 + 16 * 16 * 2 + 3 * 16 + 2 + 16
-MULCMP_MULS = 17 * 17 + 18 * 16 * 2 + 3 * 16 + 1 + 16
+
+def modmul_products(words_a: int, words_b: int, words_p: int = 8) -> int:
+    """32-bit multiplies that a·b mod p needs at the least: a schoolbook
+    product of 32-bit words and a Montgomery reduction of it (one quotient
+    word and words_p products a word reduced), each 32×32 → 64-bit product
+    counted as two 32-bit multiplies (its low and high words). The
+    operations side of `bound` counts only products: the adds and logic
+    ops fuse around them, so their count gives a time the card cannot
+    beat whatever limb size a kernel chooses."""
+    n_reduce = words_a + words_b - words_p
+    return 2 * (words_a * words_b + n_reduce * (1 + words_p))
+
+
+# Products per element. A canonical modmul (chain's fmul steps, mul) takes
+# two 8-word residues; mulcmp's a·b − c takes 17-limb semi values below
+# 2^265, 9 words each. bits_matvec_semi multiplies 0/1 bits by digits (a
+# select, no product) and folds 4 × 32 digit sums by constants in its semi
+# reduction. bitplane_eq does logic ops only.
+MODMUL_MULS = modmul_products(8, 8)
+MULCMP_MULS = modmul_products(9, 9)
 SEMI_REDUCE_MULS = 4 * 32
 
 
@@ -119,6 +129,33 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_s(fn, reps: int) -> float:
+    """Mean host-clock seconds of fn() over reps calls, after one warm-up,
+    with one synchronize at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / reps
+
+
+def device_busy(step, free) -> str:
+    """torch.profiler over one run of step(free): the device kernels, their
+    summed device time and its share of the profiled run's wall time."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(free)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    return (f"{len(kernels)} device kernels, {dev_s * 1e3:.3f} ms device time, "
+            f"busy {dev_s / wall:.4f} of the profiled {wall:.4f} s")
 
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
@@ -228,7 +265,7 @@ def sha256_kernels(dev, bound):
         F = from_numpy_u32(rng.integers(0, 256, size=(32, 8, K)).astype(np.uint32), dev)
         xf, Ff = x.float(), F.permute(1, 0, 2).float().contiguous()
         n_bytes = (8 * K * B + 32 * 8 * K + 17 * 8 * B) * 4
-        n_ops = 8 * B * (32 * K + SEMI_REDUCE_MULS)
+        n_ops = 8 * B * SEMI_REDUCE_MULS
         r = compare(
             f"bits_matvec_semi K={K}", lambda: fk.bits_matvec_semi(x, F, SCALAR),
             lambda: fk.bits_matvec_semi_plain(x, F, SCALAR), bound(n_bytes, n_ops),
@@ -374,6 +411,7 @@ def sha256_step(dev, card, template, prog):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[perf] sha256 step {t_step:.4f} s for {N_CHUNKS}x{B} instances = {rate:.4e} "
           f"constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+    print(f"[perf] sha256 step under torch.profiler: {device_busy(step, free)}")
     return launches
 
 
@@ -447,32 +485,27 @@ def field_steps(dev, card, built):
           f"field row {mid} at instance {B_FIELD // 2} found: n_bad {nbad}, instance {first // R}")
     del vals0, fl0, fbad
 
-    # per-chunk witness and check seconds, the step's time and peak memory
-    torch.cuda.synchronize()
+    # per-chunk witness and check seconds (and the check's split by row
+    # class), each step's time, device busy share and peak memory
     reps = 5
-    t0 = time.time()
-    for _ in range(reps):
-        out = ev.slot_major(free[0])
-    torch.cuda.synchronize()
-    t_wit = (time.time() - t0) / reps
-    vals_p, fl_p = out
-    t0 = time.time()
-    for _ in range(reps):
-        v = check.verdict_slot_major(vals_p, fl_p)
-    torch.cuda.synchronize()
-    t_chk = (time.time() - t0) / reps
-    assert int(v[0]) == 0
-    del out, vals_p, fl_p
+    vals_p, fl_p = ev.slot_major(free[0])
+    assert int(check.verdict_slot_major(vals_p, fl_p)[0]) == 0
+    t_wit = wall_s(lambda: ev.slot_major(free[0]), reps)
+    t_chk = wall_s(lambda: check.verdict_slot_major(vals_p, fl_p), reps)
+    split = ", ".join(f"{c} rows {wall_s(lambda: check.class_bad(c, vals_p, fl_p), reps):.5f} s"
+                      for c, rows in zip(ROW_CLASSES, check.rows) if rows.numel())
+    print(f"[perf] config1 per chunk of {B_FIELD}: witness {t_wit:.5f} s, check {t_chk:.5f} s "
+          f"({split}), on {card}")
+    del vals_p, fl_p
     for name in ("config1", "variant"):
         template = built[name][0]
         torch.cuda.reset_peak_memory_stats()
         t_step = time_step(steps[name], free, reps if name == "config1" else 2)
         peak = torch.cuda.max_memory_allocated() / 2**30
         rate = N_CHUNKS * B_FIELD * template.num_constraints / t_step
-        extra = (f"; witness {t_wit:.5f} s and check {t_chk:.5f} s per chunk"
-                 if name == "config1" else "")
         print(f"[perf] {name} step {t_step:.4f} s for {N_CHUNKS}x{B_FIELD} instances = "
-              f"{rate:.4e} constraint-evals/s{extra}, peak {peak:.2f} GiB, on {card}")
+              f"{rate:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+    print(f"[perf] config1 step under torch.profiler: {device_busy(steps['config1'], free)}")
     return launches
 
 

@@ -150,8 +150,10 @@ def test_mul_on_card(cuda, field, N):
         ((("fmul", "prev", 0), ("fadd", "prev", 1), ("fmul", "prev", "prev")), 2),
         ((("fadd", "prev", 0),), 1),
         ((("fmul", 2, "prev"), ("fadd", 3, "prev"), ("fmul", "prev", 1), ("fadd", 0, "prev")), 4),
+        ((("fmul", 0, "prev"), ("fadd", 1, "prev"), ("fmul", "prev", 2), ("fadd", 3, "prev"),
+          ("fmul", 4, 5), ("fadd", "prev", 6), ("fmul", "prev", 7), ("fadd", "prev", "prev")), 9),
     ],
-    ids=["config1", "fadd", "four_ext"],
+    ids=["config1", "fadd", "four_ext", "eight_ops_nine_ext"],
 )
 def test_chain_on_card(cuda, descs, n_ext):
     N = 777

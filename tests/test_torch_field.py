@@ -235,6 +235,16 @@ def test_chain_split_gives_the_same_steps():
     assert torch.equal(whole, torch.cat([first, second]))
 
 
+def test_chain_code_packs_a_byte_a_position():
+    """The kernel's pattern arguments: any external index the ext tensor
+    holds, up to MAX_PATTERN positions, the same limits as on the CPU."""
+    descs = (("fmul", 8, "prev"), ("fadd", "prev", "prev"), ("fmul", 0, 5))
+    assert fk._chain_code(descs, 9) == (0b101, 0x00FF08, 0x05FFFF)
+    assert fk.MAX_PATTERN == 8
+    with pytest.raises(ValueError):
+        fk._chain_code(descs, 8)
+
+
 def test_chain_and_mul_check_their_inputs():
     x = torch.zeros((16, 8), dtype=torch.int32)
     with pytest.raises(ValueError):

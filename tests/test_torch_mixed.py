@@ -46,6 +46,7 @@ from bellpepper_tpu_torch import (
     build_templated_check,
 )
 from bellpepper_tpu_torch.backend import layout
+from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.compile.witness_program import _detect_linear_chain
 
@@ -242,6 +243,10 @@ def test_mixed_check_matches_reference(built):
         mask = port(_i32(v), _i32(f)).numpy()
         want = np.asarray(ref(jnp.asarray(v), jnp.asarray(f)))
         assert (mask == want).all(), k
+        vp, fp = _i32(v).t().contiguous(), _i32(f).permute(1, 2, 0).contiguous()
+        for c, rows in zip(ROW_CLASSES, port.rows):  # the per-class hook, row by row
+            if rows.numel():
+                assert (port.class_bad(c, vp, fp).t().numpy() == mask.reshape(B, R)[:, rows.numpy()]).all()
         nb, first = (int(x) for x in port.verdict(_i32(v), _i32(f)))
         assert nb == int(want.sum()) and (nb > 0) == (k > 0)
         assert first == (int(np.argmax(want)) if nb else 0xFFFFFFFF)
