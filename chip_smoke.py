@@ -24,9 +24,8 @@ Phases (one line each, or a few):
     path's run and read just after), words equal to the CPU evaluator's,
     planted corruptions found at their instance, a Python-int recurrence
     for the chain;
-  * each step's time and rate and the device's busy share of it
-    (torch.profiler); the config-1 witness and check seconds per chunk,
-    the check's split by row class, and peak memory.
+  * each step's time, rate and peak memory; the config-1 witness and
+    check seconds per chunk and the check's split by row class.
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once) over 3.35 TB/s and the 32-bit
@@ -45,7 +44,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from bellpepper_tpu_torch import (
     SCALAR,
@@ -141,21 +139,6 @@ def wall_s(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.time() - t0) / reps
-
-
-def device_busy(step, free) -> str:
-    """torch.profiler over one run of step(free): the device kernels, their
-    summed device time and its share of the profiled run's wall time."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        step(free)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    return (f"{len(kernels)} device kernels, {dev_s * 1e3:.3f} ms device time, "
-            f"busy {dev_s / wall:.4f} of the profiled {wall:.4f} s")
 
 
 def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> int:
@@ -411,7 +394,6 @@ def sha256_step(dev, card, template, prog):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[perf] sha256 step {t_step:.4f} s for {N_CHUNKS}x{B} instances = {rate:.4e} "
           f"constraint-evals/s, peak {peak:.2f} GiB, on {card}")
-    print(f"[perf] sha256 step under torch.profiler: {device_busy(step, free)}")
     return launches
 
 
@@ -486,7 +468,7 @@ def field_steps(dev, card, built):
     del vals0, fl0, fbad
 
     # per-chunk witness and check seconds (and the check's split by row
-    # class), each step's time, device busy share and peak memory
+    # class), each step's time and peak memory
     reps = 5
     vals_p, fl_p = ev.slot_major(free[0])
     assert int(check.verdict_slot_major(vals_p, fl_p)[0]) == 0
@@ -505,7 +487,6 @@ def field_steps(dev, card, built):
         rate = N_CHUNKS * B_FIELD * template.num_constraints / t_step
         print(f"[perf] {name} step {t_step:.4f} s for {N_CHUNKS}x{B_FIELD} instances = "
               f"{rate:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
-    print(f"[perf] config1 step under torch.profiler: {device_busy(steps['config1'], free)}")
     return launches
 
 
