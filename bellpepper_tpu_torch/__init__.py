@@ -21,13 +21,20 @@ Ported paths:
   * the field path (config 1, AllocatedNum mul/add): ``NativeBuilder``'s
     num gadgets → ``WitnessProgram.build`` → ``build_templated_check(...,
     "mixed")`` → ``build_production_step``, with the kernels ``chain``,
-    ``mul`` and ``mulcmp``.
+    ``mul`` and ``mulcmp``;
+  * the limbs witness form (any value in any slot): ``Satisfier`` (one
+    R1CS), ``TemplatedSatisfier``, ``build_templated_check(..., "limbs")``,
+    ``build_production_step(..., witness_form="limbs")`` and
+    ``build_chunked_check``, with the kernels ``limbs_matvec``,
+    ``mul_digits``, ``reduce_digits``, ``mul`` and ``mulcmp``.
 
 The kernels are CUDA C++ (``csrc/``)."""
 
 from .backend.matvec import build_templated_check
+from .backend.satisfier import Satisfier, TemplatedSatisfier
 from .backend.words import pack_bits, unpack_bits
 from .compile.pipeline import (
+    build_chunked_check,
     build_chunked_witness,
     build_packed_chunked_witness,
     build_packed_production_step,
@@ -46,8 +53,11 @@ __all__ = [
     "PrimeField",
     "R1CS",
     "SCALAR",
+    "Satisfier",
+    "TemplatedSatisfier",
     "VESTA_SCALAR",
     "WitnessProgram",
+    "build_chunked_check",
     "build_chunked_witness",
     "build_packed_chunked_witness",
     "build_packed_production_step",

@@ -33,10 +33,12 @@ _vp, _i64, _i32, _u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_
 # void*, sizes as the C side declares them).
 ENTRY_POINTS = {
     "bp_bitplane_eq": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp],
-    "bp_bits_matvec_semi": [_vp, _vp, _vp, _i32, _i32, _i64, _vp, _vp],
+    "bp_fold_matvec": [_vp, _vp, _vp, _i32, _i32, _i64, _i32, _vp, _vp],
     "bp_mulcmp": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],
     "bp_chain": [_vp, _vp, _vp, _i64, _i32, _i32, _u64, _u64, _u64, _vp, _vp],
     "bp_mul16": [_vp, _vp, _vp, _i64, _vp, _vp],
+    "bp_mul_digits": [_vp, _vp, _vp, _i64, _vp, _vp],
+    "bp_reduce_digits": [_vp, _vp, _i64, _vp, _vp],
 }
 
 _lib = None

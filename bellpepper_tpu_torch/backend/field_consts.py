@@ -1,8 +1,9 @@
 """Host-side integer constants of one prime field, for the field kernels.
 
 Copied from ``bellpepper_tpu/backend/field_pallas.py:39-114`` (``_digits``,
-``_Consts``, ``_QE_ERR``) as plain Python ints, with the exhaustive check
-of the quotient-estimate bound kept as it is. ``kernel_consts`` packs the
+``_Consts``, ``_QE_ERR``) and ``:1050`` (``fold_digit_table``) as plain
+Python ints, with the exhaustive check of the quotient-estimate bound kept
+as it is. ``kernel_consts`` packs the
 rows the CUDA kernels read into flat uint32 arrays (the layouts of the
 constant structs in ``csrc/mulcmp.cu`` and ``csrc/field.cuh``)."""
 
@@ -18,6 +19,7 @@ L16 = 16
 L8 = 32
 SEMI = 17  # limbs of the semi-reduced form (< p·2^11 < 2^266)
 _QE_ERR = 6  # cond-subtract coverage: x' < 7p < 8p → sub 4p, 2p, p
+MAX_SHIFTS = 16  # shift-subtract steps the canonical reduction kernels hold (NUM_BITS >= 250)
 
 
 def _digits(v: int, width: int, count: int) -> List[int]:
@@ -93,6 +95,19 @@ def consts_for(field: PrimeField) -> _Consts:
     return c
 
 
+def fold_digit_table(field: PrimeField, coeff_table) -> np.ndarray:
+    """uint32[n_coeff, 32, 32]: entry [t, j, d] = digit d of
+    (coeff_table[t] · 2^(8j) mod p), the per-coefficient fold matrices of
+    the limbs matvec (``field_pallas.fold_digit_table``)."""
+    p = field.p
+    out = np.zeros((len(coeff_table), L8, L8), np.uint32)
+    for t, c in enumerate(coeff_table):
+        c = int(c) % p
+        for j in range(L8):
+            out[t, j] = _digits((c << (8 * j)) % p, 8, L8)
+    return out
+
+
 _KERNEL_CONSTS: Dict[int, Dict[str, np.ndarray]] = {}
 
 
@@ -100,8 +115,12 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
     """Flat uint32 constant blocks (cached per field) in the layouts the
     CUDA kernels take:
 
-    * ``semi_fold``  [4·32]: fold rows 0..3 (8-bit digits), for
-      bits_matvec_semi;
+    * ``reduce``     [4·32 + MAX_SHIFTS·17 + 1]: fold rows 0..3 (8-bit
+      digits), the shift-subtract moduli p·2^k (``ps``, k = n − 1 … 0)
+      padded to MAX_SHIFTS rows of 17 limbs, and n = 266 − NUM_BITS, for
+      the fold matvec and reduce_digits (the semi output reads the fold
+      rows alone; for a field with more than MAX_SHIFTS steps the moduli
+      are left out, n is 0, and the canonical wrappers refuse the field);
     * ``mulcmp``     [17 + 18·16 + 18·16 + 3·16 + 16 + 1]: p2_17, fold16,
       fold16_hi, fold16b, p16, p0inv, for mulcmp;
     * ``modmul``     [16·16 + 16·16 + 3·16 + 3·17 + 1]: fold16 and
@@ -132,8 +151,15 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
             + [c.qe],
             np.uint32,
         )
+    ps = c.ps if len(c.ps) <= MAX_SHIFTS else []
+    reduce = (
+        [v for row in c.fold[:4] for v in row]
+        + [v for row in ps for v in row]
+        + [0] * (17 * (MAX_SHIFTS - len(ps)))
+        + [len(ps)]
+    )
     out = _KERNEL_CONSTS[field.p] = {
-        "semi_fold": np.asarray([v for row in c.fold[:4] for v in row], np.uint32),
+        "reduce": np.asarray(reduce, np.uint32),
         "mulcmp": np.asarray(mulcmp, np.uint32),
         "modmul": modmul,
     }

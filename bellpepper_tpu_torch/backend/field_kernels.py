@@ -13,7 +13,18 @@ the ported paths, each a CUDA kernel in ``csrc/``:
   ``chain``                     ``make_chain_kernel`` (:407)
   ``mul``                       ``PallasFieldOps.mul`` → ``_mul_kernel``
                                 (:704, :727)
+  ``limbs_matvec``              ``make_fold_matvec_bucket`` (:828) via
+                                ``make_limbs_matvec_bucket`` (:975), both
+                                output forms
+  ``mul_digits``                ``PallasFieldOps.mul_digits`` →
+                                ``_mul_digits_kernel`` (:711)
+  ``reduce_digits``             ``PallasFieldOps.reduce_digits`` →
+                                ``_reduce_kernel`` (:720)
   ============================  ==========================================
+
+``bits_matvec_semi`` and ``limbs_matvec`` launch one CUDA kernel
+(``csrc/fold_matvec.cu``) and count apart, so each form shows on its
+path.
 
 Every wrapper checks device, dtype, shape and contiguity, then runs its
 plain PyTorch version when the inputs lie on the CPU, or launches its CUDA
@@ -32,14 +43,16 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from ..fields import PrimeField
 from .cuda_lib import load_kernels
-from .field_consts import L8, L16, SEMI, _digits, consts_for, kernel_consts
+from .field_consts import L8, L16, MAX_SHIFTS, SEMI, _digits, consts_for, kernel_consts
 from .words import FULL, U32, to_i32, to_u32
 
-KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul")
+KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
+           "limbs_matvec", "mul_digits", "reduce_digits")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -220,13 +233,38 @@ def _mont_zero_rows(x: List[torch.Tensor], consts) -> torch.Tensor:
     return bad
 
 
+def _fold8_rows(d: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """field_pallas._fold_rows: the low 32 digits plus Σ_i d[32+i]·fold[i].
+    The digits are below 2^8 after a carry, so every sum is below 2^22 and
+    a float64 matmul is exact."""
+    n = len(d) - L8
+    hi = torch.stack(d[L8:])
+    shape = hi.shape[1:]
+    table = _table(_p_of(consts), f"fold8_{n}", consts.fold[:n], hi.device)  # [n, 32]
+    add = torch.matmul(table.t().to(torch.float64), hi.reshape(n, -1).to(torch.float64))
+    add = add.to(torch.int64).reshape((L8,) + tuple(shape))
+    return [d[l] + add[l] for l in range(L8)]
+
+
+def _reduce_rows(digit_rows: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """field_pallas._reduce_rows: 32 digit sums (8-bit basis, < 2^32) →
+    16 canonical limbs: carry to 66 positions, fold, carry, fold, carry,
+    join digit pairs, then the shift-subtract chain (_chain_rows: keep
+    x − p·2^k where it does not borrow, k from high to 0)."""
+    d = _carry_rows(digit_rows, 66, 8)
+    f1 = _carry_rows(_fold8_rows(d, consts), 34, 8)
+    f2 = _carry_rows(_fold8_rows(f1, consts), 34, 8)
+    x = [f2[2 * i] | (f2[2 * i + 1] << 8) for i in range(17)]
+    for ps in consts.ps:
+        x = _cond_sub_rows(x, ps)
+    return x[:L16]
+
+
 # ---------------------------------------------------------------------------
-# Kernel 4 (bits form, semi output): bucket matvec
+# Kernel 4: the fold matvec, in its bits form (semi output) and its limbs
+# form (semi or canonical output)
 # ---------------------------------------------------------------------------
-def bits_matvec_semi(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """x int32[n_rows, C, B] witness bits, F int32[32, n_rows, C] digit
-    planes (< 256) → int32[17, n_rows, B] semi-reduced limbs of
-    Σ_c coeff·x (a value < 2^265 congruent mod p)."""
+def _check_matvec(x: torch.Tensor, F: torch.Tensor) -> tuple:
     if x.dim() != 3:
         raise ValueError("x must be [n_rows, C, B]")
     n_rows, C, B = x.shape
@@ -234,31 +272,89 @@ def bits_matvec_semi(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> tor
     _check_words("F", F, (L8, n_rows, C))
     if C * 255 * 255 >= (1 << 32):
         raise ValueError(f"contraction width {C} overflows the digit sums")
-    if not _on_cuda(x, F):
-        return bits_matvec_semi_plain(x, F, field)
-    out = torch.empty((SEMI, n_rows, B), dtype=torch.int32, device=x.device)
+    return n_rows, C, B
+
+
+def _reduce_consts(field: PrimeField, canonical: bool) -> np.ndarray:
+    if canonical and len(consts_for(field).ps) > MAX_SHIFTS:
+        raise ValueError(f"the canonical reduction kernels need NUM_BITS >= 250, got {field.NUM_BITS}")
+    return kernel_consts(field)["reduce"]
+
+
+def _fold_matvec(wrapper, x, F, field, canonical: bool) -> torch.Tensor:
+    """Launch bp_fold_matvec for an input that lies on the card."""
+    n_rows, C, B = x.shape
+    if B > _MAX_GRID_Y * _MATVEC_THREADS:
+        raise ValueError(f"batch {B} exceeds the kernel's grid")
+    k = _reduce_consts(field, canonical)
+    out = torch.empty((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=x.device)
     if n_rows and B:
-        fold = kernel_consts(field)["semi_fold"]
-        _launch("bp_bits_matvec_semi", x.data_ptr(), F.data_ptr(), out.data_ptr(), n_rows, C, B,
-                fold.ctypes.data, stream=_stream(x))
-        bits_matvec_semi.launches += 1
+        _launch("bp_fold_matvec", x.data_ptr(), F.data_ptr(), out.data_ptr(), n_rows, C, B,
+                int(canonical), k.ctypes.data, stream=_stream(x))
+        wrapper.launches += 1
     return out
 
 
-def bits_matvec_semi_plain(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """Plain version: exact digit sums through a float64 matmul (every
-    partial sum is an integer below 2^53), then the semi reduction."""
-    n_rows, C, B = x.shape
-    if n_rows == 0 or B == 0:
-        return torch.zeros((SEMI, n_rows, B), dtype=torch.int32, device=x.device)
+_MAX_GRID_Y = 65535
+_MATVEC_THREADS = 256  # csrc/fold_matvec.cu kThreads: one block covers that many instances
+
+
+def _digit_sums(x: torch.Tensor, F: torch.Tensor) -> List[torch.Tensor]:
+    """The 32 exact digit sums Σ_c F[d, r, c]·x[r, c, b] as int64 rows
+    [n_rows, B], through a float64 matmul (every partial sum is an integer
+    below 2^32, exact in float64)."""
     acc = torch.matmul(
         to_u32(F).permute(1, 0, 2).to(torch.float64), to_u32(x).to(torch.float64)
     )  # [n_rows, 32, B]
-    rows = [acc[:, d].to(torch.int64) & U32 for d in range(L8)]
-    return to_i32(torch.stack(_semi_reduce_rows(rows, consts_for(field))))
+    return [acc[:, d].to(torch.int64) for d in range(L8)]
+
+
+def bits_matvec_semi(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """x int32[n_rows, C, B] witness bits, F int32[32, n_rows, C] digit
+    planes (< 256) → int32[17, n_rows, B] semi-reduced limbs of
+    Σ_c coeff·x (a value < 2^265 congruent mod p)."""
+    _check_matvec(x, F)
+    if not _on_cuda(x, F):
+        return bits_matvec_semi_plain(x, F, field)
+    return _fold_matvec(bits_matvec_semi, x, F, field, False)
+
+
+def bits_matvec_semi_plain(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Plain version: exact digit sums, then the semi reduction."""
+    return limbs_matvec_plain(x, F, field, "semi")
 
 
 bits_matvec_semi.launches = 0
+
+
+def limbs_matvec(x: torch.Tensor, F: torch.Tensor, field: PrimeField, out_form: str = "semi") -> torch.Tensor:
+    """x int32[n_rows, 32K, B] witness digits (< 256; entry k's digits j
+    at 32k + j), F int32[32, n_rows, 32K] fold planes (digit d of
+    c_k·2^(8j) mod p at [d, r, 32k + j]) → Σ_k c_k·z_k reduced:
+    int32[17, n_rows, B] semi limbs (a value < 2^265 congruent mod p) for
+    out_form "semi", int32[16, n_rows, B] canonical limbs for
+    "canonical". Needs K ≤ MAX_FUSED_LIMBS_K (C·255² < 2^32)."""
+    if out_form not in ("semi", "canonical"):
+        raise ValueError(f"out_form must be 'semi' or 'canonical', got {out_form!r}")
+    _check_matvec(x, F)
+    if not _on_cuda(x, F):
+        return limbs_matvec_plain(x, F, field, out_form)
+    return _fold_matvec(limbs_matvec, x, F, field, out_form == "canonical")
+
+
+def limbs_matvec_plain(x: torch.Tensor, F: torch.Tensor, field: PrimeField, out_form: str = "semi") -> torch.Tensor:
+    """Plain version: exact digit sums, then the semi reduction or
+    _reduce_rows."""
+    n_rows, _C, B = x.shape
+    canonical = out_form == "canonical"
+    if n_rows == 0 or B == 0:
+        return torch.zeros((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=x.device)
+    rows = _digit_sums(x, F)
+    consts = consts_for(field)
+    return to_i32(torch.stack(_reduce_rows(rows, consts) if canonical else _semi_reduce_rows(rows, consts)))
+
+
+limbs_matvec.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -583,3 +679,61 @@ def mul_plain(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tens
 
 
 mul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3b: PallasFieldOps.mul_digits and reduce_digits
+# ---------------------------------------------------------------------------
+def mul_digits(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Canonical a, b int32[16, N] → int32[32, N]: the 8-bit digits of the
+    canonical a·b mod p (digit 2l + h is byte h of limb l)."""
+    if a.dim() != 2:
+        raise ValueError("a must be [16, N]")
+    N = a.shape[1]
+    _check_words("a", a, (L16, N))
+    _check_words("b", b, (L16, N))
+    if not _on_cuda(a, b):
+        return mul_digits_plain(a, b, field)
+    k = _modmul_consts(field)
+    out = torch.empty((L8, N), dtype=torch.int32, device=a.device)
+    if N:
+        _launch("bp_mul_digits", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
+                stream=_stream(a))
+        mul_digits.launches += 1
+    return out
+
+
+def mul_digits_plain(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Plain version of _mul_digits_kernel: _split8_rows of the product."""
+    r = to_u32(mul_plain(a, b, field))
+    return to_i32(torch.stack([r & 0xFF, r >> 8], dim=1).reshape(L8, -1))
+
+
+mul_digits.launches = 0
+
+
+def reduce_digits(d: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """d int32[32, N] digit sums (8-bit basis, each below 2^24; the caller
+    holds that bound) → int32[16, N] canonical limbs of Σ d[j]·2^(8j) mod p."""
+    if d.dim() != 2:
+        raise ValueError("d must be [32, N]")
+    N = d.shape[1]
+    _check_words("d", d, (L8, N))
+    if not _on_cuda(d):
+        return reduce_digits_plain(d, field)
+    k = _reduce_consts(field, True)
+    out = torch.empty((L16, N), dtype=torch.int32, device=d.device)
+    if N:
+        _launch("bp_reduce_digits", d.data_ptr(), out.data_ptr(), N, k.ctypes.data, stream=_stream(d))
+        reduce_digits.launches += 1
+    return out
+
+
+def reduce_digits_plain(d: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Plain version of _reduce_kernel: _reduce_rows."""
+    if d.shape[1] == 0:
+        return torch.zeros((L16, 0), dtype=torch.int32, device=d.device)
+    return to_i32(torch.stack(_reduce_rows(list(to_u32(d).unbind(0)), consts_for(field))))
+
+
+reduce_digits.launches = 0

@@ -9,6 +9,9 @@ hold each one against the reference):
   * ``_build_shared_ell``                          matvec.py:1080
   * ``_classify_small_rows``                       matvec.py:1189
   * ``_sub_rows_r1cs``                             matvec.py:1243
+  * ``_used_slot_template``                        matvec.py:2033-2061
+  * ``_classify_trivial_limb_rows``                matvec.py:1290
+  * ``MAX_FUSED_LIMBS_K``                          field_pallas.py:972
   * ``_classify_bit_row_families``                 matvec.py:2119
   * ``_classify_pow2_eq_rows``                     matvec.py:2284
   * ``_classify_mixed_rows``                       matvec.py:1537
@@ -40,6 +43,10 @@ POW2_M_LIMBS = 3
 # The 8-bit digit row sums accumulate in uint32 lanes; they are exact only
 # while 255·nnz plus the running carry fits 32 bits.
 MAX_ROW_NNZ = (1 << 24) // 255
+
+# The widest ELL row of the fused limbs route: its uint32 digit sums hold
+# Σ over 32K digit pairs of products < 255².
+MAX_FUSED_LIMBS_K = ((1 << 32) // (255 * 255)) // 32  # = 2064
 
 
 def _assert_row_density(rows: np.ndarray, num_rows: int, what: str) -> None:
@@ -242,6 +249,104 @@ def _sub_rows_r1cs(template: R1CS, keep_idx: np.ndarray) -> R1CS:
         coeff_table=list(template.coeff_table),
         names=None,
     )
+
+
+def _used_slot_template(template: R1CS, keep_idx: np.ndarray):
+    """(sub, used): the sub-system of rows `keep_idx` over only the slots
+    those rows reference, renumbered (ONE stays slot 0, the only input), and
+    used, the original slot of each new slot (the remap of the reference's
+    packed big rows, matvec.py:2913-2941, and mixed rest rows, :2033-2061)."""
+    sub = _sub_rows_r1cs(template, keep_idx)
+    used = np.unique(
+        np.concatenate([np.asarray(getattr(sub, n).cols) for n in ("a", "b", "c")] + [np.zeros(1, np.int64)])
+    )
+    lut = np.zeros(template.num_inputs + template.num_aux, np.int64)
+    lut[used] = np.arange(len(used))
+
+    def remap(m):
+        return COOMatrix(
+            rows=np.asarray(m.rows),
+            cols=lut[np.asarray(m.cols)].astype(np.int32),
+            coeff_ids=np.asarray(m.coeff_ids),
+        )
+
+    return R1CS(
+        field=sub.field,
+        num_inputs=1,
+        num_aux=len(used) - 1,
+        num_constraints=sub.num_constraints,
+        a=remap(sub.a),
+        b=remap(sub.b),
+        c=remap(sub.c),
+        coeff_table=list(sub.coeff_table),
+        names=None,
+    ), used
+
+
+# Trivial-row fast path of the LIMBS witness form. Contract: each z limb
+# vector encodes a canonical value (< p) and slot 0 holds ONE. Then a
+# booleanity row (1-x)·x = 0 holds iff z[x] ∈ {0, 1} (a limb compare), and a
+# row whose three LCs each carry ≤ 2 variable terms with coefficients in
+# {1, p−1} (plus any constant, through ONE) assembles its operands by row
+# gathers for the mul-compare, with no fold matvec.
+def _classify_trivial_limb_rows(template: R1CS):
+    """(bit_rows, triv_rows, fold_idx) or None when more than half the rows
+    need the fold matvec. bit_rows: [(row, col)]; triv_rows: [(row, spec_a,
+    spec_b, spec_c)] with spec = (const, [(col, neg)] of ≤ 2 terms);
+    fold_idx: int32 rows of neither kind."""
+    p = template.field.p
+    R = template.num_constraints
+    table = [int(c) % p for c in template.coeff_table]
+    terms = {}
+    for name in ("a", "b", "c"):
+        m = getattr(template, name)
+        rows = np.asarray(m.rows)
+        cols = np.asarray(m.cols)
+        cids = np.asarray(m.coeff_ids)
+        lst = [[] for _ in range(R)]
+        for e in np.argsort(rows, kind="stable"):
+            lst[rows[e]].append((table[cids[e]], int(cols[e])))
+        terms[name] = lst
+
+    def triv(ts):
+        const = 0
+        vars_ = []
+        for coeff, col in ts:
+            if col == 0:
+                const = (const + coeff) % p
+            elif coeff == 1:
+                vars_.append((col, 0))
+            elif coeff == p - 1:
+                vars_.append((col, 1))
+            else:
+                return None
+        if len(vars_) > 2:
+            return None
+        return (const, vars_)
+
+    bit_rows = []
+    triv_rows = []
+    fold_rows = []
+    for r in range(R):
+        sa = triv(terms["a"][r])
+        sb = triv(terms["b"][r]) if sa is not None else None
+        sc = triv(terms["c"][r]) if sb is not None else None
+        if sc is None:
+            fold_rows.append(r)
+            continue
+        if (
+            sa[0] == 1
+            and len(sa[1]) == 1
+            and sa[1][0][1] == 1
+            and sb == (0, [(sa[1][0][0], 0)])
+            and sc == (0, [])
+        ):
+            bit_rows.append((r, sa[1][0][0]))
+            continue
+        triv_rows.append((r, sa, sb, sc))
+    if len(fold_rows) > R // 2:
+        return None
+    return bit_rows, triv_rows, np.asarray(fold_rows, np.int32)
 
 
 def _classify_bit_row_families(template: R1CS, small_idx: np.ndarray):

@@ -22,8 +22,9 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
     for witnesses in the evaluator's (u32 values, canonical field limbs)
     form: booleanity rows as a u32 compare, linear rows by a Montgomery
     zero-test, product rows through ``mulcmp``, multipack/MultiEq rows as
-    exact integer window sums. Its ``rest`` rows need the limbs form,
-    which is not ported.
+    exact integer window sums, and the ``rest`` rows through the limbs
+    form (``limbs.build_limbs_check``) on their used slots;
+  * ``build_templated_check(..., "limbs")`` → ``limbs.build_limbs_check``.
 
 Witness words are int32 tensors (see ``words``); the check works
 slot-major (``vals_p`` int32[S_t, Bw]) and the public entry points take
@@ -37,11 +38,10 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..r1cs import COOMatrix, R1CS
+from ..r1cs import R1CS
 from .field_consts import _digits
-from .field_kernels import _signed_carry, bitplane_eq, bits_matvec_semi, mulcmp, padded_positions
+from .field_kernels import bitplane_eq, bits_matvec_semi, mulcmp, padded_positions
 from .layout import (
-    FIELD_SRC,
     POW2_M_LIMBS,
     POW2_OFF_BITS,
     _build_shared_ell,
@@ -49,13 +49,21 @@ from .layout import (
     _classify_mixed_rows,
     _classify_pow2_eq_rows,
     _classify_small_rows,
-    _sub_rows_r1cs,
+    _used_slot_template,
 )
-from .words import U32, ctz32, device_table as _t, popcount32, to_i32, to_u32
+from .limbs import (
+    NONE,
+    SENTINEL,
+    _carry_limbs,
+    _limb_rows,
+    _mulcmp_bad,
+    _neg_const,
+    _Operand,
+    build_limbs_check,
+)
+from .words import U32, ctz32, device_table as _t, popcount32, to_u32
 
-SENTINEL = 0xFFFFFFFF  # "no violation" value of `first`, as in the reference
-NONE = torch.iinfo(torch.int64).max  # int64 stand-in for "no violation yet"
-ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2")  # MixedCheck's row classes, in its row order
+ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2", "rest")  # MixedCheck's row classes, in its row order
 
 
 def _unpack_rows(words: torch.Tensor) -> torch.Tensor:
@@ -296,34 +304,7 @@ class PackedBitsCheck:
         if len(rest_big_idx):
             # The remaining big rows see only the slots they use (ONE
             # stays slot 0), so the unpack moves [n_used, batch] words.
-            sub = _sub_rows_r1cs(template, rest_big_idx)
-            used = np.unique(
-                np.concatenate(
-                    [np.asarray(getattr(sub, n).cols) for n in ("a", "b", "c")]
-                    + [np.zeros(1, np.int64)]
-                )
-            )
-            lut = np.zeros(self.S_t, np.int64)
-            lut[used] = np.arange(len(used))
-
-            def remap(m):
-                return COOMatrix(
-                    rows=np.asarray(m.rows),
-                    cols=lut[np.asarray(m.cols)].astype(np.int32),
-                    coeff_ids=np.asarray(m.coeff_ids),
-                )
-
-            sub_r = R1CS(
-                field=sub.field,
-                num_inputs=1,
-                num_aux=len(used) - 1,
-                num_constraints=sub.num_constraints,
-                a=remap(sub.a),
-                b=remap(sub.b),
-                c=remap(sub.c),
-                coeff_table=list(sub.coeff_table),
-                names=None,
-            )
+            sub_r, used = _used_slot_template(template, rest_big_idx)
             self.used = _t(used, device)
             self.big = BitsSemiCheck(sub_r, device)
 
@@ -441,25 +422,6 @@ class PackedBitsCheck:
 # ---------------------------------------------------------------------------
 # The mixed check
 # ---------------------------------------------------------------------------
-def _limb_rows(const_limbs, device) -> torch.Tensor:
-    """Constant limbs as an int64 [1, L, 1] tensor (broadcasts against
-    [n, L, B] limb planes)."""
-    return _t(const_limbs, device).reshape(1, -1, 1)
-
-
-def _neg_const(x: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
-    """const − x in 16-bit limbs along dim 1, the last borrow dropped (x ≤
-    const; int64 [n, L, B] and [1, L, 1])."""
-    return torch.stack(_signed_carry((const - x).transpose(0, 1))[0], dim=1)
-
-
-def _carry_limbs(x: torch.Tensor) -> torch.Tensor:
-    """Carry to 16-bit limbs along dim 1, the last carry dropped (limbs of
-    the mixed check stay far below 2^31, where the reference's uint32
-    sums never wrap)."""
-    return torch.stack(_signed_carry(x.transpose(0, 1))[0], dim=1)
-
-
 def _mont_zero_test(d: torch.Tensor, p: int, m_limbs: int, pinv_limbs) -> torch.Tensor:
     """d int64[n, L, B] (16-bit limbs; a multiple of p iff the row holds,
     quotient < 2^(16·m_limbs)) → bool[n, B] bad mask: m̂ = d·p^-1 mod
@@ -504,68 +466,6 @@ def _mont_zero_test(d: torch.Tensor, p: int, m_limbs: int, pinv_limbs) -> torch.
     return bad
 
 
-class _Operand:
-    """Static tables of one operand of a list of trivial rows (the
-    reference's _operand_spec): const limbs, up to two field-source terms
-    and up to two u32 terms, each with a sign."""
-
-    def __init__(self, rows_specs, oi: int, device):
-        n = len(rows_specs)
-        const = np.zeros((n, 17), np.int64)
-        f_idx = np.zeros((n, 2), np.int64)
-        f_on = np.zeros((n, 2), bool)
-        f_neg = np.zeros((n, 2), bool)
-        u_col = np.zeros((n, 2), np.int64)
-        u_on = np.zeros((n, 2), bool)
-        u_neg = np.zeros((n, 2), bool)
-        for w, (_r, *specs) in enumerate(rows_specs):
-            cv, vars_ = specs[oi]
-            const[w] = _digits(cv, 16, 17)
-            nf = nu = 0
-            for src, idx, ng in vars_:
-                if src == FIELD_SRC:
-                    f_idx[w, nf], f_on[w, nf], f_neg[w, nf] = idx, True, ng
-                    nf += 1
-                else:
-                    u_col[w, nu], u_on[w, nu], u_neg[w, nu] = idx, True, ng
-                    nu += 1
-        self.max_f = int(f_on.any(axis=0).sum()) if n else 0
-        self.max_u = int(u_on.any(axis=0).sum()) if n else 0
-        # every row one positive field term and no constant: the gathered
-        # canonical limbs are the operand
-        self.fast_single_field = bool(
-            n and self.max_f == 1 and self.max_u == 0 and not const.any()
-            and not f_neg.any() and f_on[:, 0].all()
-        )
-        self.const = _t(const, device)[:, :, None]
-        self.f_idx = [_t(f_idx[:, t], device) for t in range(2)]
-        self.f_on = [_t(f_on[:, t], device, torch.bool)[:, None, None] for t in range(2)]
-        self.f_neg = [_t(f_neg[:, t], device, torch.bool)[:, None, None] for t in range(2)]
-        self.u_col = [_t(u_col[:, t], device) for t in range(2)]
-        self.u_on = [_t(u_on[:, t], device, torch.bool)[:, None, None] for t in range(2)]
-        self.u_neg = [_t(u_neg[:, t], device, torch.bool)[:, None, None] for t in range(2)]
-
-    def assemble(self, vals_p, flimbs_p, p17) -> torch.Tensor:
-        """int64[n, 17, B]: the operand's value (< 4p) in 16-bit limbs."""
-        if self.fast_single_field:
-            x = to_u32(flimbs_p.index_select(0, self.f_idx[0]))
-            return torch.nn.functional.pad(x, (0, 0, 0, 1))
-        B = vals_p.shape[1]
-        acc = self.const.expand(-1, -1, B)
-        for t in range(self.max_f):
-            x = torch.nn.functional.pad(to_u32(flimbs_p.index_select(0, self.f_idx[t])), (0, 0, 0, 1))
-            term = torch.where(self.f_neg[t], _neg_const(x, p17), x)
-            acc = acc + torch.where(self.f_on[t], term, 0)
-        for t in range(self.max_u):
-            v = to_u32(vals_p.index_select(0, self.u_col[t]))  # [n, B]
-            x = torch.zeros_like(acc)
-            x[:, 0] = v & 0xFFFF
-            x[:, 1] = v >> 16
-            term = torch.where(self.u_neg[t], _neg_const(x, p17), x)
-            acc = acc + torch.where(self.u_on[t], term, 0)
-        return _carry_limbs(acc)
-
-
 class MixedCheck:
     """Mixed-form templated check (the reference's _build_mixed_check):
     witnesses as (vals int32[B, S_t] u32 values, flimbs int32[B, F, 16]
@@ -574,9 +474,10 @@ class MixedCheck:
     Rows route by class: booleanity of u32 slots (a compare), linear rows
     (a + 8p − c, a one-limb Montgomery zero-test), product rows (``mulcmp``
     on the semi-reduced operands), multipack/MultiEq rows (exact integer
-    window sums, d = A + p·2^34 − C, a three-limb Montgomery zero-test).
-    Templates with rows of no class raise NotImplementedError (they need
-    the limbs form)."""
+    window sums, d = A + p·2^34 − C, a three-limb Montgomery zero-test),
+    and the rows of no class (``rest``) through the limbs form on the
+    sub-template of the slots they use, field slots read from flimbs and
+    u32 slots lifted to limbs."""
 
     def __init__(self, template: R1CS, batch: int, field_slots, device=None):
         device = resolve(device)
@@ -590,13 +491,8 @@ class MixedCheck:
         self.batch = batch
         self.n_fs = len(field_slots)
         cls = _classify_mixed_rows(template, field_slots)
-        if cls["rest"]:
-            raise NotImplementedError(
-                f"{len(cls['rest'])} rows fit no mixed class; they need the limbs form, "
-                "which is not ported"
-            )
-        self.n_bool, self.n_lin = len(cls["bool_u32"]), len(cls["lin"])
-        self.n_mul, self.n_pow2 = len(cls["mul"]), len(cls["pow2"])
+        self.counts = tuple(len(cls[k]) for k in ROW_CLASSES)
+        self.n_bool, self.n_lin, self.n_mul, self.n_pow2, n_rest = self.counts
         self.p17 = _limb_rows(_digits(p, 16, 17), device)
         self.off_lin = _limb_rows(_digits(p << 3, 16, 17), device)
         self.p0inv = pow(p, -1, 1 << 16)
@@ -605,10 +501,17 @@ class MixedCheck:
         self.mul = [_Operand(cls["mul"], oi, device) for oi in range(3)]
         if self.n_pow2:
             self._pow2_tables(cls["pow2"], device)
-        rows = [
-            np.asarray([r for r, *_ in cls[k]], np.int64)
-            for k in ("bool_u32", "lin", "mul", "pow2")
-        ]
+        if n_rest:
+            sub_r, used = _used_slot_template(template, np.asarray(cls["rest"], np.int64))
+            self.rest = build_limbs_check(sub_r, batch, device)
+            fs_row = np.full(self.S_t, -1, np.int64)
+            fs_row[np.asarray(field_slots, np.int64)] = np.arange(self.n_fs)
+            used_fs = fs_row[used]
+            self.rest_used = _t(used, device)
+            self.rest_fidx = _t(np.maximum(used_fs, 0), device)
+            self.rest_isf = _t(used_fs >= 0, device, torch.bool)[:, None, None]
+        rows = [np.asarray([e[0] for e in cls[k]], np.int64) for k in ROW_CLASSES[:-1]]
+        rows.append(np.asarray(cls["rest"], np.int64))
         self.rows = [_t(r, device) for r in rows]
         order = np.concatenate(rows)
         inv = np.empty(self.R, np.int64)
@@ -655,12 +558,7 @@ class MixedCheck:
         return _mont_zero_test(d, self.p, 1, [self.p0inv])
 
     def _mul_bad(self, vals_p, flimbs_p):
-        n, B = self.n_mul, vals_p.shape[1]
-        ops = [
-            to_i32(o.assemble(vals_p, flimbs_p, self.p17).transpose(0, 1).reshape(17, n * B))
-            for o in self.mul
-        ]
-        return (mulcmp(*ops, self.field) != 0).reshape(n, B)
+        return _mulcmp_bad(self.mul, vals_p, flimbs_p, self.p17, self.field)
 
     def _side_sum(self, tab, vals_p, flimbs_p):
         """Exact integer Σ const + Σ 2^e·u32 + Σ ±field of one side as
@@ -689,16 +587,26 @@ class MixedCheck:
         d = _carry_limbs(pos + _neg_const(neg, self.off_limbs))  # A + (p·2^34 − C)
         return _mont_zero_test(d, self.p, POW2_M_LIMBS, self.pinv_limbs)
 
+    def _rest_bad(self, vals_p, flimbs_p):
+        """The rest rows' limbs check on z of their used slots: field slots
+        from flimbs, u32 slots as limbs (value mod 2^16, value >> 16)."""
+        fl = flimbs_p.index_select(0, self.rest_fidx)  # [n_used, 16, B]
+        v = vals_p.index_select(0, self.rest_used)
+        lift = torch.zeros_like(fl)
+        lift[:, 0] = v & 0xFFFF
+        lift[:, 1] = (v >> 16) & 0xFFFF
+        return self.rest.mask_slot_major(torch.where(self.rest_isf, fl, lift))
+
     def class_bad(self, name: str, vals_p: torch.Tensor, flimbs_p: torch.Tensor) -> torch.Tensor:
         """bool[n, B]: the bad mask of one row class (one of ROW_CLASSES),
         its rows in the class's order, on slot-major vals and flimbs."""
         if name == "bool_u32":
             return (vals_p.index_select(0, self.bool_cols) & -2) != 0  # u32 > 1
-        return {"lin": self._lin_bad, "mul": self._mul_bad, "pow2": self._pow2_bad}[name](vals_p, flimbs_p)
+        fn = {"lin": self._lin_bad, "mul": self._mul_bad, "pow2": self._pow2_bad, "rest": self._rest_bad}
+        return fn[name](vals_p, flimbs_p)
 
     def _class_bads(self, vals_p, flimbs_p):
-        counts = (self.n_bool, self.n_lin, self.n_mul, self.n_pow2)
-        return [self.class_bad(c, vals_p, flimbs_p) for c, n in zip(ROW_CLASSES, counts) if n]
+        return [self.class_bad(c, vals_p, flimbs_p) for c, n in zip(ROW_CLASSES, self.counts) if n]
 
     # -- entry points -------------------------------------------------------
     def _check_args(self, vals, flimbs, slot_major: bool):
@@ -763,15 +671,18 @@ def build_templated_check(template: R1CS, batch: int, witness_form: str = "bits_
                           field_slots=None, device=None):
     """The templated satisfiability check on `device` (the CUDA card by
     default). Ported forms: ``bits_packed`` (bit-sliced packed witnesses
-    of pure-bit templates, ``PackedBitsCheck``) and ``mixed`` (the witness
+    of pure-bit templates, ``PackedBitsCheck``), ``mixed`` (the witness
     program's (vals, flimbs) pair, ``MixedCheck``; needs `field_slots`,
-    the slot of each flimbs row)."""
+    the slot of each flimbs row) and ``limbs`` (canonical limbs int32[B,
+    S_t, 16] of any template, ``limbs.build_limbs_check``)."""
     if not (template.num_inputs == 1 or batch == 1):
         raise ValueError("multi-instance templates must be input-free")
     if witness_form == "mixed":
         if field_slots is None:
             raise ValueError("witness_form='mixed' needs field_slots (flimbs row → slot)")
         return MixedCheck(template, batch, field_slots, device)
+    if witness_form == "limbs" and not field_slots:
+        return build_limbs_check(template, batch, device)
     if witness_form != "bits_packed" or field_slots:
         raise NotImplementedError(
             f"witness_form {witness_form!r}{' with field_slots' if field_slots else ''} is not ported yet"

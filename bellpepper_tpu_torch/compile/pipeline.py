@@ -1,7 +1,8 @@
 """The production steps: witness generation and check over chunks.
 
 Counterpart of ``bellpepper_tpu/compile/pipeline.py``:
-``build_production_step`` (``:100-170``, the mixed form),
+``build_chunked_check`` (``:72-97``), ``build_production_step``
+(``:100-170``, the mixed and limbs forms),
 ``build_packed_production_step`` (``:173-232``),
 ``build_packed_chunked_witness`` (``:235``), ``build_chunked_witness``
 (``:253``) and ``_aggregate`` (``:62-69``). The reference's single jitted
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from ..backend.matvec import NONE, SENTINEL, build_templated_check
+from ..backend.limbs import NONE, SENTINEL
+from ..backend.matvec import build_templated_check
 from ..device import resolve
 from ..r1cs import R1CS
 
@@ -30,25 +32,45 @@ def _aggregate(nbs: torch.Tensor, firsts: torch.Tensor, chunk_span: int):
     return total, torch.where(glob == NONE, SENTINEL, glob)
 
 
-def build_production_step(prog, template: R1CS, batch: int, device=None):
-    """The field path's production step (the reference's mixed form):
-    free inputs for n_chunks × batch instances → witness generation
-    (``WitnessProgram.build``) → mixed templated check → (total_bad,
-    first_violation), both int64 0-d tensors on `device`; a clean run
-    gives (0, 0xFFFFFFFF).
+def build_production_step(prog, template: R1CS, batch: int, device=None, witness_form=None):
+    """The field path's production step: free inputs for n_chunks × batch
+    instances → witness generation (``WitnessProgram.build``) → templated
+    check → (total_bad, first_violation), both int64 0-d tensors on
+    `device`; a clean run gives (0, 0xFFFFFFFF).
 
-    free_bits: int32[n_chunks, batch, n_free]; free_field (when the
-    program has free field inputs): int32[n_chunks, batch, n_free_field,
-    16]. Pure-bit programs take ``build_packed_production_step``."""
-    if prog.is_pure_bits:
-        raise NotImplementedError(
-            "the bits form is not ported: pure-bit programs take build_packed_production_step"
-        )
+    witness_form: ``"mixed"`` (the default; the evaluator's (vals, flimbs)
+    buffers as they are) or ``"limbs"`` (every slot as canonical limbs,
+    ``z_template_limbs``; takes pure-bit programs too, and is the form that
+    checks a non-bit field value in a bit slot). free_bits: int32[n_chunks,
+    batch, n_free]; free_field (when the program has free field inputs):
+    int32[n_chunks, batch, n_free_field, 16]. Pure-bit programs in the
+    default form take ``build_packed_production_step``."""
+    if witness_form is None:
+        if prog.is_pure_bits:
+            raise NotImplementedError(
+                "the bits form is not ported: pure-bit programs take build_packed_production_step "
+                "or witness_form='limbs'"
+            )
+        witness_form = "mixed"
+    if witness_form not in ("mixed", "limbs"):
+        raise ValueError(f"witness_form must be 'mixed', 'limbs' or None, got {witness_form!r}")
     device = resolve(device)
-    check = build_templated_check(template, batch, "mixed", field_slots=prog.field_slots, device=device)
+    if witness_form == "mixed":
+        check = build_templated_check(template, batch, "mixed", field_slots=prog.field_slots, device=device)
+    else:
+        check = build_templated_check(template, batch, "limbs", device=device)
     evaluator = prog.build(device)
     span = batch * template.num_constraints
     n_fr, n_ff = prog.n_field_rows, len(prog.free_field_slots)
+
+    def chunk_verdict(fb, ff):
+        vals, flimbs = evaluator.slot_major(fb, ff)
+        free_T = ff.permute(1, 2, 0) if n_ff else None
+        if witness_form == "limbs":
+            return check.verdict_slot_major(prog.z_template_limbs_slot_major(vals, flimbs, free_T))
+        if n_ff:
+            flimbs = torch.cat([flimbs[:n_fr], free_T])
+        return check.verdict_slot_major(vals, flimbs)
 
     def step(free_bits: torch.Tensor, free_field=None):
         if free_bits.dim() != 3 or free_bits.shape[1] != batch:
@@ -57,16 +79,34 @@ def build_production_step(prog, template: R1CS, batch: int, device=None):
             )
         nbs, firsts = [], []
         for k, fb in enumerate(free_bits):
-            ff = None if free_field is None else free_field[k]
-            vals, flimbs = evaluator.slot_major(fb, ff)
-            if n_ff:
-                flimbs = torch.cat([flimbs[:n_fr], ff.permute(1, 2, 0)])
-            nb, first = check.verdict_slot_major(vals, flimbs)
+            nb, first = chunk_verdict(fb, None if free_field is None else free_field[k])
             nbs.append(nb)
             firsts.append(torch.where(nb > 0, first, 0))
         return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
 
     return step
+
+
+def build_chunked_check(template: R1CS, batch: int, n_chunks: int, witness_form: str = "limbs",
+                        device=None):
+    """Check pre-generated witnesses of n_chunks × batch instances:
+    z4 int32[n_chunks, batch, S_t, 16] in the limbs form (or
+    [n_chunks, batch/32, S_t] packed words for ``"bits_packed"``) →
+    (total_bad, first_violation) as in ``build_production_step``."""
+    check = build_templated_check(template, batch, witness_form, device=resolve(device))
+    span = batch * template.num_constraints
+
+    def run(z4: torch.Tensor):
+        if z4.shape[0] != n_chunks:
+            raise ValueError(f"z4 must hold {n_chunks} chunks, got {z4.shape[0]}")
+        nbs, firsts = [], []
+        for z in z4:
+            nb, first = check.verdict(z)
+            nbs.append(nb)
+            firsts.append(torch.where(nb > 0, first, 0))
+        return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
+
+    return run
 
 
 def build_chunked_witness(prog, device=None):

@@ -397,6 +397,28 @@ class WitnessProgram:
         """True when the bit-sliced evaluator can run the program."""
         return self.is_pure_bits and all(st.opcode in PACKED_OPS for st in self.stages)
 
+    def z_template_limbs(self, vals, flimbs, free_field=None) -> torch.Tensor:
+        """Per-instance witness limbs int32[B, num_slots, 16] (the limbs
+        form's z): u32-domain slots from vals int32[B, S] (limbs 0-1), field
+        rows from flimbs int32[B, F, 16], free field inputs from free_field
+        int32[B, nf, 16] when given."""
+        free_T = None if free_field is None else free_field.permute(1, 2, 0)
+        zt = self.z_template_limbs_slot_major(vals.t(), flimbs.permute(1, 2, 0), free_T)
+        return zt.permute(2, 0, 1).contiguous()
+
+    def z_template_limbs_slot_major(self, vals_p, flimbs_p, free_T=None) -> torch.Tensor:
+        """z_template_limbs on the evaluator's slot-major buffers: vals
+        int32[S, B], flimbs int32[F, 16, B], free_T int32[nf, 16, B] or None
+        → int32[S, 16, B]."""
+        dev = vals_p.device
+        zt = _lift(vals_p)
+        if self.n_field_rows:
+            rows_slots = _dev(sorted(self.field_rows, key=self.field_rows.get), dev)
+            zt.index_copy_(0, rows_slots, flimbs_p[: self.n_field_rows])
+        if free_T is not None and self.free_field_slots:
+            zt.index_copy_(0, _dev(self.free_field_slots, dev), free_T[: len(self.free_field_slots)])
+        return zt
+
     def build(self, device=None) -> "Evaluator":
         """The evaluator on `device` (the CUDA card by default):
         (free_bits int32[B, n_free], free_field int32[B, nf, 16] or None)

@@ -1,6 +1,7 @@
 // Shared integer helpers of the field kernels: carry passes over digit
-// and limb rows, the semi-reduction of matvec digit sums, the Montgomery
-// zero-test, and the canonical modular multiply and add of 16-bit-limb
+// and limb rows, the semi-reduction and the canonical reduction of matvec
+// digit sums, the Montgomery zero-test, and the canonical modular multiply
+// and add of 16-bit-limb
 // field elements. Every helper works on one element whose rows live in
 // registers (fixed-size arrays, fully unrolled), with uint32_t wraparound
 // exactly as the JAX package's kernels
@@ -67,6 +68,83 @@ static __device__ __forceinline__ void semi_reduce(const uint32_t (&acc)[32],
   x17[16] = d2[32] | (d2[33] << 8);
 }
 
+// x − ps when the subtraction does not borrow, else x (branch-free).
+template <int N>
+static __device__ __forceinline__ void cond_sub(uint32_t (&x)[N],
+                                                const uint32_t (&ps)[N]) {
+  uint32_t diff[N];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t d = x[i] - ps[i] - borrow;
+    borrow = d >> 31;
+    diff[i] = d & 0xFFFFu;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = borrow ? x[i] : diff[i];
+}
+
+// The canonical digit reduction's constants, in the layout of
+// field_consts.kernel_consts(field)["reduce"]: the semi-reduction's fold
+// rows, then the shift-subtract moduli p·2^k (k = n_ps − 1 … 0, high
+// first) as 17 limbs, padded to kMaxShifts rows, and their count
+// 266 − NUM_BITS.
+constexpr int kMaxShifts = 16;  // NUM_BITS >= 250
+struct ReduceConsts {
+  SemiFold f;
+  uint32_t ps[kMaxShifts][17];
+  uint32_t n_ps;
+};
+
+static inline ReduceConsts load_reduce_consts(const uint32_t* s) {
+  ReduceConsts k;
+  for (int i = 0; i < 4; ++i)
+    for (int l = 0; l < 32; ++l) k.f.fold[i][l] = *s++;
+  for (int r = 0; r < kMaxShifts; ++r)
+    for (int l = 0; l < 17; ++l) k.ps[r][l] = *s++;
+  k.n_ps = *s;
+  return k;
+}
+
+// 32 digit sums (8-bit basis, each < 2^32) → 16 canonical limbs
+// (field_pallas._reduce_rows): carry → fold → carry → fold → carry →
+// join16 → the shift-subtract chain (_chain_rows). The TPU carries to 66
+// positions and folds all 34 rows past position 31; for sums below 2^32
+// every position past 34 is zero after the first carry and past 33 after
+// the second, so folding rows 0..3 and then 0..1 adds the same (nothing
+// else), and the bits are the TPU kernel's.
+static __device__ __forceinline__ void reduce_digits(const uint32_t (&acc)[32],
+                                                     const ReduceConsts& k,
+                                                     uint32_t (&out)[16]) {
+  uint32_t d[36];
+  carry8<32, 36>(acc, d);
+  uint32_t f1[32];
+#pragma unroll
+  for (int l = 0; l < 32; ++l) f1[l] = d[l];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int l = 0; l < 32; ++l) f1[l] += d[32 + i] * k.f.fold[i][l];
+  }
+  uint32_t e[34];
+  carry8<32, 34>(f1, e);
+  uint32_t f2[32];
+#pragma unroll
+  for (int l = 0; l < 32; ++l)
+    f2[l] = e[l] + e[32] * k.f.fold[0][l] + e[33] * k.f.fold[1][l];
+  uint32_t g[34];
+  carry8<32, 34>(f2, g);
+  uint32_t x[17];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = g[2 * i] | (g[2 * i + 1] << 8);
+  x[16] = g[32] | (g[33] << 8);
+#pragma unroll
+  for (int s = 0; s < kMaxShifts; ++s)
+    if (s < static_cast<int>(k.n_ps)) cond_sub<17>(x, k.ps[s]);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = x[i];
+}
+
 // Montgomery zero-test (field_pallas._mont_zero_rows): 0 iff the 17-limb x
 // is a multiple of p. If p | x then m = x/p < 2^16 (needs x < 2^16·p, which
 // every caller's x < 2^266 satisfies for p ≥ 2^250) and m ≡ x0·p^-1 mod 2^16,
@@ -116,22 +194,6 @@ static inline ModConsts load_mod_consts(const uint32_t* s) {
     for (int l = 0; l < 17; ++l) k.ps[r][l] = *s++;
   k.qe = *s;
   return k;
-}
-
-// x − ps when the subtraction does not borrow, else x (branch-free).
-template <int N>
-static __device__ __forceinline__ void cond_sub(uint32_t (&x)[N],
-                                                const uint32_t (&ps)[N]) {
-  uint32_t diff[N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t d = x[i] - ps[i] - borrow;
-    borrow = d >> 31;
-    diff[i] = d & 0xFFFFu;
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = borrow ? x[i] : diff[i];
 }
 
 // 17-limb x < 2^266 → 16 canonical limbs (field_pallas._canon_tail_v2):

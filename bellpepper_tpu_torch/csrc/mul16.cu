@@ -1,7 +1,9 @@
 // Canonical modular multiply of 16-bit-limb field elements: out = a·b mod p.
 //
 // Replaces: bellpepper_tpu/backend/field_pallas.py PallasFieldOps.mul
-// (_mul_kernel: _reduce16_rows(_conv16_rows(a, b))).
+// (_mul_kernel: _reduce16_rows(_conv16_rows(a, b))) and
+// PallasFieldOps.mul_digits (_mul_digits_kernel: the same, then an 8-bit
+// split).
 //
 // Inputs a, b u32[16, N] limb-major canonical limbs; output u32[16, N]
 // canonical. Any correct modular multiply gives the same bits (a
@@ -43,7 +45,38 @@ mul16_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   for (int l = 0; l < 16; ++l) out[l * n + i] = r[l];
 }
 
+// The same product emitted as 32 canonical 8-bit digits (out u32[32, N],
+// digit 2l + h = byte h of limb l), the _mul_digits_kernel counterpart:
+// the non-fused limbs check sums these digits over each ELL row.
+__global__ void __launch_bounds__(kThreads)
+mul_digits_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                  uint32_t* __restrict__ out, int64_t n, const bp::ModConsts k) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  uint32_t a16[16], b16[16], r[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l) {
+    a16[l] = __ldg(a + l * n + i);
+    b16[l] = __ldg(b + l * n + i);
+  }
+  bp::mul_canon(a16, b16, k, r);
+#pragma unroll
+  for (int l = 0; l < 16; ++l) {
+    out[(2 * l) * n + i] = r[l] & 0xFFu;
+    out[(2 * l + 1) * n + i] = r[l] >> 8;
+  }
+}
+
 }  // namespace
+
+extern "C" int bp_mul_digits(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                             int64_t n, const uint32_t* consts_host, void* stream) {
+  const bp::ModConsts k = bp::load_mod_consts(consts_host);
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  mul_digits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a, b, out, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int bp_mul16(const uint32_t* a, const uint32_t* b, uint32_t* out,
                         int64_t n, const uint32_t* consts_host, void* stream) {

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths once on one CUDA card, and check
-their five kernels against their plain versions.
+"""Drive the PyTorch/CUDA port's paths once on one CUDA card, and check
+their eight kernels against their plain versions.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -25,7 +25,14 @@ Phases (one line each, or a few):
     planted corruptions found at their instance, a Python-int recurrence
     for the chain;
   * each step's time, rate and peak memory; the config-1 witness and
-    check seconds per chunk and the check's split by row class.
+    check seconds per chunk and the check's split by row class;
+  * the limbs witness form: config 1's step at 4 × 8,192 and the sha256
+    step at 4 × 1,024 in the limbs form (verdicts, launches, a non-bit
+    value planted in a bit slot found at its instance, the sha256 chunk's
+    verdict equal to the packed check's), and the ``Satisfier`` of a
+    16-block sha256 chain (426,912 rows) at batch 1, whose
+    ``which_is_unsatisfied`` names the row a Python-int evaluation finds;
+    each with its time (and the steps' rate and peak memory).
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once) over 3.35 TB/s and the 32-bit
@@ -48,11 +55,14 @@ import torch
 from bellpepper_tpu_torch import (
     SCALAR,
     NativeBuilder,
+    Satisfier,
+    TemplatedSatisfier,
     WitnessProgram,
     build_packed_chunked_witness,
     build_packed_production_step,
     build_production_step,
     build_templated_check,
+    pack_bits,
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk
 from bellpepper_tpu_torch.backend.layout import _classify_mixed_rows
@@ -63,7 +73,16 @@ from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, _detect_linea
 B = 32768  # sha256 instances per chunk
 N_CHUNKS = 4
 B_FIELD = 8192  # config-1 instances per chunk (benchmarks/configs_1_2_3.py:123)
+B_SHA_LIMBS = 1024  # sha256 instances per chunk in the limbs form
+CHAIN_BLOCKS = 16  # compressions of the Satisfier's chain (a 1 KiB message)
 MUL_WIDE_N = 1 << 20  # mul's second shape: one launch wide enough to fill the card
+# the Satisfier's widest mul_digits launch (matrix c of the 16-block chain)
+# and its reduce_digits launches (the chain's padded rows)
+MUL_DIGITS_N = 1258176
+REDUCE_N = 426920
+# limbs_matvec's shapes (n_rows, K, B): config 1's a-bucket and the sha256
+# template's widest a-bucket
+LIMBS_SHAPES = ((8, 64, B_FIELD), (24, 1024, B_SHA_LIMBS))
 SEED = 0x5962BE3D
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
@@ -71,7 +90,7 @@ INT32_LANES = 64 * 132  # per clock: 64 INT32 lanes on each of the 132 SMs
 KERNEL_INFO = {
     "bitplane_eq": ("bellpepper_tpu_torch/csrc/bitplane_eq.cu",
                     "bellpepper_tpu/backend/field_pallas.py:489"),
-    "bits_matvec_semi": ("bellpepper_tpu_torch/csrc/bits_matvec_semi.cu",
+    "bits_matvec_semi": ("bellpepper_tpu_torch/csrc/fold_matvec.cu",
                          "bellpepper_tpu/backend/field_pallas.py:828"),
     "mulcmp": ("bellpepper_tpu_torch/csrc/mulcmp.cu",
                "bellpepper_tpu/backend/field_pallas.py:1009"),
@@ -79,29 +98,47 @@ KERNEL_INFO = {
               "bellpepper_tpu/backend/field_pallas.py:407"),
     "mul": ("bellpepper_tpu_torch/csrc/mul16.cu",
             "bellpepper_tpu/backend/field_pallas.py:704"),
+    "limbs_matvec": ("bellpepper_tpu_torch/csrc/fold_matvec.cu",
+                     "bellpepper_tpu/backend/field_pallas.py:975"),
+    "mul_digits": ("bellpepper_tpu_torch/csrc/mul16.cu",
+                   "bellpepper_tpu/backend/field_pallas.py:711"),
+    "reduce_digits": ("bellpepper_tpu_torch/csrc/reduce_digits.cu",
+                      "bellpepper_tpu/backend/field_pallas.py:720"),
 }
+
+
+def reduction_products(words: int, words_p: int = 8) -> int:
+    """32-bit multiplies of a Montgomery reduction of a words-word value
+    below p: one quotient word and words_p products a word reduced, each
+    32×32 → 64-bit product counted as two 32-bit multiplies (its low and
+    high words)."""
+    return 2 * (words - words_p) * (1 + words_p)
 
 
 def modmul_products(words_a: int, words_b: int, words_p: int = 8) -> int:
     """32-bit multiplies that a·b mod p needs at the least: a schoolbook
-    product of 32-bit words and a Montgomery reduction of it (one quotient
-    word and words_p products a word reduced), each 32×32 → 64-bit product
-    counted as two 32-bit multiplies (its low and high words). The
-    operations side of `bound` counts only products: the adds and logic
-    ops fuse around them, so their count gives a time the card cannot
-    beat whatever limb size a kernel chooses."""
-    n_reduce = words_a + words_b - words_p
-    return 2 * (words_a * words_b + n_reduce * (1 + words_p))
+    product of 32-bit words (two multiplies a word pair) and a Montgomery
+    reduction of it. The operations side of `bound` counts only products:
+    the adds and logic ops fuse around them, so their count gives a time the
+    card cannot beat whatever limb size a kernel chooses."""
+    return 2 * words_a * words_b + reduction_products(words_a + words_b, words_p)
 
 
-# Products per element. A canonical modmul (chain's fmul steps, mul) takes
-# two 8-word residues; mulcmp's a·b − c takes 17-limb semi values below
-# 2^265, 9 words each. bits_matvec_semi multiplies 0/1 bits by digits (a
-# select, no product) and folds 4 × 32 digit sums by constants in its semi
-# reduction. bitplane_eq does logic ops only.
+# Products per element. A canonical modmul (chain's fmul steps, mul,
+# mul_digits) takes two 8-word residues; mulcmp's a·b − c takes 17-limb
+# semi values below 2^265, 9 words each. bits_matvec_semi multiplies 0/1
+# bits by digits (a select, no product) and folds 4 × 32 digit sums by
+# constants in its semi reduction. limbs_matvec needs one 8 × 8-word
+# product an ELL entry and one reduction of a row's 17-word sum, whatever
+# the 1,024 digit multiply-adds an entry of its design. reduce_digits
+# reduces a sum of 32 digit sums below 2^24 (a 10-word value). bitplane_eq
+# does logic ops only.
 MODMUL_MULS = modmul_products(8, 8)
 MULCMP_MULS = modmul_products(9, 9)
 SEMI_REDUCE_MULS = 4 * 32
+ENTRY_MULS = 2 * 8 * 8
+ROW_REDUCE_MULS = reduction_products(17)
+REDUCE_MULS = reduction_products(10)
 
 
 def nvidia_smi(query: str) -> str:
@@ -182,9 +219,12 @@ def canonical_lm(values, dev):
     return from_numpy_u32(np.asarray([limbs(v, 16) for v in values], np.uint32).T.copy(), dev)
 
 
+def limb_int(row) -> int:
+    return sum(int(x) << (16 * l) for l, x in enumerate(row))
+
+
 def col_int(t: torch.Tensor, i: int) -> int:
-    v = to_u32(t[:, i]).tolist()
-    return sum(x << (16 * l) for l, x in enumerate(v))
+    return limb_int(to_u32(t[:, i]).tolist())
 
 
 def config1(nonzero: bool):
@@ -218,6 +258,17 @@ def time_step(step, free, reps):
     dt = (time.time() - t0) / reps
     assert sum(int(t) for t in totals) == 0
     return dt
+
+
+def perf_step(name, step, free, batch, n_rows, card, reps):
+    """Time a step of N_CHUNKS × batch instances (its verdict must stay
+    clean) and print its rate and peak memory; returns the peak in GiB."""
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time_step(step, free, reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[perf] {name} step {t_step:.4f} s for {N_CHUNKS}x{batch} instances = "
+          f"{N_CHUNKS * batch * n_rows / t_step:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+    return peak
 
 
 def sha256_kernels(dev, bound):
@@ -388,12 +439,7 @@ def sha256_step(dev, card, template, prog):
           f"vp[{Bw // 2}, 600] bit 7 found: n_bad {nbad}, instance {fbad // R}")
     del vals0, vbad, gen, check
 
-    torch.cuda.reset_peak_memory_stats()
-    t_step = time_step(step, free, 5)
-    rate = N_CHUNKS * B * R / t_step
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[perf] sha256 step {t_step:.4f} s for {N_CHUNKS}x{B} instances = {rate:.4e} "
-          f"constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+    perf_step("sha256", step, free, B, R, card, 5)
     return launches
 
 
@@ -480,14 +526,231 @@ def field_steps(dev, card, built):
           f"({split}), on {card}")
     del vals_p, fl_p
     for name in ("config1", "variant"):
-        template = built[name][0]
-        torch.cuda.reset_peak_memory_stats()
-        t_step = time_step(steps[name], free, reps if name == "config1" else 2)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        rate = N_CHUNKS * B_FIELD * template.num_constraints / t_step
-        print(f"[perf] {name} step {t_step:.4f} s for {N_CHUNKS}x{B_FIELD} instances = "
-              f"{rate:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+        perf_step(name, steps[name], free, B_FIELD, built[name][0].num_constraints, card,
+                  reps if name == "config1" else 2)
     return launches
+
+
+def limbs_kernels(dev, bound):
+    """limbs_matvec at its paths' widest buckets (semi, and canonical at
+    config 1's), mul_digits and reduce_digits at the Satisfier's shapes,
+    corner columns first, against their plain versions and Python ints."""
+    p = SCALAR.p
+    rng = np.random.default_rng(SEED + 2)
+    results = {}
+    # limbs_matvec: random digits and fold planes; row 0 all 255, so the
+    # digit sums reach C·255² (< 2^32) and the carries wrap as the TPU's.
+    # The library yardstick is torch.matmul in float64 over the 32 digit
+    # sums only (exact: every sum is below 2^53).
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for (n_rows, K, Bm), forms in zip(LIMBS_SHAPES, (("semi", "canonical"), ("semi",))):
+        C = 32 * K
+        x = torch.randint(0, 256, (n_rows, C, Bm), generator=gen, device=dev, dtype=torch.int32)
+        F = torch.randint(0, 256, (32, n_rows, C), generator=gen, device=dev, dtype=torch.int32)
+        x[0] = 255
+        F[:, 0] = 255
+        xf, Ff = x.double(), F.permute(1, 0, 2).double().contiguous()
+        for form in forms:
+            out_rows = 17 if form == "semi" else 16
+            got = fk.limbs_matvec(x, F, SCALAR, form)
+            for r, b in ((0, 0), (n_rows - 1, Bm - 1)):
+                sums = (F[:, r, :].cpu().to(torch.int64) * x[r, :, b].cpu().to(torch.int64)).sum(1)
+                exact = sum(int(v) << (8 * d) for d, v in enumerate(sums.tolist()))
+                val = col_int(got[:, r].contiguous(), b)
+                assert val % p == exact % p and (form == "semi" or val < p), ("limbs_matvec", form, r, b)
+            n_bytes = (n_rows * C * Bm + 32 * n_rows * C + out_rows * n_rows * Bm) * 4
+            n_ops = n_rows * Bm * (K * ENTRY_MULS + ROW_REDUCE_MULS)
+            r = compare(f"limbs_matvec {form} rows={n_rows} K={K} B={Bm}",
+                        lambda: fk.limbs_matvec(x, F, SCALAR, form),
+                        lambda: fk.limbs_matvec_plain(x, F, SCALAR, form), bound(n_bytes, n_ops),
+                        reps=10, plain_reps=2, library=lambda: torch.matmul(Ff, xf))
+            results.setdefault("limbs_matvec", r)  # the line's numbers: config 1's a-bucket, semi
+        del x, F, xf, Ff, got
+        torch.cuda.empty_cache()
+    # mul_digits: random canonical operands, the corner pairs of 0, 1 and
+    # p − 1 in the first 9 columns
+    n = MUL_DIGITS_N
+    rnd = random.Random(SEED + 3)
+    av = [0, 1, p - 1] * 3 + [rnd.randrange(p) for _ in range(64)]
+    bv = [v for v in (0, 1, p - 1) for _ in range(3)] + [rnd.randrange(p) for _ in range(64)]
+    top = p >> 240
+    ops = []
+    for vs in (av, bv):
+        x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+        x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
+        x[:, : len(vs)] = np.asarray([limbs(v, 16) for v in vs], np.uint32).T
+        ops.append(from_numpy_u32(x, dev))
+    ma, mb = ops
+    got = fk.mul_digits(ma, mb, SCALAR)
+    for i in range(len(av)):
+        assert sum(int(d) << (8 * j) for j, d in enumerate(to_u32(got[:, i]).tolist())) == av[i] * bv[i] % p
+    results["mul_digits"] = compare(
+        f"mul_digits N={n}", lambda: fk.mul_digits(ma, mb, SCALAR), lambda: fk.mul_digits_plain(ma, mb, SCALAR),
+        bound((2 * 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2)
+    del ma, mb, got, ops
+    # reduce_digits: digit sums of 2^24 − 1, 0 and 1 first, then random
+    # sums below 2^24
+    n = REDUCE_N
+    dn = rng.integers(0, 1 << 24, size=(32, n), dtype=np.uint32)
+    dn[:, 0], dn[:, 1], dn[:, 2] = (1 << 24) - 1, 0, 1
+    d = from_numpy_u32(dn, dev)
+    got = fk.reduce_digits(d, SCALAR)
+    for i in (0, 1, 2, 3, n - 1):
+        assert col_int(got, i) == sum(int(dn[j, i]) << (8 * j) for j in range(32)) % p, ("reduce", i)
+    results["reduce_digits"] = compare(
+        f"reduce_digits N={n}", lambda: fk.reduce_digits(d, SCALAR), lambda: fk.reduce_digits_plain(d, SCALAR),
+        bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2)
+    del d, got
+    torch.cuda.empty_cache()
+    return results
+
+
+def config1_limbs_step(dev, card, built):
+    """Config 1 in the limbs form on the mixed step's free bits, then the
+    TemplatedSatisfier probes: a non-bit field element in a bit slot (the
+    mutation the mixed form cannot represent) and a flipped limb of a pack
+    row's field slot, each found at its instance."""
+    p = SCALAR.p
+    template, prog = built["config1"]
+    R = template.num_constraints
+    free_np = np.random.default_rng(5).integers(0, 2, size=(N_CHUNKS, B_FIELD, 128)).astype(np.uint32)
+    free = from_numpy_u32(free_np, dev)
+    step = build_production_step(prog, template, B_FIELD, device=dev, witness_form="limbs")
+    step(free)  # warm-up
+    verdict, counts = path_run(step, free)
+    print(f"[step] config1 limbs verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert (counts["limbs_matvec"], counts["mulcmp"], counts["chain"]) == (
+        3 * N_CHUNKS, 2 * N_CHUNKS, N_CHUNKS), counts
+
+    sat = TemplatedSatisfier(template, B_FIELD, device=dev)
+    z = prog.z_template_limbs(*prog.build(dev)(free[0]))
+    assert sat.is_satisfied(z)
+    slot = prog.free_slots[int(np.random.default_rng(SEED).integers(0, 128))]
+    bad = z.clone()
+    bad[B_FIELD // 2, slot] = canonical_lm([random.Random(SEED).randrange(p)], dev)[:, 0]
+    name = sat.which_is_unsatisfied(bad)
+    assert name.startswith(f"instance {B_FIELD // 2}: "), name
+    pack = sorted(prog.field_rows, key=prog.field_rows.get)[0]  # the first pack output
+    flip = z.clone()
+    flip[B_FIELD // 4, pack, 2] ^= 1
+    name2 = sat.which_is_unsatisfied(flip)
+    assert name2.startswith(f"instance {B_FIELD // 4}: "), name2
+    print(f"[probe] config1 limbs: a random field element in bit slot {slot} at instance "
+          f"{B_FIELD // 2} found ({name}); a flipped limb of pack slot {pack} found ({name2})")
+    del z, bad, flip, sat
+    perf_step("config1 limbs", step, free, B_FIELD, R, card, 5)
+    return counts
+
+
+def sha256_limbs_step(dev, card, template, prog):
+    """The sha256 compression in the limbs form (the fused route, 17 ELL
+    buckets) at 4 × 1,024; chunk 0's verdict against the packed check on
+    the same instances, clean and with one intermediate bit flipped; a
+    non-bit value in a message-bit slot found at its instance."""
+    p = SCALAR.p
+    R = template.num_constraints
+    Bl = B_SHA_LIMBS
+    free_np = np.random.default_rng(SEED + 4).integers(0, 2, size=(N_CHUNKS, Bl, 512)).astype(np.uint32)
+    free = from_numpy_u32(free_np, dev)
+    t0 = time.time()
+    step = build_production_step(prog, template, Bl, device=dev, witness_form="limbs")
+    print(f"[step] sha256 limbs built in {time.time() - t0:.2f} s (fold tables included)")
+    step(free)  # warm-up
+    verdict, counts = path_run(step, free)
+    print(f"[step] sha256 limbs verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert counts["limbs_matvec"] == 17 * N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
+
+    check = build_templated_check(template, Bl, "limbs", device=dev)
+    packed = build_templated_check(template, Bl, device=dev)
+    z = prog.z_template_limbs(*prog.build(dev)(free[0]))
+    words = prog.build_packed(dev)(pack_bits(free[0]))
+    slot, inst = 9000, Bl // 3  # an intermediate slot: its bit flipped in both forms
+    zf, wf = z.clone(), words.clone()
+    zf[inst, slot, 0] ^= 1
+    wf[inst // 32, slot] ^= 1 << (inst % 32)
+    for zz, ww in ((z, words), (zf, wf)):
+        got = tuple(int(v) for v in check.verdict(zz))
+        want = tuple(int(v) for v in packed.verdict(ww))
+        assert got == want, (got, want)
+    assert got[0] > 0 and got[1] // R == inst, got
+    bad = z.clone()
+    msg = prog.free_slots[100]
+    bad[Bl // 2, msg] = canonical_lm([random.Random(SEED + 1).randrange(p)], dev)[:, 0]
+    nb, first = (int(v) for v in check.verdict(bad))
+    assert nb > 0 and first // R == Bl // 2, (nb, first)
+    print(f"[probe] sha256 limbs chunk 0 equals the packed check clean and with slot {slot} flipped at "
+          f"instance {inst} ({got}); a random field element in message bit {msg} at instance {Bl // 2} "
+          f"found: n_bad {nb}, first row {first % R}")
+    del check, packed, z, words, zf, wf, bad
+    torch.cuda.empty_cache()
+    peak = perf_step("sha256 limbs", step, free, Bl, R, card, 3)
+    assert peak < 40, f"peak memory {peak:.2f} GiB"
+    return counts
+
+
+def python_int_first_bad(template, z_limbs, slot):
+    """The least row referencing `slot` that fails A·z · B·z = C·z over the
+    Python ints (z_limbs: int64[S, 16] limbs), and how many rows reference
+    it."""
+    p = template.field.p
+    rows = sorted({int(r) for m in "abc" for r in np.asarray(getattr(template, m).rows)[
+        np.asarray(getattr(template, m).cols) == slot]})
+    sums = {}
+    for m in "abc":
+        mat = getattr(template, m)
+        sel = np.isin(np.asarray(mat.rows), rows)
+        s = dict.fromkeys(rows, 0)
+        for r, c, cid in zip(np.asarray(mat.rows)[sel], np.asarray(mat.cols)[sel], np.asarray(mat.coeff_ids)[sel]):
+            s[int(r)] = (s[int(r)] + int(template.coeff_table[cid]) * limb_int(z_limbs[int(c)])) % p
+        sums[m] = s
+    bad = [r for r in rows if (sums["a"][r] * sums["b"][r] - sums["c"][r]) % p]
+    return (bad[0] if bad else None), len(rows)
+
+
+def satisfier_chain(dev, card):
+    """The Satisfier of a 16-block sha256 chain at batch 1 (the non-fused
+    limbs route): z from instance 0 of the chain's evaluator, satisfied;
+    then one bit slot of block 9 set to a random field element and named
+    as the Python-int evaluation names it."""
+    p = SCALAR.p
+    t0 = time.time()
+    nb = NativeBuilder()
+    state = nb.sha256_iv()
+    for _ in range(CHAIN_BLOCKS):
+        state = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    R, S = template.num_constraints, prog.num_slots
+    if CHAIN_BLOCKS == 16:
+        assert (R, S) == (426912, 426497), (R, S)
+    sat = Satisfier(template, device=dev)
+    print(f"[synth] sha256 chain of {CHAIN_BLOCKS}: {R} rows, {S} slots; Satisfier built in "
+          f"{time.time() - t0:.2f} s (native build included)")
+    free = from_numpy_u32(np.random.default_rng(SEED + 5).integers(0, 2, size=(1, 512 * CHAIN_BLOCKS))
+                          .astype(np.uint32), dev)
+    z = prog.z_template_limbs(*prog.build(dev)(free))[0]
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    ok = sat.is_satisfied(z)
+    counts = fk.launch_counts()
+    print(f"[step] satisfier chain is_satisfied {ok} launches {counts}")
+    assert ok and (counts["mul_digits"], counts["reduce_digits"], counts["mul"]) == (3, 3, 1), counts
+    block = min(9, CHAIN_BLOCKS - 1)
+    slot = prog.free_slots[512 * block + int(np.random.default_rng(SEED).integers(0, 512))]
+    bad = z.clone()
+    bad[slot] = canonical_lm([random.Random(SEED + 2).randrange(p)], dev)[:, 0]
+    name = sat.which_is_unsatisfied(bad)
+    row, n_ref = python_int_first_bad(template, to_u32(bad).cpu().numpy(), slot)
+    assert row is not None and name == f"constraint #{row}", (name, row)
+    print(f"[probe] satisfier chain: bit slot {slot} of block {block} set to a random field element; "
+          f"which_is_unsatisfied names {name!r}, the least of the {n_ref} rows on the slot that fails "
+          f"over the Python ints")
+    t_chk = wall_s(lambda: sat.is_satisfied(z), 3)
+    print(f"[perf] satisfier chain check {t_chk:.4f} s for {R} rows, on {card}")
+    return counts
 
 
 def main() -> int:
@@ -514,10 +777,17 @@ def main() -> int:
     built = field_synth()
     results = sha256_kernels(dev, bound)
     results.update(field_kernels(dev, bound))
+    results.update(limbs_kernels(dev, bound))
     torch.cuda.empty_cache()
     launches = {"sha256": sha256_step(dev, card, template, prog)}
     torch.cuda.empty_cache()
     launches.update(field_steps(dev, card, built))
+    torch.cuda.empty_cache()
+    launches["config1_limbs"] = config1_limbs_step(dev, card, built)
+    torch.cuda.empty_cache()
+    launches["sha256_limbs"] = sha256_limbs_step(dev, card, template, prog)
+    torch.cuda.empty_cache()
+    launches["satisfier"] = satisfier_chain(dev, card)
 
     kernels = []
     for k in fk.KERNELS:

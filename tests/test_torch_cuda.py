@@ -6,8 +6,8 @@ also runs where JAX is not installed:
 
 Every kernel is held bit-exact to its plain version at ragged sizes (the
 kernels mask the edge themselves), its launch is counted, and the packed
-sha256 step and the config-1 field step on the card give the CPU's
-verdicts, clean and corrupted."""
+sha256 step, the config-1 field step in the mixed and the limbs forms, and
+the Satisfier on the card give the CPU's verdicts, clean and corrupted."""
 
 import random
 
@@ -19,6 +19,7 @@ from bellpepper_tpu_torch import (
     PALLAS_SCALAR,
     SCALAR,
     NativeBuilder,
+    Satisfier,
     WitnessProgram,
     build_packed_production_step,
     build_production_step,
@@ -204,3 +205,74 @@ def test_field_step_on_card_matches_cpu(cuda, nonzero):
             assert counts["mul"] == 2 * (60 + corrupt) and counts["chain"] == 0
         elif not corrupt:
             assert counts["chain"] == 2 and counts["mul"] == 0
+
+
+# --- the limbs form ------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_rows,K,B,out_form,top",
+    [(8, 64, 1000, "semi", False), (8, 64, 1000, "canonical", False), (3, 1, 257, "canonical", False),
+     (2, 2064, 33, "semi", True), (2, 2064, 33, "canonical", True)],
+    ids=["K64-semi", "K64-canonical", "K1-canonical", "K2064-top-semi", "K2064-top-canonical"],
+)
+def test_limbs_matvec_on_card(cuda, n_rows, K, B, out_form, top):
+    """Ragged B, K = 1 and the 2064-wide bound (every digit 255, so the
+    digit sums reach 66048·255² and the carries wrap 32 bits)."""
+    x = _u32((n_rows, 32 * K, B), cuda, 256)
+    F = _u32((32, n_rows, 32 * K), cuda, 256)
+    if top:
+        x[0] = 255
+        F[:, 0] = 255
+    before = fk.limbs_matvec.launches
+    got = fk.limbs_matvec(x, F, SCALAR, out_form)
+    torch.cuda.synchronize()
+    assert fk.limbs_matvec.launches == before + 1
+    assert torch.equal(got, fk.limbs_matvec_plain(x, F, SCALAR, out_form))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [SCALAR, PALLAS_SCALAR], ids=lambda f: f.name)
+@pytest.mark.parametrize("N", [1000, 1])
+def test_mul_digits_and_reduce_digits_on_card(cuda, field, N):
+    a = _canonical(field, max(N, 3), 5, cuda)[:, :N].contiguous()
+    b = _canonical(field, max(N, 3), 6, cuda).flip(1)[:, :N].contiguous()
+    before = (fk.mul_digits.launches, fk.reduce_digits.launches)
+    got = fk.mul_digits(a, b, field)
+    d = _u32((32, N), cuda, 1 << 24)
+    d[:, 0] = (1 << 24) - 1
+    red = fk.reduce_digits(d, field)
+    torch.cuda.synchronize()
+    assert (fk.mul_digits.launches, fk.reduce_digits.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, fk.mul_digits_plain(a, b, field))
+    assert torch.equal(red, fk.reduce_digits_plain(d, field))
+
+
+@pytest.mark.cuda
+def test_limbs_step_on_card_matches_cpu(cuda):
+    """The config-1 limbs step (the fold rows on the fused route) at
+    B = 256 × 2 chunks, clean and with one fadd of the tape computing a
+    product, against the CPU; then the Satisfier of the template at
+    batch 1 (the non-fused route) with a non-bit value in a bit slot."""
+    template, tape = _config1(False)
+    ni, na, ops, free = tape.snapshot()
+    i = max(k for k, op in enumerate(ops) if op.opcode == "fadd")
+    bad_ops = list(ops)
+    bad_ops[i] = type(ops[i])("fmul", ops[i].outs, ops[i].args)
+    bits = RNG.integers(0, 2, size=(2, 256, 128)).astype(np.uint32)
+    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+        prog = WitnessProgram(t)
+        want = build_production_step(prog, template, 256, "cpu", witness_form="limbs")(from_numpy_u32(bits))
+        fk.reset_launch_counts()
+        got = build_production_step(prog, template, 256, cuda, witness_form="limbs")(from_numpy_u32(bits, cuda))
+        got = tuple(int(v) for v in got)
+        assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
+        counts = fk.launch_counts()
+        assert counts["limbs_matvec"] == 6 and counts["mulcmp"] == 4
+    prog = WitnessProgram(tape)
+    z = prog.z_template_limbs(*prog.build("cpu")(from_numpy_u32(bits[0, :1])))[0]
+    z[prog.free_slots[7]] = z[prog.free_slots[7]].flip(0) + 3  # a non-bit canonical value
+    got, want = Satisfier(template, device=cuda), Satisfier(template, device="cpu")
+    fk.reset_launch_counts()
+    assert got.which_is_unsatisfied(z.to(cuda)) == want.which_is_unsatisfied(z) is not None
+    counts = fk.launch_counts()
+    assert counts["mul_digits"] == 3 and counts["reduce_digits"] == 3 and counts["mul"] == 1

@@ -1,6 +1,7 @@
 """The port must load where JAX is not installed: importing the package
 and its modules, building and running the sha256 and config-1 templates
-on the CPU pulls in no `jax` and nothing of the JAX package, and the
+on the CPU (the packed, mixed and limbs steps, the chunked check and both
+satisfiers) pulls in no `jax` and nothing of the JAX package, and the
 native library builds from the port's own C++ source. Without a card, an
 entry point called without a device raises."""
 
@@ -29,7 +30,9 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.backend.cuda_lib
         import bellpepper_tpu_torch.backend.field_kernels
         import bellpepper_tpu_torch.backend.layout
+        import bellpepper_tpu_torch.backend.limbs
         import bellpepper_tpu_torch.backend.matvec
+        import bellpepper_tpu_torch.backend.satisfier
         import bellpepper_tpu_torch.backend.field_backend
         import bellpepper_tpu_torch.backend.field_consts
         import bellpepper_tpu_torch.backend.words
@@ -39,7 +42,8 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.r1cs
         import torch
         from bellpepper_tpu_torch import (
-            NativeBuilder, WitnessProgram, build_packed_production_step, build_production_step,
+            NativeBuilder, Satisfier, TemplatedSatisfier, WitnessProgram, build_chunked_check,
+            build_packed_production_step, build_production_step,
         )
         from bellpepper_tpu_torch.native import SOURCE
 
@@ -63,6 +67,16 @@ def test_port_never_imports_jax():
         assert (template.num_constraints, prog.num_slots) == (220, 221)
         free = torch.randint(0, 2, (1, 32, 128), dtype=torch.int32)
         assert [int(v) for v in build_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        limbs_step = build_production_step(prog, template, 128, "cpu", witness_form="limbs")
+        free = torch.randint(0, 2, (1, 128, 128), dtype=torch.int32)
+        assert [int(v) for v in limbs_step(free)] == [0, 0xFFFFFFFF]
+        z = prog.z_template_limbs(*prog.build("cpu")(free[0]))
+        assert TemplatedSatisfier(template, 128, device="cpu").is_satisfied(z)
+        assert [int(v) for v in build_chunked_check(template, 128, 1, device="cpu")(z[None])] == [0, 0xFFFFFFFF]
+        sat = Satisfier(template, device="cpu")
+        assert sat.is_satisfied(z[0])
+        z[0, prog.free_slots[3], 5] = 7
+        assert sat.which_is_unsatisfied(z[0]) is not None
 
         bad = sorted(
             m for m in sys.modules
@@ -89,13 +103,17 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     where torch sees no card it raises and does not fall back."""
     from bellpepper_tpu_torch import (
         NativeBuilder,
+        Satisfier,
+        TemplatedSatisfier,
         WitnessProgram,
+        build_chunked_check,
         build_chunked_witness,
         build_packed_chunked_witness,
         build_packed_production_step,
         build_production_step,
         build_templated_check,
     )
+    from bellpepper_tpu_torch.backend.limbs import build_limbs_check
     from bellpepper_tpu_torch.backend.matvec import MixedCheck, PackedBitsCheck
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -121,6 +139,12 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         lambda: build_packed_production_step(sha_prog, sha_t, 32),
         lambda: build_chunked_witness(field_prog),
         lambda: build_packed_chunked_witness(sha_prog),
+        lambda: build_templated_check(field_t, 32, "limbs"),
+        lambda: build_limbs_check(field_t, 32),
+        lambda: build_production_step(field_prog, field_t, 32, witness_form="limbs"),
+        lambda: build_chunked_check(field_t, 32, 1),
+        lambda: Satisfier(field_t),
+        lambda: TemplatedSatisfier(field_t, 32),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()

@@ -192,8 +192,16 @@ def test_wrappers_use_plain_version_on_cpu():
     assert torch.equal(fk.mul(a16, b16, SCALAR), fk.mul_plain(a16, b16, SCALAR))
     descs = (("fadd", "prev", 0), ("fmul", "prev", 0))
     assert torch.equal(fk.chain(a16, b16, descs, 2, SCALAR), fk.chain_plain(a16, b16, descs, 2, SCALAR))
+    xd = from_numpy_u32(RNG.integers(0, 256, size=(8, 64, 40)).astype(np.uint32))
+    Fd = from_numpy_u32(RNG.integers(0, 256, size=(32, 8, 64)).astype(np.uint32))
+    for form in ("semi", "canonical"):
+        assert torch.equal(fk.limbs_matvec(xd, Fd, SCALAR, form), fk.limbs_matvec_plain(xd, Fd, SCALAR, form))
+    assert torch.equal(fk.mul_digits(a16, b16, SCALAR), fk.mul_digits_plain(a16, b16, SCALAR))
+    d = Fd[:, 0].contiguous()
+    assert torch.equal(fk.reduce_digits(d, SCALAR), fk.reduce_digits_plain(d, SCALAR))
     assert fk.launch_counts() == {k: 0 for k in fk.KERNELS}
-    assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul")
+    assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
+                          "limbs_matvec", "mul_digits", "reduce_digits")
 
 
 def test_wrappers_check_their_inputs():
@@ -213,3 +221,14 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         fk.bits_matvec_semi(torch.zeros((8, 4, 16), dtype=torch.int32),
                             torch.zeros((32, 8, 5), dtype=torch.int32), SCALAR)
+    x = torch.zeros((8, 64, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fk.limbs_matvec(x, torch.zeros((32, 8, 64), dtype=torch.int32), SCALAR, "packed")
+    wide = torch.zeros((1, 32 * (ref_fp.MAX_FUSED_LIMBS_K + 1), 1), dtype=torch.int32)
+    with pytest.raises(ValueError):  # C·255² must stay below 2^32
+        fk.limbs_matvec(wide, torch.zeros((32, 1, wide.shape[1]), dtype=torch.int32), SCALAR)
+    with pytest.raises(ValueError):
+        fk.reduce_digits(torch.zeros((16, 4), dtype=torch.int32), SCALAR)
+    a16 = torch.zeros((16, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fk.mul_digits(a16, a16[:, :3].contiguous(), SCALAR)

@@ -8,8 +8,9 @@ against the JAX step. Config 1 is pack → (mul, add, square) × 30; the
 variant adds num_assert_nonzero at the end. All comparisons are exact.
 
 The guard fixtures hold the port's pow2 magnitude check: rows the
-reference routes elsewhere classify the same, and a row whose C side can
-pass p·2^34 (where the reference's borrow-free subtraction wraps) raises."""
+reference routes elsewhere classify the same and get its verdicts through
+the limbs form, and a row whose C side can pass p·2^34 (where the
+reference's borrow-free subtraction wraps) raises."""
 
 import functools
 import random
@@ -54,6 +55,17 @@ RNG = np.random.default_rng(0x5EED_0008)
 P = SCALAR.p
 B = 128
 VARIANTS = ["config1", "nonzero"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test: the suite runs these files beside other
+    workers, and torch's default of a thread a core oversubscribes the CPU
+    many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _config1(builder_cls, nonzero=False):
@@ -339,11 +351,29 @@ def _guard_case(kind):
 
 @pytest.mark.parametrize("kind", ["window_count", "field_coefficient"])
 def test_pow2_guard_rows_the_reference_routes_elsewhere(kind):
+    """Both classifiers send the row to `rest`; the port checks it through
+    the limbs form and gives the reference's mask and verdict on large u32
+    values, satisfying at even instances and violating at odd ones."""
     t, f = _guard_case(kind)
     cls = layout._classify_mixed_rows(t, [f])
     assert cls == ref_mv._classify_mixed_rows(t, [f]) and cls["rest"] == [0]
-    with pytest.raises(NotImplementedError):  # rest rows need the limbs form
-        build_templated_check(t, 8, "mixed", field_slots=[f], device="cpu")
+    n = 8
+    vals = RNG.integers(0, 1 << 32, size=(n, f + 1), dtype=np.uint64).astype(np.uint32)
+    vals[:, 0] = 1
+    (c_cid,) = t.c.coeff_ids
+    c_inv = pow(t.coeff_table[c_cid], -1, P)
+    fvals = []
+    for b in range(n):
+        a = sum(t.coeff_table[cid] * int(vals[b, col]) for col, cid in zip(t.a.cols, t.a.coeff_ids))
+        fvals.append((a * c_inv + b % 2) % P)  # C·z = A·z, plus one at odd instances
+    fl = np.asarray([[(v >> (16 * l)) & 0xFFFF for l in range(16)] for v in fvals], np.uint32)[:, None, :]
+    vals[:, f] = fl[:, 0, 0] | (fl[:, 0, 1] << 16)
+    port = build_templated_check(t, n, "mixed", field_slots=[f], device="cpu")
+    ref = jax.jit(ref_mv.build_templated_check(t, n, False, "mixed", field_slots=[f]))
+    mask = port(_i32(vals), _i32(fl)).numpy()
+    want = np.asarray(ref(jnp.asarray(vals), jnp.asarray(fl)))
+    assert (mask == want).all() and mask.tolist() == [b % 2 == 1 for b in range(n)]
+    assert tuple(int(v) for v in port.verdict(_i32(vals), _i32(fl))) == (n // 2, 1)
 
 
 def test_pow2_guard_refuses_an_unsound_row():
