@@ -7,7 +7,10 @@ CUDA field kernels and the templated checks.
   - field_kernels.py — kernel wrappers, plain versions, launch counts
   - field_backend.py — field arithmetic on [..., 16] limb tensors
   - cuda_lib.py      — nvcc build and ctypes load of ``csrc/``
+  - check_common.py  — verdict sentinels and trivial-row limb operands
   - matvec.py        — the bits_packed and mixed checks and their verdicts
+  - limbs.py         — the limbs checks
+  - satisfier.py     — Satisfier and TemplatedSatisfier
 """
 
 from .matvec import MixedCheck, PackedBitsCheck, build_templated_check

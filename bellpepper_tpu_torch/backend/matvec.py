@@ -51,16 +51,8 @@ from .layout import (
     _classify_small_rows,
     _used_slot_template,
 )
-from .limbs import (
-    NONE,
-    SENTINEL,
-    _carry_limbs,
-    _limb_rows,
-    _mulcmp_bad,
-    _neg_const,
-    _Operand,
-    build_limbs_check,
-)
+from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _mulcmp_bad, _neg_const, _Operand
+from .limbs import build_limbs_check
 from .words import U32, ctz32, device_table as _t, popcount32, to_u32
 
 ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2", "rest")  # MixedCheck's row classes, in its row order
@@ -590,11 +582,13 @@ class MixedCheck:
     def _rest_bad(self, vals_p, flimbs_p):
         """The rest rows' limbs check on z of their used slots: field slots
         from flimbs, u32 slots as limbs (value mod 2^16, value >> 16)."""
-        fl = flimbs_p.index_select(0, self.rest_fidx)  # [n_used, 16, B]
         v = vals_p.index_select(0, self.rest_used)
-        lift = torch.zeros_like(fl)
+        lift = torch.zeros((v.shape[0], 16, v.shape[1]), dtype=v.dtype, device=v.device)
         lift[:, 0] = v & 0xFFFF
         lift[:, 1] = (v >> 16) & 0xFFFF
+        if not self.n_fs:  # no field slots: every used slot is a u32 slot
+            return self.rest.mask_slot_major(lift)
+        fl = flimbs_p.index_select(0, self.rest_fidx)  # [n_used, 16, B]
         return self.rest.mask_slot_major(torch.where(self.rest_isf, fl, lift))
 
     def class_bad(self, name: str, vals_p: torch.Tensor, flimbs_p: torch.Tensor) -> torch.Tensor:

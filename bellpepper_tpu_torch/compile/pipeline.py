@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..backend.limbs import NONE, SENTINEL
+from ..backend.check_common import NONE, SENTINEL
 from ..backend.matvec import build_templated_check
 from ..device import resolve
 from ..r1cs import R1CS
@@ -38,22 +38,22 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
     check → (total_bad, first_violation), both int64 0-d tensors on
     `device`; a clean run gives (0, 0xFFFFFFFF).
 
-    witness_form: ``"mixed"`` (the default; the evaluator's (vals, flimbs)
-    buffers as they are) or ``"limbs"`` (every slot as canonical limbs,
-    ``z_template_limbs``; takes pure-bit programs too, and is the form that
-    checks a non-bit field value in a bit slot). free_bits: int32[n_chunks,
-    batch, n_free]; free_field (when the program has free field inputs):
-    int32[n_chunks, batch, n_free_field, 16]. Pure-bit programs in the
-    default form take ``build_packed_production_step``."""
-    if witness_form is None:
-        if prog.is_pure_bits:
-            raise NotImplementedError(
-                "the bits form is not ported: pure-bit programs take build_packed_production_step "
-                "or witness_form='limbs'"
-            )
-        witness_form = "mixed"
+    witness_form: ``"mixed"`` (the default, also spelled None; the
+    evaluator's (vals, flimbs) buffers as they are) or ``"limbs"`` (every
+    slot as canonical limbs, ``z_template_limbs``; takes pure-bit programs
+    too, and is the form that checks a non-bit field value in a bit slot).
+    free_bits: int32[n_chunks, batch, n_free]; free_field (when the
+    program has free field inputs): int32[n_chunks, batch, n_free_field,
+    16]. Pure-bit programs in the mixed form are refused: they take
+    ``build_packed_production_step``."""
+    witness_form = witness_form or "mixed"
     if witness_form not in ("mixed", "limbs"):
         raise ValueError(f"witness_form must be 'mixed', 'limbs' or None, got {witness_form!r}")
+    if witness_form == "mixed" and prog.is_pure_bits:
+        raise NotImplementedError(
+            "the bits form is not ported: pure-bit programs take build_packed_production_step "
+            "or witness_form='limbs'"
+        )
     device = resolve(device)
     if witness_form == "mixed":
         check = build_templated_check(template, batch, "mixed", field_slots=prog.field_slots, device=device)
@@ -87,13 +87,11 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
     return step
 
 
-def build_chunked_check(template: R1CS, batch: int, n_chunks: int, witness_form: str = "limbs",
-                        device=None):
-    """Check pre-generated witnesses of n_chunks × batch instances:
-    z4 int32[n_chunks, batch, S_t, 16] in the limbs form (or
-    [n_chunks, batch/32, S_t] packed words for ``"bits_packed"``) →
-    (total_bad, first_violation) as in ``build_production_step``."""
-    check = build_templated_check(template, batch, witness_form, device=resolve(device))
+def build_chunked_check(template: R1CS, batch: int, n_chunks: int, device=None):
+    """Check pre-generated witnesses of n_chunks × batch instances in the
+    limbs form: z4 int32[n_chunks, batch, S_t, 16] → (total_bad,
+    first_violation) as in ``build_production_step``."""
+    check = build_templated_check(template, batch, "limbs", device=resolve(device))
     span = batch * template.num_constraints
 
     def run(z4: torch.Tensor):

@@ -77,9 +77,13 @@ B_SHA_LIMBS = 1024  # sha256 instances per chunk in the limbs form
 CHAIN_BLOCKS = 16  # compressions of the Satisfier's chain (a 1 KiB message)
 MUL_WIDE_N = 1 << 20  # mul's second shape: one launch wide enough to fill the card
 # the Satisfier's widest mul_digits launch (matrix c of the 16-block chain)
-# and its reduce_digits launches (the chain's padded rows)
+# and the chain's padded rows, the N of its reduce_digits and mul launches
 MUL_DIGITS_N = 1258176
-REDUCE_N = 426920
+CHAIN_ROWS_N = 426920
+# the rows of mulcmp's launches on the limbs paths (times the chunk's
+# batch): config 1's 90 trivial rows and its 2 fold rows padded to 8, and
+# the sha256 template's 26,352 rows padded to 26,360
+CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS, SHA256_LIMBS_ROWS = 90, 8, 26360
 # limbs_matvec's shapes (n_rows, K, B): config 1's a-bucket and the sha256
 # template's widest a-bucket
 LIMBS_SHAPES = ((8, 64, B_FIELD), (24, 1024, B_SHA_LIMBS))
@@ -271,6 +275,47 @@ def perf_step(name, step, free, batch, n_rows, card, reps):
     return peak
 
 
+def mulcmp_operands(N: int, dev):
+    """a, b, c int32[17, N] on the card: random semi values below 2^265
+    (the range of the semi-reduced matvec outputs and of the assembled
+    trivial-row operands, which stay below 4p), with the corner operands
+    (0, p, 2p, 2^265 − 1) in all combinations and 1,024 true products
+    (c = a·b mod p, plus p at odd columns) in the first columns; and the
+    verdicts of those columns (True where a·b ≢ c)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + N)
+    ops = [torch.randint(0, 1 << 16, (17, N), generator=gen, device=dev, dtype=torch.int32) for _ in range(3)]
+    for o in ops:
+        o[16] &= 0x1FF  # values < 2^265
+    p = SCALAR.p
+    corners = [0, p, 2 * p, (1 << 265) - 1]
+    cols = [(va, vb, vc) for va in corners for vb in corners for vc in corners]
+    want = [(va * vb - vc) % p != 0 for va, vb, vc in cols]
+    rnd = np.random.default_rng(SEED + 1)
+    for i in range(1024):
+        va, vb = (int.from_bytes(rnd.bytes(32), "little") % p for _ in range(2))
+        cols.append((va, vb, (va * vb) % p + (p if i % 2 else 0)))
+        want.append(False)
+    for k, o in enumerate(ops):
+        o[:, : len(cols)] = from_numpy_u32(np.asarray([limbs(col[k]) for col in cols], np.uint32).T.copy(), dev)
+    return ops, np.asarray(want)
+
+
+def mulcmp_at(N: int, dev):
+    """mulcmp at one more of its paths' shapes: the planted columns'
+    verdicts, and every column bit-exact against the plain version (run
+    over slices of 2^20 columns, which bounds its int64 temporaries)."""
+    (a, b, c), want = mulcmp_operands(N, dev)
+    out = fk.mulcmp(a, b, c, SCALAR)
+    assert ((out[: len(want)] != 0).cpu().numpy() == want).all(), ("mulcmp planted columns", N)
+    step = 1 << 20
+    err = max(max_abs_err(out[s : s + step], fk.mulcmp_plain(
+        *(o[:, s : s + step].contiguous() for o in (a, b, c)), SCALAR)) for s in range(0, N, step))
+    ms = cuda_ms(lambda: fk.mulcmp(a, b, c, SCALAR), 5)
+    print(f"[kernel] mulcmp N={N}: max_abs_err {err} kernel {ms:.4f} ms")
+    assert err == 0, f"mulcmp disagrees with its plain version at N={N}"
+
+
 def sha256_kernels(dev, bound):
     """bitplane_eq, bits_matvec_semi and mulcmp at the sha256 step's shapes."""
     rng = np.random.default_rng(SEED)
@@ -313,28 +358,11 @@ def sha256_kernels(dev, bound):
     results["bits_matvec_semi"] = {"max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                                    "bound_ms": b_ms, "bound_by": b_by,
                                    "library_ms": tot["library_ms"]}
-    # mulcmp: N = 8 padded rows × B; random semi values, corner operands
-    # (0, p, 2p, 2^265 − 1) in all combinations, and true products.
+    # mulcmp: N = 8 padded rows × B
     N = 8 * B
-    ops = [rng.integers(0, 1 << 16, size=(17, N), dtype=np.uint32) for _ in range(3)]
-    for o in ops:
-        o[16] &= 0x1FF  # values < 2^265
-    p = SCALAR.p
-    corners = [0, p, 2 * p, (1 << 265) - 1]
-    cols = [(va, vb, vc) for va in corners for vb in corners for vc in corners]
-    want = [(va * vb - vc) % p != 0 for va, vb, vc in cols]
-    rnd = np.random.default_rng(SEED + 1)
-    for i in range(1024):
-        va, vb = (int.from_bytes(rnd.bytes(32), "little") % p for _ in range(2))
-        cols.append((va, vb, (va * vb) % p + (p if i % 2 else 0)))
-        want.append(False)
-    for j, vals in enumerate(cols):
-        for o, v in zip(ops, vals):
-            o[:, j] = limbs(v)
-    a, b, c = (from_numpy_u32(o, dev) for o in ops)
-    mask = fk.mulcmp(a, b, c, SCALAR)
-    got = (mask[: len(cols)] != 0).cpu().numpy()
-    assert (got == np.asarray(want)).all(), "mulcmp corner/product columns wrong"
+    (a, b, c), want = mulcmp_operands(N, dev)
+    got = (fk.mulcmp(a, b, c, SCALAR)[: len(want)] != 0).cpu().numpy()
+    assert (got == want).all(), "mulcmp corner/product columns wrong"
     results["mulcmp"] = compare(
         "mulcmp", lambda: fk.mulcmp(a, b, c, SCALAR),
         lambda: fk.mulcmp_plain(a, b, c, SCALAR), bound(N * 4 * (3 * 17 + 1), N * MULCMP_MULS),
@@ -372,7 +400,7 @@ def field_kernels(dev, bound):
     del out
     rng = np.random.default_rng(SEED)
     top = p >> 240
-    for n in (N, MUL_WIDE_N):
+    for n in (N, MUL_WIDE_N, CHAIN_ROWS_N):
         # random canonical operands (top limb below p's), then the corner
         # pairs of 0, 1 and p − 1 in the first 9 columns
         ops = []
@@ -534,7 +562,8 @@ def field_steps(dev, card, built):
 def limbs_kernels(dev, bound):
     """limbs_matvec at its paths' widest buckets (semi, and canonical at
     config 1's), mul_digits and reduce_digits at the Satisfier's shapes,
-    corner columns first, against their plain versions and Python ints."""
+    corner columns first, against their plain versions and Python ints;
+    then mulcmp at the limbs paths' shapes."""
     p = SCALAR.p
     rng = np.random.default_rng(SEED + 2)
     results = {}
@@ -591,7 +620,7 @@ def limbs_kernels(dev, bound):
     del ma, mb, got, ops
     # reduce_digits: digit sums of 2^24 − 1, 0 and 1 first, then random
     # sums below 2^24
-    n = REDUCE_N
+    n = CHAIN_ROWS_N
     dn = rng.integers(0, 1 << 24, size=(32, n), dtype=np.uint32)
     dn[:, 0], dn[:, 1], dn[:, 2] = (1 << 24) - 1, 0, 1
     d = from_numpy_u32(dn, dev)
@@ -603,6 +632,10 @@ def limbs_kernels(dev, bound):
         bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2)
     del d, got
     torch.cuda.empty_cache()
+    for rows, batch in ((CONFIG1_TRIVIAL_ROWS, B_FIELD), (CONFIG1_FOLD_ROWS, B_FIELD),
+                        (SHA256_LIMBS_ROWS, B_SHA_LIMBS)):
+        mulcmp_at(rows * batch, dev)
+        torch.cuda.empty_cache()
     return results
 
 
@@ -625,6 +658,8 @@ def config1_limbs_step(dev, card, built):
         3 * N_CHUNKS, 2 * N_CHUNKS, N_CHUNKS), counts
 
     sat = TemplatedSatisfier(template, B_FIELD, device=dev)
+    # the limbs check's mulcmp launches run at the shapes compared above
+    assert (sat.check.n_triv, sat.check.fold.Rtp) == (CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS)
     z = prog.z_template_limbs(*prog.build(dev)(free[0]))
     assert sat.is_satisfied(z)
     slot = prog.free_slots[int(np.random.default_rng(SEED).integers(0, 128))]
@@ -664,6 +699,7 @@ def sha256_limbs_step(dev, card, template, prog):
     assert counts["limbs_matvec"] == 17 * N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
 
     check = build_templated_check(template, Bl, "limbs", device=dev)
+    assert check.Rtp == SHA256_LIMBS_ROWS, check.Rtp  # mulcmp's shape, compared above
     packed = build_templated_check(template, Bl, device=dev)
     z = prog.z_template_limbs(*prog.build(dev)(free[0]))
     words = prog.build_packed(dev)(pack_bits(free[0]))
@@ -724,9 +760,9 @@ def satisfier_chain(dev, card):
     template, tape = nb.finish()
     prog = WitnessProgram(tape)
     R, S = template.num_constraints, prog.num_slots
-    if CHAIN_BLOCKS == 16:
-        assert (R, S) == (426912, 426497), (R, S)
     sat = Satisfier(template, device=dev)
+    if CHAIN_BLOCKS == 16:  # reduce_digits' and mul's N, compared above
+        assert (R, S, sat._check.Rtp) == (426912, 426497, CHAIN_ROWS_N), (R, S, sat._check.Rtp)
     print(f"[synth] sha256 chain of {CHAIN_BLOCKS}: {R} rows, {S} slots; Satisfier built in "
           f"{time.time() - t0:.2f} s (native build included)")
     free = from_numpy_u32(np.random.default_rng(SEED + 5).integers(0, 2, size=(1, 512 * CHAIN_BLOCKS))

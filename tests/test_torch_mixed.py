@@ -308,8 +308,9 @@ def test_production_step_refuses_pure_bit_programs_and_bad_shapes(built):
     bits = [nb.alloc_bit() for _ in range(512)]
     nb.sha256_compression(bits, nb.sha256_iv())
     st, stape = nb.finish()
-    with pytest.raises(NotImplementedError):
-        build_production_step(WitnessProgram(stape), st, 64, device="cpu")
+    for form in (None, "mixed"):
+        with pytest.raises(NotImplementedError):
+            build_production_step(WitnessProgram(stape), st, 64, device="cpu", witness_form=form)
     step = build_production_step(prog, t, 64, device="cpu")
     with pytest.raises(ValueError):
         step(torch.zeros((1, 32, 128), dtype=torch.int32))
@@ -374,6 +375,28 @@ def test_pow2_guard_rows_the_reference_routes_elsewhere(kind):
     want = np.asarray(ref(jnp.asarray(vals), jnp.asarray(fl)))
     assert (mask == want).all() and mask.tolist() == [b % 2 == 1 for b in range(n)]
     assert tuple(int(v) for v in port.verdict(_i32(vals), _i32(fl))) == (n // 2, 1)
+
+
+def test_rest_rows_without_field_slots():
+    """A rest row over u32 slots only (no field slots at all): the port
+    lifts every used slot to limbs and gives the mask of the reference's
+    limbs check on those limbs, true at odd instances (the reference's
+    mixed check cannot gather from an empty flimbs)."""
+    t, f = _guard_case("window_count")
+    assert layout._classify_mixed_rows(t, []) == ref_mv._classify_mixed_rows(t, [])
+    assert layout._classify_mixed_rows(t, [])["rest"] == [0]
+    n = 8
+    vals = RNG.integers(0, 1 << 24, size=(n, f + 1), dtype=np.uint64).astype(np.uint32)
+    vals[:, 0] = 1
+    vals[:, f] = vals[:, 1:f].sum(axis=1, dtype=np.uint64) + np.arange(n) % 2
+    fl = np.zeros((n, 0, 16), np.uint32)
+    port = build_templated_check(t, n, "mixed", field_slots=[], device="cpu")
+    ref = jax.jit(ref_mv.build_templated_check(t, n, False, "limbs"))
+    z3 = np.zeros((n, f + 1, 16), np.uint32)
+    z3[:, :, 0], z3[:, :, 1] = vals & 0xFFFF, vals >> 16
+    mask = port(_i32(vals), _i32(fl)).numpy()
+    want = np.asarray(ref(jnp.asarray(z3)))
+    assert (mask == want).all() and mask.tolist() == [b % 2 == 1 for b in range(n)]
 
 
 def test_pow2_guard_refuses_an_unsound_row():
