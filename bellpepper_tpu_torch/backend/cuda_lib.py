@@ -32,13 +32,14 @@ _vp, _i64, _i32, _u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_
 # C entry points and their argument types (pointers and the stream as
 # void*, sizes as the C side declares them).
 ENTRY_POINTS = {
-    "bp_bitplane_eq": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp],
-    "bp_fold_matvec": [_vp, _vp, _vp, _i32, _i32, _i64, _i32, _vp, _vp],
+    "bp_bitplane_eq": [_vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32, _vp],
+    "bp_fold_matvec": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _i64, _i32, _i32, _i32, _vp, _vp],
     "bp_mulcmp": [_vp, _vp, _vp, _vp, _i64, _vp, _vp],
     "bp_chain": [_vp, _vp, _vp, _i64, _i32, _i32, _u64, _u64, _u64, _vp, _vp],
     "bp_mul16": [_vp, _vp, _vp, _i64, _vp, _vp],
     "bp_mul_digits": [_vp, _vp, _vp, _i64, _vp, _vp],
     "bp_reduce_digits": [_vp, _vp, _i64, _vp, _vp],
+    "bp_op_rate": [_vp, _vp, _i32, _i64, _i32, _i32, _vp],
 }
 
 _lib = None

@@ -24,7 +24,9 @@ the ported paths, each a CUDA kernel in ``csrc/``:
 
 ``bits_matvec_semi`` and ``limbs_matvec`` launch one CUDA kernel
 (``csrc/fold_matvec.cu``) and count apart, so each form shows on its
-path.
+path. They and ``bitplane_eq`` read the witness through a table of slots
+(−1 for an empty entry) and gather inside the kernel; their plain
+versions gather first.
 
 Every wrapper checks device, dtype, shape and contiguity, then runs its
 plain PyTorch version when the inputs lie on the CPU, or launches its CUDA
@@ -49,7 +51,7 @@ import torch
 from ..fields import PrimeField
 from .cuda_lib import load_kernels
 from .field_consts import L8, L16, MAX_SHIFTS, SEMI, _digits, consts_for, kernel_consts
-from .words import FULL, U32, to_i32, to_u32
+from .words import FULL, U32, to_i32, to_u32, unpack_rows
 
 KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
            "limbs_matvec", "mul_digits", "reduce_digits")
@@ -106,31 +108,58 @@ def padded_positions(n_pos: int) -> int:
     return P
 
 
-def bitplane_eq(A: torch.Tensor, C: torch.Tensor, P: int, m_a: int, m_c: int) -> torch.Tensor:
-    """A int32[m_a·P, W], C int32[m_c·P, W] exponent planes (addend k's
-    plane for exponent e is row k·P + e) → bad int32[W]: bit j of column t
-    set iff Σ 2^e·A-bits ≢ Σ 2^e·C-bits (mod 2^P) for that instance."""
-    if A.dim() != 2:
-        raise ValueError("A must be 2-D")
-    W = A.shape[1]
-    _check_words("A", A, (m_a * P, W))
-    _check_words("C", C, (m_c * P, W))
-    if not _on_cuda(A, C):
-        return bitplane_eq_plain(A, C, P, m_a, m_c)
+def _aligned16(t: torch.Tensor, row_words: int) -> int:
+    """1 where the kernels may copy t's rows in 16-byte pieces."""
+    return int(t.data_ptr() % 16 == 0 and row_words % 4 == 0)
+
+
+def bitplane_eq(vals_p: torch.Tensor, planes: torch.Tensor, n: int, P: int, m_a: int, m_c: int) -> torch.Tensor:
+    """Packed slot-major words vals_p int32[S, Bw] and a plane table
+    planes int32[(m_a + m_c)·P·n] (entry (k·P + e)·n + i: the slot of
+    addend k's plane for exponent e of row i, addends k < m_a on the A
+    side, the others on the C side; −1 for an empty plane, which reads as
+    zero words; every other entry must be a slot below S) → bad
+    int32[n, Bw]: bit j of word (i, w) set iff Σ 2^e·A-bits ≢ Σ 2^e·C-bits
+    (mod 2^P) for instance 32·w + j of row i."""
+    if vals_p.dim() != 2:
+        raise ValueError("vals_p must be [S, Bw]")
+    _check_words("vals_p", vals_p)
+    _check_words("planes", planes, ((m_a + m_c) * P * n,))
+    if P < 8 or P & (P - 1):
+        raise ValueError(f"P must be a power of two >= 8, got {P}")
     if m_a + m_c + 1 > 31:
         raise ValueError("bitplane_eq supports m_a + m_c <= 30 addends")
-    bad = torch.empty(W, dtype=torch.int32, device=A.device)
-    if W:
-        _launch("bp_bitplane_eq", A.data_ptr(), C.data_ptr(), bad.data_ptr(), W, P, m_a, m_c,
-                stream=_stream(A))
+    if not _on_cuda(vals_p, planes):
+        return bitplane_eq_plain(vals_p, planes, n, P, m_a, m_c)
+    Bw = vals_p.shape[1]
+    bad = torch.empty((n, Bw), dtype=torch.int32, device=vals_p.device)
+    if n and Bw:
+        if n * -(-Bw // 32) >= 1 << 31:
+            raise ValueError(f"{n} rows × {Bw} words exceed the kernel's grid")
+        _launch("bp_bitplane_eq", vals_p.data_ptr(), planes.data_ptr(), bad.data_ptr(), n, Bw, P,
+                m_a, m_c, _aligned16(vals_p, Bw), stream=_stream(vals_p))
         bitplane_eq.launches += 1
     return bad
 
 
-def bitplane_eq_plain(A: torch.Tensor, C: torch.Tensor, P: int, m_a: int, m_c: int) -> torch.Tensor:
-    """Plain version: the Pallas kernel's carry-save reduction to two
-    vectors x, y and its position-local carry rule (k == sh(maj(x, y, k)),
-    or the two's-complement form k == sh(x | y) when m_c > 1)."""
+def bitplane_eq_plain(vals_p: torch.Tensor, planes: torch.Tensor, n: int, P: int, m_a: int, m_c: int) -> torch.Tensor:
+    """Plain version: ONE gather of every plane (an empty one from an
+    appended zero row), then ``_bitplane_planes_plain`` over W = n·Bw
+    columns."""
+    S, Bw = vals_p.shape
+    vz = torch.cat([vals_p, torch.zeros_like(vals_p[:1])], dim=0)
+    g = vz.index_select(0, torch.where(planes < 0, S, planes).to(torch.int64))
+    A = g[: m_a * P * n].reshape(m_a * P, n * Bw)
+    C = g[m_a * P * n :].reshape(m_c * P, n * Bw)
+    return _bitplane_planes_plain(A, C, P, m_a, m_c).reshape(n, Bw)
+
+
+def _bitplane_planes_plain(A: torch.Tensor, C: torch.Tensor, P: int, m_a: int, m_c: int) -> torch.Tensor:
+    """A int32[m_a·P, W], C int32[m_c·P, W] exponent planes (addend k's
+    plane for exponent e is row k·P + e) → bad int32[W], as the Pallas
+    kernel computes it: its carry-save reduction to two vectors x, y and
+    its position-local carry rule (k == sh(maj(x, y, k)), or the
+    two's-complement form k == sh(x | y) when m_c > 1)."""
     W = A.shape[1]
 
     def shpos(x, d=1):  # row e of the result is x[e - d]
@@ -262,17 +291,38 @@ def _reduce_rows(digit_rows: List[torch.Tensor], consts) -> List[torch.Tensor]:
 
 # ---------------------------------------------------------------------------
 # Kernel 4: the fold matvec, in its bits form (semi output) and its limbs
-# form (semi or canonical output)
+# form (semi or canonical output). The kernel gathers its own witness
+# through the bucket's column table (int32[n_rows, K], −1 for an empty
+# entry, which reads as zero), so no gathered copy exists; the fold planes
+# are bytes in the kernel's operand layout (``fold_operand``).
 # ---------------------------------------------------------------------------
-def _check_matvec(x: torch.Tensor, F: torch.Tensor) -> tuple:
-    if x.dim() != 3:
-        raise ValueError("x must be [n_rows, C, B]")
-    n_rows, C, B = x.shape
-    _check_words("x", x)
-    _check_words("F", F, (L8, n_rows, C))
+def fold_operand(planes: np.ndarray) -> np.ndarray:
+    """Fold planes u32[32, n_rows, C] (each below 256; digit d of the
+    weight of contraction column c at [d, r, c]) → the kernel's operand
+    uint8[n_rows, 32, Cp]: K-major, Cp = C rounded up to 32, zero
+    padded."""
+    d, n_rows, C = planes.shape
+    if d != L8 or (planes.size and planes.max() > 0xFF):
+        raise ValueError("fold planes must be [32, n_rows, C] of values below 256")
+    out = np.zeros((n_rows, L8, -(-C // 32) * 32), np.uint8)
+    out[:, :, :C] = planes.transpose(1, 0, 2)
+    return out
+
+
+def _check_matvec(w: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, per_entry: int) -> None:
+    """Checks of the fold matvecs' inputs; an entry spans per_entry
+    contraction columns (1 bit, or 32 digits)."""
+    _check_words("cols", cols)
+    if cols.dim() != 2:
+        raise ValueError("cols must be [n_rows, K]")
+    n_rows, C = cols.shape[0], per_entry * cols.shape[1]
+    _check_words("witness", w)
+    if F.dtype != torch.uint8 or not F.is_contiguous():
+        raise TypeError(f"F must be contiguous uint8 fold planes, got {F.dtype}")
+    if tuple(F.shape) != (n_rows, L8, -(-C // 32) * 32):
+        raise ValueError(f"F must have shape {(n_rows, L8, -(-C // 32) * 32)}, got {tuple(F.shape)}")
     if C * 255 * 255 >= (1 << 32):
         raise ValueError(f"contraction width {C} overflows the digit sums")
-    return n_rows, C, B
 
 
 def _reduce_consts(field: PrimeField, canonical: bool) -> np.ndarray:
@@ -281,77 +331,120 @@ def _reduce_consts(field: PrimeField, canonical: bool) -> np.ndarray:
     return kernel_consts(field)["reduce"]
 
 
-def _fold_matvec(wrapper, x, F, field, canonical: bool) -> torch.Tensor:
-    """Launch bp_fold_matvec for an input that lies on the card."""
-    n_rows, C, B = x.shape
-    if B > _MAX_GRID_Y * _MATVEC_THREADS:
-        raise ValueError(f"batch {B} exceeds the kernel's grid")
+def _fold_matvec(wrapper, w, cols, F, B: int, row_words: int, field, bits: bool, canonical: bool) -> torch.Tensor:
+    """Launch bp_fold_matvec for inputs that lie on the card."""
+    n_rows, K = cols.shape
+    if n_rows * -(-B // _MATVEC_TB) >= 1 << 31:
+        raise ValueError(f"{n_rows} rows × batch {B} exceed the kernel's grid")
+    if F.data_ptr() % 16:
+        raise ValueError("F must be 16-byte aligned")
     k = _reduce_consts(field, canonical)
-    out = torch.empty((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=x.device)
+    out = torch.empty((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=w.device)
     if n_rows and B:
-        _launch("bp_fold_matvec", x.data_ptr(), F.data_ptr(), out.data_ptr(), n_rows, C, B,
-                int(canonical), k.ctypes.data, stream=_stream(x))
+        _launch("bp_fold_matvec", w.data_ptr(), cols.data_ptr(), F.data_ptr(), out.data_ptr(), n_rows, K,
+                F.shape[2], B, row_words, int(bits), int(canonical), _aligned16(w, row_words),
+                k.ctypes.data, stream=_stream(w))
         wrapper.launches += 1
     return out
 
 
-_MAX_GRID_Y = 65535
-_MATVEC_THREADS = 256  # csrc/fold_matvec.cu kThreads: one block covers that many instances
+_MATVEC_TB = 64  # csrc/fold_matvec.cu kTB: the instances of one block
+
+
+def _live(cols: torch.Tensor) -> torch.Tensor:
+    return (cols >= 0).reshape(-1)
+
+
+def _gather_bits(vals_p: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """x int32[n_rows, K, 32·Bw] of 0/1: bit b of entry (r, e)'s slot,
+    zero for an empty entry."""
+    n_rows, K = cols.shape
+    g = vals_p.index_select(0, cols.clamp(min=0).reshape(-1).to(torch.int64))
+    g = torch.where(_live(cols)[:, None], g, 0)
+    return unpack_rows(g).reshape(n_rows, K, -1)
+
+
+def _gather_digits(zt: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """x int32[n_rows, 32K, B]: digit j of entry (r, e)'s slot at column
+    32e + j (the two bytes of each 16-bit limb), zero for an empty
+    entry."""
+    n_rows, K = cols.shape
+    g = zt.index_select(0, cols.clamp(min=0).reshape(-1).to(torch.int64))
+    g = torch.where(_live(cols)[:, None, None], g, 0)  # [n_rows·K, 16, B]
+    return torch.stack([g & 0xFF, (g >> 8) & 0xFF], dim=2).reshape(n_rows, K * L8, -1)
 
 
 def _digit_sums(x: torch.Tensor, F: torch.Tensor) -> List[torch.Tensor]:
-    """The 32 exact digit sums Σ_c F[d, r, c]·x[r, c, b] as int64 rows
+    """The 32 exact digit sums Σ_c F[r, d, c]·x[r, c, b] as int64 rows
     [n_rows, B], through a float64 matmul (every partial sum is an integer
     below 2^32, exact in float64)."""
-    acc = torch.matmul(
-        to_u32(F).permute(1, 0, 2).to(torch.float64), to_u32(x).to(torch.float64)
-    )  # [n_rows, 32, B]
+    acc = torch.matmul(F[:, :, : x.shape[1]].to(torch.float64), x.to(torch.float64))  # [n_rows, 32, B]
     return [acc[:, d].to(torch.int64) for d in range(L8)]
 
 
-def bits_matvec_semi(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """x int32[n_rows, C, B] witness bits, F int32[32, n_rows, C] digit
-    planes (< 256) → int32[17, n_rows, B] semi-reduced limbs of
-    Σ_c coeff·x (a value < 2^265 congruent mod p)."""
-    _check_matvec(x, F)
-    if not _on_cuda(x, F):
-        return bits_matvec_semi_plain(x, F, field)
-    return _fold_matvec(bits_matvec_semi, x, F, field, False)
+def _reduce_sums(rows: List[torch.Tensor], field: PrimeField, canonical: bool) -> torch.Tensor:
+    consts = consts_for(field)
+    return to_i32(torch.stack(_reduce_rows(rows, consts) if canonical else _semi_reduce_rows(rows, consts)))
 
 
-def bits_matvec_semi_plain(x: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """Plain version: exact digit sums, then the semi reduction."""
-    return limbs_matvec_plain(x, F, field, "semi")
+def bits_matvec_semi(vals_p: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Packed slot-major words vals_p int32[S, Bw], a bucket's column
+    table cols int32[n_rows, K] (slots below S, −1 for an empty entry) and
+    its coefficients' digit planes F uint8[n_rows, 32, Cp]
+    (``fold_operand``) → int32[17, n_rows, 32·Bw] semi-reduced limbs of
+    Σ_e coeff_e·bit_b(vals_p[cols[r, e]]) (a value < 2^265 congruent mod
+    p)."""
+    if vals_p.dim() != 2:
+        raise ValueError("vals_p must be [S, Bw]")
+    _check_matvec(vals_p, cols, F, 1)
+    if not _on_cuda(vals_p, cols, F):
+        return bits_matvec_semi_plain(vals_p, cols, F, field)
+    Bw = vals_p.shape[1]
+    return _fold_matvec(bits_matvec_semi, vals_p, cols, F, 32 * Bw, Bw, field, True, False)
+
+
+def bits_matvec_semi_plain(vals_p: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, field: PrimeField) -> torch.Tensor:
+    """Plain version: the gather of the entries' bits, the exact digit
+    sums, then the semi reduction."""
+    n_rows, B = cols.shape[0], 32 * vals_p.shape[1]
+    if n_rows == 0 or B == 0:
+        return torch.zeros((SEMI, n_rows, B), dtype=torch.int32, device=vals_p.device)
+    return _reduce_sums(_digit_sums(_gather_bits(vals_p, cols), F), field, False)
 
 
 bits_matvec_semi.launches = 0
 
 
-def limbs_matvec(x: torch.Tensor, F: torch.Tensor, field: PrimeField, out_form: str = "semi") -> torch.Tensor:
-    """x int32[n_rows, 32K, B] witness digits (< 256; entry k's digits j
-    at 32k + j), F int32[32, n_rows, 32K] fold planes (digit d of
-    c_k·2^(8j) mod p at [d, r, 32k + j]) → Σ_k c_k·z_k reduced:
+def limbs_matvec(zt: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, field: PrimeField,
+                 out_form: str = "semi") -> torch.Tensor:
+    """Slot-major limbs zt int32[S, 16, B] (16-bit limbs: limb l holds
+    digits 2l and 2l + 1), a bucket's column table cols int32[n_rows, K]
+    (slots below S, −1 for an empty entry) and its fold planes F
+    uint8[n_rows, 32, 32K] (``fold_operand`` of planes whose [d, r, 32e +
+    j] is digit d of c_e·2^(8j) mod p) → Σ_e c_e·z_e reduced:
     int32[17, n_rows, B] semi limbs (a value < 2^265 congruent mod p) for
     out_form "semi", int32[16, n_rows, B] canonical limbs for
     "canonical". Needs K ≤ MAX_FUSED_LIMBS_K (C·255² < 2^32)."""
     if out_form not in ("semi", "canonical"):
         raise ValueError(f"out_form must be 'semi' or 'canonical', got {out_form!r}")
-    _check_matvec(x, F)
-    if not _on_cuda(x, F):
-        return limbs_matvec_plain(x, F, field, out_form)
-    return _fold_matvec(limbs_matvec, x, F, field, out_form == "canonical")
+    if zt.dim() != 3 or zt.shape[1] != L16:
+        raise ValueError("zt must be [S, 16, B]")
+    _check_matvec(zt, cols, F, L8)
+    if not _on_cuda(zt, cols, F):
+        return limbs_matvec_plain(zt, cols, F, field, out_form)
+    B = zt.shape[2]
+    return _fold_matvec(limbs_matvec, zt, cols, F, B, B, field, False, out_form == "canonical")
 
 
-def limbs_matvec_plain(x: torch.Tensor, F: torch.Tensor, field: PrimeField, out_form: str = "semi") -> torch.Tensor:
-    """Plain version: exact digit sums, then the semi reduction or
-    _reduce_rows."""
-    n_rows, _C, B = x.shape
+def limbs_matvec_plain(zt: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, field: PrimeField,
+                       out_form: str = "semi") -> torch.Tensor:
+    """Plain version: the gather of the entries' digits, the exact digit
+    sums, then the semi reduction or _reduce_rows."""
+    n_rows, B = cols.shape[0], zt.shape[2]
     canonical = out_form == "canonical"
     if n_rows == 0 or B == 0:
-        return torch.zeros((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=x.device)
-    rows = _digit_sums(x, F)
-    consts = consts_for(field)
-    return to_i32(torch.stack(_reduce_rows(rows, consts) if canonical else _semi_reduce_rows(rows, consts)))
+        return torch.zeros((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=zt.device)
+    return _reduce_sums(_digit_sums(_gather_digits(zt, cols), F), field, canonical)
 
 
 limbs_matvec.launches = 0

@@ -7,9 +7,10 @@ Counterpart of the limbs route of ``bellpepper_tpu/backend/matvec.py``:
     exactly as the reference chooses them with ``use_pallas=True`` (the
     device plays no part, so the CPU tests take the card's route):
       - fused (batch % 128 == 0, every ELL width K ≤ MAX_FUSED_LIMBS_K and
-        the fold tables under 1.5e9 bytes): the witness digits, one
-        ``limbs_matvec`` an ELL bucket against host-built fold planes, then
-        ``mulcmp`` on the semi-reduced outputs;
+        the fold tables under 1.5e9 bytes as the reference counts them):
+        one ``limbs_matvec`` an ELL bucket, which reads the witness digits
+        through the bucket's column table, against host-built fold planes
+        (bytes), then ``mulcmp`` on the semi-reduced outputs;
       - non-fused: ``mul_digits`` of every gathered entry with its
         coefficient, bucket row sums, ``reduce_digits``, ``mul``, compare.
   * ``TrivialLimbsCheck``: ``_build_trivial_limbs_check`` (``:1349-1504``):
@@ -41,7 +42,9 @@ from .field_kernels import limbs_matvec, mul, mul_digits, mulcmp, reduce_digits
 from .layout import FIELD_SRC, MAX_FUSED_LIMBS_K, _build_shared_ell, _classify_trivial_limb_rows, _sub_rows_r1cs
 from .words import device_table as _t
 
-FUSED_TABLE_BYTES = 1.5e9  # the fused route's bound on its fold tables (4 KB a slot)
+# the fused route's bound on its fold tables as the reference counts them
+# (4 KB a slot in uint32; the port stores them as bytes, 1 KB a slot)
+FUSED_TABLE_BYTES = 1.5e9
 
 
 class _LimbsForm:
@@ -111,10 +114,12 @@ class LimbsCheck(_LimbsForm):
                 buckets = []
                 for k, start, n_rows in m.buckets:
                     cid_b = np.asarray(m.coeff_ids[start : start + n_rows * k]).reshape(n_rows, k)
-                    # F[d, r, 32k + j] = fd[cid[r, k], j, d]
-                    F = fd[cid_b].transpose(3, 0, 1, 2).reshape(L8, n_rows, k * L8)
-                    cols = _t(m.cols[start : start + n_rows * k], device)
-                    buckets.append((k, n_rows, cols, _t(F.view(np.int32), device, torch.int32)))
+                    g = fd[cid_b]  # [n_rows, k, 32 (j), 32 (d)]
+                    # F[r, d, 32e + j] = fd[cid[r, e], j, d]: K-major bytes
+                    F = np.ascontiguousarray(g.transpose(0, 3, 1, 2).reshape(n_rows, L8, k * L8), np.uint8)
+                    # an entry whose coefficient is 0 mod p is not read
+                    cols = np.where(g.any((2, 3)), m.cols[start : start + n_rows * k].reshape(n_rows, k), -1)
+                    buckets.append((_t(cols, device, torch.int32), torch.from_numpy(F).to(device)))
                 self.mats[name] = buckets
         else:
             coeff_limbs = FieldBackend.to_limbs(table)  # [T, 16]
@@ -122,15 +127,11 @@ class LimbsCheck(_LimbsForm):
                 coeffs = coeff_limbs[np.asarray(m.coeff_ids)].T.view(np.int32)  # [16, total]
                 self.mats[name] = (_t(m.cols, device), _t(coeffs, device, torch.int32), m.buckets)
 
-    def _matvec_fused(self, name: str, zd: torch.Tensor) -> torch.Tensor:
-        """zd int32[S_t, 32, B] witness digits → the matrix's rows
-        int32[out_rows, Rtp·B] (the gather is per bucket, so at most one
-        bucket's digits are live)."""
-        B = zd.shape[2]
-        parts = [
-            limbs_matvec(zd.index_select(0, cols).reshape(n_rows, k * L8, B), F, self.field)
-            for k, n_rows, cols, F in self.mats[name]
-        ]
+    def _matvec_fused(self, name: str, zt: torch.Tensor) -> torch.Tensor:
+        """zt int32[S_t, 16, B] → the matrix's rows int32[17, Rtp·B]
+        (each bucket's kernel reads the witness digits through its column
+        table)."""
+        parts = [limbs_matvec(zt, cols, F, self.field) for cols, F in self.mats[name]]
         return torch.cat(parts, dim=1).reshape(parts[0].shape[0], -1)
 
     def _matvec(self, name: str, zl: torch.Tensor) -> torch.Tensor:
@@ -156,8 +157,7 @@ class LimbsCheck(_LimbsForm):
         if not self.R:
             return torch.zeros((0, B), dtype=torch.bool, device=zt.device)
         if self.fused:
-            zd = torch.stack([zt & 0xFF, (zt >> 8) & 0xFF], dim=2).reshape(self.S_t, L8, B)
-            az, bz, cz = (self._matvec_fused(n, zd) for n in "abc")
+            az, bz, cz = (self._matvec_fused(n, zt) for n in "abc")
             bad = mulcmp(az, bz, cz, self.field) != 0
             return bad.reshape(self.Rtp, B).index_select(0, self.pos)
         zl = zt.permute(1, 2, 0)

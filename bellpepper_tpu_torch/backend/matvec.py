@@ -10,13 +10,15 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
     boolean ops per 32 instances;
   * ``_pow2_eq_bad_words`` (``:2392``): the carry-save + Kogge-Stone form
     of the MultiEq power-of-two rows, kept as the independent oracle of
-    ``_pow2_eq_bad_words_kernel`` (the gather and layout of
-    ``_pow2_eq_bad_words_pallas``, ``:2439-2481``, then ``bitplane_eq``);
+    ``_pow2_eq_bad_words_kernel`` (the plane layout of
+    ``_pow2_eq_bad_words_pallas``, ``:2439-2481``, as a table of slots
+    that ``bitplane_eq`` gathers through);
   * ``BitsSemiCheck``: the fused bits path of ``build_templated_check``
     (``:3252-3320``) in its semi form, for the rows that need field-exact
-    arithmetic: per ELL bucket ``bits_matvec_semi``, then ``mulcmp``. It
-    runs over the whole chunk in one call, where the reference maps over
-    512-instance blocks;
+    arithmetic: per ELL bucket ``bits_matvec_semi`` on the packed words
+    through the bucket's column table, then ``mulcmp``. It runs over the
+    whole chunk in one call, where the reference maps over 512-instance
+    blocks;
   * ``build_templated_check(..., "mixed", field_slots=...)`` →
     ``MixedCheck``, the port of ``_build_mixed_check`` (``:1659-2113``)
     for witnesses in the evaluator's (u32 values, canonical field limbs)
@@ -40,7 +42,7 @@ import torch
 from ..device import resolve
 from ..r1cs import R1CS
 from .field_consts import _digits
-from .field_kernels import bitplane_eq, bits_matvec_semi, mulcmp, padded_positions
+from .field_kernels import bitplane_eq, bits_matvec_semi, fold_operand, mulcmp, padded_positions
 from .layout import (
     POW2_M_LIMBS,
     POW2_OFF_BITS,
@@ -53,16 +55,9 @@ from .layout import (
 )
 from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _mulcmp_bad, _neg_const, _Operand
 from .limbs import build_limbs_check
-from .words import U32, ctz32, device_table as _t, popcount32, to_u32
+from .words import U32, ctz32, device_table as _t, popcount32, to_u32, unpack_rows
 
 ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2", "rest")  # MixedCheck's row classes, in its row order
-
-
-def _unpack_rows(words: torch.Tensor) -> torch.Tensor:
-    """int32[n, Bw] packed words → int32[n, Bw·32] of 0/1 (instance
-    32·w + j), slot-major where words.unpack_bits is batch-major."""
-    sh = torch.arange(32, dtype=torch.int32, device=words.device)
-    return ((words[:, :, None] >> sh) & 1).reshape(words.shape[0], -1)
 
 
 def _or_rows(x: torch.Tensor) -> torch.Tensor:
@@ -146,11 +141,10 @@ def _pow2_eq_bad_words(vals_p: torch.Tensor, spec) -> torch.Tensor:
     return _or_rows(lhs ^ rhs)  # [n, Bw]
 
 
-def _pow2_plane_index(spec, S_t: int) -> np.ndarray:
-    """Row index of every addend plane in the [S_t + 1, Bw] witness (row
-    S_t is an appended zero row for empty and padded ELL slots), ordered
-    side (a, c), addend k, position e, row i: the A and C plane layouts of
-    ``bitplane_eq`` after a reshape."""
+def _pow2_plane_index(spec) -> np.ndarray:
+    """The slot of every addend plane, ordered side (a, c), addend k,
+    position e, row i (the plane table of ``bitplane_eq``), −1 for an
+    empty ELL slot or a padded position."""
     n_pos = spec["n_pos"]
     n = spec["a_cols"].shape[0]
     P = padded_positions(n_pos)
@@ -158,35 +152,30 @@ def _pow2_plane_index(spec, S_t: int) -> np.ndarray:
     for key in ("a", "c"):
         cols_t = spec[key + "_cols"].transpose(2, 1, 0)  # [m, n_pos, n]
         mask_t = spec[key + "_mask"].transpose(2, 1, 0)
-        cols_p = np.full((cols_t.shape[0], P, n), S_t, np.int64)
-        cols_p[:, :n_pos] = np.where(mask_t != 0, cols_t, S_t)
+        cols_p = np.full((cols_t.shape[0], P, n), -1, np.int64)
+        cols_p[:, :n_pos] = np.where(mask_t != 0, cols_t, -1)
         tabs.append(cols_p.reshape(-1))
     return np.concatenate(tabs)
 
 
 def _pow2_eq_bad_words_kernel(vals_p: torch.Tensor, spec, plane_idx=None) -> torch.Tensor:
-    """Kernel form of _pow2_eq_bad_words: ONE gather of all addend planes
-    (empty ELL slots index an appended zero row), then ``bitplane_eq``
-    over W = n·Bw columns. Bit-identical to the adder form."""
-    S_t, Bw = vals_p.shape
+    """Kernel form of _pow2_eq_bad_words: ``bitplane_eq`` over the plane
+    table, which gathers the planes itself. Bit-identical to the adder
+    form."""
     n = spec["a_cols"].shape[0]
     m_a, m_c = spec["a_cols"].shape[2], spec["c_cols"].shape[2]
-    P = padded_positions(spec["n_pos"])
     if plane_idx is None:
-        plane_idx = _t(_pow2_plane_index(spec, S_t), vals_p.device)
-    vz = torch.cat([vals_p, torch.zeros_like(vals_p[:1])], dim=0)
-    g = vz.index_select(0, plane_idx)  # [(m_a + m_c)·P·n, Bw]
-    A = g[: m_a * P * n].reshape(m_a * P, n * Bw)
-    C = g[m_a * P * n :].reshape(m_c * P, n * Bw)
-    return bitplane_eq(A, C, P, m_a, m_c).reshape(n, Bw)
+        plane_idx = _t(_pow2_plane_index(spec), vals_p.device, torch.int32)
+    return bitplane_eq(vals_p, plane_idx, n, padded_positions(spec["n_pos"]), m_a, m_c)
 
 
 class BitsSemiCheck:
     """Field-exact check of bit-valued witnesses through the semi-reduced
-    kernels: bits_T int32[S_t, B] (0/1, slot-major) → bool[R, B] violation
-    mask in the template's row order. Needs field.NUM_BITS ≥ 250."""
+    kernels: packed slot-major words vals_p int32[S, Bw] → bool[R, 32·Bw]
+    violation mask in the template's row order. `slots` maps the
+    template's slots to rows of vals_p. Needs field.NUM_BITS ≥ 250."""
 
-    def __init__(self, template: R1CS, device):
+    def __init__(self, template: R1CS, slots: np.ndarray, device):
         field = template.field
         if field.NUM_BITS < 250:
             raise NotImplementedError(
@@ -206,33 +195,20 @@ class BitsSemiCheck:
         for name, m in mats.items():
             buckets = []
             for k, start, n_rows in m.buckets:
-                cd_b = (
-                    cd_all[np.asarray(m.coeff_ids[start : start + n_rows * k])]
-                    .reshape(n_rows, k, 32)
-                    .transpose(2, 0, 1)
-                )
-                buckets.append((k, start, n_rows, _t(cd_b, device, torch.int32)))
-            self.mats[name] = (_t(m.cols, device), buckets)
+                cd_b = cd_all[np.asarray(m.coeff_ids[start : start + n_rows * k])].reshape(n_rows, k, 32)
+                cols = np.asarray(slots, np.int64)[m.cols[start : start + n_rows * k]]
+                cols = np.where(cd_b.any(-1).reshape(-1), cols, -1).reshape(n_rows, k)
+                buckets.append((_t(cols, device, torch.int32),
+                                torch.from_numpy(fold_operand(cd_b.transpose(2, 0, 1))).to(device)))
+            self.mats[name] = buckets
 
-    def _matvec(self, name: str, bits_T: torch.Tensor) -> torch.Tensor:
-        cols, buckets = self.mats[name]
-        B = bits_T.shape[1]
-        bv_all = bits_T.index_select(0, cols)  # [total, B]
-        parts = [
-            bits_matvec_semi(
-                bv_all[start : start + n_rows * k].reshape(n_rows, k, B),
-                cd_b,
-                self.field,
-            )
-            for k, start, n_rows, cd_b in buckets
-        ]
+    def _matvec(self, name: str, vals_p: torch.Tensor) -> torch.Tensor:
+        parts = [bits_matvec_semi(vals_p, cols, F, self.field) for cols, F in self.mats[name]]
         return torch.cat(parts, dim=1).reshape(parts[0].shape[0], -1)  # [17, Rtp·B]
 
-    def __call__(self, bits_T: torch.Tensor) -> torch.Tensor:
-        B = bits_T.shape[1]
-        az = self._matvec("a", bits_T)
-        bz = self._matvec("b", bits_T)
-        cz = self._matvec("c", bits_T)
+    def __call__(self, vals_p: torch.Tensor) -> torch.Tensor:
+        B = 32 * vals_p.shape[1]
+        az, bz, cz = (self._matvec(name, vals_p) for name in "abc")
         bad = (mulcmp(az, bz, cz, self.field) != 0).reshape(self.Rtp, B)
         return bad.index_select(0, self.pos)
 
@@ -289,16 +265,16 @@ class PackedBitsCheck:
         )
         self.pow2_rows = _t(pow2_rows, device)
         if self.pow2_spec is not None:
-            self.plane_idx = _t(_pow2_plane_index(self.pow2_spec, self.S_t), device)
+            self.plane_idx = _t(_pow2_plane_index(self.pow2_spec), device, torch.int32)
         rest_big_idx = big_idx[rest_big_pos].astype(np.int64)
         self.rest_big_idx = _t(rest_big_idx, device)
         self.big = None
         if len(rest_big_idx):
-            # The remaining big rows see only the slots they use (ONE
-            # stays slot 0), so the unpack moves [n_used, batch] words.
+            # The remaining big rows' check is built over only the slots
+            # they use (ONE stays slot 0), its column tables mapped back
+            # to rows of the packed witness.
             sub_r, used = _used_slot_template(template, rest_big_idx)
-            self.used = _t(used, device)
-            self.big = BitsSemiCheck(sub_r, device)
+            self.big = BitsSemiCheck(sub_r, used, device)
 
         order_rows = np.concatenate(
             [bool_rows.astype(np.int64)]
@@ -326,7 +302,7 @@ class PackedBitsCheck:
             colp, scop = self.left[name]  # [K, n_left] each
             ev = None
             for k in range(colp.shape[0]):
-                term = _unpack_rows(vals_p.index_select(0, colp[k])).to(
+                term = unpack_rows(vals_p.index_select(0, colp[k])).to(
                     torch.int64
                 ) * scop[k][:, None]
                 ev = term if ev is None else ev + term
@@ -338,8 +314,7 @@ class PackedBitsCheck:
 
     def _big_bad(self, vals_p):
         """Remaining big rows: bool[n_rest_big, batch]."""
-        gb = vals_p.index_select(0, self.used)  # [n_used, Bw]
-        return self.big(_unpack_rows(gb))
+        return self.big(vals_p)
 
     def _slot_major(self, vals_bm):
         if tuple(vals_bm.shape) != (self.Bw, self.S_t) or vals_bm.dtype != torch.int32:
@@ -361,11 +336,11 @@ class PackedBitsCheck:
         if self.n_bool:
             parts.append(torch.zeros((self.n_bool, B), dtype=torch.bool, device=vals_p.device))
         for words, _rows in self._fam_bad_words(vals_p):
-            parts.append(_unpack_rows(words) != 0)
+            parts.append(unpack_rows(words) != 0)
         if self.n_left:
             parts.append(self._left_bad(vals_p))
         if self.pow2_spec is not None:
-            parts.append(_unpack_rows(self._pow2_bad_words(vals_p)) != 0)
+            parts.append(unpack_rows(self._pow2_bad_words(vals_p)) != 0)
         if self.big is not None:
             parts.append(self._big_bad(vals_p))
         comb = torch.cat(parts, dim=0)  # [R, batch], grouped row order

@@ -75,6 +75,13 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     return b.reshape(packed.shape[0] * 32, -1)
 
 
+def unpack_rows(words: torch.Tensor) -> torch.Tensor:
+    """int32[n, Bw] packed words → int32[n, Bw·32] of 0/1 (instance
+    32·w + j), slot-major where unpack_bits is batch-major."""
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, :, None] >> sh) & 1).reshape(words.shape[0], -1)
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """SWAR population count of each 32-bit word → int64 counts."""
     v = to_u32(x) if x.dtype != torch.int64 else x & U32

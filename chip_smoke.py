@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card, and check
-their eight kernels against their plain versions.
+their eight kernels (and the op-rate probe) against their plain versions.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -14,10 +14,17 @@ Phases (one line each, or a few):
     slots), of config 1 (pack → (mul, add, square) × 30: 220 rows, 221
     slots) and of its variant with num_assert_nonzero (221 rows, 222
     slots), with the mixed row classes of both;
-  * each kernel against its plain PyTorch version at its path's shapes
-    (bit-exact), with the kernel's, the plain version's and, where one
-    PyTorch call computes the same work, that call's times, and the
-    least time the card could take (``bound``, below);
+  * each kernel against its plain PyTorch version at its path's shapes and
+    real tables (bit-exact): bitplane_eq through the sha256 pow2 plane
+    table and bits_matvec_semi through the big row's ELL buckets, on one
+    packed chunk whose odd words are random; limbs_matvec on config 1's
+    a-bucket and the sha256 limbs check's widest a-bucket (random limbs),
+    and at the K = 2,064 bound with every digit and fold entry 255; with
+    the kernel's, the plain version's and, where one PyTorch call computes
+    the same work, that call's times, and the least time the card could
+    take (``bound``, below);
+  * the op-rate probe (the counterpart of benchmarks/probe_vpu_ops.py):
+    G op/s of each of its seven op classes;
   * the packed sha256 step at 4 chunks of 32,768 instances, the config-1
     step and the variant's step at 4 chunks of 8,192 instances: clean
     verdicts, each path's kernels launched (counts reset just before the
@@ -29,19 +36,22 @@ Phases (one line each, or a few):
   * the limbs witness form: config 1's step at 4 × 8,192 and the sha256
     step at 4 × 1,024 in the limbs form (verdicts, launches, a non-bit
     value planted in a bit slot found at its instance, the sha256 chunk's
-    verdict equal to the packed check's), and the ``Satisfier`` of a
-    16-block sha256 chain (426,912 rows) at batch 1, whose
-    ``which_is_unsatisfied`` names the row a Python-int evaluation finds;
-    each with its time (and the steps' rate and peak memory).
+    verdict equal to the packed check's), the sha256 limbs step again at
+    2,048, 4,096 and 8,192 instances a chunk in turn while its peak,
+    extrapolated from the runs before, stays under 40 GiB, and the
+    ``Satisfier`` of a 16-block sha256 chain (426,912 rows) at batch 1,
+    whose ``which_is_unsatisfied`` names the row a Python-int evaluation
+    finds; each with its time (and the steps' rate and peak memory).
 
 ``bound``: the larger of the bytes a kernel's function must move (each
-input read once, each output written once) over 3.35 TB/s and the 32-bit
-integer products that function needs on these inputs (not those of the
-kernel's own design; see ``modmul_products``) over 64 lanes × 132 SMs ×
-the card's maximum SM clock. The line before last names the card again;
-the last line is {"ok": true, "device": {...}}.
-Any failed phase raises and the script exits non-zero. Without a CUDA
-device it exits 1 at once."""
+input read once, each output written once: for the kernels that read the
+witness through a table, the distinct slots the table names, the fold
+planes as stored and the output) over 3.35 TB/s and the 32-bit integer
+products that function needs on these inputs (not those of the kernel's
+own design; see ``modmul_products``) over 64 lanes × 132 SMs × the card's
+maximum SM clock. The line before last names the card again; the last
+line is {"ok": true, "device": {...}}. Any failed phase raises and the
+script exits non-zero. Without a CUDA device it exits 1 at once."""
 
 import json
 import random
@@ -64,8 +74,8 @@ from bellpepper_tpu_torch import (
     build_templated_check,
     pack_bits,
 )
-from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk
-from bellpepper_tpu_torch.backend.layout import _classify_mixed_rows
+from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
+from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_u32
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, _detect_linear_chain
@@ -84,9 +94,12 @@ CHAIN_ROWS_N = 426920
 # batch): config 1's 90 trivial rows and its 2 fold rows padded to 8, and
 # the sha256 template's 26,352 rows padded to 26,360
 CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS, SHA256_LIMBS_ROWS = 90, 8, 26360
-# limbs_matvec's shapes (n_rows, K, B): config 1's a-bucket and the sha256
-# template's widest a-bucket
-LIMBS_SHAPES = ((8, 64, B_FIELD), (24, 1024, B_SHA_LIMBS))
+# the sha256 limbs step's larger batches, run in turn while the peak
+# memory extrapolated from the runs before stays under PEAK_GIB
+B_SHA_LIMBS_BIG = (2048, 4096, 8192)
+PEAK_GIB = 40
+# the op-rate probe: rows (ILP), rounds and elements of each launch
+PROBE_R, PROBE_K, PROBE_N = 8, 256, 1 << 20
 SEED = 0x5962BE3D
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
@@ -132,9 +145,10 @@ def modmul_products(words_a: int, words_b: int, words_p: int = 8) -> int:
 # mul_digits) takes two 8-word residues; mulcmp's a·b − c takes 17-limb
 # semi values below 2^265, 9 words each. bits_matvec_semi multiplies 0/1
 # bits by digits (a select, no product) and folds 4 × 32 digit sums by
-# constants in its semi reduction. limbs_matvec needs one 8 × 8-word
-# product an ELL entry and one reduction of a row's 17-word sum, whatever
-# the 1,024 digit multiply-adds an entry of its design. reduce_digits
+# constants in its semi reduction, for each live row. limbs_matvec needs
+# one 8 × 8-word product a live ELL entry and one reduction of a live
+# row's 17-word sum, whatever the 1,024 digit multiply-adds an entry of
+# its design. reduce_digits
 # reduces a sum of 32 digit sums below 2^24 (a 10-word value). bitplane_eq
 # does logic ops only.
 MODMUL_MULS = modmul_products(8, 8)
@@ -316,48 +330,67 @@ def mulcmp_at(N: int, dev):
     assert err == 0, f"mulcmp disagrees with its plain version at N={N}"
 
 
-def sha256_kernels(dev, bound):
-    """bitplane_eq, bits_matvec_semi and mulcmp at the sha256 step's shapes."""
+def gathered_bytes(cols: torch.Tensor, slot_bytes: int) -> int:
+    """The bytes of the distinct witness slots a column or plane table
+    reads (each read once)."""
+    live = cols[cols >= 0]
+    return int(torch.unique(live).numel()) * slot_bytes
+
+
+def sha256_kernels(dev, bound, template, prog):
+    """bitplane_eq, bits_matvec_semi and mulcmp at the sha256 step's shapes
+    and tables: the packed check's pow2 plane table and its big row's ELL
+    buckets, read from one chunk's packed witness whose odd words are
+    random (so both verdicts occur)."""
     rng = np.random.default_rng(SEED)
     Bw = B // 32
     results = {}
-    # bitplane_eq: the 25 MultiEq rows, P = 256, m_a = 7, m_c = 1, W = 25·Bw;
-    # every third column made equal so both verdicts occur.
-    P, m_a, m_c, W = 256, 7, 1, 25 * Bw
-    A = rng.integers(0, 1 << 32, size=(m_a * P, W), dtype=np.uint64).astype(np.uint32)
-    C = rng.integers(0, 1 << 32, size=(m_c * P, W), dtype=np.uint64).astype(np.uint32)
-    A[P:, ::3] = 0
-    C[:, ::3] = A[:P, ::3]
-    A, C = from_numpy_u32(A, dev), from_numpy_u32(C, dev)
-    bad = fk.bitplane_eq(A, C, P, m_a, m_c)
-    assert not bad[::3].any() and bad[1::3].all()
+    check = build_templated_check(template, B, device=dev)
+    free = from_numpy_u32(rng.integers(0, 1 << 32, size=(Bw, 512), dtype=np.uint64).astype(np.uint32), dev)
+    vals_p = prog.build_packed(dev)(free).t().contiguous()  # [S_t, Bw]
+    vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
+                                                  dtype=np.uint64).astype(np.uint32), dev)
+    del free
+    # bitplane_eq: the 25 MultiEq rows, P = 256, m_a = 7, m_c = 1, over
+    # the plane table (empty planes −1); the library has no counterpart
+    spec, planes = check.pow2_spec, check.plane_idx
+    n, m_a, m_c = spec["a_cols"].shape[0], spec["a_cols"].shape[2], spec["c_cols"].shape[2]
+    P = fk.padded_positions(spec["n_pos"])
+    bad = fk.bitplane_eq(vals_p, planes, n, P, m_a, m_c)
+    assert not bad[:, ::2].any() and bad[:, 1::2].all(), "bitplane_eq verdicts"
     results["bitplane_eq"] = compare(
-        "bitplane_eq", lambda: fk.bitplane_eq(A, C, P, m_a, m_c),
-        lambda: fk.bitplane_eq_plain(A, C, P, m_a, m_c),
-        bound((m_a + m_c) * P * W * 4 + W * 4, 0))
-    # bits_matvec_semi: the big row's three ELL buckets, (K, n_rows) =
-    # (512, 8), (1, 8), (256, 8), at the chunk's B. The library yardstick
-    # is torch.bmm in float32 over the 32 digit sums only (no reduction).
+        f"bitplane_eq n={n} P={P} m_a={m_a} m_c={m_c} Bw={Bw} ({int((planes < 0).sum())} of "
+        f"{planes.numel()} planes empty)",
+        lambda: fk.bitplane_eq(vals_p, planes, n, P, m_a, m_c),
+        lambda: fk.bitplane_eq_plain(vals_p, planes, n, P, m_a, m_c),
+        bound(gathered_bytes(planes, Bw * 4) + n * Bw * 4, 0))
+    # bits_matvec_semi: the big row's ELL buckets, one a matrix, (K, rows) =
+    # (512, 8), (1, 8), (256, 8), 7 rows of each padding. The library
+    # yardstick is torch.bmm in float32 over the gathered bits' 32 digit
+    # sums only (no reduction).
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
-    for K in (512, 1, 256):
-        x = from_numpy_u32(rng.integers(0, 2, size=(8, K, B)).astype(np.uint32), dev)
-        F = from_numpy_u32(rng.integers(0, 256, size=(32, 8, K)).astype(np.uint32), dev)
-        xf, Ff = x.float(), F.permute(1, 0, 2).float().contiguous()
-        n_bytes = (8 * K * B + 32 * 8 * K + 17 * 8 * B) * 4
-        n_ops = 8 * B * SEMI_REDUCE_MULS
+    for name in "abc":
+        (cols, F), = check.big.mats[name]
+        n_rows, K = cols.shape
+        xf = fk._gather_bits(vals_p, cols).float()
+        Ff = F[:, :, :K].float()
+        n_bytes = gathered_bytes(cols, Bw * 4) + F.numel() + 17 * n_rows * B * 4
+        n_ops = int((cols >= 0).any(1).sum()) * B * SEMI_REDUCE_MULS
         r = compare(
-            f"bits_matvec_semi K={K}", lambda: fk.bits_matvec_semi(x, F, SCALAR),
-            lambda: fk.bits_matvec_semi_plain(x, F, SCALAR), bound(n_bytes, n_ops),
+            f"bits_matvec_semi K={K} rows={n_rows} ({int((cols >= 0).any(1).sum())} live)",
+            lambda: fk.bits_matvec_semi(vals_p, cols, F, SCALAR),
+            lambda: fk.bits_matvec_semi_plain(vals_p, cols, F, SCALAR), bound(n_bytes, n_ops),
             library=lambda: torch.bmm(Ff, xf))
         for k in ("ms", "plain_ms", "library_ms"):
             tot[k] += r[k]
         tot["bytes"] += n_bytes
         tot["ops"] += n_ops
-        del x, F, xf, Ff
+        del xf, Ff
     b_ms, b_by = max(bound(tot["bytes"], 0), bound(0, tot["ops"]))
     results["bits_matvec_semi"] = {"max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                                    "bound_ms": b_ms, "bound_by": b_by,
                                    "library_ms": tot["library_ms"]}
+    del vals_p, check
     # mulcmp: N = 8 padded rows × B
     N = 8 * B
     (a, b, c), want = mulcmp_operands(N, dev)
@@ -367,6 +400,7 @@ def sha256_kernels(dev, bound):
         "mulcmp", lambda: fk.mulcmp(a, b, c, SCALAR),
         lambda: fk.mulcmp_plain(a, b, c, SCALAR), bound(N * 4 * (3 * 17 + 1), N * MULCMP_MULS),
         plain_reps=2)
+    torch.cuda.empty_cache()
     return results
 
 
@@ -559,44 +593,67 @@ def field_steps(dev, card, built):
     return launches
 
 
-def limbs_kernels(dev, bound):
-    """limbs_matvec at its paths' widest buckets (semi, and canonical at
-    config 1's), mul_digits and reduce_digits at the Satisfier's shapes,
-    corner columns first, against their plain versions and Python ints;
-    then mulcmp at the limbs paths' shapes."""
+def limbs_matvec_at(name, zt, cols, F, forms, bound, exact_ints=True):
+    """limbs_matvec on one bucket, each output form against its plain
+    version, and (exact_ints) two live (row, instance) columns against
+    Python ints; the library yardstick is torch.matmul in float64 over the
+    gathered digits' 32 sums only (exact: every sum is below 2^53). At the
+    K = 2,064 bound the reduction's carries wrap 32 bits as the TPU's do,
+    so there the plain version alone is the reference."""
+    p = SCALAR.p
+    n_rows, K = cols.shape
+    Bm = zt.shape[2]
+    xf = fk._gather_digits(zt, cols).double()
+    Ff = F.double()
+    live = torch.nonzero((cols >= 0).any(1)).flatten().tolist()
+    out = None
+    for form in forms:
+        got = fk.limbs_matvec(zt, cols, F, SCALAR, form)
+        for r, b in ((live[0], 0), (live[-1], Bm - 1)) if exact_ints else ():
+            sums = torch.matmul(Ff[r], xf[r, :, b]).to(torch.int64).tolist()
+            exact = sum(int(v) << (8 * d) for d, v in enumerate(sums))
+            val = col_int(got[:, r].contiguous(), b)
+            assert val % p == exact % p and (form == "semi" or val < p), ("limbs_matvec", name, form, r, b)
+        out_rows = 17 if form == "semi" else 16
+        n_bytes = gathered_bytes(cols, 16 * Bm * 4) + F.numel() + out_rows * n_rows * Bm * 4
+        n_ops = Bm * (int((cols >= 0).sum()) * ENTRY_MULS + len(live) * ROW_REDUCE_MULS)
+        r = compare(f"limbs_matvec {form} {name} rows={n_rows} ({len(live)} live) K={K} B={Bm}",
+                    lambda: fk.limbs_matvec(zt, cols, F, SCALAR, form),
+                    lambda: fk.limbs_matvec_plain(zt, cols, F, SCALAR, form), bound(n_bytes, n_ops),
+                    reps=10, plain_reps=2, library=lambda: torch.matmul(Ff, xf))
+        out = out or r
+        del got
+    del xf, Ff
+    torch.cuda.empty_cache()
+    return out
+
+
+def limbs_kernels(dev, bound, sha_limbs, config1_fold):
+    """limbs_matvec at its paths' real buckets (config 1's a-bucket, semi
+    and canonical; the sha256 limbs check's widest a-bucket, semi) on
+    random limbs, and at the K = 2,064 bound with every digit and fold
+    entry 255 (both forms); mul_digits and reduce_digits at the
+    Satisfier's shapes, corner columns first, against their plain
+    versions and Python ints; then mulcmp at the limbs paths' shapes."""
     p = SCALAR.p
     rng = np.random.default_rng(SEED + 2)
     results = {}
-    # limbs_matvec: random digits and fold planes; row 0 all 255, so the
-    # digit sums reach C·255² (< 2^32) and the carries wrap as the TPU's.
-    # The library yardstick is torch.matmul in float64 over the 32 digit
-    # sums only (exact: every sum is below 2^53).
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    for (n_rows, K, Bm), forms in zip(LIMBS_SHAPES, (("semi", "canonical"), ("semi",))):
-        C = 32 * K
-        x = torch.randint(0, 256, (n_rows, C, Bm), generator=gen, device=dev, dtype=torch.int32)
-        F = torch.randint(0, 256, (32, n_rows, C), generator=gen, device=dev, dtype=torch.int32)
-        x[0] = 255
-        F[:, 0] = 255
-        xf, Ff = x.double(), F.permute(1, 0, 2).double().contiguous()
-        for form in forms:
-            out_rows = 17 if form == "semi" else 16
-            got = fk.limbs_matvec(x, F, SCALAR, form)
-            for r, b in ((0, 0), (n_rows - 1, Bm - 1)):
-                sums = (F[:, r, :].cpu().to(torch.int64) * x[r, :, b].cpu().to(torch.int64)).sum(1)
-                exact = sum(int(v) << (8 * d) for d, v in enumerate(sums.tolist()))
-                val = col_int(got[:, r].contiguous(), b)
-                assert val % p == exact % p and (form == "semi" or val < p), ("limbs_matvec", form, r, b)
-            n_bytes = (n_rows * C * Bm + 32 * n_rows * C + out_rows * n_rows * Bm) * 4
-            n_ops = n_rows * Bm * (K * ENTRY_MULS + ROW_REDUCE_MULS)
-            r = compare(f"limbs_matvec {form} rows={n_rows} K={K} B={Bm}",
-                        lambda: fk.limbs_matvec(x, F, SCALAR, form),
-                        lambda: fk.limbs_matvec_plain(x, F, SCALAR, form), bound(n_bytes, n_ops),
-                        reps=10, plain_reps=2, library=lambda: torch.matmul(Ff, xf))
-            results.setdefault("limbs_matvec", r)  # the line's numbers: config 1's a-bucket, semi
-        del x, F, xf, Ff, got
-        torch.cuda.empty_cache()
+    for name, check, Bm, forms in (("config1 a-bucket", config1_fold, B_FIELD, ("semi", "canonical")),
+                                   ("sha256 widest a-bucket", sha_limbs, B_SHA_LIMBS, ("semi",))):
+        cols, F = max(check.mats["a"], key=lambda t: t[0].shape[1])
+        zt = torch.randint(0, 1 << 16, (check.S_t, 16, Bm), generator=gen, device=dev, dtype=torch.int32)
+        r = limbs_matvec_at(name, zt, cols, F, forms, bound)
+        results.setdefault("limbs_matvec", r)  # the line's numbers: config 1's a-bucket, semi
+        del zt
+    K, n_rows = MAX_FUSED_LIMBS_K, 8
+    zt = torch.full((2, 16, B_SHA_LIMBS), 0xFFFF, dtype=torch.int32, device=dev)
+    cols = torch.ones((n_rows, K), dtype=torch.int32, device=dev)
+    cols[n_rows - 3 :] = -1  # a segment's padding rows
+    F = torch.full((n_rows, 32, 32 * K), 255, dtype=torch.uint8, device=dev)
+    limbs_matvec_at("all 255", zt, cols, F, ("semi", "canonical"), bound, exact_ints=False)
+    del zt, cols, F
     # mul_digits: random canonical operands, the corner pairs of 0, 1 and
     # p − 1 in the first 9 columns
     n = MUL_DIGITS_N
@@ -683,11 +740,14 @@ def sha256_limbs_step(dev, card, template, prog):
     """The sha256 compression in the limbs form (the fused route, 17 ELL
     buckets) at 4 × 1,024; chunk 0's verdict against the packed check on
     the same instances, clean and with one intermediate bit flipped; a
-    non-bit value in a message-bit slot found at its instance."""
+    non-bit value in a message-bit slot found at its instance. Then the step at the batches
+    of B_SHA_LIMBS_BIG in turn while the peak extrapolated from the runs
+    before stays under PEAK_GIB: each one's verdict, time and peak."""
     p = SCALAR.p
     R = template.num_constraints
     Bl = B_SHA_LIMBS
-    free_np = np.random.default_rng(SEED + 4).integers(0, 2, size=(N_CHUNKS, Bl, 512)).astype(np.uint32)
+    rng = np.random.default_rng(SEED + 4)
+    free_np = rng.integers(0, 2, size=(N_CHUNKS, Bl, 512)).astype(np.uint32)
     free = from_numpy_u32(free_np, dev)
     t0 = time.time()
     step = build_production_step(prog, template, Bl, device=dev, witness_form="limbs")
@@ -723,8 +783,65 @@ def sha256_limbs_step(dev, card, template, prog):
     del check, packed, z, words, zf, wf, bad
     torch.cuda.empty_cache()
     peak = perf_step("sha256 limbs", step, free, Bl, R, card, 3)
-    assert peak < 40, f"peak memory {peak:.2f} GiB"
+    assert peak < PEAK_GIB, f"peak memory {peak:.2f} GiB"
+    del step, free
+    torch.cuda.empty_cache()
+
+    # the larger batches in turn while the peak, extrapolated from the
+    # runs so far (linearly from one, along the last two after), stays
+    # under PEAK_GIB
+    peaks = [(Bl, peak)]
+    for Bb in B_SHA_LIMBS_BIG:
+        (b1, p1), (b2, p2) = peaks[-2] if len(peaks) > 1 else (0, 0.0), peaks[-1]
+        est = p2 + (p2 - p1) / (b2 - b1) * (Bb - b2)
+        if est >= PEAK_GIB:
+            print(f"[perf] sha256 limbs at {Bb}: peak estimated {est:.2f} GiB, not run")
+            break
+        free = from_numpy_u32(rng.integers(0, 2, size=(N_CHUNKS, Bb, 512)).astype(np.uint32), dev)
+        step = build_production_step(prog, template, Bb, device=dev, witness_form="limbs")
+        step(free)  # warm-up
+        verdict, big_counts = path_run(step, free)
+        print(f"[step] sha256 limbs at {N_CHUNKS}x{Bb} verdict {verdict} launches {big_counts}")
+        assert verdict == (0, 0xFFFFFFFF), verdict
+        peaks.append((Bb, perf_step(f"sha256 limbs {Bb}", step, free, Bb, R, card, 2)))
+        assert peaks[-1][1] < PEAK_GIB, f"peak memory {peaks[-1][1]:.2f} GiB at {Bb} (estimated {est:.2f})"
+        del step, free
+        torch.cuda.empty_cache()
     return counts
+
+
+def op_rate_probe(bound):
+    """The op-rate probe on the card: per class, the kernel against its
+    plain version (integer classes bit-exact at PROBE_K rounds, f32 ones
+    within a relative 10^-5 at 4 rounds, where they stay finite) and its
+    rate, R·K·N rounds over the kernel's time."""
+    rng = np.random.default_rng(SEED + 6)
+    x_np = rng.integers(1, 100, size=(PROBE_R, PROBE_N)).astype(np.int32)
+    rates = {}
+    for op in op_rate.OPS:
+        flt = op in op_rate.FLOAT_OPS
+        x = torch.from_numpy(x_np).to(DEVICE)
+        if flt:
+            x = x.float()
+            got = op_rate.op_rate(x, op, 4)
+            torch.testing.assert_close(got, op_rate.op_rate_plain(x, op, 4), rtol=1e-5, atol=0)
+            err = 0.0
+        else:
+            err = max_abs_err(op_rate.op_rate(x, op, PROBE_K), op_rate.op_rate_plain(x, op, PROBE_K))
+            assert err == 0, f"op_rate {op} disagrees with its plain version"
+        ms = cuda_ms(lambda: op_rate.op_rate(x, op, PROBE_K), 10)
+        plain_ms = cuda_ms(lambda: op_rate.op_rate_plain(x, op, PROBE_K), 1)
+        rounds = PROBE_R * PROBE_K * PROBE_N
+        # rounds a clock an SM: 128 f32 lanes; 16 conversions, two a round;
+        # the 64 integer lanes of `bound` for the rest
+        lanes = {"f32_mul": 128, "f32_fma": 128, "cvt_u32_f32": 8}.get(op, 64)
+        b_ms, b_by = bound(4 * (PROBE_R + 1) * PROBE_N, rounds * 64 / lanes)
+        rates[op] = {"gops": rounds / ms / 1e6, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": err}
+        del x
+    print(f"[probe] op-rate R={PROBE_R} K={PROBE_K} N={PROBE_N}: " + ", ".join(
+        f"{op} {v['gops']:.1f} G op/s" for op, v in rates.items()))
+    print("[probe] op-rate detail " + json.dumps(rates))
 
 
 def python_int_first_bad(template, z_limbs, slot):
@@ -811,9 +928,16 @@ def main() -> int:
 
     template, prog = sha256_path(dev, card)
     built = field_synth()
-    results = sha256_kernels(dev, bound)
+    t0 = time.time()
+    sha_limbs = build_templated_check(template, B_SHA_LIMBS, "limbs", device=dev)
+    config1_fold = build_templated_check(built["config1"][0], B_FIELD, "limbs", device=dev).fold
+    print(f"[step] limbs checks of sha256 at {B_SHA_LIMBS} and config 1 at {B_FIELD} built in "
+          f"{time.time() - t0:.2f} s (fold tables included)")
+    results = sha256_kernels(dev, bound, template, prog)
     results.update(field_kernels(dev, bound))
-    results.update(limbs_kernels(dev, bound))
+    results.update(limbs_kernels(dev, bound, sha_limbs, config1_fold))
+    del sha_limbs, config1_fold  # the steps' peaks count only their own tables
+    op_rate_probe(bound)
     torch.cuda.empty_cache()
     launches = {"sha256": sha256_step(dev, card, template, prog)}
     torch.cuda.empty_cache()

@@ -24,7 +24,7 @@ from bellpepper_tpu_torch import (
     build_packed_production_step,
     build_production_step,
 )
-from bellpepper_tpu_torch.backend import field_kernels as fk
+from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.words import from_numpy_u32
 
 RNG = np.random.default_rng(0x5EED_0006)
@@ -43,31 +43,70 @@ def _u32(shape, dev, high=1 << 32):
     )
 
 
+def _planes(P, m_a, m_c, n, S, dev):
+    """A random plane table over S slots, a third of its planes empty."""
+    t = RNG.integers(0, S, size=(m_a + m_c) * P * n).astype(np.int32)
+    t[RNG.random(t.size) < 1 / 3] = -1
+    return torch.from_numpy(t).to(dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,m_a,m_c,W", [(256, 7, 1, 1000), (32, 3, 2, 777), (64, 4, 3, 1)])
-def test_bitplane_eq_on_card(cuda, P, m_a, m_c, W):
-    A, C = _u32((m_a * P, W), cuda), _u32((m_c * P, W), cuda)
-    C[:, ::2] = 0
-    C[:P, ::2] = A[:P, ::2]
-    A[P:, ::2] = 0
+@pytest.mark.parametrize("P,m_a,m_c,n,Bw", [(256, 7, 1, 25, 1024), (256, 7, 1, 3, 37), (32, 3, 2, 5, 777),
+                                            (64, 4, 3, 2, 1)])
+def test_bitplane_eq_on_card(cuda, P, m_a, m_c, n, Bw):
+    """Ragged Bw (the 4-byte copies), the sha256 instantiation (7, 1) and
+    the generic one; half the columns made equal by a witness whose C
+    plane is a copy of A's one live plane at every position."""
+    S = 64
+    vals = _u32((S, Bw), cuda)
+    planes = _planes(P, m_a, m_c, n, S, cuda)
     before = fk.bitplane_eq.launches
-    got = fk.bitplane_eq(A, C, P, m_a, m_c)
+    got = fk.bitplane_eq(vals, planes, n, P, m_a, m_c)
     torch.cuda.synchronize()
     assert fk.bitplane_eq.launches == before + 1
-    assert torch.equal(got, fk.bitplane_eq_plain(A, C, P, m_a, m_c))
-    assert not got[::2].any()
+    assert torch.equal(got, fk.bitplane_eq_plain(vals, planes, n, P, m_a, m_c))
+    # every row's A side reads slot 2e at position e (addend 0, the others
+    # empty) and its C side slot 2e + 1 (every C addend); with vals[2e + 1]
+    # = vals[2e] at even words, m_c = 1 holds A = C there
+    tab = torch.full(((m_a + m_c), P, n), -1, dtype=torch.int32)
+    e = torch.arange(P, dtype=torch.int32)[:, None] % (S // 2)
+    tab[0], tab[m_a:] = 2 * e, 2 * e + 1
+    vals[1::2, ::2] = vals[0::2, ::2]
+    tab = tab.reshape(-1).to(cuda)
+    got = fk.bitplane_eq(vals, tab, n, P, m_a, m_c)
+    assert torch.equal(got, fk.bitplane_eq_plain(vals, tab, n, P, m_a, m_c))
+    if m_c == 1:
+        assert not got[:, ::2].any()
+
+
+def _cols(n_rows, K, S, dev):
+    """A column table: random slots, row r's live entries front-packed
+    (K − 5r of them), the last three rows empty (a segment's padding)."""
+    cols = RNG.integers(0, S, size=(n_rows, K)).astype(np.int32)
+    for r in range(n_rows):
+        cols[r, 0 if r >= n_rows - 3 else max(1, K - 5 * r):] = -1
+    return torch.from_numpy(cols).to(dev)
+
+
+def _fold(n_rows, C, dev):
+    F = RNG.integers(0, 256, size=(32, n_rows, C)).astype(np.uint32)
+    return torch.from_numpy(fk.fold_operand(F)).to(dev)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rows,K,B", [(8, 512, 1000), (3, 37, 257), (8, 1, 33)])
-def test_bits_matvec_semi_on_card(cuda, n_rows, K, B):
-    x = _u32((n_rows, K, B), cuda, 2)
-    F = _u32((32, n_rows, K), cuda, 256)
+@pytest.mark.parametrize("n_rows,K,Bw", [(8, 512, 1024), (8, 1, 1024), (8, 256, 1024), (5, 37, 31), (4, 1, 1)])
+def test_bits_matvec_semi_on_card(cuda, n_rows, K, Bw):
+    """The sha256 big row's bucket shapes and ragged ones (Bw not a
+    multiple of 4: the 4-byte copies; a partial instance tile)."""
+    S = 700
+    vals = _u32((S, Bw), cuda)
+    cols, F = _cols(n_rows, K, S, cuda), _fold(n_rows, K, cuda)
     before = fk.bits_matvec_semi.launches
-    got = fk.bits_matvec_semi(x, F, SCALAR)
+    got = fk.bits_matvec_semi(vals, cols, F, SCALAR)
     torch.cuda.synchronize()
     assert fk.bits_matvec_semi.launches == before + 1
-    assert torch.equal(got, fk.bits_matvec_semi_plain(x, F, SCALAR))
+    assert torch.equal(got, fk.bits_matvec_semi_plain(vals, cols, F, SCALAR))
+    assert not got[:, n_rows - 3 :].any()
 
 
 @pytest.mark.cuda
@@ -85,12 +124,29 @@ def test_mulcmp_on_card(cuda, N):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_rather_than_fall_back(cuda):
-    A = torch.zeros((31 * 8, 4), dtype=torch.int32, device=cuda)
-    C = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((64, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):  # the kernel's counter holds m_a + m_c <= 30
-        fk.bitplane_eq(A, C, 8, 31, 1)
+        fk.bitplane_eq(vals, torch.zeros(32 * 8, dtype=torch.int32, device=cuda), 1, 8, 31, 1)
     with pytest.raises(ValueError):
-        fk.bitplane_eq(A[:, ::2], C[:, ::2], 8, 31, 1)
+        fk.bitplane_eq(vals[:, ::2], torch.zeros(8 * 8, dtype=torch.int32, device=cuda), 1, 8, 7, 1)
+    with pytest.raises(ValueError):  # the plane table lies on another device
+        fk.bitplane_eq(vals, torch.zeros(8 * 8, dtype=torch.int32), 1, 8, 7, 1)
+    cols = torch.zeros((8, 64), dtype=torch.int32, device=cuda)
+    n_F = 8 * 32 * 2048
+    buf = torch.zeros(n_F + 8, dtype=torch.uint8, device=cuda)
+    zt = torch.zeros((4, 16, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # the operand must be 16-byte aligned
+        fk.limbs_matvec(zt, cols, buf[8:].reshape(8, 32, 2048), SCALAR)
+    F = buf[:n_F].reshape(8, 32, 2048)
+    with pytest.raises(TypeError):
+        fk.limbs_matvec(zt, cols.to(torch.int64), F, SCALAR)
+    with pytest.raises(ValueError):  # the instance tile is [S, 16, B]
+        fk.limbs_matvec(zt[:, :8].contiguous(), cols, F, SCALAR)
+    with pytest.raises(ValueError):
+        fk.bits_matvec_semi(vals[:, ::2], cols[:, :32].contiguous(), F[:, :, :32].contiguous(), SCALAR)
+    x = torch.zeros((8, 4), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):  # an integer class takes int32 words
+        op_rate.op_rate(x, "u32_mul", 4)
 
 
 class _Tape:
@@ -212,22 +268,52 @@ def test_field_step_on_card_matches_cpu(cuda, nonzero):
 @pytest.mark.parametrize(
     "n_rows,K,B,out_form,top",
     [(8, 64, 1000, "semi", False), (8, 64, 1000, "canonical", False), (3, 1, 257, "canonical", False),
-     (2, 2064, 33, "semi", True), (2, 2064, 33, "canonical", True)],
-    ids=["K64-semi", "K64-canonical", "K1-canonical", "K2064-top-semi", "K2064-top-canonical"],
+     (24, 1024, 1024, "semi", False), (8, 2064, 33, "semi", True), (8, 2064, 33, "canonical", True)],
+    ids=["K64-semi", "K64-canonical", "K1-canonical", "K1024-semi", "K2064-top-semi", "K2064-top-canonical"],
 )
 def test_limbs_matvec_on_card(cuda, n_rows, K, B, out_form, top):
-    """Ragged B, K = 1 and the 2064-wide bound (every digit 255, so the
-    digit sums reach 66048·255² and the carries wrap 32 bits)."""
-    x = _u32((n_rows, 32 * K, B), cuda, 256)
-    F = _u32((32, n_rows, 32 * K), cuda, 256)
+    """Ragged B (B % 4 != 0: the 4-byte copies), K = 1, the sha256 widest
+    a-bucket's shape, and the 2064-wide bound: the first rows read one
+    slot of all-0xFFFF limbs through every entry against planes of 255, so
+    the digit sums reach 66048·255² and the carries wrap 32 bits."""
+    S = 300
+    zt = _u32((S, 16, B), cuda, 1 << 16)
+    cols = _cols(n_rows, K, S, cuda)
+    F = _fold(n_rows, 32 * K, cuda)
     if top:
-        x[0] = 255
-        F[:, 0] = 255
+        zt[7] = 0xFFFF
+        cols[:2] = 7
+        F[:2] = 255
     before = fk.limbs_matvec.launches
-    got = fk.limbs_matvec(x, F, SCALAR, out_form)
+    got = fk.limbs_matvec(zt, cols, F, SCALAR, out_form)
     torch.cuda.synchronize()
     assert fk.limbs_matvec.launches == before + 1
-    assert torch.equal(got, fk.limbs_matvec_plain(x, F, SCALAR, out_form))
+    assert torch.equal(got, fk.limbs_matvec_plain(zt, cols, F, SCALAR, out_form))
+    assert not got[:, n_rows - 3 :].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", op_rate.OPS)
+def test_op_rate_on_card(cuda, op):
+    """Integer classes bit-exact over 64 rounds; f32 classes over 4 rounds
+    (later ones overflow to inf) within a relative 10^-5: the kernel's
+    fused multiply-add rounds once where the plain version rounds twice,
+    and a squaring doubles a relative error each round."""
+    flt = op in op_rate.FLOAT_OPS
+    rounds = 4 if flt else 64
+    x = torch.from_numpy(RNG.integers(1, 100, size=(8, 3000)).astype(np.int32)).to(cuda)
+    if flt:
+        x = x.float()
+    before = op_rate.op_rate.launches
+    got = op_rate.op_rate(x, op, rounds)
+    torch.cuda.synchronize()
+    assert op_rate.op_rate.launches == before + 1
+    want = op_rate.op_rate_plain(x, op, rounds)
+    if flt:
+        assert torch.isfinite(want).all()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

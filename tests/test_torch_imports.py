@@ -1,7 +1,8 @@
 """The port must load where JAX is not installed: importing the package
-and its modules, building and running the sha256 and config-1 templates
-on the CPU (the packed, mixed and limbs steps, the chunked check and both
-satisfiers) pulls in no `jax` and nothing of the JAX package, and the
+and its modules (and chip_smoke.py), building and running the sha256 and
+config-1 templates on the CPU (the packed, mixed and limbs steps, the
+chunked check and both satisfiers) pulls in no `jax` and nothing of the
+JAX package, and the
 native library builds from the port's own C++ source. Without a card, an
 entry point called without a device raises."""
 
@@ -29,6 +30,8 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.backend
         import bellpepper_tpu_torch.backend.cuda_lib
         import bellpepper_tpu_torch.backend.field_kernels
+        import bellpepper_tpu_torch.backend.op_rate
+        import bellpepper_tpu_torch.backend.check_common
         import bellpepper_tpu_torch.backend.layout
         import bellpepper_tpu_torch.backend.limbs
         import bellpepper_tpu_torch.backend.matvec
@@ -46,6 +49,7 @@ def test_port_never_imports_jax():
             build_packed_production_step, build_production_step,
         )
         from bellpepper_tpu_torch.native import SOURCE
+        import chip_smoke  # the card script: its imports, not its run
 
         nb = NativeBuilder()
         bits = [nb.alloc_bit() for _ in range(512)]

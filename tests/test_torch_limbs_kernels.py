@@ -1,8 +1,10 @@
 """The limbs form's kernels' plain versions against the JAX package's
 Pallas kernels in interpret mode, bit for bit: fold_digit_table for the
-three fields; limbs_matvec (semi and canonical) against
-make_limbs_matvec_bucket at tests/test_fused_limbs.py's shapes and at the
-2064-wide bound with every digit at its largest; mul_digits and
+three fields; limbs_matvec (semi and canonical, from slot-major limbs
+through a column table with padding rows) against
+make_limbs_matvec_bucket on the gathered digits at
+tests/test_fused_limbs.py's shapes and at the 2064-wide bound with every
+digit at its largest; mul_digits and
 reduce_digits against PallasFieldOps(interpret=True) at N = 1024 for
 SCALAR and a pasta field, corner values included. The CPU wrappers'
 dispatch and input checks are in test_torch_kernels.py."""
@@ -12,6 +14,7 @@ import random
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from bellpepper_tpu.backend import field_pallas as ref_fp
 from bellpepper_tpu.fields import FIELDS, PALLAS_SCALAR, SCALAR
@@ -42,26 +45,40 @@ def test_fold_digit_table_matches_reference(field):
 @pytest.mark.parametrize(
     "K,n_rows,B,out_form,top",
     [(1, 8, 128, "semi", False), (2, 16, 128, "semi", False), (4, 8, 256, "semi", False),
-     (4, 8, 256, "canonical", False), (layout.MAX_FUSED_LIMBS_K, 8, 128, "semi", True)],
-    ids=["K1", "K2", "K4", "K4-canonical", "K2064-top"],
+     (4, 8, 256, "canonical", False), (layout.MAX_FUSED_LIMBS_K, 8, 128, "semi", True),
+     (layout.MAX_FUSED_LIMBS_K, 8, 128, "canonical", True)],
+    ids=["K1", "K2", "K4", "K4-canonical", "K2064-top", "K2064-top-canonical"],
 )
 def test_limbs_matvec_plain_matches_pallas(K, n_rows, B, out_form, top):
-    """Random digits and fold planes; at the 2064-wide bound the first
-    rows hold 255 everywhere, so the digit sums reach 66048·255² and the
-    carries wrap 32 bits as the TPU's do."""
+    """Random 16-bit limbs read through a column table (live entries
+    front-packed, the rest −1, the last three rows empty: a segment's
+    padding) and random fold planes; the Pallas kernel gets the gathered
+    digits. At the 2064-wide bound the first two rows read one slot of
+    all-0xFFFF limbs through every entry against planes of 255, so the
+    digit sums reach 66048·255² and the carries wrap 32 bits as the TPU's
+    do."""
     assert layout.MAX_FUSED_LIMBS_K == ref_fp.MAX_FUSED_LIMBS_K
-    x = RNG.integers(0, 256, size=(n_rows, 32 * K, B)).astype(np.uint32)
+    S = 40
+    zt = RNG.integers(0, 1 << 16, size=(S, 16, B)).astype(np.uint32)
+    cols = RNG.integers(0, S, size=(n_rows, K)).astype(np.int32)
+    for r in range(n_rows):
+        cols[r, 0 if r >= n_rows - 3 else max(1, K - 3 * r):] = -1
     F = RNG.integers(0, 256, size=(32, n_rows, 32 * K)).astype(np.uint32)
     if top:
-        x[:2] = 255
+        zt[7] = 0xFFFF
+        cols[:2] = 7
         F[:, :2] = 255
+    g = np.where((cols >= 0)[:, :, None, None], zt[np.maximum(cols, 0)], 0)  # [n_rows, K, 16, B]
+    x = np.stack([g & 0xFF, g >> 8], axis=3).reshape(n_rows, 32 * K, B)
     kern = ref_fp.make_limbs_matvec_bucket(SCALAR, K, n_rows, B, interpret=True, out_form=out_form)
     want = np.asarray(kern(jnp.asarray(x), jnp.asarray(F)))
-    got = fk.limbs_matvec(from_numpy_u32(x), from_numpy_u32(F), SCALAR, out_form)
+    got = fk.limbs_matvec(from_numpy_u32(zt), torch.from_numpy(cols), torch.from_numpy(fk.fold_operand(F)),
+                          SCALAR, out_form)
     assert got.shape == ((17 if out_form == "semi" else 16), n_rows, B)
     assert (to_numpy_u32(got) == want).all()
+    assert not want[:, n_rows - 3 :].any()  # the padding rows read zero
     if not top:  # and the limbs are Σ c·z mod p as Python ints
-        for r, b in ((0, 0), (n_rows - 1, B - 1)):
+        for r, b in ((0, 0), (n_rows - 4, B - 1)):
             val = sum(int(want[l, r, b]) << (16 * l) for l in range(want.shape[0]))
             exact = sum(int(F[d, r, c]) * int(x[r, c, b]) << (8 * d) for d in range(32) for c in range(32 * K))
             assert val % P == exact % P and (out_form == "semi" or val < P)
