@@ -5,7 +5,7 @@ Copied from ``bellpepper_tpu/backend/field_pallas.py:39-114`` (``_digits``,
 Python ints, with the exhaustive check of the quotient-estimate bound kept
 as it is. ``kernel_consts`` packs the
 rows the CUDA kernels read into flat uint32 arrays (the layouts of the
-constant structs in ``csrc/mulcmp.cu`` and ``csrc/field.cuh``)."""
+constant structs in ``csrc/field.cuh``)."""
 
 from __future__ import annotations
 
@@ -108,6 +108,12 @@ def fold_digit_table(field: PrimeField, coeff_table) -> np.ndarray:
     return out
 
 
+def chain_mu(p: int) -> int:
+    """The quotient-estimate constant of chain's word multiply
+    (``bp::mulmod_words``): floor(2^291 / p), at most 2^39 for p ≥ 2^252."""
+    return (1 << 291) // p
+
+
 _KERNEL_CONSTS: Dict[int, Dict[str, np.ndarray]] = {}
 
 
@@ -121,28 +127,34 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
       the fold matvec and reduce_digits (the semi output reads the fold
       rows alone; for a field with more than MAX_SHIFTS steps the moduli
       are left out, n is 0, and the canonical wrappers refuse the field);
-    * ``mulcmp``     [17 + 18·16 + 18·16 + 3·16 + 16 + 1]: p2_17, fold16,
-      fold16_hi, fold16b, p16, p0inv, for mulcmp;
+    * ``mulcmp``     [9 + 8 + 1]: p·2^11 as 9 32-bit words, p as 8 words,
+      and −p^-1 mod 2^32, for mulcmp (``bp::MulcmpConsts``);
     * ``modmul``     [16·16 + 16·16 + 3·16 + 3·17 + 1]: fold16 and
       fold16_hi rows 0..15, fold16b, p·2^k (k = 2, 1, 0) as 17 limbs, and
-      the quotient-estimate constant qe, for mul and chain (``None`` for
-      a field without qe)."""
+      the quotient-estimate constant qe, for mul, mul_digits (``None`` for
+      a field without qe);
+    * ``chain``      [8 + 8·8 + 2]: p as 8 words, the fold rows
+      2^(32·(8+i)) mod p (i < 8) as 8 words each, and mu = floor(2^291/p)
+      as its low and high words, for chain (``bp::ChainConsts``; ``None``
+      for a field without qe, as ``modmul``)."""
     out = _KERNEL_CONSTS.get(field.p)
     if out is not None:
         return out
     c = consts_for(field)
     if c.p0inv is None:
         raise ValueError("mulcmp's zero-test needs an odd modulus")
-    mulcmp = (
-        c.p2_17
-        + [v for row in c.fold16 for v in row]
-        + [v for row in c.fold16_hi for v in row]
-        + [v for row in c.fold16b for v in row]
-        + c.p16
-        + [c.p0inv]
-    )
-    modmul = None
+    p = field.p
+    if p >= 1 << 256:
+        raise ValueError("the word kernels hold p in 8 32-bit words")
+    mulcmp = _digits(p << 11, 32, 9) + _digits(p, 32, 8) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
+    modmul = chain = None
     if c.qe is not None:
+        chain = np.asarray(
+            _digits(p, 32, 8)
+            + [v for i in range(8) for v in _digits(pow(2, 32 * (8 + i), p), 32, 8)]
+            + _digits(chain_mu(p), 32, 2),
+            np.uint32,
+        )
         modmul = np.asarray(
             [v for row in c.fold16[:L16] for v in row]
             + [v for row in c.fold16_hi[:L16] for v in row]
@@ -162,5 +174,6 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
         "reduce": np.asarray(reduce, np.uint32),
         "mulcmp": np.asarray(mulcmp, np.uint32),
         "modmul": modmul,
+        "chain": chain,
     }
     return out

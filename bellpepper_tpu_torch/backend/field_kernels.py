@@ -35,7 +35,9 @@ falls back), and counts that launch in ``<wrapper>.launches``. Words are
 int32 tensors holding uint32 bit patterns (see ``words``); the plain
 versions compute in int64 and mask with 2^32 - 1 wherever the TPU
 kernels rely on uint32 wraparound, so they are bit-exact against both
-the Pallas kernels and the CUDA ones.
+the Pallas kernels and the CUDA ones. ``mulcmp`` is the one exception:
+it returns the 0/1 mask of the Pallas kernel's nonzero word, since the
+CUDA kernel computes in 32-bit words, not the TPU's fold integers.
 
 The row helpers below (``_conv16_rows`` … ``_add_canon_rows``) are the
 torch versions of the Pallas kernels' row pipeline: a "row" is an int64
@@ -454,10 +456,15 @@ limbs_matvec.launches = 0
 # Kernel 5: fused mul-compare
 # ---------------------------------------------------------------------------
 def mulcmp(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """Semi-reduced a, b, c int32[17, N] → int32[N], 0 iff a·b ≡ c (mod p).
-    Needs field.NUM_BITS ≥ 250 (p·2^11 must exceed every semi value)."""
-    if field.NUM_BITS < 250:
-        raise ValueError("mulcmp needs p ≥ 2^249")
+    """Semi-reduced a, b, c int32[17, N] (16-bit limbs; a, b < 2^266,
+    c ≤ p·2^11) → int32[N] mask: 1 where a·b ≢ c (mod p), 0 where a·b ≡ c.
+    The TPU kernel returns a word that is nonzero where this mask is 1 (an
+    OR of limb XORs of its own fold integers); every caller reads only
+    whether it is zero, so the port returns the mask. Needs 250 ≤
+    field.NUM_BITS ≤ 256 (p·2^11 must exceed every semi value; the kernel
+    holds p in 8 words)."""
+    if not 250 <= field.NUM_BITS <= 256:
+        raise ValueError("mulcmp needs 2^249 ≤ p < 2^256")
     if a.dim() != 2:
         raise ValueError("a must be [17, N]")
     N = a.shape[1]
@@ -475,8 +482,8 @@ def mulcmp(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, field: PrimeField)
 
 
 def mulcmp_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """Plain version of field_pallas._mulcmp_rows in int64 (uint32 wrap
-    emulated by masking)."""
+    """Plain version: field_pallas._mulcmp_rows in int64 (uint32 wrap
+    emulated by masking), its nonzero word reduced to the 0/1 mask."""
     consts = consts_for(field)
     a, b, c = to_u32(a), to_u32(b), to_u32(c)
     N = a.shape[1]
@@ -508,7 +515,7 @@ def mulcmp_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, field: Prime
     for m, row in zip((d2[L16] & 0xFF, d2[L16] >> 8, d2[17]), consts.fold16b):
         _mac_rows(fin, m, row)
     x17 = _carry_rows(fin, SEMI, 16)
-    return to_i32(_mont_zero_rows(x17, consts))
+    return (_mont_zero_rows(x17, consts) != 0).to(torch.int32)
 
 
 mulcmp.launches = 0
@@ -653,8 +660,8 @@ def _mul_rows(a16: List[torch.Tensor], b16: List[torch.Tensor], consts) -> List[
     return _reduce16_rows(_conv16_rows(a16, b16), consts)
 
 
-def _modmul_consts(field: PrimeField):
-    k = kernel_consts(field)["modmul"]
+def _modmul_consts(field: PrimeField, kernel: str = "modmul"):
+    k = kernel_consts(field)[kernel]
     if k is None:
         raise ValueError(f"no modmul kernel for {field.NUM_BITS}-bit fields (needs 253..256)")
     return k
@@ -709,7 +716,7 @@ def chain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeF
     code = _chain_code(descs, n_ext)
     if not _on_cuda(x0, ext):
         return chain_plain(x0, ext, descs, n_reps, field)
-    k = _modmul_consts(field)
+    k = _modmul_consts(field, "chain")
     d = len(descs)
     out = torch.empty((n_reps * d * L16, N), dtype=torch.int32, device=x0.device)
     if N and n_reps:

@@ -10,33 +10,52 @@
 // u32[n_reps·d·16, N]. The pattern arrives as three 64-bit arguments, one
 // byte a position: fmul_mask bit j is set when op j is an fmul, and byte j
 // of a_src and b_src names its operands (0xFF: the previous output, else
-// an external index).
+// an external index). The outputs are canonical residues, so any exact
+// modular multiply gives the TPU kernel's bits.
 //
-// Design: one thread per instance. The running value stays in registers
-// for the whole chain; an external operand is read from global memory at
-// each use (coalesced, and an L1/L2 hit after the first repetition), so
-// any number of external operands works with one kernel. The pattern is
-// the same for every thread, so its branches are uniform; each step's 16
-// limbs are stored limb-major, so neighbouring threads write neighbouring
-// words. The TPU kernel's 96-step cap only bounded its VMEM output block;
-// this kernel has none.
+// What bounds it on the card: latency. Each instance is one dependent
+// chain of d·n_reps ops, and config 1 has only 8,192 instances, 256 warps
+// for 132 SMs: one warp an SM sub-partition at most, so nearly every
+// instruction of the chain waits for the one before, and the time per
+// step, not the bytes, sets the kernel's time.
+//
+// Design: one thread per instance in blocks of 32 threads, so that the
+// 256 warps spread over every SM. The running value stays in registers as
+// 8 32-bit words, and each fmul is bp::mulmod_words (field.cuh): 64
+// mul.wide.u32 products, a fold of the 8 high words by 2^(32·(8+i)) mod p
+// (64 more), a 64-bit quotient estimate and 16 more:
+// about a third of the instructions of the TPU's 16-bit-limb multiply (834
+// multiplies), and a shorter dependent path.
+// An external operand is read at each use (coalesced, an L1 hit after the
+// first repetition), so any number of them works with one kernel; the
+// pattern is the same for every thread, so its branches are uniform. Each
+// step's 16 limbs are stored limb-major: neighbouring threads write
+// neighbouring words.
 #include "field.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 32;
 constexpr unsigned kPrev = 0xFF;
 
-static __device__ __forceinline__ void load_operand(
-    unsigned src, const uint32_t (&cur)[16], const uint32_t* __restrict__ ext,
-    int64_t n, int64_t i, uint32_t (&out)[16]) {
+// 16 limb rows of instance i → 8 words
+static __device__ __forceinline__ void load_words(const uint32_t* __restrict__ src, int64_t n,
+                                                  int64_t i, uint32_t (&w)[8]) {
+  uint32_t l[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) l[r] = __ldg(src + r * n + i);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w[k] = bp::join16(l[2 * k], l[2 * k + 1]);
+}
+
+static __device__ __forceinline__ void operand(unsigned src, const uint32_t (&cur)[8],
+                                               const uint32_t* __restrict__ ext, int64_t n,
+                                               int64_t i, uint32_t (&out)[8]) {
   if (src == kPrev) {
 #pragma unroll
-    for (int l = 0; l < 16; ++l) out[l] = cur[l];
+    for (int k = 0; k < 8; ++k) out[k] = cur[k];
   } else {
-    const uint32_t* e = ext + static_cast<int64_t>(src) * 16 * n + i;
-#pragma unroll
-    for (int l = 0; l < 16; ++l) out[l] = __ldg(e + l * n);
+    load_words(ext + static_cast<int64_t>(src) * 16 * n, n, i, out);
   }
 }
 
@@ -44,24 +63,26 @@ __global__ void __launch_bounds__(kThreads)
 chain_kernel(const uint32_t* __restrict__ x0, const uint32_t* __restrict__ ext,
              uint32_t* __restrict__ out, int64_t n, int n_reps, int n_desc,
              uint64_t fmul_mask, uint64_t a_src, uint64_t b_src,
-             const bp::ModConsts k) {
+             const bp::ChainConsts k) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  uint32_t cur[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l) cur[l] = __ldg(x0 + l * n + i);
+  uint32_t cur[8];
+  load_words(x0, n, i, cur);
   uint32_t* o = out + i;
   for (int r = 0; r < n_reps; ++r) {
     for (int j = 0; j < n_desc; ++j) {
-      uint32_t a[16], b[16];
-      load_operand(static_cast<unsigned>(a_src >> (8 * j)) & 0xFFu, cur, ext, n, i, a);
-      load_operand(static_cast<unsigned>(b_src >> (8 * j)) & 0xFFu, cur, ext, n, i, b);
+      uint32_t a[8], b[8];
+      operand(static_cast<unsigned>(a_src >> (8 * j)) & 0xFFu, cur, ext, n, i, a);
+      operand(static_cast<unsigned>(b_src >> (8 * j)) & 0xFFu, cur, ext, n, i, b);
       if ((fmul_mask >> j) & 1u)
-        bp::mul_canon(a, b, k, cur);
+        bp::mulmod_words(a, b, k, cur);
       else
-        bp::add_canon(a, b, k, cur);
+        bp::addmod_words(a, b, k, cur);
 #pragma unroll
-      for (int l = 0; l < 16; ++l) o[l * n] = cur[l];
+      for (int w = 0; w < 8; ++w) {
+        o[(2 * w) * n] = cur[w] & 0xFFFFu;
+        o[(2 * w + 1) * n] = cur[w] >> 16;
+      }
       o += 16 * n;
     }
   }
@@ -73,7 +94,13 @@ extern "C" int bp_chain(const uint32_t* x0, const uint32_t* ext, uint32_t* out,
                         int64_t n, int n_reps, int n_desc, uint64_t fmul_mask,
                         uint64_t a_src, uint64_t b_src, const uint32_t* consts_host,
                         void* stream) {
-  const bp::ModConsts k = bp::load_mod_consts(consts_host);
+  bp::ChainConsts k;
+  const uint32_t* s = consts_host;
+  for (int w = 0; w < 8; ++w) k.p[w] = *s++;
+  for (int r = 0; r < 8; ++r)
+    for (int w = 0; w < 8; ++w) k.fold[r][w] = *s++;
+  k.mu_lo = s[0];
+  k.mu_hi = s[1];
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   chain_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x0, ext, out, n, n_reps, n_desc, fmul_mask, a_src, b_src, k);

@@ -1,11 +1,20 @@
-// Shared integer helpers of the field kernels: carry passes over digit
-// and limb rows, the semi-reduction and the canonical reduction of matvec
-// digit sums, the Montgomery zero-test, and the canonical modular multiply
-// and add of 16-bit-limb
-// field elements. Every helper works on one element whose rows live in
-// registers (fixed-size arrays, fully unrolled), with uint32_t wraparound
-// exactly as the JAX package's kernels
-// (bellpepper_tpu/backend/field_pallas.py) compute it.
+// Shared integer helpers of the field kernels. Two families:
+//
+// * 16-bit limbs (fold_matvec, mul16, mul_digits, reduce_digits): carry
+//   passes over digit and limb rows, the semi-reduction and the canonical
+//   reduction of matvec digit sums, and the canonical modular multiply,
+//   with uint32_t wraparound exactly as the JAX package's kernels
+//   (bellpepper_tpu/backend/field_pallas.py) compute it;
+// * 32-bit words (mulcmp, chain): a field element as 8 or 9 little-endian
+//   words, every product one 32×32 → 64-bit mul.wide.u32, a multiply-add
+//   of rows with carries, the Montgomery reduction and the zero-test of
+//   mulcmp, and chain's canonical multiply (a fold of the high words by
+//   2^(32·(8+i)) mod p, then a 64-bit quotient estimate) and add. These
+//   give the same canonical residues and the same verdicts as the 16-bit
+//   pipeline, not its intermediate integers.
+//
+// Every helper works on one element whose rows live in registers
+// (fixed-size arrays, fully unrolled, every index static).
 #pragma once
 
 #include <cstdint>
@@ -145,30 +154,6 @@ static __device__ __forceinline__ void reduce_digits(const uint32_t (&acc)[32],
   for (int i = 0; i < 16; ++i) out[i] = x[i];
 }
 
-// Montgomery zero-test (field_pallas._mont_zero_rows): 0 iff the 17-limb x
-// is a multiple of p. If p | x then m = x/p < 2^16 (needs x < 2^16·p, which
-// every caller's x < 2^266 satisfies for p ≥ 2^250) and m ≡ x0·p^-1 mod 2^16,
-// so x ≡ 0 iff x == ((x0·p0inv) & 0xFFFF)·p limb for limb.
-static __device__ __forceinline__ uint32_t mont_zero(const uint32_t (&x)[17],
-                                                     const uint32_t (&p16)[16],
-                                                     uint32_t p0inv) {
-  const uint32_t mh = (x[0] * p0inv) & 0xFFFFu;
-  uint32_t bad = 0, carry = 0;
-#pragma unroll
-  for (int i = 0; i < 17; ++i) {
-    uint32_t lo = 0, hi = 0;
-    if (i < 16) {
-      const uint32_t t = mh * p16[i];
-      lo = t & 0xFFFFu;
-      hi = t >> 16;
-    }
-    const uint32_t tot = lo + carry;
-    bad |= (tot & 0xFFFFu) ^ x[i];
-    carry = (tot >> 16) + hi;
-  }
-  return bad;
-}
-
 // Constants of the canonical modular multiply, in the layout of
 // field_consts.kernel_consts(field)["modmul"]: fold rows 0..15 of the
 // 16-bit basis and their split-multiplier companions, the final fold rows
@@ -274,20 +259,169 @@ static __device__ __forceinline__ void mul_canon(const uint32_t (&a)[16],
   canon_tail(x17, k, out);
 }
 
-// Canonical a + b mod p (field_pallas._add_canon_rows): carry to 17 limbs
-// (< 2p), one conditional subtract of p.
-static __device__ __forceinline__ void add_canon(const uint32_t (&a)[16],
-                                                 const uint32_t (&b)[16],
-                                                 const ModConsts& k,
-                                                 uint32_t (&out)[16]) {
-  uint32_t s[16];
+// ---------------------------------------------------------------------------
+// 32-bit words
+// ---------------------------------------------------------------------------
+
+// Two 16-bit limb rows → one word.
+static __device__ __forceinline__ uint32_t join16(uint32_t lo, uint32_t hi) {
+  return lo | (hi << 16);
+}
+
+// r[off + j] += x·y[j] for j < M with the carry passed along; returns the
+// carry out of r[off + M − 1]. Each step x·y + r + carry is at most
+// (2^32 − 1)² + 2·(2^32 − 1) = 2^64 − 1, so one 64-bit word holds it.
+template <int M, int N>
+static __device__ __forceinline__ uint32_t mac_row(uint32_t (&r)[N], int off, uint32_t x,
+                                                   const uint32_t (&y)[M]) {
+  uint32_t carry = 0;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) s[i] = a[i] + b[i];
-  uint32_t s17[17];
-  carry16<16, 17>(s, s17);
-  cond_sub<17>(s17, k.ps[2]);
+  for (int j = 0; j < M; ++j) {
+    const uint64_t t = static_cast<uint64_t>(x) * y[j] + r[off + j] + carry;
+    r[off + j] = static_cast<uint32_t>(t);
+    carry = static_cast<uint32_t>(t >> 32);
+  }
+  return carry;
+}
+
+// r = a·b + r: r's low M words hold an addend, its high M words must be 0
+// (operand scanning: row i's carry lands on r[i + M], which no earlier row
+// has written, and the partial sum stays below 2^(32·(i + M + 1))).
+template <int M>
+static __device__ __forceinline__ void mad_words(const uint32_t (&a)[M], const uint32_t (&b)[M],
+                                                 uint32_t (&r)[2 * M]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = s17[i];
+  for (int i = 0; i < M; ++i) r[i + M] = mac_row(r, i, a[i], b);
+}
+
+// x − y over N words, and whether it borrowed (y's words past M are 0).
+template <int N, int M>
+static __device__ __forceinline__ uint32_t sub_words(const uint32_t (&x)[N], const uint32_t (&y)[M],
+                                                     uint32_t (&d)[N]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint64_t t = static_cast<uint64_t>(x[k]) - (k < M ? y[k] : 0u) - borrow;
+    d[k] = static_cast<uint32_t>(t);
+    borrow = static_cast<uint32_t>(t >> 63);
+  }
+  return borrow;
+}
+
+// x − p when that does not borrow, else x (branch-free).
+template <int N>
+static __device__ __forceinline__ void cond_sub_p(uint32_t (&x)[N], const uint32_t (&p)[8]) {
+  uint32_t d[N];
+  const uint32_t borrow = sub_words(x, p, d);
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = borrow ? x[k] : d[k];
+}
+
+// mulcmp's constants (field_consts.kernel_consts(field)["mulcmp"]): p·2^11
+// as 9 words (the borrow-free −c), p as 8 words, and −p^-1 mod 2^32.
+struct MulcmpConsts {
+  uint32_t p2_11[9];
+  uint32_t p[8];
+  uint32_t pinv;
+};
+
+// 1 iff a·b ≢ c (mod p) for 9-word a, b < 2^266 and c ≤ p·2^11, p < 2^256:
+// T = a·b + (p·2^11 − c) in 18 words, then a Montgomery reduction of its 9
+// low words, x = (T + m·p)/2^288 with m < 2^288 making the low words zero.
+// x ≡ T·2^-288, so T ≡ 0 iff x ≡ 0; x < T/2^288 + p < 2^244 + p < 2p
+// (p ≥ 2^249), so x ≡ 0 iff x is 0 or p.
+static __device__ __forceinline__ uint32_t mulcmp_words(const uint32_t (&a)[9], const uint32_t (&b)[9],
+                                                        const uint32_t (&c)[9], const MulcmpConsts& k) {
+  uint32_t negc[9], r[18];
+  sub_words(k.p2_11, c, negc);
+#pragma unroll
+  for (int i = 0; i < 18; ++i) r[i] = i < 9 ? negc[i] : 0u;
+  mad_words(a, b, r);
+  uint32_t pend = 0;  // the carry owed to r[i + 9]
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const uint32_t m = r[i] * k.pinv;
+    const uint32_t carry = mac_row(r, i, m, k.p);
+    const uint64_t t = static_cast<uint64_t>(r[i + 8]) + carry + pend;
+    r[i + 8] = static_cast<uint32_t>(t);
+    pend = static_cast<uint32_t>(t >> 32);
+  }
+  r[17] += pend;
+  uint32_t nz = 0, np = r[17];
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    nz |= r[9 + w];
+    np |= r[9 + w] ^ k.p[w];
+  }
+  nz |= r[17];
+  return (nz != 0) & (np != 0);
+}
+
+// chain's constants (field_consts.kernel_consts(field)["chain"]): p as 8
+// words, the fold rows 2^(32·(8+i)) mod p (i < 8), and mu = floor(2^291/p)
+// as its low and high words.
+struct ChainConsts {
+  uint32_t p[8];
+  uint32_t fold[8][8];
+  uint32_t mu_lo, mu_hi;
+};
+
+// Canonical a·b mod p of canonical 8-word a, b, for 2^252 ≤ p < 2^256.
+// T = a·b (16 words); S = T mod 2^256 + Σ_i T[8+i]·fold[i] < 2^256 +
+// 8·2^32·p < 2^291 (10 words, the top below 8); h = floor(S/2^227) < 2^64
+// and q̂ = floor(h·mu/2^64) satisfy q − 2 ≤ q̂ ≤ q for q = floor(S/p)
+// (mu ≥ 2^291/p − 1 and 2^227/p < 2^-26), so S − q̂·p < 3p, computed
+// modulo 2^288, and two conditional subtracts of p finish. 64 + 64 + 16
+// word products, against the 136 a Montgomery multiply needs.
+static __device__ __forceinline__ void mulmod_words(const uint32_t (&a)[8], const uint32_t (&b)[8],
+                                                    const ChainConsts& k, uint32_t (&out)[8]) {
+  uint32_t t[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) t[i] = 0;
+  mad_words(a, b, t);
+  uint32_t s[10];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = t[i];
+  s[8] = s[9] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t carry = mac_row(s, 0, t[8 + i], k.fold[i]);
+    const uint64_t u = static_cast<uint64_t>(s[8]) + carry;
+    s[8] = static_cast<uint32_t>(u);
+    s[9] += static_cast<uint32_t>(u >> 32);
+  }
+  const uint64_t h = (static_cast<uint64_t>(s[9]) << 61) | (static_cast<uint64_t>(s[8]) << 29) | (s[7] >> 3);
+  const uint64_t q = __umul64hi(h, (static_cast<uint64_t>(k.mu_hi) << 32) | k.mu_lo);
+  uint32_t qp[9];  // q̂·p modulo 2^288
+#pragma unroll
+  for (int i = 0; i < 9; ++i) qp[i] = 0;
+  qp[8] = mac_row(qp, 0, static_cast<uint32_t>(q), k.p);
+  mac_row(qp, 1, static_cast<uint32_t>(q >> 32), k.p);
+  uint32_t s9[9], x[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) s9[i] = s[i];
+  sub_words(s9, qp, x);
+  cond_sub_p(x, k.p);
+  cond_sub_p(x, k.p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = x[i];
+}
+
+// Canonical a + b mod p: a 9-word sum below 2p, one conditional subtract.
+static __device__ __forceinline__ void addmod_words(const uint32_t (&a)[8], const uint32_t (&b)[8],
+                                                    const ChainConsts& k, uint32_t (&out)[8]) {
+  uint32_t s[9];
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t u = static_cast<uint64_t>(a[i]) + b[i] + carry;
+    s[i] = static_cast<uint32_t>(u);
+    carry = static_cast<uint32_t>(u >> 32);
+  }
+  s[8] = carry;
+  cond_sub_p(s, k.p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = s[i];
 }
 
 }  // namespace bp

@@ -1,96 +1,59 @@
 // Fused satisfiability compare on semi-reduced operands: the mask
-// a·b ≢ c (mod p) of the big row of the packed sha256 check.
+// a·b ≢ c (mod p) of the product rows of every check.
 //
 // Replaces: bellpepper_tpu/backend/field_pallas.py make_mulcmp
 // (_mulcmp_kernel, _mulcmp_rows, _mont_zero_rows).
 //
-// Inputs a, b, c u32[17, N]: 16-bit limbs of values < 2^266 (the semi
-// form of bits_matvec_semi). Output u32[N], 0 where a·b ≡ c. Per element:
-// −c without borrows as p·2^11 − c, the 17×17 limb convolution with the
-// lo/hi halves of each product accumulated apart (34 positions, each
-// < 2^22), a carry, a fold of positions 16..33 with split 8-bit
-// multipliers, a carry, a final fold at 8-bit granularity, a carry, and
-// the Montgomery zero-test. Every step is the TPU kernel's, in uint32_t,
-// so the mask is bit-identical.
+// Inputs a, b, c u32[17, N]: 16-bit limbs of values a, b < 2^266 and
+// c ≤ p·2^11 (the semi form of the fold matvecs and the assembled
+// operands of the trivial rows). Output u32[N]: 1 where a·b ≢ c (mod p),
+// 0 where a·b ≡ c. The TPU kernel's nonzero word is an OR of limb XORs
+// that depends on its own fold integers; every caller reads only whether
+// it is zero, which is this mask (the plain version returns the same 0/1).
 //
-// Design: one thread per element, coalesced along N; the operands, the
-// 34-position accumulator and all fold temporaries live in registers, and
-// the field constants arrive as one kernel parameter (constant memory,
-// every read a uniform broadcast).
+// What bounds it on the card: the 208 bytes a column moves (3 × 17 limb
+// words in, one out). The TPU's 16-bit-limb pipeline (289 split products,
+// 576 fold multiply-adds and a Montgomery zero-test: about 2,500
+// instructions a column) would be bound by integer operations instead.
 //
-// What bounds it on the card: integer ops. About 289 products and 600
-// multiply-adds of folding per element against 208 bytes moved, so the
-// kernel is compute-bound; full unrolling keeps every index static.
+// Design: one thread per column, loads coalesced along N (all 51 issued
+// before any arithmetic, so each thread keeps 204 bytes in flight). Limb
+// pairs become 9 32-bit words an operand; bp::mulcmp_words (field.cuh)
+// forms a·b + (p·2^11 − c) with 81 mul.wide.u32 products and makes a
+// 9-word Montgomery reduction of it (81 more), then tests the result
+// against 0 and p: about 600 instructions a column, few enough for the
+// bytes to bound it. The constants arrive as one kernel parameter
+// (constant bank, uniform reads).
 #include "field.cuh"
 
 namespace {
 
-struct MulcmpConsts {
-  uint32_t p2_17[17];
-  uint32_t fold16[18][16];
-  uint32_t fold16_hi[18][16];
-  uint32_t fold16b[3][16];
-  uint32_t p16[16];
-  uint32_t p0inv;
-};
-
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 mulcmp_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
               const uint32_t* __restrict__ c, uint32_t* __restrict__ out,
-              int64_t n, const MulcmpConsts k) {
+              int64_t n, const bp::MulcmpConsts k) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  uint32_t a17[17], b17[17], neg[17];
-  uint32_t borrow = 0;
+  uint32_t la[17], lb[17], lc[17];
 #pragma unroll
   for (int l = 0; l < 17; ++l) {
-    a17[l] = __ldg(a + l * n + i);
-    b17[l] = __ldg(b + l * n + i);
-    const uint32_t d = k.p2_17[l] - __ldg(c + l * n + i) - borrow;
-    borrow = d >> 31;
-    neg[l] = d & 0xFFFFu;
+    la[l] = __ldg(a + l * n + i);
+    lb[l] = __ldg(b + l * n + i);
+    lc[l] = __ldg(c + l * n + i);
   }
-  uint32_t acc[34];
+  uint32_t wa[9], wb[9], wc[9];
 #pragma unroll
-  for (int p = 0; p < 34; ++p) acc[p] = 0;
-#pragma unroll
-  for (int x = 0; x < 17; ++x) {
-#pragma unroll
-    for (int y = 0; y < 17; ++y) {
-      const uint32_t t = a17[x] * b17[y];
-      acc[x + y] += t & 0xFFFFu;
-      acc[x + y + 1] += t >> 16;
-    }
+  for (int w = 0; w < 8; ++w) {
+    wa[w] = bp::join16(la[2 * w], la[2 * w + 1]);
+    wb[w] = bp::join16(lb[2 * w], lb[2 * w + 1]);
+    wc[w] = bp::join16(lc[2 * w], lc[2 * w + 1]);
   }
-#pragma unroll
-  for (int l = 0; l < 17; ++l) acc[l] += neg[l];
-
-  uint32_t d[34];
-  bp::carry16<34, 34>(acc, d);
-  // fold positions 16..33 with split multipliers (field_pallas._fold1_split)
-  uint32_t f[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l) f[l] = d[l];
-#pragma unroll
-  for (int r = 0; r < 18; ++r) {
-    const uint32_t m0 = d[16 + r] & 0xFFu, m1 = d[16 + r] >> 8;
-#pragma unroll
-    for (int l = 0; l < 16; ++l)
-      f[l] += m0 * k.fold16[r][l] + m1 * k.fold16_hi[r][l];
-  }
-  uint32_t d2[18];
-  bp::carry16<16, 18>(f, d2);
-  const uint32_t m0 = d2[16] & 0xFFu, m1 = d2[16] >> 8, m2 = d2[17];
-  uint32_t fin[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l)
-    fin[l] = d2[l] + m0 * k.fold16b[0][l] + m1 * k.fold16b[1][l] +
-             m2 * k.fold16b[2][l];
-  uint32_t x17[17];
-  bp::carry16<16, 17>(fin, x17);
-  out[i] = bp::mont_zero(x17, k.p16, k.p0inv);
+  wa[8] = la[16];
+  wb[8] = lb[16];
+  wc[8] = lc[16];
+  out[i] = bp::mulcmp_words(wa, wb, wc, k);
 }
 
 }  // namespace
@@ -98,17 +61,11 @@ mulcmp_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 extern "C" int bp_mulcmp(const uint32_t* a, const uint32_t* b,
                          const uint32_t* c, uint32_t* out, int64_t n,
                          const uint32_t* consts_host, void* stream) {
-  MulcmpConsts k;
+  bp::MulcmpConsts k;
   const uint32_t* s = consts_host;
-  for (int l = 0; l < 17; ++l) k.p2_17[l] = *s++;
-  for (int r = 0; r < 18; ++r)
-    for (int l = 0; l < 16; ++l) k.fold16[r][l] = *s++;
-  for (int r = 0; r < 18; ++r)
-    for (int l = 0; l < 16; ++l) k.fold16_hi[r][l] = *s++;
-  for (int r = 0; r < 3; ++r)
-    for (int l = 0; l < 16; ++l) k.fold16b[r][l] = *s++;
-  for (int l = 0; l < 16; ++l) k.p16[l] = *s++;
-  k.p0inv = *s;
+  for (int w = 0; w < 9; ++w) k.p2_11[w] = *s++;
+  for (int w = 0; w < 8; ++w) k.p[w] = *s++;
+  k.pinv = *s;
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   mulcmp_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(a, b, c, out, n, k);

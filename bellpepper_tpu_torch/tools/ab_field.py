@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""A/B of the word-arithmetic field kernels (``mulcmp``, ``chain``) and of
+``mul`` against an older tree of the port, on one CUDA card, one process
+per side: parent, change, change, parent.
+
+    python3 bellpepper_tpu_torch/tools/ab_field.py --parent DIR
+
+DIR holds another checkout of the repository (for example unpacked from
+``git archive <commit>``). Each side makes the same inputs from the same
+seeds on the card and times each call on the card's clock: CUDA events
+around a loop of calls (which includes the host's time to launch them),
+and the kernels' own device time as torch.profiler reads it. The shapes:
+
+  * ``mulcmp`` at every N the paths launch it at: the packed sha256 check
+    (8 padded rows × 32,768), config 1's and the variant's mixed checks
+    (60 and 61 product rows × 8,192), config 1's limbs check (90 trivial
+    rows and 8 padded fold rows × 8,192), and the sha256 limbs check
+    (26,360 padded rows × 1,024, 2,048 and 4,096), on random semi values
+    below 2^265;
+  * ``chain`` at config 1's shape (x0 [16, 8,192], two external operands,
+    (fmul, fadd, fmul) × 30), and, to show what bounds it, at 4,096 and
+    16,384 instances;
+  * ``mul`` at the variant's [16, 8,192] and the Satisfier's [16, 426,920];
+  * the steps that launch ``mulcmp`` or ``chain`` (host clock around
+    calls that end in a synchronize, seconds a step): the packed sha256
+    step at 4 × 32,768, config 1's at 4 × 8,192 in the mixed and the
+    limbs forms, and the sha256 limbs step at 4 × 1,024.
+
+Both sides must agree on every output (a digest a shape: the count of
+mulcmp's nonzero words, the sum of chain's and mul's words, each step's
+verdict). Prints one
+``[ab]`` line a shape and, last, one JSON object with every side's
+numbers; writes the same JSON to ``chiprun_out/ab_field.json``."""
+
+import argparse
+import sys
+
+from ab_gather import cuda_ms, device_ms, fmt, run_sides, write_report
+
+SEED = 0x5962BE3D
+MULCMP_N = {
+    "sha256 packed": 8 * 32768,
+    "config1 mixed": 60 * 8192,
+    "variant mixed": 61 * 8192,
+    "config1 limbs trivial": 90 * 8192,
+    "config1 limbs fold": 8 * 8192,
+    "sha256 limbs 1024": 26360 * 1024,
+    "sha256 limbs 2048": 26360 * 2048,
+    "sha256 limbs 4096": 26360 * 4096,
+}
+CHAIN_N = (8192, 4096, 16384)
+MUL_N = (8192, 426920)
+
+
+def side() -> dict:
+    """Time this process's tree (the one on sys.path)."""
+    import numpy as np
+    import torch
+
+    from bellpepper_tpu_torch import SCALAR
+    from bellpepper_tpu_torch.backend import field_kernels as fk
+    from bellpepper_tpu_torch.backend.words import from_numpy_u32
+
+    dev = torch.device("cuda")
+    out = {"events": {}, "device": {}, "digest": {}, "steps": {}}
+
+    def shape(key, fn, digest, reps=10):
+        out["digest"][key] = digest
+        out["events"][key] = cuda_ms(torch, fn, reps)
+        out["device"][key] = device_ms(torch, fn, reps)
+
+    gen = torch.Generator(device=dev)
+    for label, N in MULCMP_N.items():
+        gen.manual_seed(SEED + N)
+        ops = [torch.randint(0, 1 << 16, (17, N), generator=gen, device=dev, dtype=torch.int32) for _ in range(3)]
+        for o in ops:
+            o[16] &= 0x1FF  # values < 2^265
+        a, b, c = ops
+        digest = int((fk.mulcmp(a, b, c, SCALAR) != 0).sum())
+        shape(f"mulcmp {label} N={N}", lambda: fk.mulcmp(a, b, c, SCALAR), digest)
+        del ops, a, b, c
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED)
+    top = SCALAR.p >> 240
+
+    def canonical(n):
+        x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+        x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
+        return from_numpy_u32(x, dev)
+
+    descs = (("fmul", "prev", 0), ("fadd", "prev", 1), ("fmul", "prev", "prev"))
+    for N in CHAIN_N:
+        x0, ext = canonical(N), torch.cat([canonical(N), canonical(N)])
+        digest = int(fk.chain(x0, ext, descs, 30, SCALAR).to(torch.int64).sum())
+        shape(f"chain x0 [16, {N}] x 90 steps", lambda: fk.chain(x0, ext, descs, 30, SCALAR), digest)
+    for N in MUL_N:
+        ma, mb = canonical(N), canonical(N)
+        digest = int(fk.mul(ma, mb, SCALAR).to(torch.int64).sum())
+        shape(f"mul [16, {N}]", lambda: fk.mul(ma, mb, SCALAR), digest, reps=20)
+    del x0, ext, ma, mb
+    torch.cuda.empty_cache()
+    steps(out, dev)
+    return out
+
+
+def steps(out: dict, dev) -> None:
+    """Seconds a step of the paths that launch mulcmp or chain."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from bellpepper_tpu_torch import (NativeBuilder, WitnessProgram, build_packed_production_step,
+                                      build_production_step)
+    from bellpepper_tpu_torch.backend.words import from_numpy_u32
+
+    def timed(key, step, free, reps):
+        out["digest"][key] = [int(v) for v in step(free)]  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(reps):
+            step(free)
+        torch.cuda.synchronize()
+        out["steps"][key] = (time.time() - t0) / reps
+
+    nb = NativeBuilder()
+    bits = [nb.alloc_bit() for _ in range(128)]
+    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
+    x = a
+    for _ in range(30):
+        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    free = from_numpy_u32(np.random.default_rng(5).integers(0, 2, size=(4, 8192, 128)).astype(np.uint32), dev)
+    for form in (None, "limbs"):
+        step = build_production_step(prog, template, 8192, device=dev, witness_form=form)
+        timed(f"config1 {form or 'mixed'} step 4 x 8192", step, free, 5)
+    nb = NativeBuilder()
+    nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    rng = np.random.default_rng(SEED)
+    words = from_numpy_u32(rng.integers(0, 1 << 32, size=(4, 1024, 512), dtype=np.uint64).astype(np.uint32), dev)
+    timed("sha256 packed step 4 x 32768", build_packed_production_step(prog, template, 32768, device=dev), words, 3)
+    del words
+    free = from_numpy_u32(rng.integers(0, 2, size=(4, 1024, 512)).astype(np.uint32), dev)
+    timed("sha256 limbs step 4 x 1024", build_production_step(prog, template, 1024, device=dev,
+                                                              witness_form="limbs"), free, 3)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="root of the older tree")
+    ap.add_argument("--side", action="store_true", help="time the tree on sys.path (internal)")
+    args = ap.parse_args()
+    if args.side:
+        import json
+
+        print(json.dumps(side()))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    runs = run_sides(__file__, args.parent)
+    for key in runs["change"][0]["digest"]:
+        got = {repr(r["digest"][key]) for side_runs in runs.values() for r in side_runs}
+        assert len(got) == 1, (key, got)
+
+        def both(group):
+            return {label: fmt([r[group][key] for r in side_runs]) for label, side_runs in runs.items()}
+        if key in runs["change"][0]["steps"]:
+            st = both("steps")
+            print(f"[ab] {key}: parent {st['parent']} s, change {st['change']} s")
+        else:
+            ev, dv = both("events"), both("device")
+            print(f"[ab] {key}: events parent {ev['parent']} ms, change {ev['change']} ms; "
+                  f"device parent {dv['parent']} ms, change {dv['change']} ms")
+    write_report("ab_field", runs)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -199,6 +199,39 @@ def side() -> dict:
     return out
 
 
+def run_sides(script: str, parent: str) -> dict:
+    """Run ``script --side`` in one process per turn (parent, change,
+    change, parent), each with its tree's root on PYTHONPATH, and collect
+    the JSON each prints last: {"parent": [run, run], "change": [...]}."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    roots = {"parent": os.path.abspath(parent), "change": here}
+    runs = {"parent": [], "change": []}
+    for label in ("parent", "change", "change", "parent"):
+        env = dict(os.environ, PYTHONPATH=roots[label])
+        res = subprocess.run([sys.executable, os.path.abspath(script), "--side"], cwd=roots[label], env=env,
+                             capture_output=True, text=True, check=False)
+        if res.returncode:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"the {label} side failed")
+        runs[label].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    return runs
+
+
+def fmt(v) -> str:
+    return " / ".join("not measured" if x is None else f"{x:.4f}" for x in v)
+
+
+def write_report(name: str, runs: dict) -> None:
+    """Print and write chiprun_out/<name>.json: the card and every run."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    report = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                     capture_output=True, text=True).stdout.strip(), "runs": runs}
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", f"{name}.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="root of the older tree")
@@ -212,23 +245,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    roots = {"parent": os.path.abspath(args.parent), "change": here}
-    runs = {"parent": [], "change": []}
-    for label in ("parent", "change", "change", "parent"):
-        env = dict(os.environ, PYTHONPATH=roots[label])
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--side"], cwd=roots[label], env=env,
-                             capture_output=True, text=True, check=False)
-        if res.returncode:
-            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"the {label} side failed")
-        runs[label].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    runs = run_sides(__file__, args.parent)
     for key in ("digest_bitplane", "digest_big", "digest_config1", "digest_sha256"):
         got = {r[key] for side_runs in runs.values() for r in side_runs}
         assert len(got) == 1, (key, got)
-    def fmt(v):
-        return " / ".join("not measured" if x is None else f"{x:.4f}" for x in v)
-
     for shape in runs["change"][0]["shapes"]:
         p = [r["shapes"][shape] for r in runs["parent"]]
         c = [r["shapes"][shape] for r in runs["change"]]
@@ -240,12 +260,7 @@ def main() -> int:
         for label, side_runs in runs.items():
             for key in side_runs[0][group]:
                 print(f"[ab] {label} {key}: {fmt([r[group][key] for r in side_runs])}")
-    report = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                                     capture_output=True, text=True).stdout.strip(), "runs": runs}
-    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(here, "chiprun_out", "ab_gather.json"), "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps(report))
+    write_report("ab_gather", runs)
     return 0
 
 

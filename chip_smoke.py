@@ -19,7 +19,9 @@ Phases (one line each, or a few):
     table and bits_matvec_semi through the big row's ELL buckets, on one
     packed chunk whose odd words are random; limbs_matvec on config 1's
     a-bucket and the sha256 limbs check's widest a-bucket (random limbs),
-    and at the K = 2,064 bound with every digit and fold entry 255; with
+    and at the K = 2,064 bound with every digit and fold entry 255; mulcmp
+    (its 0/1 mask) at every N a path launches it at, the sha256 limbs
+    step's larger batches right after each one runs; with
     the kernel's, the plain version's and, where one PyTorch call computes
     the same work, that call's times, and the least time the card could
     take (``bound``, below);
@@ -75,6 +77,7 @@ from bellpepper_tpu_torch import (
     pack_bits,
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
+from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_u32
@@ -90,9 +93,12 @@ MUL_WIDE_N = 1 << 20  # mul's second shape: one launch wide enough to fill the c
 # and the chain's padded rows, the N of its reduce_digits and mul launches
 MUL_DIGITS_N = 1258176
 CHAIN_ROWS_N = 426920
-# the rows of mulcmp's launches on the limbs paths (times the chunk's
-# batch): config 1's 90 trivial rows and its 2 fold rows padded to 8, and
-# the sha256 template's 26,352 rows padded to 26,360
+# the rows of mulcmp's launches (times the chunk's batch): the product
+# rows of config 1's and the variant's mixed checks; config 1's 90 trivial
+# rows and its 2 fold rows padded to 8 in the limbs form; the sha256
+# template's 26,352 rows padded to 26,360 in the limbs form (and the big
+# row's 8 padded rows of the packed check, at B)
+CONFIG1_MUL_ROWS, VARIANT_MUL_ROWS = 60, 61
 CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS, SHA256_LIMBS_ROWS = 90, 8, 26360
 # the sha256 limbs step's larger batches, run in turn while the peak
 # memory extrapolated from the runs before stays under PEAK_GIB
@@ -315,10 +321,15 @@ def mulcmp_operands(N: int, dev):
     return ops, np.asarray(want)
 
 
-def mulcmp_at(N: int, dev):
+def mulcmp_bound(bound, N: int):
+    return bound(N * 4 * (3 * SEMI + 1), N * MULCMP_MULS)
+
+
+def mulcmp_at(name: str, N: int, dev, bound):
     """mulcmp at one more of its paths' shapes: the planted columns'
-    verdicts, and every column bit-exact against the plain version (run
-    over slices of 2^20 columns, which bounds its int64 temporaries)."""
+    verdicts, and every column's 0/1 mask bit-exact against the plain
+    version (run over slices of 2^20 columns, which bounds its int64
+    temporaries); its time beside its bound."""
     (a, b, c), want = mulcmp_operands(N, dev)
     out = fk.mulcmp(a, b, c, SCALAR)
     assert ((out[: len(want)] != 0).cpu().numpy() == want).all(), ("mulcmp planted columns", N)
@@ -326,8 +337,11 @@ def mulcmp_at(N: int, dev):
     err = max(max_abs_err(out[s : s + step], fk.mulcmp_plain(
         *(o[:, s : s + step].contiguous() for o in (a, b, c)), SCALAR)) for s in range(0, N, step))
     ms = cuda_ms(lambda: fk.mulcmp(a, b, c, SCALAR), 5)
-    print(f"[kernel] mulcmp N={N}: max_abs_err {err} kernel {ms:.4f} ms")
+    b_ms, b_by = mulcmp_bound(bound, N)
+    print(f"[kernel] mulcmp {name} N={N}: max_abs_err {err} kernel {ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     assert err == 0, f"mulcmp disagrees with its plain version at N={N}"
+    del a, b, c, out
+    torch.cuda.empty_cache()
 
 
 def gathered_bytes(cols: torch.Tensor, slot_bytes: int) -> int:
@@ -397,9 +411,8 @@ def sha256_kernels(dev, bound, template, prog):
     got = (fk.mulcmp(a, b, c, SCALAR)[: len(want)] != 0).cpu().numpy()
     assert (got == want).all(), "mulcmp corner/product columns wrong"
     results["mulcmp"] = compare(
-        "mulcmp", lambda: fk.mulcmp(a, b, c, SCALAR),
-        lambda: fk.mulcmp_plain(a, b, c, SCALAR), bound(N * 4 * (3 * 17 + 1), N * MULCMP_MULS),
-        plain_reps=2)
+        f"mulcmp sha256 packed N={N}", lambda: fk.mulcmp(a, b, c, SCALAR),
+        lambda: fk.mulcmp_plain(a, b, c, SCALAR), mulcmp_bound(bound, N), plain_reps=2)
     torch.cuda.empty_cache()
     return results
 
@@ -509,8 +522,8 @@ def field_synth():
     t0 = time.time()
     built = {}
     for name, nonzero, want_rs, want_cls in (
-        ("config1", False, (220, 221), (128, 30, 60, 2, 0)),
-        ("variant", True, (221, 222), (128, 30, 61, 2, 0)),
+        ("config1", False, (220, 221), (128, 30, CONFIG1_MUL_ROWS, 2, 0)),
+        ("variant", True, (221, 222), (128, 30, VARIANT_MUL_ROWS, 2, 0)),
     ):
         template, prog = config1(nonzero)
         rs = (template.num_constraints, prog.num_slots)
@@ -564,6 +577,7 @@ def field_steps(dev, card, built):
             got = [col_int(fl0[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)]
             assert got == [m, s, x], ("chain probe", i, r)
     check = build_templated_check(template, B_FIELD, "mixed", field_slots=prog.field_slots, device=dev)
+    assert check.n_mul == CONFIG1_MUL_ROWS  # mulcmp's N on this path, compared above
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
     fbad = fl0.clone()
     mid = int(rows[45])
@@ -689,10 +703,12 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold):
         bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2)
     del d, got
     torch.cuda.empty_cache()
-    for rows, batch in ((CONFIG1_TRIVIAL_ROWS, B_FIELD), (CONFIG1_FOLD_ROWS, B_FIELD),
-                        (SHA256_LIMBS_ROWS, B_SHA_LIMBS)):
-        mulcmp_at(rows * batch, dev)
-        torch.cuda.empty_cache()
+    for name, rows, batch in (("config1 mixed", CONFIG1_MUL_ROWS, B_FIELD),
+                              ("variant mixed", VARIANT_MUL_ROWS, B_FIELD),
+                              ("config1 limbs trivial", CONFIG1_TRIVIAL_ROWS, B_FIELD),
+                              ("config1 limbs fold", CONFIG1_FOLD_ROWS, B_FIELD),
+                              (f"sha256 limbs {B_SHA_LIMBS}", SHA256_LIMBS_ROWS, B_SHA_LIMBS)):
+        mulcmp_at(name, rows * batch, dev, bound)
     return results
 
 
@@ -736,7 +752,7 @@ def config1_limbs_step(dev, card, built):
     return counts
 
 
-def sha256_limbs_step(dev, card, template, prog):
+def sha256_limbs_step(dev, card, bound, template, prog):
     """The sha256 compression in the limbs form (the fused route, 17 ELL
     buckets) at 4 × 1,024; chunk 0's verdict against the packed check on
     the same instances, clean and with one intermediate bit flipped; a
@@ -807,6 +823,7 @@ def sha256_limbs_step(dev, card, template, prog):
         assert peaks[-1][1] < PEAK_GIB, f"peak memory {peaks[-1][1]:.2f} GiB at {Bb} (estimated {est:.2f})"
         del step, free
         torch.cuda.empty_cache()
+        mulcmp_at(f"sha256 limbs {Bb}", SHA256_LIMBS_ROWS * Bb, dev, bound)  # the N this batch launched
     return counts
 
 
@@ -945,7 +962,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["config1_limbs"] = config1_limbs_step(dev, card, built)
     torch.cuda.empty_cache()
-    launches["sha256_limbs"] = sha256_limbs_step(dev, card, template, prog)
+    launches["sha256_limbs"] = sha256_limbs_step(dev, card, bound, template, prog)
     torch.cuda.empty_cache()
     launches["satisfier"] = satisfier_chain(dev, card)
 

@@ -122,6 +122,86 @@ def test_mulcmp_on_card(cuda, N):
     assert torch.equal(got, fk.mulcmp_plain(*ops, SCALAR))
 
 
+def _limb_cols(vals, n_limbs):
+    """uint32[n_limbs, len(vals)] 16-bit limbs of Python ints."""
+    return np.asarray([[(v >> (16 * l)) & 0xFFFF for v in vals] for l in range(n_limbs)], np.uint32)
+
+
+def _mulcmp_edge_columns(field, N, seed):
+    """(a, b, c) columns at the edges of mulcmp's domain (a, b < 2^266,
+    c ≤ p·2^11), cycled to N: every limb at its maximum, c = 0 and c =
+    p·2^11, a + k·p beside a, a·b − c one off a multiple of p; then
+    random columns."""
+    p = field.p
+    rnd = random.Random(seed)
+    top, cmax = (1 << 266) - 1, p << 11
+    cols = []
+    for a in (0, 1, p - 1, top, (p - 1) + p * ((top - p) // p)):
+        for b in (1, p - 1, top):
+            prod = a * b % p
+            for c in (0, cmax, prod, prod + p * ((cmax - prod) // p), (prod + 1) % p, (prod + p - 1) % p,
+                      cmax - (cmax - prod) % p - p):
+                cols.append((a, b, c))
+    while len(cols) < N:
+        a, b = rnd.randrange(1 << 266), rnd.randrange(1 << 266)
+        cols.append((a, b, (a * b + rnd.choice((-1, 0, 0, 1))) % p + p * rnd.randrange(2000)))
+    return cols[:N] if N > 1 else [(top, top, cmax)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [SCALAR, PALLAS_SCALAR], ids=lambda f: f.name)
+@pytest.mark.parametrize("N", [1, 255, 257, 1001])
+def test_mulcmp_edges_on_card(cuda, field, N):
+    """The domain's edges against the plain version and Python ints, at N
+    of one column and N that is not a multiple of the block (256)."""
+    cols = _mulcmp_edge_columns(field, N, N)
+    ops = [from_numpy_u32(_limb_cols([col[t] for col in cols], 17), cuda) for t in range(3)]
+    got = fk.mulcmp(*ops, field)
+    torch.cuda.synchronize()
+    want = [int((a * b - c) % field.p != 0) for a, b, c in cols]
+    assert got.cpu().tolist() == want
+    assert torch.equal(got, fk.mulcmp_plain(*ops, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_reps", [1, 30])
+@pytest.mark.parametrize("N", [1, 33, 777])
+@pytest.mark.parametrize(
+    "descs,n_ext",
+    [
+        ((("fmul", "prev", 0), ("fadd", "prev", 1), ("fmul", "prev", "prev")), 2),
+        ((("fadd", "prev", 0),), 1),
+        ((("fmul", 2, "prev"), ("fadd", 3, "prev"), ("fmul", "prev", 1), ("fadd", 0, "prev")), 4),
+        ((("fmul", 0, "prev"), ("fadd", 1, "prev"), ("fmul", "prev", 2), ("fadd", 3, "prev"),
+          ("fmul", 4, 5), ("fadd", "prev", 6), ("fmul", "prev", 7), ("fadd", "prev", "prev")), 9),
+    ],
+    ids=["config1", "fadd", "four_ext", "eight_ops_nine_ext"],
+)
+def test_chain_edges_on_card(cuda, descs, n_ext, N, n_reps):
+    """Operands 0, 1 and p − 1 in every combination in the first columns
+    (x0 and each external operand), N not a multiple of the block (32),
+    one repetition and config 1's 30: against the plain version, and each
+    column's every step against Python ints."""
+    p = SCALAR.p
+    rnd = random.Random(N * 31 + n_reps)
+    corners = (0, 1, p - 1)
+    cols = [[corners[(i // 3**k) % 3] if i < 3 ** (n_ext + 1) else rnd.randrange(p) for i in range(N)]
+            for k in range(n_ext + 1)]
+    x0 = from_numpy_u32(_limb_cols(cols[0], 16), cuda)
+    ext = torch.cat([from_numpy_u32(_limb_cols(cols[1 + k], 16), cuda) for k in range(n_ext)])
+    got = fk.chain(x0, ext, descs, n_reps, SCALAR)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.chain_plain(x0, ext, descs, n_reps, SCALAR))
+    out = got.cpu().numpy().astype(np.uint32).astype(object)
+    for i in range(N):
+        x = cols[0][i]
+        for step in range(n_reps * len(descs)):
+            op, sa, sb = descs[step % len(descs)]
+            va, vb = (x if s == "prev" else cols[1 + s][i] for s in (sa, sb))
+            x = va * vb % p if op == "fmul" else (va + vb) % p
+            assert sum(int(out[16 * step + l, i]) << (16 * l) for l in range(16)) == x, (i, step)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_rather_than_fall_back(cuda):
     vals = torch.zeros((64, 4), dtype=torch.int32, device=cuda)
