@@ -4,14 +4,18 @@ Counterpart of ``bellpepper_tpu/backend/field_jnp.py FieldBackend``
 (``:52-330``). A field element is 16 little-endian limbs of 16 bits in
 canonical form (no Montgomery), stored as ``int32[..., 16]`` (the port's
 word contract, ``words``). In the JAX package this is XLA code outside
-any kernel, and here it is plain PyTorch: the multiply runs the 16-bit
-row pipeline of ``field_kernels`` (``_reduce16_rows(_conv16_rows)``), the
-other ops carry and conditionally subtract limb by limb. A canonical
-result is unique, so every op gives the reference's bits. The oracle is
-the Python-int ``fields.PrimeField``.
+any kernel. Here ``add``, ``sub`` and ``neg`` are plain PyTorch that
+carries and conditionally subtracts limb by limb, and the multiply goes
+through the ``mul`` wrapper of ``field_kernels`` on every device: the CUDA
+kernel for a card tensor, its plain version for a CPU one. ``square``,
+``inv`` and ``pow_const`` are made of ``mul``s (``pow_ladder``). A
+canonical result is unique, so every op gives the reference's bits. The
+oracle is the Python-int ``fields.PrimeField``.
 
 Ops take the limb axis last by default; ``dim`` names another (the
-witness evaluator keeps limbs in dim 1 of ``[W, 16, B]``)."""
+witness evaluator keeps limbs in dim 1 of ``[W, 16, B]``). The multiply
+moves that axis to the front and hands the kernel one contiguous
+``int32[16, N]``."""
 
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ import torch
 
 from ..fields import PrimeField
 from .field_consts import L16, _digits, consts_for
-from .field_kernels import _add_canon_rows, _cond_sub_rows, _mul_rows, _signed_carry, _table
+from . import field_kernels as fk
+from .field_kernels import _add_canon_rows, _cond_sub_rows, _signed_carry, _table
 from .words import to_i32, to_u32
 
 
@@ -92,22 +97,34 @@ class FieldBackend:
         res = self._join(out, dim)
         return torch.where(self.is_zero(a, dim).unsqueeze(dim), torch.zeros_like(res), res)
 
+    @staticmethod
+    def _limb_major(x: torch.Tensor, dim: int) -> torch.Tensor:
+        """x with its limb axis first, as a contiguous int32[16, N]."""
+        return x.to(torch.int32).movedim(dim, 0).reshape(L16, -1).contiguous()
+
+    @staticmethod
+    def _unlimb(r: torch.Tensor, like: torch.Tensor, dim: int) -> torch.Tensor:
+        """int32[16, N] back to like's shape, limb axis at dim."""
+        return r.reshape(like.movedim(dim, 0).shape).movedim(0, dim).contiguous()
+
     def mul(self, a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        return self._join(_mul_rows(self._rows(a, dim), self._rows(b, dim), self.consts), dim)
+        a, b = torch.broadcast_tensors(a, b)
+        r = fk.mul(self._limb_major(a, dim), self._limb_major(b, dim), self.field)
+        return self._unlimb(r, a, dim)
 
     def square(self, a: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        return self.mul(a, a, dim)
+        x = self._limb_major(a, dim)
+        return self._unlimb(fk.mul(x, x, self.field), a, dim)
 
     def _ladder(self, a: torch.Tensor, bits: List[int], dim: int) -> torch.Tensor:
-        """a^e for the MSB-first exponent bits e (square-and-multiply; the
-        exponent is known on the host, so its 0 bits skip the multiply)."""
-        base = self._rows(a, dim)
-        r = [torch.ones_like(base[0])] + [torch.zeros_like(base[0])] * (L16 - 1)
-        for bit in bits:
-            r = _mul_rows(r, r, self.consts)
-            if bit:
-                r = _mul_rows(r, base, self.consts)
-        return self._join(r, dim)
+        """a^e for the MSB-first exponent bits e of an e ≥ 1: one
+        ``fk.pow_ladder`` over a's limb-major form; e = 0 (no bits) gives
+        ones."""
+        if not bits:
+            one = torch.zeros_like(a, dtype=torch.int32)
+            one.select(dim, 0).fill_(1)
+            return one
+        return self._unlimb(fk.pow_ladder(self._limb_major(a, dim), bits, self.field), a, dim)
 
     def inv(self, a: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """a^(p−2) (Fermat, field_jnp.py:287); zero maps to zero."""

@@ -131,12 +131,12 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
       and −p^-1 mod 2^32, for mulcmp (``bp::MulcmpConsts``);
     * ``modmul``     [16·16 + 16·16 + 3·16 + 3·17 + 1]: fold16 and
       fold16_hi rows 0..15, fold16b, p·2^k (k = 2, 1, 0) as 17 limbs, and
-      the quotient-estimate constant qe, for mul, mul_digits (``None`` for
-      a field without qe);
+      the quotient-estimate constant qe, for mul_digits (``None`` for a
+      field without qe);
     * ``chain``      [8 + 8·8 + 2]: p as 8 words, the fold rows
       2^(32·(8+i)) mod p (i < 8) as 8 words each, and mu = floor(2^291/p)
-      as its low and high words, for chain (``bp::ChainConsts``; ``None``
-      for a field without qe, as ``modmul``)."""
+      as its low and high words, for chain and mul (``bp::ChainConsts``;
+      ``None`` for a field without qe, as ``modmul``)."""
     out = _KERNEL_CONSTS.get(field.p)
     if out is not None:
         return out

@@ -11,8 +11,8 @@ the ported paths, each a CUDA kernel in ``csrc/``:
                                 ``make_bits_matvec_bucket(out_form="semi")``
   ``mulcmp``                    ``make_mulcmp`` (:1009)
   ``chain``                     ``make_chain_kernel`` (:407)
-  ``mul``                       ``PallasFieldOps.mul`` → ``_mul_kernel``
-                                (:704, :727)
+  ``mul`` (``pow_ladder``: a     ``PallasFieldOps.mul`` → ``_mul_kernel``
+  loop of its launches)         (:704, :727)
   ``limbs_matvec``              ``make_fold_matvec_bucket`` (:828) via
                                 ``make_limbs_matvec_bucket`` (:975), both
                                 output forms
@@ -749,7 +749,8 @@ chain.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel 3a: canonical modmul (PallasFieldOps.mul)
+# Kernel 3a: canonical modmul (PallasFieldOps.mul), and the exponent
+# ladder that the field backend's inversion runs on it
 # ---------------------------------------------------------------------------
 def mul(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
     """Canonical a, b int32[16, N] (limb-major 16-bit limbs) → int32[16, N]
@@ -761,7 +762,7 @@ def mul(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
     _check_words("b", b, (L16, N))
     if not _on_cuda(a, b):
         return mul_plain(a, b, field)
-    k = _modmul_consts(field)
+    k = _modmul_consts(field, "chain")
     out = torch.empty((L16, N), dtype=torch.int32, device=a.device)
     if N:
         _launch("bp_mul16", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
@@ -779,6 +780,43 @@ def mul_plain(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tens
 
 
 mul.launches = 0
+
+
+def pow_ladder(x: torch.Tensor, bits: List[int], field: PrimeField) -> torch.Tensor:
+    """Canonical x int32[16, N] → int32[16, N] canonical x^e, for the
+    exponent e ≥ 1 whose MSB-first bits are ``bits`` (bits[0] = 1):
+    square-and-multiply starting from x at the top bit, each squaring and
+    each multiply by x one ``mul`` (e is known on the host, so its 0 bits
+    skip the multiply): len(bits) − 1 + sum(bits) − 1 products. On the CPU
+    each is ``mul_plain``. On the card the input is checked once, and then
+    each step only launches the mul kernel, into two buffers it
+    alternates; each launch counts in ``mul.launches``."""
+    if x.dim() != 2:
+        raise ValueError("x must be [16, N]")
+    N = x.shape[1]
+    _check_words("x", x, (L16, N))
+    if not bits or bits[0] != 1:
+        raise ValueError("bits must be the MSB-first bits of an exponent >= 1")
+    by_x = [m for bit in bits[1:] for m in ((False, True) if bit else (False,))]
+    if not _on_cuda(x):
+        r = x
+        for m in by_x:
+            r = mul_plain(r, x if m else r, field)
+        return r.clone() if r is x else r
+    if not N or not by_x:
+        return x.clone()
+    k = _modmul_consts(field, "chain").ctypes.data
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    fn, stream = load_kernels().bp_mul16, _stream(x)
+    xp = src = x.data_ptr()
+    dst = [t.data_ptr() for t in bufs]
+    for j, m in enumerate(by_x):
+        err = fn(src, xp if m else src, dst[j & 1], N, k, stream)
+        if err != 0:
+            raise RuntimeError(f"bp_mul16: CUDA launch failed with cudaError {err}")
+        mul.launches += 1
+        src = dst[j & 1]
+    return bufs[(len(by_x) - 1) & 1]
 
 
 # ---------------------------------------------------------------------------

@@ -94,13 +94,7 @@ extern "C" int bp_chain(const uint32_t* x0, const uint32_t* ext, uint32_t* out,
                         int64_t n, int n_reps, int n_desc, uint64_t fmul_mask,
                         uint64_t a_src, uint64_t b_src, const uint32_t* consts_host,
                         void* stream) {
-  bp::ChainConsts k;
-  const uint32_t* s = consts_host;
-  for (int w = 0; w < 8; ++w) k.p[w] = *s++;
-  for (int r = 0; r < 8; ++r)
-    for (int w = 0; w < 8; ++w) k.fold[r][w] = *s++;
-  k.mu_lo = s[0];
-  k.mu_hi = s[1];
+  const bp::ChainConsts k = bp::load_chain_consts(consts_host);
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   chain_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x0, ext, out, n, n_reps, n_desc, fmul_mask, a_src, b_src, k);

@@ -1,17 +1,18 @@
 // Shared integer helpers of the field kernels. Two families:
 //
-// * 16-bit limbs (fold_matvec, mul16, mul_digits, reduce_digits): carry
-//   passes over digit and limb rows, the semi-reduction and the canonical
+// * 16-bit limbs (fold_matvec, mul_digits, reduce_digits): carry passes
+//   over digit and limb rows, the semi-reduction and the canonical
 //   reduction of matvec digit sums, and the canonical modular multiply,
 //   with uint32_t wraparound exactly as the JAX package's kernels
 //   (bellpepper_tpu/backend/field_pallas.py) compute it;
-// * 32-bit words (mulcmp, chain): a field element as 8 or 9 little-endian
-//   words, every product one 32×32 → 64-bit mul.wide.u32, a multiply-add
-//   of rows with carries, the Montgomery reduction and the zero-test of
-//   mulcmp, and chain's canonical multiply (a fold of the high words by
-//   2^(32·(8+i)) mod p, then a 64-bit quotient estimate) and add. These
-//   give the same canonical residues and the same verdicts as the 16-bit
-//   pipeline, not its intermediate integers.
+// * 32-bit words (mulcmp, chain, mul): a field element as 8 or 9
+//   little-endian words, every product one 32×32 → 64-bit mul.wide.u32, a
+//   multiply-add of rows with carries, the Montgomery reduction and the
+//   zero-test of mulcmp, and the canonical multiply of chain and mul (a
+//   fold of the high words by 2^(32·(8+i)) mod p, then a 64-bit quotient
+//   estimate) and chain's add. These give the same canonical residues and
+//   the same verdicts as the 16-bit pipeline, not its intermediate
+//   integers.
 //
 // Every helper works on one element whose rows live in registers
 // (fixed-size arrays, fully unrolled, every index static).
@@ -357,14 +358,24 @@ static __device__ __forceinline__ uint32_t mulcmp_words(const uint32_t (&a)[9], 
   return (nz != 0) & (np != 0);
 }
 
-// chain's constants (field_consts.kernel_consts(field)["chain"]): p as 8
-// words, the fold rows 2^(32·(8+i)) mod p (i < 8), and mu = floor(2^291/p)
-// as its low and high words.
+// The word multiply's constants (field_consts.kernel_consts(field)["chain"],
+// for chain and mul): p as 8 words, the fold rows 2^(32·(8+i)) mod p
+// (i < 8), and mu = floor(2^291/p) as its low and high words.
 struct ChainConsts {
   uint32_t p[8];
   uint32_t fold[8][8];
   uint32_t mu_lo, mu_hi;
 };
+
+static inline ChainConsts load_chain_consts(const uint32_t* s) {
+  ChainConsts k;
+  for (int w = 0; w < 8; ++w) k.p[w] = *s++;
+  for (int r = 0; r < 8; ++r)
+    for (int w = 0; w < 8; ++w) k.fold[r][w] = *s++;
+  k.mu_lo = s[0];
+  k.mu_hi = s[1];
+  return k;
+}
 
 // Canonical a·b mod p of canonical 8-word a, b, for 2^252 ≤ p < 2^256.
 // T = a·b (16 words); S = T mod 2^256 + Σ_i T[8+i]·fold[i] < 2^256 +

@@ -20,15 +20,19 @@ and the kernels' own device time as torch.profiler reads it. The shapes:
   * ``chain`` at config 1's shape (x0 [16, 8,192], two external operands,
     (fmul, fadd, fmul) × 30), and, to show what bounds it, at 4,096 and
     16,384 instances;
-  * ``mul`` at the variant's [16, 8,192] and the Satisfier's [16, 426,920];
-  * the steps that launch ``mulcmp`` or ``chain`` (host clock around
-    calls that end in a synchronize, seconds a step): the packed sha256
-    step at 4 × 32,768, config 1's at 4 × 8,192 in the mixed and the
-    limbs forms, and the sha256 limbs step at 4 × 1,024.
+  * ``mul`` at one block (N = 32, its launch floor), the variant's
+    [16, 8,192], the Satisfier's [16, 426,920] and [16, 2^20];
+  * ``FieldBackend.inv`` at the variant's [1, 16, 8,192] (dim 1), the
+    inversion ladder of its ``finv``;
+  * the steps that launch ``mulcmp``, ``chain`` or ``mul`` (host clock
+    around calls that end in a synchronize, seconds a step): the packed
+    sha256 step at 4 × 32,768, config 1's at 4 × 8,192 in the mixed and
+    the limbs forms, the variant's (config 1 with num_assert_nonzero) at
+    4 × 8,192, and the sha256 limbs step at 4 × 1,024.
 
 Both sides must agree on every output (a digest a shape: the count of
 mulcmp's nonzero words, the sum of chain's and mul's words, each step's
-verdict). Prints one
+verdict; inv's sum of words). Prints one
 ``[ab]`` line a shape and, last, one JSON object with every side's
 numbers; writes the same JSON to ``chiprun_out/ab_field.json``."""
 
@@ -49,7 +53,7 @@ MULCMP_N = {
     "sha256 limbs 4096": 26360 * 4096,
 }
 CHAIN_N = (8192, 4096, 16384)
-MUL_N = (8192, 426920)
+MUL_N = (32, 8192, 426920, 1 << 20)
 
 
 def side() -> dict:
@@ -59,6 +63,7 @@ def side() -> dict:
 
     from bellpepper_tpu_torch import SCALAR
     from bellpepper_tpu_torch.backend import field_kernels as fk
+    from bellpepper_tpu_torch.backend.field_backend import get_backend
     from bellpepper_tpu_torch.backend.words import from_numpy_u32
 
     dev = torch.device("cuda")
@@ -98,14 +103,18 @@ def side() -> dict:
         ma, mb = canonical(N), canonical(N)
         digest = int(fk.mul(ma, mb, SCALAR).to(torch.int64).sum())
         shape(f"mul [16, {N}]", lambda: fk.mul(ma, mb, SCALAR), digest, reps=20)
-    del x0, ext, ma, mb
+    be = get_backend(SCALAR)
+    x = canonical(8192).reshape(16, 1, 8192).transpose(0, 1).contiguous()
+    digest = int(be.inv(x, 1).to(torch.int64).sum())
+    shape("FieldBackend.inv [1, 16, 8192]", lambda: be.inv(x, 1), digest, reps=2)
+    del x0, ext, ma, mb, x
     torch.cuda.empty_cache()
     steps(out, dev)
     return out
 
 
 def steps(out: dict, dev) -> None:
-    """Seconds a step of the paths that launch mulcmp or chain."""
+    """Seconds a step of the paths that launch mulcmp, chain or mul."""
     import time
 
     import numpy as np
@@ -124,18 +133,25 @@ def steps(out: dict, dev) -> None:
         torch.cuda.synchronize()
         out["steps"][key] = (time.time() - t0) / reps
 
-    nb = NativeBuilder()
-    bits = [nb.alloc_bit() for _ in range(128)]
-    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
-    x = a
-    for _ in range(30):
-        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
-    template, tape = nb.finish()
-    prog = WitnessProgram(tape)
+    def config1(nonzero):
+        nb = NativeBuilder()
+        bits = [nb.alloc_bit() for _ in range(128)]
+        a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
+        x = a
+        for _ in range(30):
+            x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
+        if nonzero:
+            nb.num_assert_nonzero(x)
+        template, tape = nb.finish()
+        return template, WitnessProgram(tape)
+
     free = from_numpy_u32(np.random.default_rng(5).integers(0, 2, size=(4, 8192, 128)).astype(np.uint32), dev)
+    template, prog = config1(False)
     for form in (None, "limbs"):
         step = build_production_step(prog, template, 8192, device=dev, witness_form=form)
         timed(f"config1 {form or 'mixed'} step 4 x 8192", step, free, 5)
+    template, prog = config1(True)
+    timed("variant mixed step 4 x 8192", build_production_step(prog, template, 8192, device=dev), free, 2)
     nb = NativeBuilder()
     nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
     template, tape = nb.finish()

@@ -9,7 +9,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (one line each, or a few):
 
   * the card's name and power limit; the kernel build (all nvcc processes
-    at once) and ptxas's register and spill report;
+    at once) and ptxas's register and spill report, with mul's line apart;
   * native synthesis of one sha256 compression (26,352 rows, 26,327
     slots), of config 1 (pack → (mul, add, square) × 30: 220 rows, 221
     slots) and of its variant with num_assert_nonzero (221 rows, 222
@@ -21,20 +21,25 @@ Phases (one line each, or a few):
     a-bucket and the sha256 limbs check's widest a-bucket (random limbs),
     and at the K = 2,064 bound with every digit and fold entry 255; mulcmp
     (its 0/1 mask) at every N a path launches it at, the sha256 limbs
-    step's larger batches right after each one runs; with
-    the kernel's, the plain version's and, where one PyTorch call computes
-    the same work, that call's times, and the least time the card could
-    take (``bound``, below);
+    step's larger batches right after each one runs; mul at one block
+    (N = 32, its launch floor), the variant's 8,192, 2^20 and the
+    Satisfier's 426,920, bit-exact also against Python ints at the corner
+    pairs; with the kernel's, the plain version's and, where one PyTorch
+    call computes the same work, that call's times, and the least time the
+    card could take (``bound``, below);
   * the op-rate probe (the counterpart of benchmarks/probe_vpu_ops.py):
     G op/s of each of its seven op classes;
   * the packed sha256 step at 4 chunks of 32,768 instances, the config-1
     step and the variant's step at 4 chunks of 8,192 instances: clean
     verdicts, each path's kernels launched (counts reset just before the
-    path's run and read just after), words equal to the CPU evaluator's,
-    planted corruptions found at their instance, a Python-int recurrence
-    for the chain;
+    path's run and read just after; the variant's mul exactly 60 fmul
+    launches plus its finv's inversion ladder a chunk), words equal to the
+    CPU evaluator's, planted corruptions found at their instance, a
+    Python-int recurrence for the chain, and the variant's finv equal to
+    Python's pow(x, p − 2, p);
   * each step's time, rate and peak memory; the config-1 witness and
-    check seconds per chunk and the check's split by row class;
+    check seconds per chunk and the check's split by row class; the
+    variant's witness seconds per chunk, its finv's alone, and its check's;
   * the limbs witness form: config 1's step at 4 × 8,192 and the sha256
     step at 4 × 1,024 in the limbs form (verdicts, launches, a non-bit
     value planted in a bit slot found at its instance, the sha256 chunk's
@@ -77,11 +82,12 @@ from bellpepper_tpu_torch import (
     pack_bits,
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
+from bellpepper_tpu_torch.backend.field_backend import get_backend
 from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_u32
-from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, _detect_linear_chain
+from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
 
 B = 32768  # sha256 instances per chunk
 N_CHUNKS = 4
@@ -89,6 +95,7 @@ B_FIELD = 8192  # config-1 instances per chunk (benchmarks/configs_1_2_3.py:123)
 B_SHA_LIMBS = 1024  # sha256 instances per chunk in the limbs form
 CHAIN_BLOCKS = 16  # compressions of the Satisfier's chain (a 1 KiB message)
 MUL_WIDE_N = 1 << 20  # mul's second shape: one launch wide enough to fill the card
+MUL_FLOOR_N = 32  # one block of mul: its time is the launch's floor
 # the Satisfier's widest mul_digits launch (matrix c of the 16-block chain)
 # and the chain's padded rows, the N of its reduce_digits and mul launches
 MUL_DIGITS_N = 1258176
@@ -99,6 +106,11 @@ CHAIN_ROWS_N = 426920
 # template's 26,352 rows padded to 26,360 in the limbs form (and the big
 # row's 8 padded rows of the packed check, at B)
 CONFIG1_MUL_ROWS, VARIANT_MUL_ROWS = 60, 61
+# the variant's launches of mul a chunk: its 60 fmul stages, then its finv,
+# a ladder of one launch a squaring and one a set bit of p − 2 after the top
+_E_INV = SCALAR.p - 2
+INV_LADDER_MULS = _E_INV.bit_length() - 1 + bin(_E_INV).count("1") - 1
+VARIANT_MUL_LAUNCHES = 60 + INV_LADDER_MULS
 CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS, SHA256_LIMBS_ROWS = 90, 8, 26360
 # the sha256 limbs step's larger batches, run in turn while the peak
 # memory extrapolated from the runs before stays under PEAK_GIB
@@ -163,6 +175,18 @@ SEMI_REDUCE_MULS = 4 * 32
 ENTRY_MULS = 2 * 8 * 8
 ROW_REDUCE_MULS = reduction_products(17)
 REDUCE_MULS = reduction_products(10)
+
+
+def kernel_ptxas(log: str, kernel: str) -> str:
+    """ptxas's register and spill lines for one kernel of an nvcc -Xptxas
+    -v log (its mangled name holds the length-prefixed kernel name)."""
+    found, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            on = f"{len(kernel)}{kernel}" in ln
+        elif on and ("registers" in ln or "spill" in ln):
+            found.append(ln.strip())
+    return " | ".join(found) or "no ptxas report (library built before this run)"
 
 
 def nvidia_smi(query: str) -> str:
@@ -262,6 +286,22 @@ def config1(nonzero: bool):
         nb.num_assert_nonzero(x)
     template, tape = nb.finish()
     return template, WitnessProgram(tape)
+
+
+def chain_steps(bits):
+    """Config 1's chain over Python ints for one instance's 128 free
+    bits (a, then b): [m, s, x] of each of the 30 repetitions of
+    x <- ((x·b + a) mod p)² mod p."""
+    p = SCALAR.p
+    a = sum(int(bits[k]) << k for k in range(64))
+    b = sum(int(bits[64 + k]) << k for k in range(64))
+    x, out = a, []
+    for _ in range(30):
+        m = x * b % p
+        s = (m + a) % p
+        x = s * s % p
+        out.append([m, s, x])
+    return out
 
 
 def path_run(step, *args):
@@ -447,19 +487,22 @@ def field_kernels(dev, bound):
     del out
     rng = np.random.default_rng(SEED)
     top = p >> 240
-    for n in (N, MUL_WIDE_N, CHAIN_ROWS_N):
+    corners = [0, 1, p - 1, p - 2, (1 << 240) - 1, ((top - 1) << 240) | ((1 << 240) - 1)]
+    nc = len(corners)
+    for n in (MUL_FLOOR_N, N, MUL_WIDE_N, CHAIN_ROWS_N):
         # random canonical operands (top limb below p's), then the corner
-        # pairs of 0, 1 and p − 1 in the first 9 columns
+        # pairs of 0, 1, p − 1, p − 2 and the values whose limbs below the
+        # top one are all 0xFFFF in the first 36 columns
         ops = []
         for k in range(2):
             x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
             x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
-            for i in range(9):
-                x[:, i] = limbs([0, 1, p - 1][i // 3 if k else i % 3], 16)
+            for i in range(min(n, nc * nc)):
+                x[:, i] = limbs(corners[i // nc if k else i % nc], 16)
             ops.append(from_numpy_u32(x, dev))
         ma, mb = ops
         got = fk.mul(ma, mb, SCALAR)
-        for i in list(range(9)) + [n // 2, n - 1]:
+        for i in list(range(min(n, nc * nc))) + [n // 2, n - 1]:
             assert col_int(got, i) == col_int(ma, i) * col_int(mb, i) % p, ("mul", n, i)
         r = compare(f"mul N={n}", lambda: fk.mul(ma, mb, SCALAR),
                     lambda: fk.mul_plain(ma, mb, SCALAR),
@@ -554,7 +597,7 @@ def field_steps(dev, card, built):
         if name == "config1":
             assert counts["chain"] == N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
         else:
-            assert counts["mul"] == 60 * N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
+            assert counts["mul"] == VARIANT_MUL_LAUNCHES * N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
 
     # probes on config 1's chunk 0
     template, prog = built["config1"]
@@ -567,15 +610,9 @@ def field_steps(dev, card, built):
     spec = _detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])
     rows = spec["out_rows"]
     for i in (0, 1, B_FIELD // 2, B_FIELD - 1):
-        a = sum(int(free_np[0, i, k]) << k for k in range(64))
-        b = sum(int(free_np[0, i, 64 + k]) << k for k in range(64))
-        x = a
-        for r in range(30):
-            m = x * b % p
-            s = (m + a) % p
-            x = s * s % p
+        for r, want in enumerate(chain_steps(free_np[0, i])):
             got = [col_int(fl0[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)]
-            assert got == [m, s, x], ("chain probe", i, r)
+            assert got == want, ("chain probe", i, r)
     check = build_templated_check(template, B_FIELD, "mixed", field_slots=prog.field_slots, device=dev)
     assert check.n_mul == CONFIG1_MUL_ROWS  # mulcmp's N on this path, compared above
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
@@ -589,6 +626,25 @@ def field_steps(dev, card, built):
           f"field row {mid} at instance {B_FIELD // 2} found: n_bad {nbad}, instance {first // R}")
     del vals0, fl0, fbad
 
+    # probe on the variant's chunk 0: its finv, the ladder of mul launches
+    _, prog_v = built["variant"]
+    fin = next(st for st in prog_v.stages if st.opcode == "finv")
+    assert int(fin.arrs["a_kind"][0]) == SRC_ROW
+    x_row, inv_row = int(fin.arrs["a_idx"][0]), int(fin.outs[0])
+    ev_v = prog_v.build(dev)
+    vals_v, fl_v = ev_v(free[0])
+    cpu_vals, cpu_fl = prog_v.build("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+    assert torch.equal(vals_v[:16].cpu(), cpu_vals) and torch.equal(fl_v[:16].cpu(), cpu_fl), \
+        "variant chunk 0 differs from the CPU evaluator"
+    for i in (0, 1, B_FIELD // 2, B_FIELD - 1):
+        x = chain_steps(free_np[0, i])[-1][2]
+        got = [col_int(fl_v[i, row].reshape(16, 1), 0) for row in (x_row, inv_row)]
+        assert got == [x, pow(x, p - 2, p)], ("inv probe", i)
+    print(f"[probe] variant chunk-0 vals and flimbs match the CPU evaluator for 16 instances; "
+          f"its finv (field row {inv_row}) of 4 instances equals pow(x, p - 2, p) of the chain's "
+          f"last x (row {x_row})")
+    del vals_v, fl_v
+
     # per-chunk witness and check seconds (and the check's split by row
     # class), each step's time and peak memory
     reps = 5
@@ -600,10 +656,23 @@ def field_steps(dev, card, built):
                       for c, rows in zip(ROW_CLASSES, check.rows) if rows.numel())
     print(f"[perf] config1 per chunk of {B_FIELD}: witness {t_wit:.5f} s, check {t_chk:.5f} s "
           f"({split}), on {card}")
-    del vals_p, fl_p
+    # the variant's: witness, its finv alone (the ladder of mul launches)
+    # and check
+    check_v = build_templated_check(built["variant"][0], B_FIELD, "mixed", field_slots=prog_v.field_slots,
+                                    device=dev)
+    vals_p, fl_p = ev_v.slot_major(free[0])
+    assert int(check_v.verdict_slot_major(vals_p, fl_p)[0]) == 0
+    x = fl_p[x_row : x_row + 1]  # [1, 16, B], as the evaluator hands it to inv
+    be = get_backend(SCALAR)
+    assert torch.equal(be.inv(x, 1), fl_p[inv_row : inv_row + 1])
+    t_wit = wall_s(lambda: ev_v.slot_major(free[0]), reps)
+    t_inv = wall_s(lambda: be.inv(x, 1), reps)
+    t_chk = wall_s(lambda: check_v.verdict_slot_major(vals_p, fl_p), reps)
+    print(f"[perf] variant per chunk of {B_FIELD}: witness {t_wit:.5f} s (its finv alone {t_inv:.5f} s, "
+          f"{INV_LADDER_MULS} mul launches), check {t_chk:.5f} s, on {card}")
+    del vals_p, fl_p, x
     for name in ("config1", "variant"):
-        perf_step(name, steps[name], free, B_FIELD, built[name][0].num_constraints, card,
-                  reps if name == "config1" else 2)
+        perf_step(name, steps[name], free, B_FIELD, built[name][0].num_constraints, card, reps)
     return launches
 
 
@@ -942,6 +1011,7 @@ def main() -> int:
                                      if "registers" in ln or "spill" in ln)
              for src, log in sorted(lib.build_log.items())]
     print(f"[build] kernels built in {time.time() - t0:.1f} s; ptxas: {' || '.join(ptxas)}")
+    print(f"[build] mul (mul16.cu mul_kernel): {kernel_ptxas(lib.build_log.get('mul16.cu', ''), 'mul_kernel')}")
 
     template, prog = sha256_path(dev, card)
     built = field_synth()

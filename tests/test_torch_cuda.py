@@ -5,9 +5,11 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Every kernel is held bit-exact to its plain version at ragged sizes (the
-kernels mask the edge themselves), its launch is counted, and the packed
-sha256 step, the config-1 field step in the mixed and the limbs forms, and
-the Satisfier on the card give the CPU's verdicts, clean and corrupted."""
+kernels mask the edge themselves), its launch is counted, the field
+backend's inversion is a ladder of mul launches that Python's pow agrees
+with, and the packed sha256 step, the config-1 field step in the mixed and
+the limbs forms, and the Satisfier on the card give the CPU's verdicts,
+clean and corrupted."""
 
 import random
 
@@ -18,6 +20,7 @@ import torch
 from bellpepper_tpu_torch import (
     PALLAS_SCALAR,
     SCALAR,
+    VESTA_SCALAR,
     NativeBuilder,
     Satisfier,
     WitnessProgram,
@@ -25,7 +28,8 @@ from bellpepper_tpu_torch import (
     build_production_step,
 )
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
-from bellpepper_tpu_torch.backend.words import from_numpy_u32
+from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
+from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 
 RNG = np.random.default_rng(0x5EED_0006)
 
@@ -268,16 +272,77 @@ def _canonical(field, n, seed, dev):
     return from_numpy_u32(x, dev)
 
 
+def _mul_corners(field):
+    """0, 1, p − 1, p − 2, and the canonical values whose limbs below the
+    top one are all 0xFFFF: top limb 0, and top limb one below p's."""
+    p = field.p
+    low = (1 << 240) - 1
+    return [0, 1, p - 1, p - 2, low, (((p >> 240) - 1) << 240) | low]
+
+
+def _lm_ints(t):
+    """int32[16, N] limb-major → Python ints."""
+    x = to_numpy_u32(t).astype(object)
+    return [sum(int(x[l, i]) << (16 * l) for l in range(16)) for i in range(x.shape[1])]
+
+
+FIELDS3 = [SCALAR, PALLAS_SCALAR, VESTA_SCALAR]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("field", [SCALAR, PALLAS_SCALAR], ids=lambda f: f.name)
-@pytest.mark.parametrize("N", [1000, 3])
+@pytest.mark.parametrize("field", FIELDS3, ids=lambda f: f.name)
+@pytest.mark.parametrize("N", [1, 3, 31, 32, 33, 1000, 8192, 426920])
 def test_mul_on_card(cuda, field, N):
-    a, b = _canonical(field, N, 1, cuda), _canonical(field, N, 2, cuda).flip(1).contiguous()
+    """Every corner pair first (as far as N reaches), the rest random;
+    bit-exact against mul_plain and, at every column up to 8,192 and at
+    the corners and 2,000 random columns above, against Python ints. N
+    around one block of 32 threads, the variant's 8,192 and the
+    Satisfier's 426,920."""
+    p = field.p
+    c = _mul_corners(field)
+    pairs = [(x, y) for x in c for y in c][:N]
+    rnd = random.Random(N)
+    av = [x for x, _ in pairs] + [rnd.randrange(p) for _ in range(N - len(pairs))]
+    bv = [y for _, y in pairs] + [rnd.randrange(p) for _ in range(N - len(pairs))]
+    a = from_numpy_u32(FieldBackend.to_limbs(av).T.copy(), cuda)
+    b = from_numpy_u32(FieldBackend.to_limbs(bv).T.copy(), cuda)
     before = fk.mul.launches
     got = fk.mul(a, b, field)
     torch.cuda.synchronize()
     assert fk.mul.launches == before + 1
     assert torch.equal(got, fk.mul_plain(a, b, field))
+    cols = list(range(N)) if N <= 8192 else list(range(len(pairs))) + rnd.sample(range(N), 2000)
+    got_ints = _lm_ints(got[:, cols])
+    assert got_ints == [av[i] * bv[i] % p for i in cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["last", "dim1"])
+@pytest.mark.parametrize("field", FIELDS3, ids=lambda f: f.name)
+def test_backend_inv_on_card(cuda, field, layout):
+    """FieldBackend.inv on card tensors is the ladder of mul launches:
+    Python's pow(x, p − 2, p) at every element (0 maps to 0), the CPU's
+    bits, and one launch a squaring and a set bit of p − 2 after the top
+    one; mul and square one launch each."""
+    p = field.p
+    be = get_backend(field)
+    vals = _mul_corners(field) + [random.Random(7).randrange(p) for _ in range(1018)]
+    x = torch.from_numpy(FieldBackend.to_limbs(vals).view(np.int32))  # [1024, 16]
+    dim = -1
+    if layout == "dim1":  # [W, 16, B] as the witness evaluator holds it
+        x, dim = x.reshape(2, 512, 16).transpose(1, 2).contiguous(), 1
+    e = p - 2
+    before = fk.mul.launches
+    got = be.inv(x.to(cuda), dim)
+    torch.cuda.synchronize()
+    assert fk.mul.launches == before + e.bit_length() - 1 + bin(e).count("1") - 1
+    assert got.shape == x.shape and torch.equal(got.cpu(), be.inv(x, dim))
+    flat = got.cpu() if layout == "last" else got.cpu().transpose(1, 2)
+    assert FieldBackend.from_limbs(flat) == [pow(v, e, p) for v in vals]
+    before = fk.mul.launches
+    prod, sq = be.mul(got, x.to(cuda), dim).cpu(), be.square(got, dim).cpu()
+    assert fk.mul.launches == before + 2
+    assert torch.equal(prod, be.mul(got.cpu(), x, dim)) and torch.equal(sq, be.square(got.cpu(), dim))
 
 
 @pytest.mark.cuda
@@ -337,8 +402,10 @@ def test_field_step_on_card_matches_cpu(cuda, nonzero):
         assert (got[0] > 0) == corrupt
         counts = fk.launch_counts()
         assert counts["mulcmp"] == 2
-        if nonzero:  # the corrupted tape has one fmul more
-            assert counts["mul"] == 2 * (60 + corrupt) and counts["chain"] == 0
+        if nonzero:  # the corrupted tape has one fmul more; finv is the ladder's launches
+            e = SCALAR.p - 2
+            ladder = e.bit_length() - 1 + bin(e).count("1") - 1
+            assert counts["mul"] == 2 * (60 + corrupt + ladder) and counts["chain"] == 0
         elif not corrupt:
             assert counts["chain"] == 2 and counts["mul"] == 0
 

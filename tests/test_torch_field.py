@@ -92,6 +92,96 @@ def test_backend_matches_field_jnp():
     assert _ints(be.inv(A)) == [pow(x, p - 2, p) for x in a]
 
 
+def _layout(t, layout):
+    """[n, 16] limbs as the layout under test: the limb axis last, or in
+    dim 1 of [W, 16, B] as the witness evaluator holds it (W = 2)."""
+    return t if layout == "last" else t.reshape(2, -1, 16).transpose(1, 2)
+
+
+def _back(t, layout):
+    return t if layout == "last" else t.transpose(1, 2).reshape(-1, 16)
+
+
+_LADDER_REF = {}
+
+
+def _ladder_ref(field, a, b):
+    """field_jnp's mul, square, inv, pow_const(0xD201) and pow_const(1) of
+    a and b (computed once a field: both layouts compare with them)."""
+    if field.p not in _LADDER_REF:
+        ref = ref_backend(field)
+        rA, rB = jnp.asarray(ref.to_limbs(a)), jnp.asarray(ref.to_limbs(b))
+        _LADDER_REF[field.p] = [np.asarray(r) for r in (
+            ref.mul(rA, rB), ref.square(rA), ref.inv(rA), ref.pow_const(rA, 0xD201), ref.pow_const(rA, 1))]
+    return _LADDER_REF[field.p]
+
+
+@pytest.mark.parametrize("layout", ["last", "dim1"])
+@pytest.mark.parametrize("field", FIELDS3, ids=lambda f: f.name)
+def test_backend_mul_ladder_matches_field_jnp(field, layout):
+    """mul, square, inv and pow_const, which run through fk.mul and
+    fk.pow_ladder, against field_jnp.FieldBackend and Python ints, bit-exact,
+    with the limb axis last ([n, 16]) and in dim 1 ([W, 16, B]). The values
+    start with the corners 0, 1, 2, p − 1 and p − 2; inv(0) is 0."""
+    p = field.p
+    be = get_backend(field)
+    a, b = _values(field, 32, 40), _values(field, 32, 41)[::-1]
+    dim = -1 if layout == "last" else 1
+    A, B = _layout(_limbs(field, a), layout), _layout(_limbs(field, b), layout)
+    got = (be.mul(A, B, dim), be.square(A, dim), be.inv(A, dim), be.pow_const(A, 0xD201, dim),
+           be.pow_const(A, 1, dim))
+    ints = ([x * y % p for x, y in zip(a, b)], [x * x % p for x in a], [pow(x, p - 2, p) for x in a],
+            [pow(x, 0xD201, p) for x in a], a)
+    for g, want, want_ints in zip(got, _ladder_ref(field, a, b), ints):
+        assert g.shape == A.shape and g.dtype == torch.int32 and g.is_contiguous()
+        flat = _back(g, layout)
+        assert (to_numpy_u32(flat) == want).all()
+        assert _ints(flat) == want_ints
+    assert a[0] == 0 and _ints(_back(got[2], layout))[0] == 0
+
+
+@pytest.mark.parametrize("field", FIELDS3, ids=lambda f: f.name)
+def test_backend_multiplies_through_the_mul_wrapper(field, monkeypatch):
+    """Every multiply of FieldBackend is one fk.mul or one step of
+    fk.pow_ladder: mul and square one product each (broadcasting a single
+    row against a batch), inv one product a squaring and one a set bit of
+    p − 2 after the top one. On the CPU each product is one mul_plain, so
+    counting mul_plain counts what the card launches."""
+    p = field.p
+    be = get_backend(field)
+    calls = []
+    plain = fk.mul_plain
+
+    def counted(a, b, f):
+        calls.append(a.shape)
+        return plain(a, b, f)
+
+    monkeypatch.setattr(fk, "mul_plain", counted)
+    a = _values(field, 12, 50)
+    A = _limbs(field, a)
+    one = _limbs(field, [p - 2])
+    assert _ints(be.mul(one, A)) == [(p - 2) * x % p for x in a] and len(calls) == 1
+    assert _ints(be.square(A)) == [x * x % p for x in a] and len(calls) == 2
+    assert calls == [(16, 12)] * 2
+    del calls[:]
+    e = p - 2
+    assert _ints(be.inv(A)) == [pow(x, e, p) for x in a]
+    assert len(calls) == e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def test_pow_ladder_checks_its_inputs():
+    x = torch.zeros((16, 4), dtype=torch.int32)
+    for bits in ([], [0, 1]):
+        with pytest.raises(ValueError):
+            fk.pow_ladder(x, bits, SCALAR)
+    with pytest.raises(ValueError):
+        fk.pow_ladder(x[:8].contiguous(), [1], SCALAR)
+    with pytest.raises(TypeError):
+        fk.pow_ladder(x.long(), [1], SCALAR)
+    assert torch.equal(fk.pow_ladder(x, [1], SCALAR), x)
+    assert fk.pow_ladder(x, [1], SCALAR) is not x
+
+
 def test_backend_refuses_unsupported_fields():
     from bellpepper_tpu_torch.fields import PrimeField
 

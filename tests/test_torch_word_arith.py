@@ -1,4 +1,4 @@
-"""The 32-bit-word arithmetic of the mulcmp and chain CUDA kernels
+"""The 32-bit-word arithmetic of the mulcmp, chain and mul CUDA kernels
 (``bp::mulcmp_words``, ``bp::mulmod_words``, ``bp::addmod_words`` in
 ``csrc/field.cuh``), step for step in Python ints over the constant blocks
 the kernels take (``field_consts.kernel_consts``), against a·b mod p and
@@ -214,3 +214,32 @@ def test_chain_plain_matches_word_model():
                 x = addmod_words(x, ext[1][i], k)
             got = sum(int(out[16 * step + l, i]) << (16 * l) for l in range(16))
             assert got == x, (i, step)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_mul_plain_matches_word_model(field):
+    """The mul kernel's steps: each operand's 16 limb rows joined into 8
+    words (limbs 2w and 2w + 1 into word w), bp::mulmod_words, the 8
+    result words split back into 16 limbs; the same limbs as mul_plain
+    (the TPU's 16-bit pipeline) at the corners, the canonical values whose
+    limbs below the top one are all 0xFFFF, and random operands."""
+    p = field.p
+    k = kernel_consts(field)["chain"]
+    rnd = random.Random(15)
+    low = (1 << 240) - 1
+    corners = [0, 1, p - 1, p - 2, low, (((p >> 240) - 1) << 240) | low]
+    pairs = [(a, b) for a in corners for b in corners] + [(rnd.randrange(p), rnd.randrange(p)) for _ in range(28)]
+
+    def lm(vals):
+        return np.asarray([[(v >> (16 * l)) & 0xFFFF for v in vals] for l in range(16)], np.uint32)
+
+    A, B = lm([a for a, _ in pairs]), lm([b for _, b in pairs])
+    want = to_numpy_u32(fk.mul_plain(from_numpy_u32(A), from_numpy_u32(B), field))
+    for i, (a, b) in enumerate(pairs):
+        wa = [int(A[2 * w, i]) | int(A[2 * w + 1, i]) << 16 for w in range(8)]
+        wb = [int(B[2 * w, i]) | int(B[2 * w + 1, i]) << 16 for w in range(8)]
+        assert (_int(wa), _int(wb)) == (a, b)
+        r, _ = mulmod_words(_int(wa), _int(wb), k)
+        rw = _words(r, 8)
+        got = [x for w in rw for x in (w & 0xFFFF, w >> 16)]
+        assert got == want[:, i].tolist(), (a, b)
