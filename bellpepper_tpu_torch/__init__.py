@@ -22,6 +22,17 @@ Ported paths:
     num gadgets → ``WitnessProgram.build`` → ``build_templated_check(...,
     "mixed")`` → ``build_production_step``, with the kernels ``chain``,
     ``mul`` and ``mulcmp``;
+  * configs 2 and 3 and blake2s on the packed step: ``NativeBuilder``'s
+    u32 gadgets (``alloc_u32``, ``xor``, ``addmany`` under
+    ``multieq_begin``/``multieq_end``, ``blake2s_compression``); config 3's
+    ``pack`` output through ``WitnessProgram.build_packed_mixed`` and
+    ``build_templated_check(..., "bits_packed", field_slots=...)``, with
+    the kernels ``bitplane_eq``, ``bits_matvec_semi`` and ``mulcmp``;
+  * the generic bits witness form (0/1 values, one per word):
+    ``build_templated_check(..., "bits")``, ``build_production_step`` (the
+    default for pure-bit programs), ``build_chunked_check(...,
+    witness_form="bits")`` and ``TemplatedSatisfier(..., "bits")``, on the
+    packed check's kernels;
   * the limbs witness form (any value in any slot): ``Satisfier`` (one
     R1CS), ``TemplatedSatisfier``, ``build_templated_check(..., "limbs")``,
     ``build_production_step(..., witness_form="limbs")`` and

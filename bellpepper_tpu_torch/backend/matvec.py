@@ -1,15 +1,25 @@
-"""The templated satisfiability checks: bits_packed and mixed.
+"""The templated satisfiability checks: bits_packed, bits and mixed.
 
 Counterpart of ``bellpepper_tpu/backend/matvec.py``:
 
   * ``build_templated_check(..., "bits_packed")`` → ``PackedBitsCheck``,
     the port of ``_build_packed_bits_check`` (reference ``:2760-3063``):
     ``__call__`` is ``violations_packed``, ``verdict`` is
-    ``verdict_packed``;
+    ``verdict_packed``; without a small-row majority it runs every row
+    through ``BitsSemiCheck`` (``violations_packed_fb``, ``:2798-2811``);
+  * ``build_templated_check(..., "bits_packed", field_slots=...)`` →
+    ``PackedFieldCheck``, the port of ``_build_packed_field_check``
+    (``:2515-2720``): the mixed packed layout's multipack rows as
+    bit-sliced integer equality, the other rows through
+    ``PackedBitsCheck``;
+  * ``build_templated_check(..., "bits")`` → ``BitsCheck`` (``:3151-3200``,
+    ``:3253-3320``, ``:3423-3470``): 0/1 values packed once into words,
+    then ``PackedBitsCheck``;
   * ``_family_bad`` (``:2486``): structured gadget rows as 2-6 full-word
     boolean ops per 32 instances;
-  * ``_pow2_eq_bad_words`` (``:2392``): the carry-save + Kogge-Stone form
-    of the MultiEq power-of-two rows, kept as the independent oracle of
+  * ``_pow2_eq_bad_words`` (``:2392``) and ``_pow2_side_sum_bits``
+    (``:2722-2758``): the carry-save + Kogge-Stone form of the MultiEq
+    power-of-two rows, kept as the independent oracle of
     ``_pow2_eq_bad_words_kernel`` (the plane layout of
     ``_pow2_eq_bad_words_pallas``, ``:2439-2481``, as a table of slots
     that ``bitplane_eq`` gathers through);
@@ -36,6 +46,8 @@ reference. Violation indices are instance-major flat indices
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -51,11 +63,12 @@ from .layout import (
     _classify_mixed_rows,
     _classify_pow2_eq_rows,
     _classify_small_rows,
+    _sub_rows_r1cs,
     _used_slot_template,
 )
 from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _mulcmp_bad, _neg_const, _Operand
 from .limbs import build_limbs_check
-from .words import U32, ctz32, device_table as _t, popcount32, to_u32, unpack_rows
+from .words import U32, ctz32, device_table as _t, pack_rows, popcount32, to_i32, to_u32, unpack_rows
 
 ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2", "rest")  # MixedCheck's row classes, in its row order
 
@@ -99,46 +112,49 @@ def _family_bad(kind, X):
     raise AssertionError(kind)
 
 
-def _pow2_eq_bad_words(vals_p: torch.Tensor, spec) -> torch.Tensor:
-    """Packed bad words int32[n, Bw] of the pow2-equality rows: per side,
-    a carry-save reduction of the addend planes and a Kogge-Stone prefix
-    add give the side's binary value; the sides compare word for word."""
+def _pow2_side_sum_bits(vals_p: torch.Tensor, spec, key: str = "a") -> torch.Tensor:
+    """Resolved bit planes int32[n_pos, n, Bw] of one side's Σ 2^e·bit
+    (``key`` "a" or "c" names the side's ELL planes): a carry-save
+    reduction of the addend planes, then a Kogge-Stone prefix add."""
     n_pos = spec["n_pos"]
     dev = vals_p.device
 
     def sh(x, d=1):  # shift toward the MSB along the position axis
         return torch.cat([torch.zeros_like(x[:d]), x[: n_pos - d]], dim=0)
 
-    def side(cols, mask):
-        m = cols.shape[2]
-        g = vals_p.index_select(0, _t(cols.reshape(-1), dev))
-        g = g.reshape(cols.shape + (-1,)) & _t(mask.view(np.int32), dev, torch.int32)[..., None]
-        g = g.permute(1, 0, 2, 3)  # [n_pos, n, M, Bw]
-        addends = [g[:, :, k] for k in range(m)]
-        while len(addends) > 2:
-            nxt = []
-            for i in range(0, len(addends) - 2, 3):
-                a1, b1, c1 = addends[i : i + 3]
-                nxt.append(a1 ^ b1 ^ c1)
-                nxt.append(sh((a1 & b1) | (c1 & (a1 ^ b1))))
-            rem = len(addends) % 3
-            if rem:
-                nxt.extend(addends[-rem:])
-            addends = nxt
-        if len(addends) == 1:
-            return addends[0]
-        a1, b1 = addends
-        gk, pk, d = a1 & b1, a1 ^ b1, 1
-        p_ = pk
-        while d < n_pos:
-            gk = gk | (pk & sh(gk, d))
-            pk = pk & sh(pk, d)
-            d *= 2
-        return p_ ^ sh(gk)
+    cols, mask = spec[key + "_cols"], spec[key + "_mask"]
+    m = cols.shape[2]
+    g = vals_p.index_select(0, _t(cols.reshape(-1), dev))
+    g = g.reshape(cols.shape + (-1,)) & _t(mask.view(np.int32), dev, torch.int32)[..., None]
+    g = g.permute(1, 0, 2, 3)  # [n_pos, n, M, Bw]
+    addends = [g[:, :, k] for k in range(m)]
+    while len(addends) > 2:
+        nxt = []
+        for i in range(0, len(addends) - 2, 3):
+            a1, b1, c1 = addends[i : i + 3]
+            nxt.append(a1 ^ b1 ^ c1)
+            nxt.append(sh((a1 & b1) | (c1 & (a1 ^ b1))))
+        rem = len(addends) % 3
+        if rem:
+            nxt.extend(addends[-rem:])
+        addends = nxt
+    if len(addends) == 1:
+        return addends[0]
+    a1, b1 = addends
+    gk, pk, d = a1 & b1, a1 ^ b1, 1
+    p_ = pk
+    while d < n_pos:
+        gk = gk | (pk & sh(gk, d))
+        pk = pk & sh(pk, d)
+        d *= 2
+    return p_ ^ sh(gk)
 
-    lhs = side(spec["a_cols"], spec["a_mask"])
-    rhs = side(spec["c_cols"], spec["c_mask"])
-    return _or_rows(lhs ^ rhs)  # [n, Bw]
+
+def _pow2_eq_bad_words(vals_p: torch.Tensor, spec) -> torch.Tensor:
+    """Packed bad words int32[n, Bw] of the pow2-equality rows: each
+    side's binary value (``_pow2_side_sum_bits``), compared word for
+    word."""
+    return _or_rows(_pow2_side_sum_bits(vals_p, spec, "a") ^ _pow2_side_sum_bits(vals_p, spec, "c"))
 
 
 def _pow2_plane_index(spec) -> np.ndarray:
@@ -167,6 +183,16 @@ def _pow2_eq_bad_words_kernel(vals_p: torch.Tensor, spec, plane_idx=None) -> tor
     if plane_idx is None:
         plane_idx = _t(_pow2_plane_index(spec), vals_p.device, torch.int32)
     return bitplane_eq(vals_p, plane_idx, n, padded_positions(spec["n_pos"]), m_a, m_c)
+
+
+def _fold_words(nb, first, words, rows, R: int):
+    """Fold bad words int32[n, Bw] of template rows `rows` into a running
+    verdict (n_bad, first): the count of set bits, and the least
+    instance-major index b·R + row of one (NONE while there is none)."""
+    winst = torch.arange(words.shape[1], dtype=torch.int64, device=words.device) * 32
+    nb = nb + popcount32(words).sum()
+    cand = torch.where(words != 0, (winst[None, :] + ctz32(words)) * R + rows[:, None], NONE)
+    return nb, torch.minimum(first, cand.min())
 
 
 class BitsSemiCheck:
@@ -221,7 +247,13 @@ class PackedBitsCheck:
     gadget rows evaluate as full-word boolean formulas; leftover small
     rows through an exact integer compare of unpacked bits; MultiEq
     power-of-two rows through ``bitplane_eq``; the remaining big rows
-    through ``BitsSemiCheck`` on their used slots only."""
+    through ``BitsSemiCheck`` on their used slots only.
+
+    A template with no small-row majority (the reference's
+    ``violations_packed_fb``, ``:2798-2811``, which unpacks each
+    512-instance block into the unpartitioned bits form) runs every row
+    through ``BitsSemiCheck`` on the packed words, the whole chunk at
+    once."""
 
     def __init__(self, template: R1CS, batch: int, device=None):
         device = resolve(device)
@@ -231,12 +263,13 @@ class PackedBitsCheck:
             raise ValueError("bits_packed batch must be a multiple of 32")
         self.batch = batch
         self.Bw = batch // 32
-        part = _classify_small_rows(template) if Rt0 else None
-        if Rt0 and part is None:
-            raise NotImplementedError(
-                "templates with no small-row majority are not ported yet"
-            )
+        self.fallback = None
         if not Rt0:
+            return
+        part = _classify_small_rows(template)
+        if part is None:
+            self.fallback = BitsSemiCheck(template, np.arange(self.S_t), device)
+            self.all_rows = _t(np.arange(Rt0), device)
             return
         small_idx, big_idx, layouts = part
 
@@ -330,7 +363,13 @@ class PackedBitsCheck:
         order."""
         if not self.Rt0:
             return torch.zeros(0, dtype=torch.bool, device=vals_bm.device)
-        vals_p = self._slot_major(vals_bm)
+        return self.mask_slot_major(self._slot_major(vals_bm)).t().reshape(-1)
+
+    def mask_slot_major(self, vals_p: torch.Tensor) -> torch.Tensor:
+        """Slot-major words int32[S_t, Bw] → bool[R, batch] in the
+        template's row order."""
+        if self.fallback is not None:
+            return self.fallback(vals_p)
         B = self.batch
         parts = []
         if self.n_bool:
@@ -343,38 +382,49 @@ class PackedBitsCheck:
             parts.append(unpack_rows(self._pow2_bad_words(vals_p)) != 0)
         if self.big is not None:
             parts.append(self._big_bad(vals_p))
-        comb = torch.cat(parts, dim=0)  # [R, batch], grouped row order
-        return comb.index_select(0, self.inv).t().reshape(-1)
+        return torch.cat(parts, dim=0).index_select(0, self.inv)  # grouped → template row order
 
-    def verdict(self, vals_bm: torch.Tensor):
+    def verdict(self, vals_bm: torch.Tensor, flimbs=None):
         """verdict_packed: (n_bad, first) as int64 0-d tensors; first is the
         least instance-major flat index b·R + row of a violation, or
-        0xFFFFFFFF when there is none."""
+        0xFFFFFFFF when there is none. `flimbs` must be None: it takes a
+        packed evaluator's (vals, None) pair as PackedFieldCheck takes
+        (vals, flimbs)."""
+        if flimbs is not None:
+            raise ValueError("a pure-bit packed check takes no field sidecar")
         return self.verdict_slot_major(self._slot_major(vals_bm))
 
-    def verdict_slot_major(self, vals_p: torch.Tensor):
-        """verdict on slot-major words int32[S_t, Bw]; no host sync."""
+    def verdict_slot_major(self, vals_p: torch.Tensor, flimbs_p=None, n_inst=None):
+        """verdict on slot-major words int32[S_t, Bw]; no host sync.
+        `flimbs_p` must be None, as in `verdict`. With `n_inst`, only
+        instances below it count (the others are padding)."""
+        if flimbs_p is not None:
+            raise ValueError("a pure-bit packed check takes no field sidecar")
         dev = vals_p.device
         R = self.Rt0
         nb = torch.zeros((), dtype=torch.int64, device=dev)
         first = torch.full((), NONE, dtype=torch.int64, device=dev)
         if not R:
             return nb, torch.full((), SENTINEL, dtype=torch.int64, device=dev)
-        winst = torch.arange(vals_p.shape[1], dtype=torch.int64, device=dev) * 32
+        Bw = vals_p.shape[1]
+        n_inst = 32 * Bw if n_inst is None else n_inst
+        winst = torch.arange(Bw, dtype=torch.int64, device=dev) * 32
+        # the bits of real instances in each word
+        live = to_i32((U32 >> (32 - (n_inst - winst).clamp(0, 32))) & U32)
 
         def fold_words(nb, first, words, rows):
-            nb = nb + popcount32(words).sum()
-            cand = torch.where(
-                words != 0, (winst[None, :] + ctz32(words)) * R + rows[:, None], NONE
-            )
-            return nb, torch.minimum(first, cand.min())
+            return _fold_words(nb, first, words & live, rows, R)
 
         def fold_mask(nb, first, bad, rows):  # bad: bool[n, batch]
+            bad = bad[:, :n_inst]
             binst = torch.arange(bad.shape[1], dtype=torch.int64, device=dev)
             nb = nb + bad.sum()
             cand = torch.where(bad, binst[None, :] * R + rows[:, None], NONE)
             return nb, torch.minimum(first, cand.min())
 
+        if self.fallback is not None:
+            nb, first = fold_mask(nb, first, self.fallback(vals_p), self.all_rows)
+            return nb, torch.where(first == NONE, SENTINEL, first)
         for words, rows in self._fam_bad_words(vals_p):
             nb, first = fold_words(nb, first, words, rows)
         if self.n_left:
@@ -383,6 +433,221 @@ class PackedBitsCheck:
             nb, first = fold_words(nb, first, self._pow2_bad_words(vals_p), self.pow2_rows)
         if self.big is not None:
             nb, first = fold_mask(nb, first, self._big_bad(vals_p), self.rest_big_idx)
+        return nb, torch.where(first == NONE, SENTINEL, first)
+
+
+class BitsCheck:
+    """The generic bits form: z int32[B, S_t] with every value 0 or 1, the
+    port of ``build_templated_check(..., "bits")`` (the small-row split,
+    reference ``:3151-3200``, the fused route, ``:3253-3320``, and the
+    non-fused route, ``:3423-3470``).
+
+    Under the form's domain contract (``:3096-3110``: every slot 0 or 1)
+    bit 0 of a value is all of it, so the check packs z once into
+    slot-major words [S_t, ceil(B/32)] and runs ``PackedBitsCheck`` on
+    them (its no-majority fallback included). The reference's two routes
+    differed by a TPU tile condition (B % 128 == 0); the port has one: the
+    kernels on the card, their plain versions on the CPU.
+
+    The instances that pad B to a multiple of 32 are all zero, ONE
+    included, and the family rows assume ONE = 1 (a ``nor`` row's
+    c == ~a & ~b flags an all-zero instance), so the mask is cut back to B
+    and the verdict counts and locates only the real instances. Needs
+    field.NUM_BITS ≥ 250, as ``BitsSemiCheck`` does."""
+
+    def __init__(self, template: R1CS, batch: int, device=None):
+        if template.field.NUM_BITS < 250:
+            raise NotImplementedError("the bits form needs NUM_BITS >= 250 (the semi-reduced kernels)")
+        self.R = template.num_constraints
+        self.S_t = template.num_inputs + template.num_aux
+        self.batch = batch
+        self.Bw = -(-batch // 32)
+        self.packed = PackedBitsCheck(template, 32 * self.Bw, device)
+
+    def _words(self, z_T: torch.Tensor) -> torch.Tensor:
+        if tuple(z_T.shape) != (self.S_t, self.batch) or z_T.dtype != torch.int32:
+            raise ValueError(
+                f"bits z must be int32[batch={self.batch}, S_t={self.S_t}] (slot-major: the transpose), "
+                f"got {z_T.dtype}{tuple(z_T.shape)}"
+            )
+        return pack_rows(z_T, self.Bw)
+
+    def mask_slot_major(self, z_T: torch.Tensor) -> torch.Tensor:
+        """z_T int32[S_t, B] → bool[R, B] in the template's row order."""
+        words = self._words(z_T)
+        if not self.R:
+            return torch.zeros((0, self.batch), dtype=torch.bool, device=z_T.device)
+        return self.packed.mask_slot_major(words)[:, : self.batch]
+
+    def __call__(self, z: torch.Tensor) -> torch.Tensor:
+        """violations: bool[B·R] in instance-major original row order."""
+        return self.mask_slot_major(z.t()).t().reshape(-1)
+
+    def verdict(self, z: torch.Tensor):
+        """(n_bad, first) as int64 0-d tensors; first is the least
+        instance-major flat index b·R + row of a violation, or 0xFFFFFFFF
+        when there is none."""
+        return self.verdict_slot_major(z.t())
+
+    def verdict_slot_major(self, z_T: torch.Tensor):
+        """verdict on z_T int32[S_t, B] (the pipelines' form); no host
+        sync."""
+        return self.packed.verdict_slot_major(self._words(z_T), n_inst=self.batch)
+
+
+class PackedFieldCheck:
+    """bits_packed check with a field-limb sidecar (the mixed packed
+    layout; reference ``_build_packed_field_check``, ``:2515-2720``):
+    vals_bm int32[Bw, S_t] packed bit slots and flimbs int32[32·Bw, F, 16]
+    canonical limbs, flimbs row i holding slot field_slots[i]
+    (``WitnessProgram.build_packed_mixed``'s pair).
+
+    A row that binds a field slot must be a multipack row
+    Σ 2^i·b_i · ONE = field_out; it is checked as bit-sliced integer
+    equality between the bit side's carry-save + Kogge-Stone sum
+    (``_pow2_side_sum_bits``) and the field value's bit planes. Every other
+    row goes through ``PackedBitsCheck`` on the sub-template of the
+    remaining rows. The verdict remaps the inner one's first index in
+    int64, where the reference's uint32 remap (``:2686``) wraps."""
+
+    def __init__(self, template: R1CS, batch: int, field_slots, device=None):
+        device = resolve(device)
+        p = template.field.p
+        R = self.R = template.num_constraints
+        self.S_t = template.num_inputs + template.num_aux
+        self.batch = batch
+        self.n_fs = len(field_slots)
+        fs_row = {int(s): i for i, s in enumerate(field_slots)}
+        tb = [int(c) % p for c in template.coeff_table]
+        terms = {}
+        for name in "abc":
+            m = getattr(template, name)
+            lst = [[] for _ in range(R)]
+            for r, c, cid in zip(np.asarray(m.rows).tolist(), np.asarray(m.cols).tolist(),
+                                 np.asarray(m.coeff_ids).tolist()):
+                lst[r].append((tb[cid], c))
+            terms[name] = lst
+
+        def bit_side(ts):
+            """[(e, col)] of Σ cf·bit with every cf split into its powers of
+            two, or None when a term is a field slot or zero, or the side
+            can reach p."""
+            out, total = [], 0
+            for cf, col in ts:
+                if col in fs_row or cf == 0:
+                    return None
+                total += cf
+                for e in range(cf.bit_length()):
+                    if (cf >> e) & 1:
+                        out.append((e, col))
+            return out if total < p else None
+
+        packfield, remaining = [], []  # (row, [(e, col)], flimbs row)
+        for r in range(R):
+            if not any(col in fs_row for nm in "abc" for _cf, col in terms[nm][r]):
+                remaining.append(r)
+                continue
+            b_ = [(cf, col) for cf, col in terms["b"][r] if cf != 0]
+            c_ = [(cf, col) for cf, col in terms["c"][r] if cf != 0]
+            sa = bit_side(terms["a"][r])
+            if b_ == [(1, 0)] and len(c_) == 1 and c_[0][0] == 1 and c_[0][1] in fs_row and sa is not None:
+                packfield.append((r, sa, fs_row[c_[0][1]]))
+                continue
+            raise NotImplementedError(
+                f"packed field sidecar: row {r} binds a field slot but is not of the multipack "
+                "shape; use the mixed or limbs form"
+            )
+        remaining = np.asarray(remaining, np.int64)
+        self.Rt_sub = len(remaining)
+        self.inner = PackedBitsCheck(_sub_rows_r1cs(template, remaining), batch, device)
+        self.remaining = _t(remaining, device)
+        self.Bw = self.inner.Bw
+
+        # the bit sides as single-side pow2 ELL planes [n_pf, n_pos, m_a]
+        n_pf = self.n_pf = len(packfield)
+        cnts = [max(Counter(e for e, _c in sa).values(), default=1) for _r, sa, _f in packfield]
+        m_a = max(cnts, default=1)
+        # the compare covers all 256 bits of the field value's limbs: the
+        # bit side's sum is below p < 2^255, and a limb word with bit 255 set
+        # names another residue (the reference stops at NUM_BITS and misses
+        # it); the sum fits, as the bit side is below p
+        n_pos = 256
+        a_cols = np.zeros((n_pf, n_pos, m_a), np.int32)
+        a_mask = np.zeros((n_pf, n_pos, m_a), np.uint32)
+        for i, (_r, sa, _f) in enumerate(packfield):
+            cnt = Counter()
+            for e, col in sa:
+                a_cols[i, e, cnt[e]] = col
+                a_mask[i, e, cnt[e]] = 0xFFFFFFFF
+                cnt[e] += 1
+        self.spec_a = {"n_pos": n_pos, "a_cols": a_cols, "a_mask": a_mask}
+        pf_rows = np.asarray([r for r, _sa, _f in packfield], np.int64)
+        self.pf_rows = _t(pf_rows, device)
+        self.pf_fidx = _t([f for _r, _sa, f in packfield], device)
+        inv = np.empty(R, np.int64)
+        inv[np.concatenate([remaining, pf_rows])] = np.arange(R)
+        self.inv = _t(inv, device)
+
+    def _field_bit_planes(self, flimbs_p: torch.Tensor) -> torch.Tensor:
+        """int32[n_pos, n_pf, Bw]: bit e of each instance's field value,
+        32 instances a word (the reference's ``_field_bit_planes``,
+        ``:2626-2643``, position-major)."""
+        n_pos = self.spec_a["n_pos"]
+        fl = flimbs_p.index_select(0, self.pf_fidx)  # [n_pf, 16, B]
+        sh16 = torch.arange(16, dtype=torch.int32, device=fl.device)[:, None]
+        bits = ((fl[:, :, None, :] >> sh16) & 1).reshape(self.n_pf, 256, -1)[:, :n_pos]
+        return pack_rows(bits.reshape(self.n_pf * n_pos, -1), self.Bw).reshape(
+            self.n_pf, n_pos, self.Bw).transpose(0, 1)
+
+    def _pf_bad_words(self, vals_p, flimbs_p):
+        """int32[n_pf, Bw] bad words: the bit side's integer sum differs
+        from the field value's bits."""
+        lhs = _pow2_side_sum_bits(vals_p, self.spec_a)
+        return _or_rows(lhs ^ self._field_bit_planes(flimbs_p))
+
+    def _args(self, vals_bm, flimbs):
+        ok = (vals_bm.dtype == flimbs.dtype == torch.int32
+              and tuple(vals_bm.shape) == (self.Bw, self.S_t)
+              and flimbs.dim() == 3 and flimbs.shape[0] == self.batch and flimbs.shape[2] == 16
+              and flimbs.shape[1] >= self.n_fs)
+        if not ok:
+            raise ValueError(
+                f"packed field z must be int32 vals[{self.Bw}, {self.S_t}] and flimbs[{self.batch}, "
+                f">= {self.n_fs}, 16], got {vals_bm.dtype}{tuple(vals_bm.shape)} and "
+                f"{flimbs.dtype}{tuple(flimbs.shape)}"
+            )
+        return vals_bm.t().contiguous(), flimbs.permute(1, 2, 0).contiguous()
+
+    def __call__(self, vals_bm: torch.Tensor, flimbs: torch.Tensor) -> torch.Tensor:
+        """violations: bool[batch·R] in instance-major original row order."""
+        vals_p, flimbs_p = self._args(vals_bm, flimbs)
+        parts = [self.inner.mask_slot_major(vals_p)] if self.Rt_sub else []
+        if self.n_pf:
+            parts.append(unpack_rows(self._pf_bad_words(vals_p, flimbs_p)) != 0)
+        if not parts:
+            return torch.zeros(0, dtype=torch.bool, device=vals_bm.device)
+        return torch.cat(parts).index_select(0, self.inv).t().reshape(-1)
+
+    def verdict(self, vals_bm: torch.Tensor, flimbs: torch.Tensor):
+        """(n_bad, first) as int64 0-d tensors; first is the least
+        instance-major flat index b·R + row of a violation, or 0xFFFFFFFF
+        when there is none."""
+        return self.verdict_slot_major(*self._args(vals_bm, flimbs))
+
+    def verdict_slot_major(self, vals_p: torch.Tensor, flimbs_p: torch.Tensor):
+        """verdict on vals int32[S_t, Bw] and flimbs int32[F, 16, 32·Bw];
+        no host sync."""
+        dev = vals_p.device
+        nb = torch.zeros((), dtype=torch.int64, device=dev)
+        first = torch.full((), NONE, dtype=torch.int64, device=dev)
+        if self.Rt_sub:
+            nb, sub = self.inner.verdict_slot_major(vals_p)
+            # the sub-template's row back to the template's: `remaining` is
+            # ascending, so the least (instance, row) stays the least
+            row = self.remaining[(sub % self.Rt_sub).clamp(max=self.Rt_sub - 1)]
+            first = torch.where(nb > 0, sub // self.Rt_sub * self.R + row, NONE)
+        if self.n_pf:
+            nb, first = _fold_words(nb, first, self._pf_bad_words(vals_p, flimbs_p), self.pf_rows, self.R)
         return nb, torch.where(first == NONE, SENTINEL, first)
 
 
@@ -640,21 +905,27 @@ def build_templated_check(template: R1CS, batch: int, witness_form: str = "bits_
                           field_slots=None, device=None):
     """The templated satisfiability check on `device` (the CUDA card by
     default). Ported forms: ``bits_packed`` (bit-sliced packed witnesses
-    of pure-bit templates, ``PackedBitsCheck``), ``mixed`` (the witness
-    program's (vals, flimbs) pair, ``MixedCheck``; needs `field_slots`,
-    the slot of each flimbs row) and ``limbs`` (canonical limbs int32[B,
-    S_t, 16] of any template, ``limbs.build_limbs_check``)."""
+    of pure-bit templates, ``PackedBitsCheck``; with `field_slots`, the
+    mixed packed pair of ``build_packed_mixed``, ``PackedFieldCheck``),
+    ``bits`` (0/1 values int32[B, S_t], ``BitsCheck``), ``mixed`` (the
+    witness program's (vals, flimbs) pair, ``MixedCheck``; needs
+    `field_slots`, the slot of each flimbs row) and ``limbs`` (canonical
+    limbs int32[B, S_t, 16] of any template, ``limbs.build_limbs_check``)."""
     if not (template.num_inputs == 1 or batch == 1):
         raise ValueError("multi-instance templates must be input-free")
     if witness_form == "mixed":
         if field_slots is None:
             raise ValueError("witness_form='mixed' needs field_slots (flimbs row → slot)")
         return MixedCheck(template, batch, field_slots, device)
+    if witness_form == "bits_packed":
+        if field_slots:
+            return PackedFieldCheck(template, batch, field_slots, device)
+        return PackedBitsCheck(template, batch, device)
+    if witness_form == "bits" and not field_slots:
+        return BitsCheck(template, batch, device)
     if witness_form == "limbs" and not field_slots:
         return build_limbs_check(template, batch, device)
-    if witness_form != "bits_packed" or field_slots:
-        raise NotImplementedError(
-            f"witness_form {witness_form!r}{' with field_slots' if field_slots else ''} is not ported yet"
-        )
-    return PackedBitsCheck(template, batch, device)
+    raise NotImplementedError(
+        f"witness_form {witness_form!r}{' with field_slots' if field_slots else ''} is not ported yet"
+    )
 

@@ -65,7 +65,9 @@ class TemplatedSatisfier:
     input-free template (slot 0 of every instance is ONE), in one witness
     form of ``build_templated_check``: ``"limbs"`` by default (z int32[B,
     S_t, 16] canonical limbs, any value in any slot), ``"mixed"`` (z =
-    (vals, flimbs), with `field_slots`) or ``"bits_packed"``."""
+    (vals, flimbs), with `field_slots`), ``"bits"`` (z int32[B, S_t] of
+    0/1 values: a bit-valued witness domain only, see ``BitsCheck``) or
+    ``"bits_packed"``."""
 
     def __init__(self, template: R1CS, batch: int, witness_form: Optional[str] = None,
                  field_slots=None, device=None):

@@ -57,15 +57,23 @@ def shr32(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x >> k) & ((1 << (32 - k)) - 1)
 
 
+def pack_rows(z_T: torch.Tensor, Bw: int) -> torch.Tensor:
+    """int32[n, B] values → packed words int32[n, Bw] of their bit 0,
+    slot-major (bit j of word w = instance 32·w + j; instances past B read
+    0). The inverse of unpack_rows."""
+    n, B = z_T.shape
+    bits = torch.nn.functional.pad(z_T & 1, (0, 32 * Bw - B)).to(torch.int64).reshape(n, Bw, 32)
+    sh = torch.arange(32, dtype=torch.int64, device=z_T.device)
+    return to_i32((bits << sh).sum(dim=2))
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """[B, n] of 0/1 values → packed int32 [B//32, n]: bit j of word w =
     instance 32·w + j. B must be a multiple of 32."""
     B = bits.shape[0]
     if B % 32:
         raise ValueError("packed batch must be a multiple of 32")
-    r = bits.to(torch.int64).reshape(B // 32, 32, -1)
-    sh = torch.arange(32, dtype=torch.int64, device=bits.device)[None, :, None]
-    return to_i32((r << sh).sum(dim=1))
+    return pack_rows(bits.t(), B // 32).t().contiguous()
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Counterpart of ``bellpepper_tpu/compile/pipeline.py``:
 ``build_chunked_check`` (``:72-97``), ``build_production_step``
-(``:100-170``, the mixed and limbs forms),
-``build_packed_production_step`` (``:173-232``),
+(``:100-170``, the bits, mixed and limbs forms),
+``build_packed_production_step`` (``:173-232``, the mixed packed layout
+included),
 ``build_packed_chunked_witness`` (``:235``), ``build_chunked_witness``
 (``:253``) and ``_aggregate`` (``:62-69``). The reference's single jitted
 ``lax.scan`` over chunks becomes a Python loop that enqueues every
@@ -38,27 +39,31 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
     check → (total_bad, first_violation), both int64 0-d tensors on
     `device`; a clean run gives (0, 0xFFFFFFFF).
 
-    witness_form: ``"mixed"`` (the default, also spelled None; the
-    evaluator's (vals, flimbs) buffers as they are) or ``"limbs"`` (every
-    slot as canonical limbs, ``z_template_limbs``; takes pure-bit programs
-    too, and is the form that checks a non-bit field value in a bit slot).
-    free_bits: int32[n_chunks, batch, n_free]; free_field (when the
-    program has free field inputs): int32[n_chunks, batch, n_free_field,
-    16]. Pure-bit programs in the mixed form are refused: they take
-    ``build_packed_production_step``."""
-    witness_form = witness_form or "mixed"
-    if witness_form not in ("mixed", "limbs"):
-        raise ValueError(f"witness_form must be 'mixed', 'limbs' or None, got {witness_form!r}")
+    witness_form: None picks ``"bits"`` for a pure-bit program and
+    ``"mixed"`` for any other, as the reference does. ``"bits"``: the
+    evaluator's 0/1 values as they are (``BitsCheck``). ``"mixed"``: the
+    evaluator's (vals, flimbs) buffers as they are; pure-bit programs are
+    refused in it. ``"limbs"``: every slot as canonical limbs,
+    ``z_template_limbs``; the form that checks a non-bit field value in a
+    bit slot. free_bits: int32[n_chunks, batch, n_free]; free_field (when
+    the program has free field inputs): int32[n_chunks, batch,
+    n_free_field, 16]."""
+    if witness_form is None:
+        witness_form = "bits" if prog.is_pure_bits else "mixed"
+    if witness_form not in ("bits", "mixed", "limbs"):
+        raise ValueError(f"witness_form must be 'bits', 'mixed', 'limbs' or None, got {witness_form!r}")
     if witness_form == "mixed" and prog.is_pure_bits:
         raise NotImplementedError(
-            "the bits form is not ported: pure-bit programs take build_packed_production_step "
-            "or witness_form='limbs'"
+            "a pure-bit program has no field slots for the mixed form: use witness_form='bits' "
+            "(the default) or 'limbs'"
         )
+    if witness_form == "bits" and not prog.is_pure_bits:
+        raise ValueError("the bits form takes pure-bit programs only")
     device = resolve(device)
     if witness_form == "mixed":
         check = build_templated_check(template, batch, "mixed", field_slots=prog.field_slots, device=device)
     else:
-        check = build_templated_check(template, batch, "limbs", device=device)
+        check = build_templated_check(template, batch, witness_form, device=device)
     evaluator = prog.build(device)
     span = batch * template.num_constraints
     n_fr, n_ff = prog.n_field_rows, len(prog.free_field_slots)
@@ -66,6 +71,8 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
     def chunk_verdict(fb, ff):
         vals, flimbs = evaluator.slot_major(fb, ff)
         free_T = ff.permute(1, 2, 0) if n_ff else None
+        if witness_form == "bits":
+            return check.verdict_slot_major(vals)
         if witness_form == "limbs":
             return check.verdict_slot_major(prog.z_template_limbs_slot_major(vals, flimbs, free_T))
         if n_ff:
@@ -87,11 +94,15 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
     return step
 
 
-def build_chunked_check(template: R1CS, batch: int, n_chunks: int, device=None):
-    """Check pre-generated witnesses of n_chunks × batch instances in the
-    limbs form: z4 int32[n_chunks, batch, S_t, 16] → (total_bad,
+def build_chunked_check(template: R1CS, batch: int, n_chunks: int, device=None,
+                        witness_form: str = "limbs"):
+    """Check pre-generated witnesses of n_chunks × batch instances: z4
+    int32[n_chunks, batch, S_t, 16] canonical limbs (``"limbs"``) or
+    int32[n_chunks, batch, S_t] 0/1 values (``"bits"``) → (total_bad,
     first_violation) as in ``build_production_step``."""
-    check = build_templated_check(template, batch, "limbs", device=resolve(device))
+    if witness_form not in ("bits", "limbs"):
+        raise ValueError(f"witness_form must be 'bits' or 'limbs', got {witness_form!r}")
+    check = build_templated_check(template, batch, witness_form, device=resolve(device))
     span = batch * template.num_constraints
 
     def run(z4: torch.Tensor):
@@ -130,10 +141,17 @@ def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
     tensors on `device`; a clean run gives (0, 0xFFFFFFFF).
 
     free_packed: int32[n_chunks, batch/32, n_free] words (uint32 bit
-    patterns), bit j of word w = instance 32·w + j."""
+    patterns), bit j of word w = instance 32·w + j.
+
+    A program whose field values are only ``pack`` outputs (config 3) takes
+    the mixed packed layout: ``build_packed_mixed``'s limb sidecar, checked
+    by ``PackedFieldCheck`` with the field rows in row order as
+    `field_slots`."""
     device = resolve(device)
-    check = build_templated_check(template, batch, "bits_packed", device=device)
-    evaluator = prog.build_packed(device)
+    mixed = not prog.is_packable and prog.is_packable_mixed
+    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
+    check = build_templated_check(template, batch, "bits_packed", field_slots=field_slots, device=device)
+    evaluator = prog.build_packed_mixed(device) if mixed else prog.build_packed(device)
     span = batch * template.num_constraints
 
     def step(free_packed: torch.Tensor):
@@ -144,7 +162,7 @@ def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
             )
         nbs, firsts = [], []
         for fp in free_packed:
-            nb, first = check.verdict_slot_major(evaluator.slot_major(fp))
+            nb, first = check.verdict_slot_major(*evaluator.slot_major(fp))
             nbs.append(nb)
             firsts.append(torch.where(nb > 0, first, 0))
         return _aggregate(torch.stack(nbs), torch.stack(firsts), span)

@@ -25,6 +25,10 @@ Counterpart of ``bellpepper_tpu/compile/witness_program.py``:
     planes. Stage outputs are written straight to their slots; the
     reference's scatter-free slot permutation only worked around an XLA:TPU
     miscompile.
+  * ``WitnessProgram.build_packed_mixed`` (``_build_packed_impl`` with
+    ``mixed=True``, the ``pack`` stage at ``:1311``): the packed evaluator
+    with a limb sidecar of the ``pack`` outputs, for the programs that
+    ``is_packable_mixed`` (``:1058-1076``) accepts.
 
 Both evaluators work slot-major (``[S, B]`` values, ``[F, 16, B]`` limbs),
 so every gather and stage write moves whole contiguous rows and the
@@ -42,7 +46,7 @@ import torch
 from ..backend import field_kernels as fk
 from ..backend.field_kernels import MAX_PATTERN  # longest chain pattern _detect_linear_chain accepts
 from ..backend.field_backend import FieldBackend, get_backend
-from ..backend.words import FULL, U32, device_table as _dev, to_i32, to_u32
+from ..backend.words import FULL, U32, device_table as _dev, to_i32, to_u32, unpack_rows
 from ..device import resolve
 from .tape import V_CONST, V_VAR, Op
 
@@ -56,6 +60,9 @@ FIELD_OUT_OPS = {"fadd", "fmul", "finv", "copy", "pack", "num_inv_or_one",
 # adder tree over bit planes.
 PACKED_OPS = {"xor", "and", "and_not", "nor", "ch", "maj", "addmany",
               "num_iszero"}
+# Opcodes the mixed packed evaluator adds: a field-valued `pack` output
+# goes to an unpacked limb sidecar (see build_packed_mixed).
+PACKED_MIXED_OPS = PACKED_OPS | {"pack"}
 
 # field-operand source kinds
 SRC_ROW = 0  # limb-buffer row (a field op's output)
@@ -227,6 +234,7 @@ class WitnessProgram:
     def _compile(self, op_list: List[Op]) -> None:
         free_set = set(self.free_slots)
         field_out = {o for op in op_list if op.opcode in FIELD_OUT_OPS for o in op.outs}
+        self._field_out = field_out
         self.field_rows: Dict[int, int] = {s: i for i, s in enumerate(sorted(field_out))}
         field_rows = self.field_rows
         field_consumed = set()
@@ -397,6 +405,24 @@ class WitnessProgram:
         """True when the bit-sliced evaluator can run the program."""
         return self.is_pure_bits and all(st.opcode in PACKED_OPS for st in self.stages)
 
+    @property
+    def is_packable_mixed(self) -> bool:
+        """True when the mixed packed evaluator (``build_packed_mixed``)
+        can run the program: every opcode in PACKED_MIXED_OPS, no free
+        field inputs, and no stage reading a field-valued slot as a bit
+        operand (a packed word cannot hold a field value)."""
+        if self.free_field_slots:
+            return False
+        if not all(st.opcode in PACKED_MIXED_OPS for st in self.stages):
+            return False
+        field_out = list(self._field_out)
+        for st in self.stages:
+            for k, v in st.arrs.items():
+                if k in ("a", "b", "a_idx", "b_idx", "c_idx", "idx"):
+                    if np.isin(np.asarray(v).reshape(-1), field_out).any():
+                        return False
+        return True
+
     def z_template_limbs(self, vals, flimbs, free_field=None) -> torch.Tensor:
         """Per-instance witness limbs int32[B, num_slots, 16] (the limbs
         form's z): u32-domain slots from vals int32[B, S] (limbs 0-1), field
@@ -438,6 +464,22 @@ class WitnessProgram:
                 f"this one has {bad or 'field rows'}: use build()"
             )
         return PackedEvaluator(self, resolve(device))
+
+    def build_packed_mixed(self, device=None) -> "PackedEvaluator":
+        """Bit-sliced evaluator with a field-limb sidecar, on `device` (the
+        CUDA card by default): bit slots 32 instances a word, as
+        ``build_packed``, and the field-valued ``pack`` outputs as
+        canonical limbs. free_packed int32[Bw, n_free] → (vals int32[Bw,
+        S], field-out slots holding 0; flimbs int32[Bw·32, F, 16],
+        instance-major, F = n_field_rows)."""
+        if not self.is_packable_mixed:
+            bad = sorted({st.opcode for st in self.stages} - PACKED_MIXED_OPS)
+            raise NotImplementedError(
+                f"the mixed packed evaluator runs programs of {sorted(PACKED_MIXED_OPS)} whose "
+                f"field values are only pack outputs; this one has "
+                f"{bad or 'free field inputs or a field value read as a bit'}: use build()"
+            )
+        return PackedEvaluator(self, resolve(device), mixed=True)
 
 
 def _lift(v: torch.Tensor) -> torch.Tensor:
@@ -708,10 +750,14 @@ def _pack_limbs(bv: torch.Tensor, n_bits: int) -> torch.Tensor:
 
 class PackedEvaluator:
     """The packed evaluator of one WitnessProgram, with its stage tables
-    resident on one device."""
+    resident on one device; `mixed` adds the limb sidecar of the ``pack``
+    outputs (``build_packed_mixed``), canonical 16-bit limbs kept
+    slot-major [F, 16, B] inside."""
 
-    def __init__(self, prog: WitnessProgram, device: torch.device):
+    def __init__(self, prog: WitnessProgram, device: torch.device, mixed: bool = False):
         self.device = device
+        self.mixed = mixed
+        self.F = max(prog.n_field_rows, 1)
         self.num_slots = prog.num_slots
         self.n_free = len(prog.free_slots)
         self.free_slots = _dev(prog.free_slots, device)
@@ -725,10 +771,8 @@ class PackedEvaluator:
             elif st.opcode in ("ch", "maj"):
                 for p in ("a", "b", "c"):
                     t[p] = self._view_tables(a, p + "_", (-1, 1))
-            elif st.opcode == "addmany":
-                n_words, n_out = st.meta
+            elif st.opcode in ("addmany", "pack"):
                 t["v"] = self._view_tables(a, "", a["idx"].shape + (1,))
-                t["shape"] = a["idx"].shape  # [W, n_words, 32]
             else:  # num_iszero
                 t["idx"] = _dev(a["idx"], device)
                 t["cf"] = _dev(a["cf"], device)[:, :, None, None]
@@ -751,8 +795,9 @@ class PackedEvaluator:
         v = vals.index_select(0, idx).reshape(isc.shape[:-1] + (-1,))
         return torch.where(isc, cvw, v ^ negm)
 
-    def slot_major(self, free_packed: torch.Tensor) -> torch.Tensor:
-        """free_packed int32[Bw, n_free] → vals int32[S, Bw]."""
+    def slot_major(self, free_packed: torch.Tensor):
+        """free_packed int32[Bw, n_free] → (vals int32[S, Bw], flimbs
+        int32[F, 16, 32·Bw] with `mixed`, else None)."""
         if free_packed.dtype != torch.int32 or free_packed.shape[1] != self.n_free:
             raise ValueError(
                 f"free_packed must be int32[Bw, {self.n_free}], got "
@@ -765,7 +810,15 @@ class PackedEvaluator:
         vals[0] = FULL  # ONE
         if self.n_free:
             vals.index_copy_(0, self.free_slots, free_packed.t())
+        flimbs = None
+        if self.mixed:
+            flimbs = torch.zeros((self.F, 16, 32 * Bw), dtype=torch.int32, device=vals.device)
         for oc, meta, t in self._stages:
+            if oc == "pack":  # field-valued: to the sidecar; its vals slots stay 0
+                bv = self._views(vals, t["v"])  # [W, n_bits, Bw] packed bit planes
+                bits = unpack_rows(bv.reshape(-1, Bw)).reshape(bv.shape[0], meta, -1)
+                flimbs.index_copy_(0, t["outs"], _pack_limbs(bits, meta))
+                continue
             if oc in ("xor", "and", "and_not", "nor"):
                 a = vals.index_select(0, t["a"])
                 b = vals.index_select(0, t["b"])
@@ -787,11 +840,15 @@ class PackedEvaluator:
             else:  # num_iszero
                 r = _num_iszero(vals, t["idx"], t["cf"])
             vals.index_copy_(0, t["outs"], r.reshape(-1, Bw))
-        return vals
+        return vals, flimbs
 
-    def __call__(self, free_packed: torch.Tensor) -> torch.Tensor:
-        """free_packed int32[Bw, n_free] → vals int32[Bw, S]."""
-        return self.slot_major(free_packed).t().contiguous()
+    def __call__(self, free_packed: torch.Tensor):
+        """free_packed int32[Bw, n_free] → vals int32[Bw, S]; with `mixed`
+        (vals, flimbs int32[Bw·32, F, 16])."""
+        vals, flimbs = self.slot_major(free_packed)
+        if self.mixed:
+            return vals.t().contiguous(), flimbs.permute(2, 0, 1).contiguous()
+        return vals.t().contiguous()
 
 
 def _sh(x: torch.Tensor, d: int, n_out: int) -> torch.Tensor:

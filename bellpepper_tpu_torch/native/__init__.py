@@ -1,11 +1,14 @@
 """ctypes bindings for the native (C++) synthesis core, without JAX.
 
-Counterpart of ``bellpepper_tpu/native/__init__.py:45-139``, ``:198-215``,
-``:269`` and ``:332-453``. This package carries its own copy of the C++
+Counterpart of ``bellpepper_tpu/native/__init__.py:45-139``, ``:165-215``,
+``:269-330`` and ``:332-453``. This package carries its own copy of the C++
 source (``synthesis.cpp`` beside this file), which is compiled with g++
 into the package's build directory, keyed by a content hash of the source.
-Bound: the bit gadgets of the sha256 slice (``alloc_bit``, ``sha256_iv``,
-``sha256_compression``) and the AllocatedNum field gadgets of config 1
+Bound: the bit gadgets (``alloc_bit``, ``alloc_u32``, ``constant``,
+``not_``, ``xor``, ``and_``, ``ch``, ``maj``, ``multieq_begin``,
+``multieq_end``, ``addmany``, ``view``), the sha256 and blake2s
+compressions (``sha256_iv``, ``sha256_compression``,
+``blake2s_compression``) and the AllocatedNum field gadgets of config 1
 (``alloc_num``, ``num_add``, ``num_mul``, ``num_square``,
 ``num_assert_nonzero``, ``pack_bits``).
 
@@ -24,7 +27,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from ..compile.tape import Op
+from ..compile.tape import V_CONST, V_VAR, Op
 from ..fields import SCALAR, PrimeField
 from ..r1cs import COOMatrix, R1CS
 
@@ -78,6 +81,11 @@ def load_library():
     lib.bp_builder_free.argtypes = [vp]
     for name, args in [
         ("bp_alloc_bit", [vp]),
+        ("bp_not", [i64]),
+        ("bp_xor", [vp, i64, i64]),
+        ("bp_and", [vp, i64, i64]),
+        ("bp_ch", [vp, i64, i64, i64]),
+        ("bp_maj", [vp, i64, i64, i64]),
         ("bp_alloc_num", [vp]),
         ("bp_num_add", [vp, i64, i64]),
         ("bp_num_mul", [vp, i64, i64]),
@@ -99,6 +107,10 @@ def load_library():
     lib.bp_pack_bits.restype = i64
     lib.bp_pack_bits.argtypes = [vp, i64p, i32]
     for name, args in [
+        ("bp_multieq_begin", [vp]),
+        ("bp_multieq_end", [vp]),
+        ("bp_addmany", [vp, i64p, i32, i64p]),
+        ("bp_blake2s_compression", [vp, i64p, i64p, ctypes.c_uint64, i32]),
         ("bp_num_assert_nonzero", [vp, i64]),
         ("bp_sha256_compression", [vp, i64p, i64p, i64p]),
         ("bp_sha256_iv", [i64p]),
@@ -148,6 +160,47 @@ class NativeBuilder:
         self._free_order.append(v >> 2)  # slotcode
         return v
 
+    def alloc_u32(self, n_bits: int = 32) -> List[int]:
+        """n_bits free bits, LSB first (an allocated UInt32)."""
+        return [self.alloc_bit() for _ in range(n_bits)]
+
+    @staticmethod
+    def constant(b: bool) -> int:
+        """The view of a constant bit."""
+        return 2 if b else 0
+
+    def not_(self, v: int) -> int:
+        return self._lib.bp_not(v)
+
+    def xor(self, a: int, b: int) -> int:
+        return self._lib.bp_xor(self._b, a, b)
+
+    def and_(self, a: int, b: int) -> int:
+        return self._lib.bp_and(self._b, a, b)
+
+    def ch(self, a: int, b: int, c: int) -> int:
+        return self._lib.bp_ch(self._b, a, b, c)
+
+    def maj(self, a: int, b: int, c: int) -> int:
+        return self._lib.bp_maj(self._b, a, b, c)
+
+    def multieq_begin(self) -> None:
+        """Open a MultiEq batch: the equalities of the addmanys until
+        ``multieq_end`` pack into shared power-of-two rows."""
+        self._lib.bp_multieq_begin(self._b)
+
+    def multieq_end(self) -> None:
+        self._lib.bp_multieq_end(self._b)
+
+    def addmany(self, words: Sequence[Sequence[int]]) -> List[int]:
+        """The mod-2^32 sum of words of 32 views each (LSB first)."""
+        flat = np.asarray([v for w in words for v in w], np.int64)
+        if flat.shape[0] != 32 * len(words):
+            raise ValueError("addmany takes words of 32 views")
+        out = np.empty(32, np.int64)
+        self._lib.bp_addmany(self._b, flat, len(words), out)
+        return list(out)
+
     def sha256_iv(self) -> List[int]:
         out = np.empty(256, np.int64)
         self._lib.bp_sha256_iv(out)
@@ -168,6 +221,16 @@ class NativeBuilder:
             out,
         )
         return list(out)
+
+    def blake2s_compression(self, h: Sequence[int], m: Sequence[int], t: int, f: bool) -> List[int]:
+        """h: 256 views (8 state words), m: 512 views (16 message words),
+        words LSB first; t the byte offset, f the final-block flag →
+        the new state's 256 views."""
+        if len(h) != 256 or len(m) != 512:
+            raise ValueError("blake2s_compression takes 256 state and 512 message views")
+        hb = np.asarray(h, np.int64).copy()
+        self._lib.bp_blake2s_compression(self._b, hb, np.asarray(m, np.int64), t, 1 if f else 0)
+        return list(hb)
 
     # -- AllocatedNum field gadgets (num.rs) ----------------------------------
     def alloc_num(self) -> int:
@@ -201,6 +264,13 @@ class NativeBuilder:
         if slotcode & 1:
             return int(self._lib.bp_num_inputs(self._b)) + idx
         return idx
+
+    def view(self, v: int):
+        """An opaque Boolean view as a tape-view triple: (V_CONST, value, 0)
+        or (V_VAR, slot, negated)."""
+        if (v & 1) == 0:
+            return (V_CONST, 1 if v & 2 else 0, 0)
+        return (V_VAR, self._slot(v >> 2), 1 if v & 2 else 0)
 
     def finish(self):
         """Extract (R1CS, tape), identical to the JAX package's

@@ -48,7 +48,22 @@ Phases (one line each, or a few):
     extrapolated from the runs before, stays under 40 GiB, and the
     ``Satisfier`` of a 16-block sha256 chain (426,912 rows) at batch 1,
     whose ``which_is_unsatisfied`` names the row a Python-int evaluation
-    finds; each with its time (and the steps' rate and peak memory).
+    finds; each with its time (and the steps' rate and peak memory);
+  * configs 2 and 3 (benchmarks/configs_1_2_3.py; 712 and 229 rows) and
+    one blake2s compression (22,158 rows) through NativeBuilder's bit
+    gadgets, each on the packed step at 4 × 32,768 (config 3 in the mixed
+    packed layout, its pack output in a limb sidecar): clean verdicts and
+    launches, chunk 0 equal to the CPU evaluator, planted corruptions (a
+    flipped bit; config 3 also a pack-output limb bit and an addend bit)
+    found at their instance and at the row the CPU check names, and the
+    kernels at each path's own tables (bitplane_eq's generic instantiation
+    at configs 2 and 3, bits_matvec_semi at blake2s's 46-row buckets,
+    mulcmp at its N);
+  * sha256 in the generic bits form (build_production_step's default for
+    a pure-bit program) at 4 × 1,024, then 2,048 and 4,096 while the
+    extrapolated peak stays under 40 GiB: verdicts, launches, chunk 0's
+    mask and verdict equal to the packed check's (clean and with one bit
+    flipped), and mulcmp at each batch's N.
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once: for the kernels that read the
@@ -57,8 +72,10 @@ planes as stored and the output) over 3.35 TB/s and the 32-bit integer
 products that function needs on these inputs (not those of the kernel's
 own design; see ``modmul_products``) over 64 lanes × 132 SMs × the card's
 maximum SM clock. The line before last names the card again; the last
-line is {"ok": true, "device": {...}}. Any failed phase raises and the
-script exits non-zero. Without a CUDA device it exits 1 at once."""
+line is {"ok": true, "device": {...}}; the kernels line gives each
+kernel's numbers at its first table and, under ``other_tables``, those at
+the later paths' tables. Any failed phase raises and the script exits
+non-zero. Without a CUDA device it exits 1 at once."""
 
 import json
 import random
@@ -116,6 +133,12 @@ CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS, SHA256_LIMBS_ROWS = 90, 8, 26360
 # memory extrapolated from the runs before stays under PEAK_GIB
 B_SHA_LIMBS_BIG = (2048, 4096, 8192)
 PEAK_GIB = 40
+# the sha256 step in the bits form: instances per chunk, then the larger
+# batches run in turn while the extrapolated peak stays under PEAK_GIB
+B_SHA_BITS = 1024
+B_SHA_BITS_BIG = (2048, 4096)
+# the free words' seeds of configs 2 and 3 (benchmarks/configs_1_2_3.py:194, :246)
+CONFIG2_SEED, CONFIG3_SEED = 6, 7
 # the op-rate probe: rows (ILP), rounds and elements of each launch
 PROBE_R, PROBE_K, PROBE_N = 8, 256, 1 << 20
 SEED = 0x5962BE3D
@@ -254,7 +277,7 @@ def compare(name, kernel, plain, bound, reps=20, plain_reps=3, library=None):
     print(f"[kernel] {name}: shape {tuple(out.shape)} max_abs_err {err} kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms{lib} bound {bound[0]:.4f} ms ({bound[1]})")
     assert err == 0, f"{name} disagrees with its plain version"
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+    return {"table": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms}
 
 
@@ -382,6 +405,7 @@ def mulcmp_at(name: str, N: int, dev, bound):
     assert err == 0, f"mulcmp disagrees with its plain version at N={N}"
     del a, b, c, out
     torch.cuda.empty_cache()
+    return {"table": f"{name} N={N}", "max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def gathered_bytes(cols: torch.Tensor, slot_bytes: int) -> int:
@@ -389,6 +413,61 @@ def gathered_bytes(cols: torch.Tensor, slot_bytes: int) -> int:
     reads (each read once)."""
     live = cols[cols >= 0]
     return int(torch.unique(live).numel()) * slot_bytes
+
+
+def semi_buckets(label, vals_p, semi_check, bound, library: bool, slice_words=None):
+    """bits_matvec_semi at every ELL bucket of a BitsSemiCheck, on packed
+    words vals_p int32[S, Bw]: each bucket against its plain version (run
+    over slices of slice_words words where the full batch's float64
+    digit planes would not fit) and, with `library`, torch.bmm in float32
+    over the gathered bits' 32 digit sums only (no reduction); the sums
+    over the buckets of the kernel's, the plain version's and the
+    library's times and of the bounds' bytes and products."""
+    Bw = vals_p.shape[1]
+    B_ = 32 * Bw
+    step_w = slice_words or Bw
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if library else None, "bytes": 0, "ops": 0}
+    for name in "abc":
+        for cols, F in semi_check.mats[name]:
+            n_rows, K = cols.shape
+            n_live = int((cols >= 0).any(1).sum())
+            n_bytes = gathered_bytes(cols, Bw * 4) + F.numel() + 17 * n_rows * B_ * 4
+            n_ops = n_live * B_ * SEMI_REDUCE_MULS
+            lib = None
+            if library:
+                xf = fk._gather_bits(vals_p, cols).float()
+                Ff = F[:, :, :K].float()
+                lib = lambda: torch.bmm(Ff, xf)  # noqa: E731
+            r = compare(
+                f"bits_matvec_semi {label} {name} K={K} rows={n_rows} ({n_live} live)",
+                lambda: fk.bits_matvec_semi(vals_p, cols, F, SCALAR),
+                lambda: torch.cat([fk.bits_matvec_semi_plain(vals_p[:, s : s + step_w].contiguous(), cols, F, SCALAR)
+                                   for s in range(0, Bw, step_w)], dim=2),
+                bound(n_bytes, n_ops), library=lib)
+            for k in ("ms", "plain_ms") + (("library_ms",) if library else ()):
+                tot[k] += r[k]
+            tot["bytes"] += n_bytes
+            tot["ops"] += n_ops
+            if library:
+                del xf, Ff
+    torch.cuda.empty_cache()
+    b_ms, b_by = max(bound(tot["bytes"], 0), bound(0, tot["ops"]))
+    return {"table": f"{label} buckets", "max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"]}
+
+
+def bitplane_at(label, vals_p, spec, planes, bound):
+    """bitplane_eq at one path's plane table, against its plain version;
+    the library has no counterpart."""
+    n, m_a, m_c = spec["a_cols"].shape[0], spec["a_cols"].shape[2], spec["c_cols"].shape[2]
+    P = fk.padded_positions(spec["n_pos"])
+    Bw = vals_p.shape[1]
+    return compare(
+        f"bitplane_eq {label} n={n} P={P} m_a={m_a} m_c={m_c} Bw={Bw} ({int((planes < 0).sum())} of "
+        f"{planes.numel()} planes empty)",
+        lambda: fk.bitplane_eq(vals_p, planes, n, P, m_a, m_c),
+        lambda: fk.bitplane_eq_plain(vals_p, planes, n, P, m_a, m_c),
+        bound(gathered_bytes(planes, Bw * 4) + n * Bw * 4, 0))
 
 
 def sha256_kernels(dev, bound, template, prog):
@@ -412,38 +491,10 @@ def sha256_kernels(dev, bound, template, prog):
     P = fk.padded_positions(spec["n_pos"])
     bad = fk.bitplane_eq(vals_p, planes, n, P, m_a, m_c)
     assert not bad[:, ::2].any() and bad[:, 1::2].all(), "bitplane_eq verdicts"
-    results["bitplane_eq"] = compare(
-        f"bitplane_eq n={n} P={P} m_a={m_a} m_c={m_c} Bw={Bw} ({int((planes < 0).sum())} of "
-        f"{planes.numel()} planes empty)",
-        lambda: fk.bitplane_eq(vals_p, planes, n, P, m_a, m_c),
-        lambda: fk.bitplane_eq_plain(vals_p, planes, n, P, m_a, m_c),
-        bound(gathered_bytes(planes, Bw * 4) + n * Bw * 4, 0))
+    results["bitplane_eq"] = bitplane_at("sha256", vals_p, spec, planes, bound)
     # bits_matvec_semi: the big row's ELL buckets, one a matrix, (K, rows) =
-    # (512, 8), (1, 8), (256, 8), 7 rows of each padding. The library
-    # yardstick is torch.bmm in float32 over the gathered bits' 32 digit
-    # sums only (no reduction).
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
-    for name in "abc":
-        (cols, F), = check.big.mats[name]
-        n_rows, K = cols.shape
-        xf = fk._gather_bits(vals_p, cols).float()
-        Ff = F[:, :, :K].float()
-        n_bytes = gathered_bytes(cols, Bw * 4) + F.numel() + 17 * n_rows * B * 4
-        n_ops = int((cols >= 0).any(1).sum()) * B * SEMI_REDUCE_MULS
-        r = compare(
-            f"bits_matvec_semi K={K} rows={n_rows} ({int((cols >= 0).any(1).sum())} live)",
-            lambda: fk.bits_matvec_semi(vals_p, cols, F, SCALAR),
-            lambda: fk.bits_matvec_semi_plain(vals_p, cols, F, SCALAR), bound(n_bytes, n_ops),
-            library=lambda: torch.bmm(Ff, xf))
-        for k in ("ms", "plain_ms", "library_ms"):
-            tot[k] += r[k]
-        tot["bytes"] += n_bytes
-        tot["ops"] += n_ops
-        del xf, Ff
-    b_ms, b_by = max(bound(tot["bytes"], 0), bound(0, tot["ops"]))
-    results["bits_matvec_semi"] = {"max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-                                   "bound_ms": b_ms, "bound_by": b_by,
-                                   "library_ms": tot["library_ms"]}
+    # (512, 8), (1, 8), (256, 8), 7 rows of each padding
+    results["bits_matvec_semi"] = semi_buckets("sha256", vals_p, check.big, bound, library=True)
     del vals_p, check
     # mulcmp: N = 8 padded rows × B
     N = 8 * B
@@ -992,6 +1043,224 @@ def satisfier_chain(dev, card):
     return counts
 
 
+def config2_circuit():
+    """Config 2 (benchmarks/configs_1_2_3.py:162-206) through NativeBuilder:
+    8 allocated u32 words, then 7 × (xor with rotr(5i), addmany with
+    shr(3)) under one MultiEq; rotr and shr are index shifts, shr filled
+    with constant(False)."""
+    nb = NativeBuilder()
+    ops = [nb.alloc_u32() for _ in range(8)]
+    nb.multieq_begin()
+    x = ops[0]
+    for i in range(1, 8):
+        x = [nb.xor(a, ops[i][(k + 5 * i) % 32]) for k, a in enumerate(x)]
+        x = nb.addmany([x, ops[i - 1][3:] + [nb.constant(False)] * 3])
+    nb.multieq_end()
+    return nb.finish()
+
+
+def config3_circuit():
+    """Config 3 (benchmarks/configs_1_2_3.py:209-258): 4 allocated u32
+    words, 3 addmany under one MultiEq, then pack_bits of the sum's 32
+    bits into one field element."""
+    nb = NativeBuilder()
+    words = [nb.alloc_u32() for _ in range(4)]
+    nb.multieq_begin()
+    acc = words[0]
+    for w in words[1:]:
+        acc = nb.addmany([acc, w])
+    nb.multieq_end()
+    nb.pack_bits(acc)
+    return nb.finish()
+
+
+def blake2s_circuit():
+    """One blake2s compression of free h (256) and m (512) bits, t = 64,
+    f = True (the JAX package's tests/test_native_synthesis.py:102-140)."""
+    nb = NativeBuilder()
+    h = [nb.alloc_bit() for _ in range(256)]
+    nb.blake2s_compression(h, [nb.alloc_bit() for _ in range(512)], 64, True)
+    return nb.finish()
+
+
+def bit_synth():
+    """Configs 2 and 3 and blake2s through NativeBuilder's bit gadgets."""
+    built = {}
+    for name, make, want in (("config2", config2_circuit, (712, 712, 256)),
+                             ("config3", config3_circuit, (229, 229, 128)),
+                             ("blake2s", blake2s_circuit, (22158, 22113, 768))):
+        t0 = time.time()
+        template, tape = make()
+        prog = WitnessProgram(tape)
+        got = (template.num_constraints, prog.num_slots, len(prog.free_slots))
+        assert got == want, (name, got)
+        print(f"[synth] {name}: {got[0]} rows, {got[1]} slots, {got[2]} free bits, {len(prog.stages)} stages "
+              f"(packable {prog.is_packable}, mixed packable {prog.is_packable_mixed}) in {time.time() - t0:.2f} s")
+        built[name] = (template, prog)
+    return built
+
+
+def packed_bit_step(dev, card, bound, name, template, prog, seed, tables):
+    """Config 2, config 3 (the mixed packed layout) or blake2s on
+    build_packed_production_step at N_CHUNKS × B with random free words:
+    the clean verdict and the path's launches; chunk 0 equal to the CPU
+    evaluator on 16 words; planted corruptions found at their instance and
+    at the row the CPU check names for that word's 32 instances alone; the
+    kernels at the path's own tables (on chunk 0's words with random odd
+    words, so both verdicts occur); the step's time, rate and peak."""
+    R = template.num_constraints
+    Bw = B // 32
+    mixed = not prog.is_packable
+    free_np = np.random.default_rng(seed).integers(
+        0, 1 << 32, size=(N_CHUNKS, Bw, len(prog.free_slots)), dtype=np.uint64).astype(np.uint32)
+    free = from_numpy_u32(free_np, dev)
+    t0 = time.time()
+    step = build_packed_production_step(prog, template, B, device=dev)
+    print(f"[step] {name} built in {time.time() - t0:.2f} s")
+    step(free)  # warm-up
+    verdict, counts = path_run(step, free)
+    print(f"[step] {name} verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+
+    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
+    check = build_templated_check(template, B, "bits_packed", field_slots=field_slots, device=dev)
+    cpu_check = build_templated_check(template, 32, "bits_packed", field_slots=field_slots, device="cpu")
+    if mixed:
+        vals0, fl0 = prog.build_packed_mixed(dev)(free[0])
+        cpu_vals, cpu_fl = prog.build_packed_mixed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+        assert torch.equal(fl0[: 16 * 32].cpu(), cpu_fl), f"{name} chunk-0 limbs differ from the CPU evaluator"
+    else:
+        vals0, fl0 = prog.build_packed(dev)(free[0]), None
+        cpu_vals = prog.build_packed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+    assert torch.equal(vals0[:16].cpu(), cpu_vals), f"{name} chunk-0 words differ from the CPU evaluator"
+    assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
+
+    def probe(what, word, bit, slot=None, limb=None):
+        """Flip bit `bit` of packed word (word, slot), or bit limb[1] of
+        limb limb[0] of instance 32·word + bit's first field row."""
+        v, f = vals0.clone(), None if fl0 is None else fl0.clone()
+        inst = 32 * word + bit
+        if limb is None:
+            v[word, slot] ^= 1 << bit
+        else:
+            f[inst, 0, limb[0]] ^= 1 << limb[1]
+        nbad, first = (int(x) for x in check.verdict(v, f))
+        cnb, cfirst = (int(x) for x in cpu_check.verdict(
+            v[word : word + 1].cpu(), None if f is None else f[32 * word : 32 * word + 32].cpu()))
+        assert nbad > 0 and first // R == inst and cfirst // R == bit and first % R == cfirst % R, \
+            (name, what, nbad, first, cfirst)
+        print(f"[probe] {name}: {what} at instance {inst} found: n_bad {nbad}, row {first % R} "
+              f"(the CPU check of its word: n_bad {cnb}, row {cfirst % R})")
+        return first % R
+
+    probe(f"a flipped bit of slot {prog.num_slots // 2}", Bw // 2, 7, slot=prog.num_slots // 2)
+    if mixed:
+        row = probe("a flipped bit (limb 1, bit 4) of the pack output", Bw // 3, 11, limb=(1, 4))
+        assert row == int(check.pf_rows[0]), row  # the multipack row
+        probe(f"a flipped addend bit (free slot {prog.free_slots[40]})", 5, 30, slot=prog.free_slots[40])
+    print(f"[probe] {name} chunk-0 words match the CPU evaluator on 16 words"
+          f"{' (limbs too)' if mixed else ''}; the chunk's verdict is clean")
+
+    vals_p = vals0.t().contiguous()
+    rng = np.random.default_rng(seed + 1)
+    vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
+                                                  dtype=np.uint64).astype(np.uint32), dev)
+    inner = check.inner if mixed else check
+    if inner.pow2_spec is not None:
+        tables["bitplane_eq"].append(bitplane_at(name, vals_p, inner.pow2_spec, inner.plane_idx, bound))
+    if inner.big is not None:
+        tables["bits_matvec_semi"].append(semi_buckets(name, vals_p, inner.big, bound, library=False,
+                                                       slice_words=256))
+        tables["mulcmp"].append(mulcmp_at(f"{name} packed", inner.big.Rtp * B, dev, bound))
+    del vals0, fl0, vals_p, check, cpu_check
+    torch.cuda.empty_cache()
+    perf_step(name, step, free, B, R, card, 5)
+    return counts
+
+
+def sha256_bits_step(dev, card, bound, template, prog, tables):
+    """The sha256 compression in the bits form, the default of
+    build_production_step for a pure-bit program, at N_CHUNKS ×
+    B_SHA_BITS: the clean verdict and launches; chunk 0's mask and verdict
+    equal to the packed check's on the same instances, clean and with one
+    intermediate bit flipped (found at its instance). Then the step at the
+    batches of B_SHA_BITS_BIG in turn while the peak extrapolated from the
+    runs before stays under PEAK_GIB: each one's verdict, time and peak.
+    At every batch its kernels against their plain versions at the shapes
+    it launches them at: bitplane_eq and bits_matvec_semi on chunk 0's
+    words as the bits check packs them (odd words random, so both verdicts
+    occur; Bw = B/32), and mulcmp at its N."""
+    R = template.num_constraints
+    Bb = B_SHA_BITS
+    rng = np.random.default_rng(SEED + 7)
+
+    def kernels_at(Bn, free0, packed=None):
+        """The compares at batch Bn on chunk 0's free bits free0."""
+        packed = packed or build_templated_check(template, Bn, "bits", device=dev).packed
+        vals, _ = prog.build(dev)(free0)
+        words = pack_bits(vals).t().contiguous()  # [S_t, Bn/32], as BitsCheck packs them
+        odd = np.random.default_rng(SEED + Bn).integers(0, 1 << 32, size=(words.shape[0], words.shape[1] // 2),
+                                                        dtype=np.uint64)
+        words[:, 1::2] = from_numpy_u32(odd.astype(np.uint32), dev)
+        label = f"sha256 bits {Bn}"
+        tables["bitplane_eq"].append(bitplane_at(label, words, packed.pow2_spec, packed.plane_idx, bound))
+        tables["bits_matvec_semi"].append(semi_buckets(label, words, packed.big, bound, library=False))
+        del vals, words, packed
+        torch.cuda.empty_cache()
+        tables["mulcmp"].append(mulcmp_at(label, 8 * Bn, dev, bound))
+    free = from_numpy_u32(rng.integers(0, 2, size=(N_CHUNKS, Bb, 512)).astype(np.uint32), dev)
+    t0 = time.time()
+    step = build_production_step(prog, template, Bb, device=dev)
+    print(f"[step] sha256 bits built in {time.time() - t0:.2f} s")
+    step(free)  # warm-up
+    verdict, counts = path_run(step, free)
+    print(f"[step] sha256 bits verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert (counts["bitplane_eq"], counts["bits_matvec_semi"], counts["mulcmp"]) == (
+        N_CHUNKS, 3 * N_CHUNKS, N_CHUNKS), counts
+
+    bits = build_templated_check(template, Bb, "bits", device=dev)
+    packed = build_templated_check(template, Bb, device=dev)
+    vals, _ = prog.build(dev)(free[0])
+    words = pack_bits(vals)
+    slot, inst = 9000, Bb // 3
+    vf, wf = vals.clone(), words.clone()
+    vf[inst, slot] ^= 1
+    wf[inst // 32, slot] ^= 1 << (inst % 32)
+    for v, w in ((vals, words), (vf, wf)):
+        assert torch.equal(bits(v), packed(w)), "the bits mask differs from the packed check's"
+        got = tuple(int(x) for x in bits.verdict(v))
+        assert got == tuple(int(x) for x in packed.verdict(w)), got
+    assert got[0] > 0 and got[1] // R == inst, got
+    print(f"[probe] sha256 bits chunk 0: mask and verdict equal the packed check's, clean and with slot "
+          f"{slot} flipped at instance {inst} ({got})")
+    inner = bits.packed
+    del bits, packed, vals, words, vf, wf
+    kernels_at(Bb, free[0], inner)
+    del inner
+    peaks = [(Bb, perf_step("sha256 bits", step, free, Bb, R, card, 3))]
+    del step, free
+    torch.cuda.empty_cache()
+    for Bn in B_SHA_BITS_BIG:
+        (b1, p1), (b2, p2) = peaks[-2] if len(peaks) > 1 else (0, 0.0), peaks[-1]
+        est = p2 + (p2 - p1) / (b2 - b1) * (Bn - b2)
+        if est >= PEAK_GIB:
+            print(f"[perf] sha256 bits at {Bn}: peak estimated {est:.2f} GiB, not run")
+            break
+        free = from_numpy_u32(rng.integers(0, 2, size=(N_CHUNKS, Bn, 512)).astype(np.uint32), dev)
+        step = build_production_step(prog, template, Bn, device=dev)
+        step(free)  # warm-up
+        verdict, big_counts = path_run(step, free)
+        print(f"[step] sha256 bits at {N_CHUNKS}x{Bn} verdict {verdict} launches {big_counts}")
+        assert verdict == (0, 0xFFFFFFFF), verdict
+        peaks.append((Bn, perf_step(f"sha256 bits {Bn}", step, free, Bn, R, card, 2)))
+        assert peaks[-1][1] < PEAK_GIB, f"peak memory {peaks[-1][1]:.2f} GiB at {Bn} (estimated {est:.2f})"
+        kernels_at(Bn, free[0])
+        del step, free
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing runs on the CPU", file=sys.stderr)
@@ -999,9 +1268,9 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}")
     dev = torch.device(DEVICE)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     max_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {name}; "
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {kind}; "
           f"max SM clock {max_mhz:.0f} MHz, SM clock now {nvidia_smi('clocks.sm')}")
     bound = Bound(max_mhz)
 
@@ -1035,6 +1304,15 @@ def main() -> int:
     launches["sha256_limbs"] = sha256_limbs_step(dev, card, bound, template, prog)
     torch.cuda.empty_cache()
     launches["satisfier"] = satisfier_chain(dev, card)
+    torch.cuda.empty_cache()
+    tables = {k: [] for k in fk.KERNELS}
+    for path, (template_b, prog_b) in bit_synth().items():
+        seed = {"config2": CONFIG2_SEED, "config3": CONFIG3_SEED}.get(path, SEED + 8)
+        launches[path] = packed_bit_step(dev, card, bound, path, template_b, prog_b, seed, tables)
+        torch.cuda.empty_cache()
+    assert launches["config2"]["bitplane_eq"] == launches["config3"]["bitplane_eq"] == N_CHUNKS
+    assert (launches["blake2s"]["bits_matvec_semi"], launches["blake2s"]["mulcmp"]) == (4 * N_CHUNKS, N_CHUNKS)
+    launches["sha256_bits"] = sha256_bits_step(dev, card, bound, template, prog, tables)
 
     kernels = []
     for k in fk.KERNELS:
@@ -1044,12 +1322,14 @@ def main() -> int:
             "replaces": KERNEL_INFO[k][1], "launches": sum(by_path.values()),
             "launches_by_path": by_path, **{key: results[k][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "other_tables": tables[k],
         })
+        assert all(t["max_abs_err"] == 0 for t in tables[k]), k
         assert by_path, f"{k} was not launched on any path"
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 

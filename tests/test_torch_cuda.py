@@ -8,8 +8,9 @@ Every kernel is held bit-exact to its plain version at ragged sizes (the
 kernels mask the edge themselves), its launch is counted, the field
 backend's inversion is a ladder of mul launches that Python's pow agrees
 with, and the packed sha256 step, the config-1 field step in the mixed and
-the limbs forms, and the Satisfier on the card give the CPU's verdicts,
-clean and corrupted."""
+the limbs forms, the bits form at a ragged batch, config 3's mixed packed
+step, a step with free field inputs and the Satisfier on the card give
+the CPU's verdicts, clean and corrupted."""
 
 import random
 
@@ -26,6 +27,7 @@ from bellpepper_tpu_torch import (
     WitnessProgram,
     build_packed_production_step,
     build_production_step,
+    build_templated_check,
 )
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
@@ -56,7 +58,8 @@ def _planes(P, m_a, m_c, n, S, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,m_a,m_c,n,Bw", [(256, 7, 1, 25, 1024), (256, 7, 1, 3, 37), (32, 3, 2, 5, 777),
-                                            (64, 4, 3, 2, 1)])
+                                            (64, 4, 3, 2, 1), (256, 2, 1, 1, 1025), (256, 2, 1, 3, 33),
+                                            (256, 3, 1, 4, 97)])
 def test_bitplane_eq_on_card(cuda, P, m_a, m_c, n, Bw):
     """Ragged Bw (the 4-byte copies), the sha256 instantiation (7, 1) and
     the generic one; half the columns made equal by a witness whose C
@@ -509,3 +512,97 @@ def test_limbs_step_on_card_matches_cpu(cuda):
     assert got.which_is_unsatisfied(z.to(cuda)) == want.which_is_unsatisfied(z) is not None
     counts = fk.launch_counts()
     assert counts["mul_digits"] == 3 and counts["reduce_digits"] == 3 and counts["mul"] == 1
+
+
+# --- the bits form, the mixed packed step, free field inputs ---------------------
+def _sha256_prog():
+    nb = NativeBuilder()
+    bits = [nb.alloc_bit() for _ in range(512)]
+    nb.sha256_compression(bits, nb.sha256_iv())
+    template, tape = nb.finish()
+    return template, WitnessProgram(tape)
+
+
+@pytest.mark.cuda
+def test_bits_check_on_card_matches_cpu(cuda):
+    """The bits form at B = 33 (one word of 32 instances and one of 1: the
+    padding instances cut away) on the sha256 template, clean and with
+    one bit flipped, against the CPU's mask and verdict."""
+    template, prog = _sha256_prog()
+    B = 33
+    free = from_numpy_u32(RNG.integers(0, 2, size=(B, 512)).astype(np.uint32))
+    vals, _ = prog.build("cpu")(free)
+    bad = vals.clone()
+    bad[B - 1, 9000] ^= 1
+    cpu = build_templated_check(template, B, "bits", device="cpu")
+    card = build_templated_check(template, B, "bits", device=cuda)
+    for z in (vals, bad):
+        fk.reset_launch_counts()
+        got_mask = card(z.to(cuda)).cpu()
+        got = tuple(int(v) for v in card.verdict(z.to(cuda)))
+        counts = fk.launch_counts()
+        assert torch.equal(got_mask, cpu(z))
+        assert got == tuple(int(v) for v in cpu.verdict(z))
+        assert counts["bitplane_eq"] == 2 and counts["bits_matvec_semi"] >= 2 and counts["mulcmp"] == 2
+    assert got[0] > 0 and got[1] // template.num_constraints == B - 1
+
+
+@pytest.mark.cuda
+def test_packed_mixed_step_on_card_matches_cpu(cuda):
+    """Config 3 (the mixed packed layout) at B = 512 × 2 chunks, clean and
+    with the pack output's first two bits swapped."""
+    nb = NativeBuilder()
+    words = [nb.alloc_u32() for _ in range(4)]
+    nb.multieq_begin()
+    acc = words[0]
+    for w in words[1:]:
+        acc = nb.addmany([acc, w])
+    nb.multieq_end()
+    nb.pack_bits(acc)
+    template, tape = nb.finish()
+    ni, na, ops, free = tape.snapshot()
+    i = next(k for k, op in enumerate(ops) if op.opcode == "pack")
+    bad_ops = list(ops)
+    args = list(ops[i].args)
+    bad_ops[i] = type(ops[i])("pack", ops[i].outs, [args[1], args[0]] + args[2:])
+    fw = RNG.integers(0, 1 << 32, size=(2, 16, 128), dtype=np.uint64).astype(np.uint32)
+    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+        prog = WitnessProgram(t)
+        want = build_packed_production_step(prog, template, 512, device="cpu")(from_numpy_u32(fw))
+        fk.reset_launch_counts()
+        got = build_packed_production_step(prog, template, 512, device=cuda)(from_numpy_u32(fw, cuda))
+        got = tuple(int(v) for v in got)
+        assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
+        assert fk.launch_counts()["bitplane_eq"] == 2
+
+
+def _free_field_program():
+    """x·pack(bits) + y, squared: free field inputs x and y (the
+    production step's free_field argument)."""
+    nb = NativeBuilder()
+    x, y = nb.alloc_num(), nb.alloc_num()
+    a = nb.pack_bits(nb.alloc_u32())
+    nb.num_square(nb.num_add(nb.num_mul(x, a), y))
+    return nb.finish()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["mixed", "limbs"])
+def test_free_field_step_on_card_matches_cpu(cuda, form):
+    """build_production_step with free field inputs at B = 256 × 2 chunks,
+    clean and with one fadd of the tape computing a product."""
+    template, tape = _free_field_program()
+    ni, na, ops, free = tape.snapshot()
+    i = next(k for k, op in enumerate(ops) if op.opcode == "fadd")
+    bad_ops = list(ops)
+    bad_ops[i] = type(ops[i])("fmul", ops[i].outs, ops[i].args)
+    B = 256
+    bits = from_numpy_u32(RNG.integers(0, 2, size=(2, B, 34)).astype(np.uint32))  # x, y, then 32 bits
+    ff = torch.stack([_canonical(SCALAR, 2 * B, 7 + k, "cpu").t().reshape(2, B, 16) for k in range(2)], dim=2)
+    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+        prog = WitnessProgram(t)
+        assert len(prog.free_field_slots) == 2
+        want = build_production_step(prog, template, B, "cpu", witness_form=form)(bits, ff)
+        got = build_production_step(prog, template, B, cuda, witness_form=form)(bits.to(cuda), ff.to(cuda))
+        got = tuple(int(v) for v in got)
+        assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt

@@ -1,8 +1,9 @@
 """The port must load where JAX is not installed: importing the package
 and its modules (and chip_smoke.py), building and running the sha256 and
 config-1 templates on the CPU (the packed, mixed and limbs steps, the
-chunked check and both satisfiers) pulls in no `jax` and nothing of the
-JAX package, and the
+chunked check and both satisfiers), and configs 2 and 3 and blake2s (the
+bits form, the mixed packed step and the packed step), pulls in no `jax`
+and nothing of the JAX package, and the
 native library builds from the port's own C++ source. Without a card, an
 entry point called without a device raises."""
 
@@ -82,6 +83,39 @@ def test_port_never_imports_jax():
         z[0, prog.free_slots[3], 5] = 7
         assert sat.which_is_unsatisfied(z[0]) is not None
 
+        # configs 2 and 3 and blake2s through the bit gadgets: the bits
+        # form, the mixed packed step and the packed step
+        nb = NativeBuilder()
+        ops = [nb.alloc_u32() for _ in range(8)]
+        nb.multieq_begin()
+        x = ops[0]
+        for i in range(1, 8):
+            x = nb.addmany([[nb.xor(a, ops[i][(k + 5 * i) % 32]) for k, a in enumerate(x)],
+                            ops[i - 1][3:] + [nb.constant(False)] * 3])
+        nb.multieq_end()
+        template, tape = nb.finish()
+        prog = WitnessProgram(tape)
+        free = torch.randint(0, 2, (1, 33, 256), dtype=torch.int32)
+        assert [int(v) for v in build_production_step(prog, template, 33, "cpu")(free)] == [0, 0xFFFFFFFF]
+        nb = NativeBuilder()
+        words = [nb.alloc_u32() for _ in range(4)]
+        nb.multieq_begin()
+        acc = words[0]
+        for w in words[1:]:
+            acc = nb.addmany([acc, w])
+        nb.multieq_end()
+        nb.pack_bits(acc)
+        template, tape = nb.finish()
+        prog = WitnessProgram(tape)
+        free = torch.randint(-2**31, 2**31 - 1, (1, 1, 128), dtype=torch.int32)
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        nb = NativeBuilder()
+        nb.blake2s_compression([nb.alloc_bit() for _ in range(256)], [nb.alloc_bit() for _ in range(512)], 64, True)
+        template, tape = nb.finish()
+        prog = WitnessProgram(tape)
+        free = torch.randint(-2**31, 2**31 - 1, (1, 1, 768), dtype=torch.int32)
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+
         bad = sorted(
             m for m in sys.modules
             if m in ("jax", "bellpepper_tpu") or m.startswith(("jax.", "jaxlib", "bellpepper_tpu."))
@@ -118,7 +152,7 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         build_templated_check,
     )
     from bellpepper_tpu_torch.backend.limbs import build_limbs_check
-    from bellpepper_tpu_torch.backend.matvec import MixedCheck, PackedBitsCheck
+    from bellpepper_tpu_torch.backend.matvec import BitsCheck, MixedCheck, PackedBitsCheck, PackedFieldCheck
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     nb = NativeBuilder()
@@ -132,7 +166,20 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     nb.sha256_compression(bits, nb.sha256_iv())
     sha_t, sha_tape = nb.finish()
     sha_prog = WitnessProgram(sha_tape)
+    nb = NativeBuilder()
+    nb.pack_bits(nb.alloc_u32())
+    pack_t, pack_tape = nb.finish()
+    pack_prog = WitnessProgram(pack_tape)
     for make in (
+        lambda: pack_prog.build_packed_mixed(),
+        lambda: build_templated_check(pack_t, 32, "bits_packed", field_slots=pack_prog.field_slots),
+        lambda: PackedFieldCheck(pack_t, 32, pack_prog.field_slots),
+        lambda: build_packed_production_step(pack_prog, pack_t, 32),
+        lambda: build_templated_check(sha_t, 32, "bits"),
+        lambda: BitsCheck(sha_t, 32),
+        lambda: build_production_step(sha_prog, sha_t, 32),
+        lambda: build_chunked_check(sha_t, 32, 1, witness_form="bits"),
+        lambda: TemplatedSatisfier(sha_t, 32, "bits"),
         lambda: field_prog.build(),
         lambda: sha_prog.build_packed(),
         lambda: build_templated_check(sha_t, 32),

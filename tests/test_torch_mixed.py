@@ -303,14 +303,23 @@ def test_production_step_matches_reference(name, corrupt):
 
 
 def test_production_step_refuses_pure_bit_programs_and_bad_shapes(built):
+    """A pure-bit program is refused in an explicit mixed form; by default
+    it takes the bits form, whose verdict equals the reference's."""
     _name, (t, _tape, prog), _ref, _fs = built
-    nb = NativeBuilder()
-    bits = [nb.alloc_bit() for _ in range(512)]
-    nb.sha256_compression(bits, nb.sha256_iv())
+    nb = RefBuilder()
+    words = [nb.alloc_u32() for _ in range(3)]
+    nb.multieq_begin()
+    x = nb.addmany(words)
+    nb.multieq_end()
+    [nb.xor(a, b) for a, b in zip(x, words[0])]
     st, stape = nb.finish()
-    for form in (None, "mixed"):
-        with pytest.raises(NotImplementedError):
-            build_production_step(WitnessProgram(stape), st, 64, device="cpu", witness_form=form)
+    sprog = WitnessProgram(stape)
+    with pytest.raises(NotImplementedError):
+        build_production_step(sprog, st, 64, device="cpu", witness_form="mixed")
+    free = _free(len(sprog.free_slots), 1, 64)
+    got = tuple(int(v) for v in build_production_step(sprog, st, 64, device="cpu")(_i32(free)))
+    want = tuple(int(v) for v in ref_step(RefProgram(stape), st, 64, use_pallas=False)(jnp.asarray(free)))
+    assert got == want == (0, 0xFFFFFFFF)
     step = build_production_step(prog, t, 64, device="cpu")
     with pytest.raises(ValueError):
         step(torch.zeros((1, 32, 128), dtype=torch.int32))

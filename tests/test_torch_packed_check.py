@@ -12,10 +12,10 @@ import pytest
 import torch
 
 from bellpepper_tpu.backend import matvec as ref_mv
-from bellpepper_tpu_torch import NativeBuilder, WitnessProgram
+from bellpepper_tpu_torch import R1CS, NativeBuilder, PrimeField, WitnessProgram
 from bellpepper_tpu_torch.backend import layout
 from bellpepper_tpu_torch.backend import matvec as mv
-from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
+from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32, unpack_bits
 import test_packed
 
 RNG = np.random.default_rng(0x5EED_0004)
@@ -193,9 +193,22 @@ def test_check_matches_reference_fixtures(name, monkeypatch):
 
 
 def test_check_rejects_wrong_shape(sha256):
-    template, _prog = sha256
+    """A wrong witness shape raises. The bits form is ported: at B = 32 its
+    verdict equals the reference's on a packed check's witness with one
+    bit flipped; below 250 bits it is refused (the semi-reduced kernels)."""
+    template, prog = sha256
     chk = mv.build_templated_check(template, B, device="cpu")
     with pytest.raises(ValueError):
         chk.verdict(torch.zeros((B // 32, 10), dtype=torch.int32))
+    small = R1CS(PrimeField("m127", (1 << 127) - 1), template.num_inputs, template.num_aux,
+                 template.num_constraints, template.a, template.b, template.c, template.coeff_table)
     with pytest.raises(NotImplementedError):
-        mv.build_templated_check(template, B, "bits", device="cpu")
+        mv.build_templated_check(small, 32, "bits", device="cpu")
+    bits = mv.build_templated_check(template, 32, "bits", device="cpu")
+    free = RNG.integers(0, 1 << 32, size=(1, len(prog.free_slots)), dtype=np.uint64).astype(np.uint32)
+    z = unpack_bits(prog.build_packed("cpu")(from_numpy_u32(free)))
+    z[17, 9000] ^= 1
+    want = np.asarray(jax.jit(ref_mv.build_templated_check(template, 32, False, "bits"))(
+        jnp.asarray(to_numpy_u32(z))))
+    got = tuple(int(v) for v in bits.verdict(z))
+    assert got == (int(want.sum()), int(np.argmax(want))) and got[1] // template.num_constraints == 17

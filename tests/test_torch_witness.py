@@ -61,6 +61,150 @@ def test_native_template_matches_reference(sha_ref, sha_port):
         assert (op.opcode, op.outs, op.args) == (op_r.opcode, op_r.outs, op_r.args)
 
 
+# --- NativeBuilder's bit gadgets: configs 2 and 3, blake2s -------------------
+def _config2(nb):
+    """benchmarks/configs_1_2_3.py:162-206 through the builder: rotr is an
+    index rotation, shr a shift with constant(False) fill."""
+    ops = [nb.alloc_u32() for _ in range(8)]
+    nb.multieq_begin()
+    x = ops[0]
+    for i in range(1, 8):
+        rot = [ops[i][(k + 5 * i) % 32] for k in range(32)]
+        x = [nb.xor(a, b) for a, b in zip(x, rot)]
+        x = nb.addmany([x, ops[i - 1][3:] + [nb.constant(False)] * 3])
+    nb.multieq_end()
+
+
+def _config3(nb):
+    """benchmarks/configs_1_2_3.py:209-258 through the builder."""
+    words = [nb.alloc_u32() for _ in range(4)]
+    nb.multieq_begin()
+    acc = words[0]
+    for w in words[1:]:
+        acc = nb.addmany([acc, w])
+    nb.multieq_end()
+    nb.pack_bits(acc)
+
+
+def _blake2s(nb):
+    """One blake2s compression of free h and m bits, t = 64, f = True."""
+    h = [nb.alloc_bit() for _ in range(256)]
+    m = [nb.alloc_bit() for _ in range(512)]
+    nb.blake2s_compression(h, m, 64, True)
+
+
+def _config2_py(cs):
+    from bellpepper_tpu.gadgets.multieq import MultiEq
+    from bellpepper_tpu.gadgets.uint32 import UInt32
+
+    ops = [UInt32.alloc(cs.namespace(f"op {i}"), None) for i in range(8)]
+    with MultiEq(cs) as mcs:
+        x = ops[0]
+        for i in range(1, 8):
+            x = x.xor(mcs.namespace(f"x{i}"), ops[i].rotr(5 * i))
+            x = UInt32.addmany(mcs.namespace(f"s{i}"), [x, ops[i - 1].shr(3)])
+
+
+def _config3_py(cs):
+    from bellpepper_tpu.gadgets.multieq import MultiEq
+    from bellpepper_tpu.gadgets.multipack import pack_bits
+    from bellpepper_tpu.gadgets.uint32 import UInt32
+
+    words = [UInt32.alloc(cs.namespace(f"w{i}"), None) for i in range(4)]
+    with MultiEq(cs) as mcs:
+        acc = words[0]
+        for i in range(1, 4):
+            acc = UInt32.addmany(mcs.namespace(f"add {i}"), [acc, words[i]])
+    pack_bits(cs.namespace("pack"), acc.into_bits())
+
+
+BIT_GADGETS = {"config2": (_config2, (712, 712)), "config3": (_config3, (229, 229)),
+               "blake2s": (_blake2s, (22158, 22113))}
+
+
+def _finish(builder_cls, name):
+    nb = builder_cls()
+    BIT_GADGETS[name][0](nb)
+    return nb.finish()
+
+
+def _tuples(x):
+    """Nested lists as tuples (the native decoder gives lists where TapeCS
+    records tuples)."""
+    return tuple(_tuples(v) for v in x) if isinstance(x, (list, tuple)) else x
+
+
+def _assert_same_template(t, t_ref, by_value=False):
+    """Equal R1CS arrays; coefficient ids equal, or (by_value) their
+    values, as tests/test_native_synthesis.py compares."""
+    assert (t.num_inputs, t.num_aux, t.num_constraints) == (t_ref.num_inputs, t_ref.num_aux, t_ref.num_constraints)
+    if not by_value:
+        assert t.coeff_table == t_ref.coeff_table
+    for name in "abc":
+        m, m_ref = getattr(t, name), getattr(t_ref, name)
+        for f in ("rows", "cols") + (() if by_value else ("coeff_ids",)):
+            assert (np.asarray(getattr(m, f)) == np.asarray(getattr(m_ref, f))).all(), (name, f)
+        if by_value:
+            got = [t.coeff_table[i] for i in np.asarray(m.coeff_ids)]
+            assert got == [t_ref.coeff_table[i] for i in np.asarray(m_ref.coeff_ids)], name
+
+
+def _assert_same_tape(tape, tape_ref):
+    ni, na, ops, free = tape.snapshot()
+    ni_r, na_r, ops_r, free_r = tape_ref.snapshot()
+    assert (ni, na, list(free)) == (ni_r, na_r, list(free_r))
+    assert len(ops) == len(ops_r)
+    for op, op_r in zip(ops, ops_r):
+        assert (op.opcode, list(op.outs), _tuples(op.args)) == (op_r.opcode, list(op_r.outs), _tuples(op_r.args))
+
+
+@pytest.mark.parametrize("name", list(BIT_GADGETS))
+def test_bit_gadget_templates_match_reference(name):
+    (t, tape), (t_ref, tape_ref) = _finish(NativeBuilder, name), _finish(RefBuilder, name)
+    assert (t.num_constraints, t.num_inputs + t.num_aux) == BIT_GADGETS[name][1]
+    _assert_same_template(t, t_ref)
+    _assert_same_tape(tape, tape_ref)
+
+
+@pytest.mark.parametrize("name", ["config2", "config3"])
+def test_bit_gadget_templates_match_python_circuits(name):
+    """The reference's ShapeCS / TapeCS of the Python circuits in
+    benchmarks/configs_1_2_3.py."""
+    from bellpepper_tpu.compile.tape import TapeCS
+    from bellpepper_tpu.r1cs import ShapeCS
+
+    circuit = _config2_py if name == "config2" else _config3_py
+    t, tape = _finish(NativeBuilder, name)
+    shape, tape_py = ShapeCS(), TapeCS()
+    circuit(shape)
+    circuit(tape_py)
+    _assert_same_template(t, shape.finish(), by_value=True)
+    _assert_same_tape(tape, tape_py)
+
+
+def test_view_decodes_like_reference():
+    nb, rb = NativeBuilder(), RefBuilder()
+    for b in (nb, rb):
+        b.alloc_bit()
+        x = b.alloc_bit()
+        b.xor(x, b.not_(x))
+    views = [nb.constant(False), nb.constant(True), 5, nb.not_(5), 9]
+    assert [nb.view(v) for v in views] == [rb.view(v) for v in views]
+    assert nb.view(nb.constant(True)) == (0, 1, 0) and nb.view(nb.not_(5))[0] == V_VAR
+
+
+@pytest.mark.parametrize("name", ["config2", "blake2s"])
+def test_stages_and_words_match_reference_bit_gadgets(name):
+    t, tape = _finish(NativeBuilder, name)
+    prog, ref = WitnessProgram(tape), RefProgram(tape)
+    _assert_same_stages(prog, ref)
+    assert prog.is_packable and len(prog.free_slots) == {"config2": 256, "blake2s": 768}[name]
+    free = RNG.integers(0, 1 << 32, size=(2, len(prog.free_slots)), dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(ref.build_packed()(jnp.asarray(free)))
+    got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
+    assert (got == want).all()
+
+
 def _assert_same_stages(prog, ref):
     assert prog.num_slots == ref.num_slots
     assert list(prog.free_slots) == list(ref.free_slots)
@@ -149,15 +293,29 @@ def test_num_iszero_words_match_reference():
 
 
 def test_field_opcodes_are_refused():
-    """The packed evaluator refuses a program with field stages (they
-    compile, and build() evaluates them)."""
+    """The packed evaluators refuse a program with field stages (they
+    compile, and build() evaluates them); a `pack` stage is the one field
+    opcode the mixed packed evaluator takes, and its words and limbs equal
+    the reference's."""
     from bellpepper_tpu.fields import SCALAR
 
     snap = (1, 3, [RefOp("fmul", [3], [1, 2])], [1, 2])
     prog = WitnessProgram(_Tape(SCALAR, snap))
     assert [st.opcode for st in prog.stages] == ["fmul"] and not prog.is_packable
+    assert not prog.is_packable_mixed
     with pytest.raises(NotImplementedError):
         prog.build_packed("cpu")
+    with pytest.raises(NotImplementedError):
+        prog.build_packed_mixed("cpu")
+    views = [(V_VAR, 1 + k, k % 3 == 0) for k in range(20)] + [(0, 1, 0), (V_VAR, 21, 0)]
+    snap = (1, 22, [RefOp("xor", [21], [1, 2]), RefOp("pack", [22], views)], list(range(1, 21)))
+    prog, ref = WitnessProgram(_Tape(SCALAR, snap)), RefProgram(_Tape(SCALAR, snap))
+    assert (prog.is_packable, prog.is_packable_mixed) == (ref.is_packable, ref.is_packable_mixed) == (False, True)
+    words = RNG.integers(0, 1 << 32, size=(3, 20), dtype=np.uint64).astype(np.uint32)
+    want = ref.build_packed_mixed()(jnp.asarray(words))
+    got = prog.build_packed_mixed("cpu")(from_numpy_u32(words))
+    for g, w in zip(got, want):
+        assert (to_numpy_u32(g) == np.asarray(w)).all()
 
 
 def test_evaluator_rejects_wrong_input(sha_port):
