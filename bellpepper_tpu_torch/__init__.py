@@ -33,6 +33,15 @@ Ported paths:
     default for pure-bit programs), ``build_chunked_check(...,
     witness_form="bits")`` and ``TemplatedSatisfier(..., "bits")``, on the
     packed check's kernels;
+  * the chained and Merkle pipelines (configs 4 and 4b):
+    ``build_chained_witness`` (on the card each block one replay of a CUDA
+    graph), ``build_chained_production_step`` and
+    ``build_merkle_tree_step`` on the bits check's kernels, with
+    ``PipelinedSatisfier`` and ``which_from_flat``;
+  * NativeBuilder's num family (``num_to_bits_le_strict``,
+    ``num_conditionally_reverse``, ``num_is_zero``, ``lookup3_xy``,
+    ``lookup3_xy_with_conditional_negation``) through
+    ``WitnessProgram.build``, its inversions on the kernel ``mul``;
   * the limbs witness form (any value in any slot): ``Satisfier`` (one
     R1CS), ``TemplatedSatisfier``, ``build_templated_check(..., "limbs")``,
     ``build_production_step(..., witness_form="limbs")`` and
@@ -45,11 +54,16 @@ from .backend.matvec import build_templated_check
 from .backend.satisfier import Satisfier, TemplatedSatisfier
 from .backend.words import pack_bits, unpack_bits
 from .compile.pipeline import (
+    PipelinedSatisfier,
+    build_chained_production_step,
+    build_chained_witness,
     build_chunked_check,
     build_chunked_witness,
     build_packed_chunked_witness,
     build_packed_production_step,
+    build_merkle_tree_step,
     build_production_step,
+    which_from_flat,
 )
 from .compile.witness_program import WitnessProgram
 from .fields import FIELDS, PALLAS_SCALAR, SCALAR, VESTA_SCALAR, PrimeField
@@ -61,6 +75,7 @@ __all__ = [
     "FIELDS",
     "NativeBuilder",
     "PALLAS_SCALAR",
+    "PipelinedSatisfier",
     "PrimeField",
     "R1CS",
     "SCALAR",
@@ -68,12 +83,16 @@ __all__ = [
     "TemplatedSatisfier",
     "VESTA_SCALAR",
     "WitnessProgram",
+    "build_chained_production_step",
+    "build_chained_witness",
     "build_chunked_check",
     "build_chunked_witness",
     "build_packed_chunked_witness",
+    "build_merkle_tree_step",
     "build_packed_production_step",
     "build_production_step",
     "build_templated_check",
     "pack_bits",
     "unpack_bits",
+    "which_from_flat",
 ]

@@ -819,17 +819,21 @@ class MixedCheck:
         d = _carry_limbs(pos + _neg_const(neg, self.off_limbs))  # A + (p·2^34 − C)
         return _mont_zero_test(d, self.p, POW2_M_LIMBS, self.pinv_limbs)
 
-    def _rest_bad(self, vals_p, flimbs_p):
-        """The rest rows' limbs check on z of their used slots: field slots
-        from flimbs, u32 slots as limbs (value mod 2^16, value >> 16)."""
+    def rest_z(self, vals_p, flimbs_p):
+        """The z int32[n_used, 16, B] of the rest rows' limbs check, on
+        their used slots: field slots from flimbs, u32 slots as limbs
+        (value mod 2^16, value >> 16)."""
         v = vals_p.index_select(0, self.rest_used)
         lift = torch.zeros((v.shape[0], 16, v.shape[1]), dtype=v.dtype, device=v.device)
         lift[:, 0] = v & 0xFFFF
         lift[:, 1] = (v >> 16) & 0xFFFF
         if not self.n_fs:  # no field slots: every used slot is a u32 slot
-            return self.rest.mask_slot_major(lift)
+            return lift
         fl = flimbs_p.index_select(0, self.rest_fidx)  # [n_used, 16, B]
-        return self.rest.mask_slot_major(torch.where(self.rest_isf, fl, lift))
+        return torch.where(self.rest_isf, fl, lift)
+
+    def _rest_bad(self, vals_p, flimbs_p):
+        return self.rest.mask_slot_major(self.rest_z(vals_p, flimbs_p))
 
     def class_bad(self, name: str, vals_p: torch.Tensor, flimbs_p: torch.Tensor) -> torch.Tensor:
         """bool[n, B]: the bad mask of one row class (one of ROW_CLASSES),

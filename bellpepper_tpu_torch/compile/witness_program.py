@@ -538,7 +538,10 @@ class Evaluator:
         self.n_free = len(prog.free_slots)
         self.n_free_field = len(prog.free_field_slots)
         self.free_slots = _dev(prog.free_slots, device)
-        self.be = get_backend(self.field) if prog.n_field_rows else None
+        field_lcs = any(st.opcode in ("num_iszero", "num_inv_or_one") for st in prog.stages)
+        self.be = get_backend(self.field) if prog.n_field_rows or prog.free_field_slots or field_lcs else None
+        self._field_rows = prog.field_rows
+        self._free_field_idx = {s: i for i, s in enumerate(prog.free_field_slots)}
         self.plan = []
         run: List[_Stage] = []
 
@@ -588,13 +591,37 @@ class Evaluator:
             t["x"] = _FieldOperand(a["x_kind"], a["x_idx"], d)
             t["y"] = _FieldOperand(a["y_kind"], a["y_idx"], d)
         elif oc in ("num_iszero", "num_inv_or_one"):
-            t["idx"] = _dev(a["idx"], d)
-            t["cf"] = _dev(a["cf"], d)[:, :, None]
+            t["lc"] = self._field_lc_tables(a["idx"], a["cf"])
         if "a_kind" in a:
             t["fa"] = _FieldOperand(a["a_kind"], a["a_idx"], d)
         if "b_kind" in a:
             t["fb"] = _FieldOperand(a["b_kind"], a["b_idx"], d)
         return t
+
+    def _field_lc_tables(self, idx, cf):
+        """The tables of a small LC, summed in the field: the terms as one
+        field operand (a field row, a free field input or a lifted u32
+        slot) and the coefficients as limbs (None when every one is 1)."""
+        slots = idx.reshape(-1).tolist()
+        kinds = [SRC_ROW if s in self._field_rows else SRC_FREE if s in self._free_field_idx else SRC_LIFT
+                 for s in slots]
+        where = [self._field_rows[s] if k == SRC_ROW else self._free_field_idx[s] if k == SRC_FREE else s
+                 for k, s in zip(kinds, slots)]
+        cf = cf.reshape(-1)
+        cfl = None if (cf == 1).all() else _dev(FieldBackend.to_limbs(cf), self.device, torch.int32)
+        return _FieldOperand(kinds, where, self.device), cfl, idx.shape
+
+    def _lc_field(self, t, vals, flimbs, free_T):
+        """Σ cf·value of each LC in the field: canonical limbs int32[W, 16, B]."""
+        operand, cfl, (W, T) = t["lc"]
+        x = operand(vals, flimbs, free_T)  # [W·T, 16, B]
+        if cfl is not None:
+            x = self._fmul(x, cfl[:, :, None].expand_as(x))
+        x = x.reshape(W, T, 16, -1)
+        s = x[:, 0]
+        for j in range(1, T):
+            s = self.be.add(s, x[:, j], dim=1)
+        return s
 
     def _chain_tables(self, spec) -> dict:
         d = self.device
@@ -691,15 +718,18 @@ class Evaluator:
                 a = t["fa"](vals, flimbs, free_T)
                 bits = [(a[:, k // 16] >> (k % 16)) & 1 for k in range(meta)]
                 vals.index_copy_(0, t["outs"], torch.stack(bits, dim=1).reshape(-1, B))
-            elif oc == "num_iszero":
-                s = _small_lc(vals, t["idx"], t["cf"])
-                vals.index_copy_(0, t["outs"], (s == 0).to(torch.int32))
-            elif oc == "num_inv_or_one":
-                s = _small_lc(vals, t["idx"], t["cf"])
-                inv = self.be.inv(_lift(to_i32(s)), dim=1)
-                one = torch.zeros_like(inv)
-                one[:, 0] = 1
-                write_field(t, torch.where((s == 0)[:, None, :], one, inv))
+            elif oc in ("num_iszero", "num_inv_or_one"):
+                # the sum in the field (the reference sums the slots' low 32
+                # bits in uint32, which gives a witness its rows reject once
+                # a term is field-valued or the sum wraps)
+                s = self._lc_field(t, vals, flimbs, free_T)
+                zero = (s == 0).all(dim=1)  # [W, B]
+                if oc == "num_iszero":
+                    vals.index_copy_(0, t["outs"], zero.to(torch.int32))
+                else:
+                    inv = self.be.inv(s, dim=1)
+                    inv[:, 0] |= zero.to(torch.int32)  # the inverse of 0 is 0: one instead
+                    write_field(t, inv)
             else:  # pragma: no cover
                 raise AssertionError(oc)
         return vals, flimbs
@@ -711,25 +741,18 @@ class Evaluator:
         return vals.t().contiguous(), flimbs.permute(2, 0, 1).contiguous()
 
 
-def _small_lc(vals, idx, cf):
-    """Σ cf·vals over each LC's terms, in uint32 (idx [W, T], cf [W, T, 1])
-    → int64[W, B]."""
-    W, T = idx.shape
-    v = to_u32(vals.index_select(0, idx.reshape(-1))).reshape(W, T, -1)
-    return (v * cf).sum(dim=1) & U32
-
-
 def _addmany_u32(bv: torch.Tensor, n_out: int) -> torch.Tensor:
     """bv int32[W, n_words, 32, B] addend bits → int32[W, n_out, B] sum
-    bits: the reference's two uint32 16-bit-half sums and their carry."""
+    bits: the reference's two uint32 16-bit-half sums and their carry,
+    read out as the bits of lo | hi << 16 in one broadcast shift."""
     sh = torch.arange(32, dtype=torch.int64, device=bv.device)
     w = torch.where(sh < 16, 1 << sh, 1 << (sh - 16))[None, None, :, None]
     v = to_u32(bv) * w
     lo = v[:, :, :16].sum(dim=(1, 2)) & U32
     hi = (v[:, :, 16:].sum(dim=(1, 2)) + (lo >> 16)) & U32
-    lo = lo & 0xFFFF
-    outs = [(lo >> k) & 1 if k < 16 else (hi >> (k - 16)) & 1 for k in range(n_out)]
-    return to_i32(torch.stack(outs, dim=1))
+    word = (lo & 0xFFFF) | (hi << 16)
+    k = torch.arange(n_out, dtype=torch.int64, device=bv.device)
+    return ((word[:, None, :] >> k[:, None]) & 1).to(torch.int32)
 
 
 def _pack_limbs(bv: torch.Tensor, n_bits: int) -> torch.Tensor:

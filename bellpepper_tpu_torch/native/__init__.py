@@ -1,16 +1,18 @@
 """ctypes bindings for the native (C++) synthesis core, without JAX.
 
-Counterpart of ``bellpepper_tpu/native/__init__.py:45-139``, ``:165-215``,
-``:269-330`` and ``:332-453``. This package carries its own copy of the C++
+Counterpart of ``bellpepper_tpu/native/__init__.py:45-139`` and
+``:165-453``. This package carries its own copy of the C++
 source (``synthesis.cpp`` beside this file), which is compiled with g++
 into the package's build directory, keyed by a content hash of the source.
 Bound: the bit gadgets (``alloc_bit``, ``alloc_u32``, ``constant``,
 ``not_``, ``xor``, ``and_``, ``ch``, ``maj``, ``multieq_begin``,
 ``multieq_end``, ``addmany``, ``view``), the sha256 and blake2s
 compressions (``sha256_iv``, ``sha256_compression``,
-``blake2s_compression``) and the AllocatedNum field gadgets of config 1
-(``alloc_num``, ``num_add``, ``num_mul``, ``num_square``,
-``num_assert_nonzero``, ``pack_bits``).
+``blake2s_compression``) the AllocatedNum field gadgets (``alloc_num``, ``num_add``,
+``num_mul``, ``num_square``, ``num_assert_nonzero``, ``pack_bits``) and
+the num family (``num_to_bits_le_strict``, ``num_conditionally_reverse``,
+``num_is_zero``, ``lookup3_xy``,
+``lookup3_xy_with_conditional_negation``).
 
 ``finish`` returns the same ``(R1CS, tape)`` artifacts as the JAX
 package's builder and decodes every opcode the C++ side emits; the tape
@@ -90,6 +92,7 @@ def load_library():
         ("bp_num_add", [vp, i64, i64]),
         ("bp_num_mul", [vp, i64, i64]),
         ("bp_num_square", [vp, i64]),
+        ("bp_num_is_zero", [vp, i64]),
         ("bp_num_inputs", [vp]),
         ("bp_num_aux", [vp]),
         ("bp_num_constraints", [vp]),
@@ -106,12 +109,17 @@ def load_library():
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     lib.bp_pack_bits.restype = i64
     lib.bp_pack_bits.argtypes = [vp, i64p, i32]
+    lib.bp_lookup3_xy_cn.restype = i64
+    lib.bp_lookup3_xy_cn.argtypes = [vp, i64p, u64p]
     for name, args in [
         ("bp_multieq_begin", [vp]),
         ("bp_multieq_end", [vp]),
         ("bp_addmany", [vp, i64p, i32, i64p]),
         ("bp_blake2s_compression", [vp, i64p, i64p, ctypes.c_uint64, i32]),
         ("bp_num_assert_nonzero", [vp, i64]),
+        ("bp_num_to_bits_strict", [vp, i64, i64p]),
+        ("bp_num_cond_reverse", [vp, i64, i64, i64, i64p]),
+        ("bp_lookup3_xy", [vp, i64p, u64p, i64p]),
         ("bp_sha256_compression", [vp, i64p, i64p, i64p]),
         ("bp_sha256_iv", [i64p]),
         ("bp_get_coo", [vp, i32, i32p, i32p, i32p]),
@@ -256,6 +264,50 @@ class NativeBuilder:
         slot (multipack.rs); returns its slotcode."""
         vs = np.asarray(list(views)[: self.field.CAPACITY], np.int64)
         return self._lib.bp_pack_bits(self._b, vs, len(vs))
+
+    # -- the num family (num.rs, boolean_utils.rs, lookup.rs) -------------------
+    def num_to_bits_le_strict(self, sa: int) -> List[int]:
+        """Strict in-field LE decomposition of a num slot (num.rs:128-251):
+        NUM_BITS Boolean views, LSB first."""
+        out = np.empty(self.field.NUM_BITS, np.int64)
+        self._lib.bp_num_to_bits_strict(self._b, sa, out)
+        return [int(v) for v in out]
+
+    def num_conditionally_reverse(self, sa: int, sb: int, cond: int):
+        """(b, a) if the Boolean view cond is set, else (a, b)
+        (num.rs:408-454): two num slotcodes."""
+        out = np.empty(2, np.int64)
+        self._lib.bp_num_cond_reverse(self._b, sa, sb, cond, out)
+        return int(out[0]), int(out[1])
+
+    def num_is_zero(self, sa: int) -> int:
+        """The 3-constraint is-zero of a num slot (boolean_utils.rs:52-98):
+        a Boolean view."""
+        return self._lib.bp_num_is_zero(self._b, sa)
+
+    def _coords_u64(self, values) -> np.ndarray:
+        """Field elements as 4 little-endian u64 words each."""
+        return np.asarray([(self.field.normalize(v) >> (64 * j)) & _U64
+                           for v in values for j in range(4)], np.uint64)
+
+    def lookup3_xy(self, bits: Sequence[int], coords):
+        """3-bit window lookup (lookup.rs:32-118): bits = 3 Boolean views,
+        LSB first; coords = 8 (x, y) pairs → (x, y) num slotcodes."""
+        if len(bits) != 3 or len(coords) != 8:
+            raise ValueError("lookup3_xy takes 3 bits and 8 coordinate pairs")
+        flat = self._coords_u64([c[0] for c in coords] + [c[1] for c in coords])
+        out = np.empty(2, np.int64)
+        self._lib.bp_lookup3_xy(self._b, np.asarray(bits, np.int64), flat, out)
+        return int(out[0]), int(out[1])
+
+    def lookup3_xy_with_conditional_negation(self, bits: Sequence[int], coords) -> int:
+        """2-bit lookup and a sign bit (lookup.rs:122-187): bits = 3 views,
+        coords = 4 (x, y) pairs → the y slotcode (x is a constraint-free
+        linear combination, as the gadget's Num)."""
+        if len(bits) != 3 or len(coords) != 4:
+            raise ValueError("lookup3_xy_with_conditional_negation takes 3 bits and 4 coordinate pairs")
+        flat = self._coords_u64([c[1] for c in coords])
+        return int(self._lib.bp_lookup3_xy_cn(self._b, np.asarray(bits, np.int64), flat))
 
     # -- extraction -------------------------------------------------------------
     def _slot(self, slotcode: int) -> int:

@@ -63,7 +63,35 @@ Phases (one line each, or a few):
     a pure-bit program) at 4 × 1,024, then 2,048 and 4,096 while the
     extrapolated peak stays under 40 GiB: verdicts, launches, chunk 0's
     mask and verdict equal to the packed check's (clean and with one bit
-    flipped), and mulcmp at each batch's N.
+    flipped), and at each batch bitplane_eq, bits_matvec_semi and mulcmp
+    at its tables;
+  * the chained pipeline (benchmarks/config4_merkle_1024.py): sha256 of a
+    64-byte message as two chained blocks equal to hashlib's; the chain's
+    CUDA-graph replays equal to an eager loop of the same evaluator (T 8,
+    B 4); config 4 (one chain of 1,024 blocks, check_batch 512, message
+    bits from default_rng(11)): the final state equal to a pure-Python
+    sha256 compression oracle, a clean verdict, one flipped witness bit of
+    block 700 named by which_from_flat at the row the CPU check of that
+    instance names, and PipelinedSatisfier on the same witness; config 4b
+    (8 and 64 chains of 1,024 blocks): chains 0 and B − 1 equal to the
+    oracle; each with its step seconds, rate, check share, replay time a
+    block and peak; the replay of one block at 1 to 4,096 chains (the
+    chains-versus-throughput curve); bitplane_eq at the chain's table (26
+    pow2 rows, Bw 16);
+  * the Merkle tree over 1,024 random leaf digests (10 levels): the root
+    equal to the oracle's tree, a clean total, its seconds; bitplane_eq,
+    bits_matvec_semi and mulcmp at every level's tables (batches 512 down
+    to 1: Bw 16 down to 1, the last five in one partial word), on that
+    level's witness;
+  * the num family's mixed block (sha256, pack_bits of 200 digest bits,
+    num_is_zero of the pack, num_to_bits_le_strict of a free num) through
+    build_production_step's mixed form at 4 × 1,024, doubled while a step
+    stays under 5 s and twice its peak under 40 GiB: clean verdicts and
+    launches (mul in the inversions), chunk 0 equal to the CPU evaluator,
+    two planted faults found at their instance; at each batch
+    limbs_matvec at every bucket of the mixed check's rest rows on chunk
+    0's witness, mulcmp at the N of its product rows and of its rest rows,
+    and mul at [16, B] (the inversion ladder's shape).
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once: for the kernels that read the
@@ -77,6 +105,7 @@ kernel's numbers at its first table and, under ``other_tables``, those at
 the later paths' tables. Any failed phase raises and the script exits
 non-zero. Without a CUDA device it exits 1 at once."""
 
+import hashlib
 import json
 import random
 import subprocess
@@ -89,21 +118,28 @@ import torch
 from bellpepper_tpu_torch import (
     SCALAR,
     NativeBuilder,
+    PipelinedSatisfier,
     Satisfier,
     TemplatedSatisfier,
     WitnessProgram,
+    build_chained_production_step,
+    build_chained_witness,
+    build_chunked_check,
+    build_merkle_tree_step,
     build_packed_chunked_witness,
     build_packed_production_step,
     build_production_step,
     build_templated_check,
     pack_bits,
+    which_from_flat,
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import get_backend
 from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
-from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_u32
+from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_u32
+from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, _carry_extractor
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
 
 B = 32768  # sha256 instances per chunk
@@ -137,6 +173,17 @@ PEAK_GIB = 40
 # batches run in turn while the extrapolated peak stays under PEAK_GIB
 B_SHA_BITS = 1024
 B_SHA_BITS_BIG = (2048, 4096)
+# config 4 (benchmarks/config4_merkle_1024.py): blocks a chain, the check's
+# batch and the message bits' seed; config 4b's chain counts
+CHAIN_T, CHAIN_CHECK_BATCH, CHAIN_SEED = 1024, 512, 11
+CHAIN_FLIP_BLOCK = 700  # the block whose witness bit the config-4 probe flips
+CHAIN_MULTI_B = (8, 64)
+CHAIN_CURVE_B = (1, 8, 64, 256, 1024, 4096)  # the replay of one block at these chain counts
+MERKLE_LEAVES = 1024
+# the num family's mixed block: instances a chunk, doubled while a step
+# stays under NUM_STEP_S seconds and twice the peak under PEAK_GIB, up to
+# NUM_B_MAX
+NUM_B, NUM_B_MAX, NUM_STEP_S = 1024, 4096, 5.0
 # the free words' seeds of configs 2 and 3 (benchmarks/configs_1_2_3.py:194, :246)
 CONFIG2_SEED, CONFIG3_SEED = 6, 7
 # the op-rate probe: rows (ILP), rounds and elements of each launch
@@ -363,8 +410,8 @@ def mulcmp_operands(N: int, dev):
     (the range of the semi-reduced matvec outputs and of the assembled
     trivial-row operands, which stay below 4p), with the corner operands
     (0, p, 2p, 2^265 − 1) in all combinations and 1,024 true products
-    (c = a·b mod p, plus p at odd columns) in the first columns; and the
-    verdicts of those columns (True where a·b ≢ c)."""
+    (c = a·b mod p, plus p at odd columns) in the first columns (as many
+    as N holds); and the verdicts of those columns (True where a·b ≢ c)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + N)
     ops = [torch.randint(0, 1 << 16, (17, N), generator=gen, device=dev, dtype=torch.int32) for _ in range(3)]
@@ -379,6 +426,7 @@ def mulcmp_operands(N: int, dev):
         va, vb = (int.from_bytes(rnd.bytes(32), "little") % p for _ in range(2))
         cols.append((va, vb, (va * vb) % p + (p if i % 2 else 0)))
         want.append(False)
+    cols, want = cols[:N], want[:N]
     for k, o in enumerate(ops):
         o[:, : len(cols)] = from_numpy_u32(np.asarray([limbs(col[k]) for col in cols], np.uint32).T.copy(), dev)
     return ops, np.asarray(want)
@@ -537,32 +585,36 @@ def field_kernels(dev, bound):
         bound(n_bytes, N * 60 * MODMUL_MULS), plain_reps=2)
     del out
     rng = np.random.default_rng(SEED)
+    for n in (MUL_FLOOR_N, N, MUL_WIDE_N, CHAIN_ROWS_N):
+        r = mul_at(f"mul N={n}", n, dev, bound, rng)
+        if n == N:
+            results["mul"] = r
+    torch.cuda.empty_cache()
+    return results
+
+
+def mul_at(name, n, dev, bound, rng):
+    """mul on [16, n]: random canonical operands (top limb below p's), the
+    corner pairs of 0, 1, p − 1, p − 2 and the values whose limbs below
+    the top one are all 0xFFFF in the first 36 columns; columns against
+    Python ints, then the whole against the plain version."""
+    p = SCALAR.p
     top = p >> 240
     corners = [0, 1, p - 1, p - 2, (1 << 240) - 1, ((top - 1) << 240) | ((1 << 240) - 1)]
     nc = len(corners)
-    for n in (MUL_FLOOR_N, N, MUL_WIDE_N, CHAIN_ROWS_N):
-        # random canonical operands (top limb below p's), then the corner
-        # pairs of 0, 1, p − 1, p − 2 and the values whose limbs below the
-        # top one are all 0xFFFF in the first 36 columns
-        ops = []
-        for k in range(2):
-            x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
-            x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
-            for i in range(min(n, nc * nc)):
-                x[:, i] = limbs(corners[i // nc if k else i % nc], 16)
-            ops.append(from_numpy_u32(x, dev))
-        ma, mb = ops
-        got = fk.mul(ma, mb, SCALAR)
-        for i in list(range(min(n, nc * nc))) + [n // 2, n - 1]:
-            assert col_int(got, i) == col_int(ma, i) * col_int(mb, i) % p, ("mul", n, i)
-        r = compare(f"mul N={n}", lambda: fk.mul(ma, mb, SCALAR),
-                    lambda: fk.mul_plain(ma, mb, SCALAR),
-                    bound(3 * 16 * 4 * n, n * MODMUL_MULS), plain_reps=2)
-        if n == N:
-            results["mul"] = r
-        del ma, mb, got
-    torch.cuda.empty_cache()
-    return results
+    ops = []
+    for k in range(2):
+        x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+        x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
+        for i in range(min(n, nc * nc)):
+            x[:, i] = limbs(corners[i // nc if k else i % nc], 16)
+        ops.append(from_numpy_u32(x, dev))
+    ma, mb = ops
+    got = fk.mul(ma, mb, SCALAR)
+    for i in list(range(min(n, nc * nc))) + [n // 2, n - 1]:
+        assert col_int(got, i) == col_int(ma, i) * col_int(mb, i) % p, ("mul", n, i)
+    return compare(name, lambda: fk.mul(ma, mb, SCALAR), lambda: fk.mul_plain(ma, mb, SCALAR),
+                   bound(3 * 16 * 4 * n, n * MODMUL_MULS), plain_reps=2)
 
 
 def sha256_path(dev, card):
@@ -760,6 +812,36 @@ def limbs_matvec_at(name, zt, cols, F, forms, bound, exact_ints=True):
     del xf, Ff
     torch.cuda.empty_cache()
     return out
+
+
+def limbs_buckets(label, zt, lcheck, bound, slice_b):
+    """limbs_matvec (semi) at every bucket of a fused LimbsCheck on zt
+    int32[S_t, 16, B], each against its plain version (run over slices of
+    slice_b instances, which bounds its float64 digit planes); the sums
+    over the buckets of the times and of the bounds' bytes and products,
+    as one table."""
+    Bm = zt.shape[2]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    for name in "abc":
+        for cols, F in lcheck.mats[name]:
+            n_rows, K = cols.shape
+            n_live = int((cols >= 0).any(1).sum())
+            n_bytes = gathered_bytes(cols, 16 * Bm * 4) + F.numel() + 17 * n_rows * Bm * 4
+            n_ops = Bm * (int((cols >= 0).sum()) * ENTRY_MULS + n_live * ROW_REDUCE_MULS)
+            r = compare(
+                f"limbs_matvec semi {label} {name} K={K} rows={n_rows} ({n_live} live) B={Bm}",
+                lambda: fk.limbs_matvec(zt, cols, F, SCALAR),
+                lambda: torch.cat([fk.limbs_matvec_plain(zt[:, :, s : s + slice_b].contiguous(), cols, F, SCALAR)
+                                   for s in range(0, Bm, slice_b)], dim=2),
+                bound(n_bytes, n_ops), reps=5, plain_reps=1)
+            tot["ms"] += r["ms"]
+            tot["plain_ms"] += r["plain_ms"]
+            tot["bytes"] += n_bytes
+            tot["ops"] += n_ops
+    torch.cuda.empty_cache()
+    b_ms, b_by = max(bound(tot["bytes"], 0), bound(0, tot["ops"]))
+    return {"table": f"{label} buckets", "max_abs_err": 0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def limbs_kernels(dev, bound, sha_limbs, config1_fold):
@@ -1187,27 +1269,11 @@ def sha256_bits_step(dev, card, bound, template, prog, tables):
     batches of B_SHA_BITS_BIG in turn while the peak extrapolated from the
     runs before stays under PEAK_GIB: each one's verdict, time and peak.
     At every batch its kernels against their plain versions at the shapes
-    it launches them at: bitplane_eq and bits_matvec_semi on chunk 0's
-    words as the bits check packs them (odd words random, so both verdicts
-    occur; Bw = B/32), and mulcmp at its N."""
+    it launches them at (bits_kernels_at on chunk 0's witness)."""
     R = template.num_constraints
     Bb = B_SHA_BITS
     rng = np.random.default_rng(SEED + 7)
 
-    def kernels_at(Bn, free0, packed=None):
-        """The compares at batch Bn on chunk 0's free bits free0."""
-        packed = packed or build_templated_check(template, Bn, "bits", device=dev).packed
-        vals, _ = prog.build(dev)(free0)
-        words = pack_bits(vals).t().contiguous()  # [S_t, Bn/32], as BitsCheck packs them
-        odd = np.random.default_rng(SEED + Bn).integers(0, 1 << 32, size=(words.shape[0], words.shape[1] // 2),
-                                                        dtype=np.uint64)
-        words[:, 1::2] = from_numpy_u32(odd.astype(np.uint32), dev)
-        label = f"sha256 bits {Bn}"
-        tables["bitplane_eq"].append(bitplane_at(label, words, packed.pow2_spec, packed.plane_idx, bound))
-        tables["bits_matvec_semi"].append(semi_buckets(label, words, packed.big, bound, library=False))
-        del vals, words, packed
-        torch.cuda.empty_cache()
-        tables["mulcmp"].append(mulcmp_at(label, 8 * Bn, dev, bound))
     free = from_numpy_u32(rng.integers(0, 2, size=(N_CHUNKS, Bb, 512)).astype(np.uint32), dev)
     t0 = time.time()
     step = build_production_step(prog, template, Bb, device=dev)
@@ -1234,10 +1300,9 @@ def sha256_bits_step(dev, card, bound, template, prog, tables):
     assert got[0] > 0 and got[1] // R == inst, got
     print(f"[probe] sha256 bits chunk 0: mask and verdict equal the packed check's, clean and with slot "
           f"{slot} flipped at instance {inst} ({got})")
-    inner = bits.packed
-    del bits, packed, vals, words, vf, wf
-    kernels_at(Bb, free[0], inner)
-    del inner
+    del bits, packed, words, vf, wf
+    bits_kernels_at(f"sha256 bits {Bb}", template, vals, dev, bound, tables, SEED + Bb)
+    del vals
     peaks = [(Bb, perf_step("sha256 bits", step, free, Bb, R, card, 3))]
     del step, free
     torch.cuda.empty_cache()
@@ -1255,10 +1320,375 @@ def sha256_bits_step(dev, card, bound, template, prog, tables):
         assert verdict == (0, 0xFFFFFFFF), verdict
         peaks.append((Bn, perf_step(f"sha256 bits {Bn}", step, free, Bn, R, card, 2)))
         assert peaks[-1][1] < PEAK_GIB, f"peak memory {peaks[-1][1]:.2f} GiB at {Bn} (estimated {est:.2f})"
-        kernels_at(Bn, free[0])
+        bits_kernels_at(f"sha256 bits {Bn}", template, prog.build(dev)(free[0])[0], dev, bound, tables, SEED + Bn)
         del step, free
         torch.cuda.empty_cache()
     return counts
+
+
+# --- the chained and Merkle pipelines (configs 4 and 4b), the num family ----------
+_K256 = [
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1, 0x923F82A4, 0xAB1C5ED5,
+    0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3, 0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174,
+    0xE49B69C1, 0xEFBE4786, 0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147, 0x06CA6351, 0x14292967,
+    0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13, 0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85,
+    0xA2BFE8A1, 0xA81A664B, 0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A, 0x5B9CCA4F, 0x682E6FF3,
+    0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208, 0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+]
+SHA256_IV = [0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19]
+
+
+def sha256_compress(h, w16):
+    """The oracle: one sha256 compression (FIPS 180-4) of 16 message
+    words into the 8-word state h, in Python ints."""
+    rotr = lambda x, n: ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF  # noqa: E731
+    w = list(w16)
+    for t in range(16, 64):
+        s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & 0xFFFFFFFF)
+    a, b, c, d, e, f, g, hh = h
+    for t in range(64):
+        t1 = (hh + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & g)) + _K256[t] + w[t]) & 0xFFFFFFFF
+        t2 = ((rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c))) & 0xFFFFFFFF
+        a, b, c, d, e, f, g, hh = (t1 + t2) & 0xFFFFFFFF, a, b, c, (d + t1) & 0xFFFFFFFF, e, f, g
+    return [(x + y) & 0xFFFFFFFF for x, y in zip(h, (a, b, c, d, e, f, g, hh))]
+
+
+def msg_words(bits):
+    """512 message bits, big-endian within each word (the gadget's order)
+    → 16 words."""
+    return [sum(int(bits[32 * w + t]) << (31 - t) for t in range(32)) for w in range(16)]
+
+
+def state_words(bits):
+    """256 state bits, 8 words × 32 LSB first → 8 words."""
+    return [sum(int(bits[32 * w + i]) << i for i in range(32)) for w in range(8)]
+
+
+def oracle_chain(msgs_np, b):
+    """Chain b of msgs int[T, B, 512] from the sha256 IV → its final
+    state words."""
+    h = SHA256_IV
+    for t in range(msgs_np.shape[0]):
+        h = sha256_compress(h, msg_words(msgs_np[t, b]))
+    return h
+
+
+def chain_synth():
+    """The chain-step template (a compression whose IV is 256 free bits
+    before the 512 message bits) and the Merkle template (512 free message
+    bits under the constant IV), with their digest views, and the IV's
+    256 bits from NativeBuilder.sha256_iv()."""
+    t0 = time.time()
+    built = {}
+    for name, free_iv, want in (("chain", True, (26960, 26935)), ("merkle", False, (26352, 26327))):
+        nb = NativeBuilder()
+        state = [nb.alloc_bit() for _ in range(256)] if free_iv else nb.sha256_iv()
+        out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
+        template, tape = nb.finish()
+        prog = WitnessProgram(tape)
+        got = (template.num_constraints, prog.num_slots)
+        assert got == want and prog.is_pure_bits, (name, got)
+        built[name] = (template, prog, [nb.view(v) for v in out])
+        print(f"[synth] {name} template: {got[0]} rows, {got[1]} slots, {len(prog.free_slots)} free bits, "
+              f"{len(prog.stages)} stages")
+    nb = NativeBuilder()
+    iv = np.asarray([nb.view(v)[1] for v in nb.sha256_iv()], np.uint32)
+    assert state_words(iv) == SHA256_IV
+    print(f"[synth] chain and Merkle templates in {time.time() - t0:.2f} s")
+    return built, iv
+
+
+def eager_chain(gen, init_state, msgs):
+    """The chain as an eager block-by-block loop of gen's own evaluator
+    and carry extraction (no graph)."""
+    free = torch.empty((msgs.shape[1], gen.n_free), dtype=torch.int32, device=msgs.device)
+    free[:, : gen.n_carry] = init_state
+    vals = []
+    for m in msgs:
+        free[:, gen.n_carry :] = m
+        vals.append(gen.block(free).t().clone())
+    return torch.stack(vals), free[:, : gen.n_carry].clone()
+
+
+def timed(fn):
+    """(fn()'s result, host seconds around it ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def bits_kernels_at(label, template, vals_bm, dev, bound, tables, seed):
+    """bitplane_eq, and where the template has a big row
+    bits_matvec_semi and mulcmp, at the bits check of vals_bm int32[B, S]'s
+    batch, on its words as BitsCheck packs them (Bw = ceil(B/32) words an
+    instance row, lanes past B zero). So that both verdicts occur, the odd
+    words are random, or where Bw is 1 the word's upper 16 lanes (padding
+    lanes where B ≤ 16: the kernels read them all the same)."""
+    Bn = vals_bm.shape[0]
+    check = build_templated_check(template, Bn, "bits", device=dev)
+    packed, words = check.packed, pack_rows(vals_bm.t(), check.Bw)
+    S_w, Bw = words.shape
+    rnd = np.random.default_rng(seed).integers(0, 1 << 32, size=(S_w, max(Bw // 2, 1)), dtype=np.uint64)
+    if Bw > 1:
+        words[:, 1::2] = from_numpy_u32(rnd.astype(np.uint32), dev)
+    else:
+        words = (words & 0xFFFF) | from_numpy_u32((rnd & 0xFFFF0000).astype(np.uint32), dev)
+    tables["bitplane_eq"].append(bitplane_at(label, words, packed.pow2_spec, packed.plane_idx, bound))
+    if packed.big is not None:
+        tables["bits_matvec_semi"].append(semi_buckets(label, words, packed.big, bound, library=False))
+        tables["mulcmp"].append(mulcmp_at(label, packed.big.Rtp * packed.batch, dev, bound))
+    del words, packed, check
+    torch.cuda.empty_cache()
+
+
+def chained_paths(dev, card, bound, tables, built, iv_np):
+    """The chained pipeline: the hashlib digest of a two-block message;
+    the graph-replayed chain against an eager loop (T 8, B 4); config 4 (T
+    CHAIN_T, B 1: the final state against the oracle, a planted fault at
+    block 700 found at its instance and at the row the CPU check names,
+    PipelinedSatisfier on the same witness) and config 4b (B 8 and 64:
+    chains 0 and B − 1 against the oracle), each with its time, rate,
+    replay time a block and peak. Returns the config-4 step's launches."""
+    template, prog, views = built["chain"]
+    R, S = template.num_constraints, prog.num_slots
+    iv = torch.from_numpy(iv_np.view(np.int32)).to(dev)
+
+    m = bytes(range(64))
+    padded = m + b"\x80" + b"\x00" * 61 + (512).to_bytes(2, "big")
+    blocks = [[[(byte >> (7 - i)) & 1 for byte in padded[k : k + 64] for i in range(8)]] for k in (0, 64)]
+    step = build_chained_production_step(prog, template, views, check_batch=2, device=dev)
+    total, first, final = step(iv[None], torch.tensor(blocks, dtype=torch.int32, device=dev))
+    digest = b"".join(w.to_bytes(4, "big") for w in state_words(final[0].tolist()))
+    assert (int(total), int(first)) == (0, 0xFFFFFFFF) and digest == hashlib.sha256(m).digest(), digest.hex()
+    print(f"[probe] chained: sha256 of a 64-byte message as two chained blocks = {digest.hex()} (hashlib's), "
+          f"verdict {(int(total), int(first))}")
+
+    gen = build_chained_witness(prog, views, dev)
+    rng = np.random.default_rng(SEED + 11)
+    iv4 = from_numpy_u32(rng.integers(0, 2, size=(4, 256)).astype(np.uint32), dev)
+    msgs8 = from_numpy_u32(rng.integers(0, 2, size=(8, 4, 512)).astype(np.uint32), dev)
+    got, want = gen(iv4, msgs8), eager_chain(gen, iv4, msgs8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "the graph differs from the eager loop"
+    print("[probe] chained: the graph-replayed vals and final state at T 8, B 4 equal an eager loop of the "
+          "same evaluator, bit for bit")
+    del gen, got, want
+
+    rng = np.random.default_rng(CHAIN_SEED)
+    msgs_np = rng.integers(0, 2, size=(CHAIN_T, 1, 512)).astype(np.uint32)
+    msgs = from_numpy_u32(msgs_np, dev)
+    step = build_chained_production_step(prog, template, views, check_batch=CHAIN_CHECK_BATCH, device=dev)
+    step.gen(iv[None], msgs[:1])  # captures the block's graph at B = 1
+    torch.cuda.reset_peak_memory_stats()
+    (verdict, counts), t_step = timed(lambda: path_run(lambda *a: step(*a)[:2], iv[None], msgs))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[step] chained (config 4) verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert counts["bitplane_eq"] == CHAIN_T // CHAIN_CHECK_BATCH, counts
+    (vals, final), t_gen = timed(lambda: step.gen(iv[None], msgs))
+    check_v, t_check = timed(lambda: tuple(int(x) for x in step.verdict(vals)))
+    assert check_v == (0, 0xFFFFFFFF), check_v
+    assert state_words(final[0].tolist()) == oracle_chain(msgs_np, 0), "config 4's final state"
+    graph = step.gen.graphs[1]
+    replay_ms = cuda_ms(graph.graph.replay, 20)
+    print(f"[perf] chained (config 4) step {t_step:.4f} s for {CHAIN_T} blocks x 1 chain = "
+          f"{CHAIN_T * R / t_step:.4e} constraint-evals/s (witness {t_gen:.4f} s, check {t_check:.4f} s = "
+          f"{t_check / (t_gen + t_check):.1%}), replay {replay_ms:.4f} ms a block, peak {peak:.2f} GiB, on {card}")
+    print(f"[probe] chained (config 4): the final state equals the Python oracle after {CHAIN_T} compressions")
+
+    blk, slot = CHAIN_FLIP_BLOCK, S - 5
+    bad = vals.clone()
+    bad[blk, 0, slot] ^= 1
+    z4 = bad.reshape(CHAIN_T // CHAIN_CHECK_BATCH, CHAIN_CHECK_BATCH, S)
+    nbad, fbad = (int(x) for x in build_chunked_check(template, CHAIN_CHECK_BATCH, z4.shape[0], dev,
+                                                       witness_form="bits")(z4))
+    cpu_n, cpu_first = (int(x) for x in build_templated_check(template, 1, "bits", device="cpu")
+                        .verdict(bad[blk].cpu()))
+    name = which_from_flat(template, fbad)
+    assert nbad > 0 and name == f"instance {blk}: constraint #{cpu_first}", (nbad, name, cpu_first)
+    print(f"[probe] chained (config 4): bit slot {slot} of block {blk} flipped: n_bad {nbad}, which_from_flat "
+          f"{name!r} (the CPU check of that instance: n_bad {cpu_n}, row {cpu_first})")
+    sat = PipelinedSatisfier(template, CHAIN_CHECK_BATCH, z4.shape[0], dev, witness_form="bits")
+    assert sat.is_satisfied(vals.reshape(z4.shape))
+    which = sat.which_is_unsatisfied(z4)
+    assert which == f"chunk 1: instance {blk - CHAIN_CHECK_BATCH}: constraint #{cpu_first}", which
+    print(f"[probe] PipelinedSatisfier on the config-4 witness: satisfied; after the flip {which!r}")
+    bits_kernels_at("chained 512", template, vals[:CHAIN_CHECK_BATCH, 0], dev, bound, tables, SEED + 12)
+    del vals, bad, z4, sat, graph
+
+    for Bc in CHAIN_MULTI_B:
+        msgs_np = rng.integers(0, 2, size=(CHAIN_T, Bc, 512)).astype(np.uint32)
+        msgs = from_numpy_u32(msgs_np, dev)
+        iv_b = iv[None].expand(Bc, 256).contiguous()
+        step.gen(iv_b, msgs[:1])  # captures the block's graph at B = Bc
+        torch.cuda.reset_peak_memory_stats()
+        (vals, final), t_gen = timed(lambda: step.gen(iv_b, msgs))
+        verdict, t_check = timed(lambda: tuple(int(x) for x in step.verdict(vals)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        assert verdict == (0, 0xFFFFFFFF), (Bc, verdict)
+        for b in (0, Bc - 1):
+            assert state_words(final[b].tolist()) == oracle_chain(msgs_np, b), f"config 4b chain {b} of {Bc}"
+        replay_ms = cuda_ms(step.gen.graphs[Bc].graph.replay, 20)
+        t_step = t_gen + t_check
+        print(f"[perf] chained (config 4b) step {t_step:.4f} s for {CHAIN_T} blocks x {Bc} chains = "
+              f"{CHAIN_T * Bc * R / t_step:.4e} constraint-evals/s (witness {t_gen:.4f} s, check "
+              f"{t_check:.4f} s = {t_check / t_step:.1%}), replay {replay_ms:.4f} ms a block, peak {peak:.2f} GiB, "
+              f"on {card}")
+        print(f"[probe] chained (config 4b, {Bc} chains): verdict {verdict}; chains 0 and {Bc - 1} equal the oracle")
+        del vals, final, msgs
+        torch.cuda.empty_cache()
+    curve = {}
+    for Bc in CHAIN_CURVE_B:  # the witness's chains-versus-throughput curve, one block's replay each
+        gen = build_chained_witness(prog, views, dev)
+        gen(iv[None].expand(Bc, 256).contiguous(), torch.zeros((1, Bc, 512), dtype=torch.int32, device=dev))
+        curve[Bc] = cuda_ms(gen.graphs[Bc].graph.replay, 10)
+        del gen
+        torch.cuda.empty_cache()
+    print("[perf] chained replay curve, ms a block (blocks x chains / s): " + ", ".join(
+        f"{Bc} chains {ms:.4f} ({Bc / ms * 1e3:.4e})" for Bc, ms in curve.items()) + f", on {card}")
+    return counts
+
+
+def merkle_path(dev, card, bound, tables, built):
+    """The Merkle tree over MERKLE_LEAVES random leaf digests: the root
+    against the oracle's tree, a clean total, the step's time; the kernels
+    at every level's tables (batches MERKLE_LEAVES/2 down to 1), on that
+    level's witness. Returns the step's launches."""
+    template, prog, views = built["merkle"]
+    leaves_np = np.random.default_rng(SEED + 13).integers(0, 2, size=(MERKLE_LEAVES, 256)).astype(np.uint32)
+    leaves = from_numpy_u32(leaves_np, dev)
+    t0 = time.time()
+    step = build_merkle_tree_step(prog, template, views, MERKLE_LEAVES, device=dev)
+    print(f"[step] merkle built in {time.time() - t0:.2f} s (one bits check a level)")
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    root, total = step(leaves)
+    root, total = root.tolist(), int(total)
+    counts = fk.launch_counts()
+    print(f"[step] merkle total {total} launches {counts}")
+    level = [state_words(row) for row in leaves_np]
+    while len(level) > 1:
+        level = [sha256_compress(SHA256_IV, level[i] + level[i + 1]) for i in range(0, len(level), 2)]
+    assert total == 0 and state_words(root) == level[0], "the Merkle root differs from the oracle's"
+    print(f"[probe] merkle: the root of {MERKLE_LEAVES} leaves ({MERKLE_LEAVES - 1} compressions) equals "
+          f"the Python oracle's")
+    torch.cuda.reset_peak_memory_stats()
+    _, t_step = timed(lambda: step(leaves))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    R = template.num_constraints
+    print(f"[perf] merkle step {t_step:.4f} s for {MERKLE_LEAVES} leaves = "
+          f"{(MERKLE_LEAVES - 1) * R / t_step:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+    perm = torch.as_tensor(_STATE_TO_MSG_PERM, device=dev).long()
+    evaluator, extract = prog.build(dev), _carry_extractor(views, dev)
+    d = leaves
+    while d.shape[0] > 1:  # the step's levels, each with its own tables
+        msg = torch.cat([d[0::2][:, perm], d[1::2][:, perm]], dim=1)
+        vals = evaluator(msg)[0]
+        bits_kernels_at(f"merkle level {msg.shape[0]}", template, vals, dev, bound, tables, SEED + 14 + msg.shape[0])
+        d = extract(vals)
+    assert state_words(d[0].tolist()) == level[0]
+    return counts
+
+
+def num_family_synth():
+    """The JAX package's mixed block (tests/test_native_num_family.py's
+    synthesis target): sha256 of 512 free bits, pack_bits of 200 digest
+    bits, num_is_zero of the pack, num_to_bits_le_strict of a free num."""
+    nb = NativeBuilder()
+    digest = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    nb.num_is_zero(nb.pack_bits(digest[:200]))
+    nb.num_to_bits_le_strict(nb.alloc_num())
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    print(f"[synth] num family block: {template.num_constraints} rows, {prog.num_slots} slots, "
+          f"{len(prog.free_slots)} free slots ({len(prog.free_field_slots)} field), {prog.n_field_rows} field rows")
+    return template, prog
+
+
+def num_kernels_at(label, template, prog, free0, ff0, dev, bound, tables):
+    """limbs_matvec, mulcmp and mul at the tables the num block's step
+    launches them at, batch B = len(free0): limbs_matvec at every bucket
+    of the mixed check's rest rows on chunk 0's witness (the rest's z as
+    the check assembles it), mulcmp at the N of the product rows and of
+    the rest rows, mul at [16, B] (one step of the inverse's ladder)."""
+    Bn = free0.shape[0]
+    check = build_templated_check(template, Bn, "mixed", field_slots=prog.field_slots, device=dev)
+    vals, fl = prog.build(dev)(free0, ff0)
+    zt = check.rest_z(vals.t().contiguous(), torch.cat([fl, ff0], dim=1).permute(1, 2, 0).contiguous())
+    del vals, fl
+    assert check.rest.fused, "the num block's rest rows take the fused limbs check"
+    tables["limbs_matvec"].append(limbs_buckets(label, zt, check.rest, bound, 512))
+    del zt
+    torch.cuda.empty_cache()
+    tables["mulcmp"].append(mulcmp_at(f"{label} product rows", check.n_mul * Bn, dev, bound))
+    tables["mulcmp"].append(mulcmp_at(f"{label} rest rows", check.rest.Rtp * Bn, dev, bound))
+    tables["mul"].append(mul_at(f"mul {label} inverse N={Bn}", Bn, dev, bound, np.random.default_rng(SEED + Bn)))
+    del check
+    torch.cuda.empty_cache()
+
+
+def num_family_step(dev, card, bound, tables):
+    """The num family's mixed block through build_production_step (its
+    mixed form) at N_CHUNKS × NUM_B, then at larger batches while the step
+    stays under NUM_STEP_S: clean verdicts and launches; chunk 0's vals and
+    limbs equal to the CPU evaluator's on 64 instances; a flipped bit of
+    the sha256 part and a flipped limb of the inverse found at their
+    instance; at every batch its kernels at its tables (num_kernels_at)."""
+    template, prog = num_family_synth()
+    R = template.num_constraints
+    n_bits = len(prog.free_slots)
+    counts, Bn = None, NUM_B
+    while True:
+        free = from_numpy_u32(np.random.default_rng(SEED + 15).integers(0, 2, size=(N_CHUNKS, Bn, n_bits))
+                              .astype(np.uint32), dev)
+        rnd = random.Random(SEED + 15)
+        ff = canonical_lm([rnd.randrange(SCALAR.p) for _ in range(N_CHUNKS * Bn)], dev).t().reshape(
+            N_CHUNKS, Bn, 1, 16).contiguous()
+        step = build_production_step(prog, template, Bn, device=dev)
+        step(free, ff)  # warm-up
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        verdict = tuple(int(x) for x in step(free, ff))
+        path_counts = fk.launch_counts()
+        print(f"[step] num family at {N_CHUNKS}x{Bn} verdict {verdict} launches {path_counts}")
+        assert verdict == (0, 0xFFFFFFFF) and path_counts["mul"] > 0 and path_counts["mulcmp"] > 0, path_counts
+        counts = counts or path_counts
+        if Bn == NUM_B:
+            vals, fl = prog.build(dev)(free[0], ff[0])
+            cvals, cfl = prog.build("cpu")(free[0, :64].cpu(), ff[0, :64].cpu())
+            assert torch.equal(vals[:64].cpu(), cvals) and torch.equal(fl[:64].cpu(), cfl), "num family chunk 0"
+            check = build_templated_check(template, Bn, "mixed", field_slots=prog.field_slots, device=dev)
+            fl_check = torch.cat([fl, ff[0]], dim=1)
+            assert tuple(int(x) for x in check.verdict(vals, fl_check)) == (0, 0xFFFFFFFF)
+            inv_row = int(next(st.outs[0] for st in prog.stages if st.opcode == "num_inv_or_one"))
+            for what, inst, edit in (("bit slot 9000", Bn // 3, lambda v, f, i: v[i, 9000].bitwise_xor_(1)),
+                                     ("bit of limb 3 of the inverse", 5,
+                                      lambda v, f, i: f[i, inv_row, 3].bitwise_xor_(1))):
+                v, f = vals.clone(), fl_check.clone()
+                edit(v, f, inst)
+                nbad, first = (int(x) for x in check.verdict(v, f))
+                assert nbad > 0 and first // R == inst, (what, nbad, first)
+                print(f"[probe] num family: a flipped {what} of instance {inst} found: n_bad {nbad}, "
+                      f"row {first % R}")
+            print("[probe] num family chunk 0's vals and limbs equal the CPU evaluator's on 64 instances")
+            del vals, fl, fl_check, check
+        torch.cuda.reset_peak_memory_stats()
+        t_step = time_step(lambda fr: step(fr, ff), free, 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[perf] num family step {t_step:.4f} s for {N_CHUNKS}x{Bn} instances = "
+              f"{N_CHUNKS * Bn * R / t_step:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+        del step
+        torch.cuda.empty_cache()
+        num_kernels_at(f"num family {Bn}", template, prog, free[0], ff[0], dev, bound, tables)
+        del free, ff
+        if 2 * t_step >= NUM_STEP_S or 2 * peak >= PEAK_GIB or Bn >= NUM_B_MAX:
+            return counts
+        Bn *= 2
 
 
 def main() -> int:
@@ -1313,6 +1743,13 @@ def main() -> int:
     assert launches["config2"]["bitplane_eq"] == launches["config3"]["bitplane_eq"] == N_CHUNKS
     assert (launches["blake2s"]["bits_matvec_semi"], launches["blake2s"]["mulcmp"]) == (4 * N_CHUNKS, N_CHUNKS)
     launches["sha256_bits"] = sha256_bits_step(dev, card, bound, template, prog, tables)
+    torch.cuda.empty_cache()
+    chain_built, iv_bits = chain_synth()
+    launches["chained"] = chained_paths(dev, card, bound, tables, chain_built, iv_bits)
+    torch.cuda.empty_cache()
+    launches["merkle"] = merkle_path(dev, card, bound, tables, chain_built)
+    torch.cuda.empty_cache()
+    launches["num_family"] = num_family_step(dev, card, bound, tables)
 
     kernels = []
     for k in fk.KERNELS:

@@ -10,7 +10,10 @@ backend's inversion is a ladder of mul launches that Python's pow agrees
 with, and the packed sha256 step, the config-1 field step in the mixed and
 the limbs forms, the bits form at a ragged batch, config 3's mixed packed
 step, a step with free field inputs and the Satisfier on the card give
-the CPU's verdicts, clean and corrupted."""
+the CPU's verdicts, clean and corrupted. The chained witness replays one
+CUDA graph a block, equal to an eager loop of the same evaluator, cached
+for each batch; the Merkle step and the num family's mixed block equal
+the CPU."""
 
 import random
 
@@ -25,6 +28,8 @@ from bellpepper_tpu_torch import (
     NativeBuilder,
     Satisfier,
     WitnessProgram,
+    build_chained_witness,
+    build_merkle_tree_step,
     build_packed_production_step,
     build_production_step,
     build_templated_check,
@@ -32,6 +37,7 @@ from bellpepper_tpu_torch import (
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
+from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 
 RNG = np.random.default_rng(0x5EED_0006)
 
@@ -606,3 +612,82 @@ def test_free_field_step_on_card_matches_cpu(cuda, form):
         got = build_production_step(prog, template, B, cuda, witness_form=form)(bits.to(cuda), ff.to(cuda))
         got = tuple(int(v) for v in got)
         assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
+
+
+# --- the chained and Merkle pipelines, the num family ---------------------------
+def _chain_prog():
+    """A compression whose IV is 256 free bits before the 512 message bits."""
+    nb = NativeBuilder()
+    state = [nb.alloc_bit() for _ in range(256)]
+    out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
+    template, tape = nb.finish()
+    return template, WitnessProgram(tape), [nb.view(v) for v in out]
+
+
+@pytest.mark.cuda
+def test_chained_graph_matches_eager_and_caches(cuda):
+    """T = 4, B = 3: the graph-replayed vals and final state equal the
+    eager loop's and the CPU's bit for bit; a second call at B = 3 replays
+    the cached graph, a call at B = 2 captures a second one."""
+    template, prog, views = _chain_prog()
+    gen = build_chained_witness(prog, views, cuda)
+    iv = from_numpy_u32(RNG.integers(0, 2, size=(3, 256)).astype(np.uint32))
+    msgs = from_numpy_u32(RNG.integers(0, 2, size=(4, 3, 512)).astype(np.uint32))
+    vals, final = gen(iv.to(cuda), msgs.to(cuda))
+    graph = gen.graphs[3]
+    eager_vals, eager_final = eager_chain(gen, iv.to(cuda), msgs.to(cuda))
+    assert torch.equal(vals, eager_vals) and torch.equal(final, eager_final)
+    cpu_vals, cpu_final = build_chained_witness(prog, views, "cpu")(iv, msgs)
+    assert torch.equal(vals.cpu(), cpu_vals) and torch.equal(final.cpu(), cpu_final)
+    again = gen(final, msgs.flip(0).to(cuda))
+    assert list(gen.graphs) == [3] and gen.graphs[3] is graph
+    assert torch.equal(again[0].cpu(), build_chained_witness(prog, views, "cpu")(cpu_final, msgs.flip(0))[0])
+    two = gen(iv[:2].to(cuda), msgs[:, :2].to(cuda))
+    assert sorted(gen.graphs) == [2, 3] and gen.graphs[3] is graph
+    assert torch.equal(two[0].cpu(), cpu_vals[:, :2]) and torch.equal(two[1].cpu(), cpu_final[:2])
+
+
+@pytest.mark.cuda
+def test_merkle_step_on_card_matches_cpu(cuda):
+    """16 leaves (4 levels, batches 8 down to 1): root and total equal
+    the CPU's, and the levels' checks launch the bits kernels."""
+    nb = NativeBuilder()
+    out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    template, tape = nb.finish()
+    prog, views = WitnessProgram(tape), [nb.view(v) for v in out]
+    leaves = from_numpy_u32(RNG.integers(0, 2, size=(16, 256)).astype(np.uint32))
+    want = build_merkle_tree_step(prog, template, views, 16, "cpu")(leaves)
+    fk.reset_launch_counts()
+    root, total = build_merkle_tree_step(prog, template, views, 16, cuda)(leaves.to(cuda))
+    counts = fk.launch_counts()
+    assert torch.equal(root.cpu(), want[0]) and int(total) == int(want[1]) == 0
+    assert counts["bitplane_eq"] == 4 and counts["mulcmp"] == 4
+
+
+def _num_mixed_block():
+    """sha256 of 512 free bits, pack_bits of 200 digest bits, num_is_zero
+    of the pack, and num_to_bits_le_strict of a free num."""
+    nb = NativeBuilder()
+    digest = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    nb.num_is_zero(nb.pack_bits(digest[:200]))
+    nb.num_to_bits_le_strict(nb.alloc_num())
+    template, tape = nb.finish()
+    return template, WitnessProgram(tape)
+
+
+@pytest.mark.cuda
+def test_num_mixed_block_on_card_matches_cpu(cuda):
+    """The mixed block at B = 64: the card's vals and limbs equal the
+    CPU evaluator's, and the mixed step's verdict is clean on both."""
+    template, prog = _num_mixed_block()
+    B = 64
+    free = from_numpy_u32(RNG.integers(0, 2, size=(B, len(prog.free_slots))).astype(np.uint32))
+    ff = _canonical(SCALAR, B, 11, "cpu").t().reshape(B, 1, 16).contiguous()
+    want = prog.build("cpu")(free, ff)
+    fk.reset_launch_counts()
+    got = prog.build(cuda)(free.to(cuda), ff.to(cuda))
+    assert fk.launch_counts()["mul"] > 0
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    for dev in ("cpu", cuda):
+        verdict = build_production_step(prog, template, B, dev)(free[None].to(dev), ff[None].to(dev))
+        assert tuple(int(v) for v in verdict) == (0, 0xFFFFFFFF)

@@ -1,11 +1,11 @@
 """The port must load where JAX is not installed: importing the package
 and its modules (and chip_smoke.py), building and running the sha256 and
 config-1 templates on the CPU (the packed, mixed and limbs steps, the
-chunked check and both satisfiers), and configs 2 and 3 and blake2s (the
-bits form, the mixed packed step and the packed step), pulls in no `jax`
-and nothing of the JAX package, and the
-native library builds from the port's own C++ source. Without a card, an
-entry point called without a device raises."""
+chunked check and both satisfiers), configs 2 and 3 and blake2s (the
+bits form, the mixed packed step and the packed step), and the chained
+and Merkle steps and a num gadget, pulls in no `jax` and nothing of the
+JAX package, and the native library builds from the port's own C++
+source. Without a card, an entry point called without a device raises."""
 
 import os
 import subprocess
@@ -18,8 +18,21 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _run_without_jax(code: str) -> None:
+    """Run `code` in a fresh interpreter from the repository root; it
+    must print "ok" last."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_port_never_imports_jax():
-    code = textwrap.dedent(
+    _run_without_jax(
         """
         import os
         import sys
@@ -126,14 +139,52 @@ def test_port_never_imports_jax():
         print("ok")
         """
     )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    res = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300,
+
+
+def test_chained_merkle_and_num_gadgets_without_jax():
+    _run_without_jax(
+        """
+        import sys
+        import torch
+        from bellpepper_tpu_torch import (
+            NativeBuilder, PipelinedSatisfier, WitnessProgram, build_chained_production_step,
+            build_chained_witness, build_merkle_tree_step, build_production_step,
+        )
+
+        nb = NativeBuilder()
+        state = [nb.alloc_bit() for _ in range(256)]
+        out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
+        template, tape = nb.finish()
+        prog, views = WitnessProgram(tape), [nb.view(v) for v in out]
+        iv = torch.tensor([[nb.view(v)[1] for v in nb.sha256_iv()]], dtype=torch.int32)
+        msgs = torch.randint(0, 2, (2, 1, 512), dtype=torch.int32)
+        total, first, final = build_chained_production_step(prog, template, views, 2, "cpu")(iv, msgs)
+        assert (int(total), int(first)) == (0, 0xFFFFFFFF) and final.shape == (1, 256)
+        vals, _ = build_chained_witness(prog, views, "cpu")(iv, msgs)
+        sat = PipelinedSatisfier(template, 2, 1, "cpu", witness_form="bits")
+        assert sat.is_satisfied(vals.reshape(1, 2, -1))
+
+        nb = NativeBuilder()
+        out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+        template, tape = nb.finish()
+        step = build_merkle_tree_step(WitnessProgram(tape), template, [nb.view(v) for v in out], 2, "cpu")
+        root, total = step(torch.randint(0, 2, (2, 256), dtype=torch.int32))
+        assert root.shape == (256,) and int(total) == 0
+
+        nb = NativeBuilder()
+        nb.num_is_zero(nb.pack_bits([nb.alloc_bit() for _ in range(40)]))
+        template, tape = nb.finish()
+        free = torch.randint(0, 2, (1, 4, 40), dtype=torch.int32)
+        assert [int(v) for v in build_production_step(WitnessProgram(tape), template, 4, "cpu")(free)] == [0, 0xFFFFFFFF]
+
+        bad = sorted(
+            m for m in sys.modules
+            if m in ("jax", "bellpepper_tpu") or m.startswith(("jax.", "jaxlib", "bellpepper_tpu."))
+        )
+        assert not bad, bad
+        print("ok")
+        """
     )
-    assert res.returncode == 0, res.stdout + res.stderr
-    assert res.stdout.strip().endswith("ok")
 
 
 def test_entry_points_need_a_device_without_a_card(monkeypatch):
@@ -141,11 +192,15 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     where torch sees no card it raises and does not fall back."""
     from bellpepper_tpu_torch import (
         NativeBuilder,
+        PipelinedSatisfier,
         Satisfier,
         TemplatedSatisfier,
         WitnessProgram,
+        build_chained_production_step,
+        build_chained_witness,
         build_chunked_check,
         build_chunked_witness,
+        build_merkle_tree_step,
         build_packed_chunked_witness,
         build_packed_production_step,
         build_production_step,
@@ -196,6 +251,10 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         lambda: build_chunked_check(field_t, 32, 1),
         lambda: Satisfier(field_t),
         lambda: TemplatedSatisfier(field_t, 32),
+        lambda: build_chained_witness(sha_prog, []),
+        lambda: build_chained_production_step(sha_prog, sha_t, [], 32),
+        lambda: build_merkle_tree_step(sha_prog, sha_t, [], 2),
+        lambda: PipelinedSatisfier(sha_t, 32, 1, witness_form="bits"),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
