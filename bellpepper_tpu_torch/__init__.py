@@ -46,11 +46,18 @@ Ported paths:
     R1CS), ``TemplatedSatisfier``, ``build_templated_check(..., "limbs")``,
     ``build_production_step(..., witness_form="limbs")`` and
     ``build_chunked_check``, with the kernels ``limbs_matvec``,
-    ``mul_digits``, ``reduce_digits``, ``mul`` and ``mulcmp``.
+    ``mul_digits``, ``reduce_digits``, ``mul`` and ``mulcmp``;
+  * one huge R1CS (config 5): the row-chunked evaluator, product and
+    check (``build_row_chunked_eval``, ``build_row_chunked_product``,
+    ``build_row_chunked_check``) on ``mul``, ``reduce_digits`` and
+    ``mulcmp``, and ``RowShardedSatisfier`` (one device, any number of
+    row shards) on ``mul_digits``, ``reduce_digits`` and ``mul``.
 
 The kernels are CUDA C++ (``csrc/``)."""
 
 from .backend.matvec import build_templated_check
+from .backend.row_chunked import build_row_chunked_check, build_row_chunked_eval, build_row_chunked_product
+from .backend.row_sharded import RowShardedSatisfier
 from .backend.satisfier import Satisfier, TemplatedSatisfier
 from .backend.words import pack_bits, unpack_bits
 from .compile.pipeline import (
@@ -78,6 +85,7 @@ __all__ = [
     "PipelinedSatisfier",
     "PrimeField",
     "R1CS",
+    "RowShardedSatisfier",
     "SCALAR",
     "Satisfier",
     "TemplatedSatisfier",
@@ -91,6 +99,9 @@ __all__ = [
     "build_merkle_tree_step",
     "build_packed_production_step",
     "build_production_step",
+    "build_row_chunked_check",
+    "build_row_chunked_eval",
+    "build_row_chunked_product",
     "build_templated_check",
     "pack_bits",
     "unpack_bits",

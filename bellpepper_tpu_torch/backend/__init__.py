@@ -11,6 +11,9 @@ CUDA field kernels and the templated checks.
   - matvec.py        — the bits_packed and mixed checks and their verdicts
   - limbs.py         — the limbs checks
   - satisfier.py     — Satisfier and TemplatedSatisfier
+  - row_chunked.py   — one huge R1CS: the monolithic and row-chunked
+                       evaluators, the product and the check
+  - row_sharded.py   — one huge R1CS split into row shards
 """
 
 from .matvec import MixedCheck, PackedBitsCheck, build_templated_check

@@ -46,8 +46,10 @@ def to_numpy_u32(x: torch.Tensor) -> np.ndarray:
 
 def device_table(a, device, dtype=torch.int64) -> torch.Tensor:
     """A host numpy index/constant table as a contiguous tensor on
-    `device` (int64 by default, the index type of torch gathers)."""
-    return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device).to(dtype)
+    `device` (int64 by default, the index type of torch gathers; an int32
+    table goes up as int32, with no int64 copy of a large table)."""
+    host = np.int32 if dtype == torch.int32 else np.int64
+    return torch.as_tensor(np.ascontiguousarray(a, host), device=device).to(dtype)
 
 
 def shr32(x: torch.Tensor, k: int) -> torch.Tensor:

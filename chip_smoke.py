@@ -91,7 +91,22 @@ Phases (one line each, or a few):
     two planted faults found at their instance; at each batch
     limbs_matvec at every bucket of the mixed check's rest rows on chunk
     0's witness, mulcmp at the N of its product rows and of its rest rows,
-    and mul at [16, B] (the inversion ladder's shape).
+    and mul at [16, B] (the inversion ladder's shape);
+  * config 5 (benchmarks/config5_synthetic_r1cs.py) at 2^24 rows, none
+    cut: the row-chunked check's layout (32 chunks), the witness
+    completion's product reusing it (128 chunks), the completion twice
+    (the second timed), the check once, once warm and 10 times with one
+    sync; its host build, layout, completion and check seconds, rate and
+    peak; exact launch counts; the completed product at 4,096 sampled
+    rows against Python ints; z[5, 0] flipped reported at the row numpy
+    names; mulcmp, mul (on a premul slice of the raw, non-canonical z and
+    on a product chunk) and reduce_digits at its shapes;
+  * config 5's generator at 2^20 rows (the benchmark's default size):
+    RowShardedSatisfier (limbs, one shard) on the completed witness, its
+    launches and time, its verdicts equal to the row-chunked check's semi
+    and canonical routes', clean and with z[5, 0] flipped; mul_digits on
+    A's gathered raw z and coefficients, reduce_digits on its digit sums
+    and mul on the shard's A·z and B·z.
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once: for the kernels that read the
@@ -99,7 +114,8 @@ witness through a table, the distinct slots the table names, the fold
 planes as stored and the output) over 3.35 TB/s and the 32-bit integer
 products that function needs on these inputs (not those of the kernel's
 own design; see ``modmul_products``) over 64 lanes × 132 SMs × the card's
-maximum SM clock. The line before last names the card again; the last
+maximum SM clock. A kernel timed below its bound fails its compare: the
+bound then counts work these inputs do not need. The line before last names the card again; the last
 line is {"ok": true, "device": {...}}; the kernels line gives each
 kernel's numbers at its first table and, under ``other_tables``, those at
 the later paths' tables. Any failed phase raises and the script exits
@@ -119,6 +135,7 @@ from bellpepper_tpu_torch import (
     SCALAR,
     NativeBuilder,
     PipelinedSatisfier,
+    RowShardedSatisfier,
     Satisfier,
     TemplatedSatisfier,
     WitnessProgram,
@@ -129,6 +146,9 @@ from bellpepper_tpu_torch import (
     build_packed_chunked_witness,
     build_packed_production_step,
     build_production_step,
+    build_row_chunked_check,
+    build_row_chunked_eval,
+    build_row_chunked_product,
     build_templated_check,
     pack_bits,
     which_from_flat,
@@ -138,9 +158,11 @@ from bellpepper_tpu_torch.backend.field_backend import get_backend
 from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
+from bellpepper_tpu_torch.backend.row_chunked import _chunk, _ell_digit_sums, _gather_rows
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_u32
 from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, _carry_extractor
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
+from bellpepper_tpu_torch.tools import config5 as c5
 
 B = 32768  # sha256 instances per chunk
 N_CHUNKS = 4
@@ -180,6 +202,11 @@ CHAIN_FLIP_BLOCK = 700  # the block whose witness bit the config-4 probe flips
 CHAIN_MULTI_B = (8, 64)
 CHAIN_CURVE_B = (1, 8, 64, 256, 1024, 4096)  # the replay of one block at these chain counts
 MERKLE_LEAVES = 1024
+# config 5 (its generator and sizes in tools/config5.py): the rows whose
+# completed product is held to Python ints; the row-sharded check's log2
+# rows (the benchmark's default size)
+CONFIG5_SAMPLES = 4096
+ROW_SHARDED_LOG2_R = 20
 # the num family's mixed block: instances a chunk, doubled while a step
 # stays under NUM_STEP_S seconds and twice the peak under PEAK_GIB, up to
 # NUM_B_MAX
@@ -324,6 +351,7 @@ def compare(name, kernel, plain, bound, reps=20, plain_reps=3, library=None):
     print(f"[kernel] {name}: shape {tuple(out.shape)} max_abs_err {err} kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms{lib} bound {bound[0]:.4f} ms ({bound[1]})")
     assert err == 0, f"{name} disagrees with its plain version"
+    assert ms >= bound[0], f"{name} beat its bound: the bound counts work these inputs do not need"
     return {"table": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms}
 
@@ -1691,6 +1719,238 @@ def num_family_step(dev, card, bound, tables):
         Bn *= 2
 
 
+def row_sums_int(r1cs, zi: dict, rows) -> dict:
+    """{matrix: its Python-int value at each of `rows`} over zi, {slot:
+    int} for every slot those rows read."""
+    p = r1cs.field.p
+    mark = np.zeros(r1cs.num_constraints, bool)
+    mark[rows] = True
+    out = {}
+    for name in "abc":
+        m = getattr(r1cs, name)
+        sel = mark[m.rows]
+        s = {int(r): 0 for r in rows}
+        for r, c, k in zip(m.rows[sel], m.cols[sel], m.coeff_ids[sel]):
+            s[int(r)] = (s[int(r)] + r1cs.coeff_table[k] * zi[int(c)]) % p
+        out[name] = [s[int(r)] for r in rows]
+    return out
+
+
+def z_ints(z: torch.Tensor, slots) -> dict:
+    """{slot: the Python int of z's row}, the rows read back at once."""
+    slots = sorted({int(s) for s in slots})
+    rows = to_u32(z[torch.as_tensor(slots, device=z.device)]).cpu().numpy()
+    return {s: limb_int(row) for s, row in zip(slots, rows)}
+
+
+def config5_kernels(label, r1cs, z, meta, prep, dev, bound, tables):
+    """The kernels at config 5's own shapes and operands: mulcmp on chunk
+    0's semi blocks (every other C column zeroed, so half the mask is 1),
+    mul on one premul slice of the raw (non-canonical) z, mul on the
+    product's chunk 0 and reduce_digits on its A digit sums."""
+    p = SCALAR.p
+    R = r1cs.num_constraints
+    names = ("a", "b", "c")
+    ev, _ = build_row_chunked_eval(r1cs, R >> c5.LOG2_RPC_CHECK, reuse=(meta, prep), device=dev)
+    cl = prep["coeff_limbs"]
+    zsrc = ev._zsrc(z, cl)
+    a, b, c = ev._blocks_semi(zsrc, cl, _chunk(ev._xs(prep, names), 0), names)
+    c[:, 1::2] = 0
+    want = fk.mulcmp(a, b, c, SCALAR)
+    assert int(want[0::2].sum()) == 0 and int(want[1::2].sum()) > 0.99 * want[1::2].numel(), "config5 mulcmp mask"
+    N = a.shape[1]
+    tables["mulcmp"].append(compare(f"mulcmp {label} chunk 0 semi blocks N={N}", lambda: fk.mulcmp(a, b, c, SCALAR),
+                                    lambda: fk.mulcmp_plain(a, b, c, SCALAR), mulcmp_bound(bound, N), plain_reps=2))
+    del a, b, c, want
+    k = max(ev.span)  # the last premul slice: coefficient p − 1
+    n = ev.span[k]
+    zk = z[:n].t().contiguous()
+    ck = cl[k][:, None].expand(16, n).contiguous()
+    got = fk.mul(zk, ck, SCALAR)
+    vals = [col_int(zk, i) for i in range(64)]
+    assert any(v >= p for v in vals), "config 5's raw z holds values in [p, 2^256)"
+    cv = limb_int(to_u32(cl[k]).tolist())
+    assert all(col_int(got, i) == v * cv % p for i, v in enumerate(vals)), "mul on raw z"
+    tables["mul"].append(compare(f"mul {label} premul raw z N={n}", lambda: fk.mul(zk, ck, SCALAR),
+                                 lambda: fk.mul_plain(zk, ck, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS),
+                                 plain_reps=2))
+    del zk, ck, got
+    ew, _ = build_row_chunked_eval(r1cs, R >> c5.LOG2_RPC_WIT, names=("a", "b"), reuse=(meta, prep), device=dev)
+    x0 = _chunk(ew._xs(prep, ("a", "b")), 0)
+    az, bz = ew._blocks(zsrc, cl, x0, ("a", "b"))
+    n = az.shape[1]
+    tables["mul"].append(compare(f"mul {label} product chunk N={n}", lambda: fk.mul(az, bz, SCALAR),
+                                 lambda: fk.mul_plain(az, bz, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS),
+                                 plain_reps=2))
+    d = _ell_digit_sums(ew._gathered(zsrc, cl, x0[0], "a"), 2).t().contiguous()
+    tables["reduce_digits"].append(compare(
+        f"reduce_digits {label} product chunk A digit sums N={n}", lambda: fk.reduce_digits(d, SCALAR),
+        lambda: fk.reduce_digits_plain(d, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2))
+    del zsrc, az, bz, d
+    torch.cuda.empty_cache()
+
+
+def config5_path(dev, card, bound, tables):
+    """Config 5 at 2^24 rows on one card, as benchmarks/config5_synthetic_
+    r1cs.py:107-200 runs it there (the row-chunked scan): the check's
+    layout at 2^19 rows a chunk, the witness completion's product at 2^17
+    reusing it, the completion twice (the second timed), the check once,
+    once warm and 10 times with one sync; the completed product at 4,096
+    sampled rows against Python ints, the flip of z[5, 0] reported at the
+    row numpy names; then the kernels at this path's shapes. Returns the
+    launches of one completion and one check."""
+    r1cs, zfree, N0, t_build = c5.config5_r1cs(c5.LOG2_R)
+    R = r1cs.num_constraints
+    n_chk, n_wit = R >> c5.LOG2_RPC_CHECK, R >> c5.LOG2_RPC_WIT
+    print(f"[synth] config 5: {R} rows, {r1cs.a.nnz + r1cs.b.nnz + r1cs.c.nnz} entries, N0 {N0}; host build "
+          f"{t_build:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    check_fn, prep = build_row_chunked_check(r1cs, n_chk, device=dev)
+    torch.cuda.synchronize()
+    t_layout = time.time() - t0
+    meta = check_fn._layout_meta
+    assert check_fn._route == "semi" and meta["premul"], (check_fn._route, meta)
+    assert meta["modes"] == {"a": ("ell", 2, True), "b": ("ell", 1, True), "c": ("slice", N0 + 1)}, meta["modes"]
+    t0 = time.time()
+    prod_fn, prep_ab = build_row_chunked_product(r1cs, n_wit, reuse=(meta, prep), device=dev)
+    t_wit_layout = time.time() - t0
+    assert prep_ab["a"] is prep["a"] and prep_ab["b"] is prep["b"]
+    z = c5.config5_z(zfree, R, dev)
+
+    def complete(zz):
+        zz[N0 + 1 :] = prod_fn(zz, prep_ab)  # the product reads every chunk first
+
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    complete(z)
+    verdict = tuple(int(x) for x in check_fn(z, prep))
+    counts = fk.launch_counts()
+    print(f"[step] config5 completion + check: verdict {verdict} launches {counts}")
+    n_pm = len(meta["span"])
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert counts == {**dict.fromkeys(fk.KERNELS, 0), "mul": n_wit + 2 * n_pm, "reduce_digits": 2 * n_wit,
+                      "mulcmp": n_chk}, counts
+    z2 = z.clone()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    complete(z2)
+    torch.cuda.synchronize()
+    t_wit = time.time() - t0
+    assert torch.equal(z2, z), "a second completion differs"
+    del z2
+    t0 = time.time()
+    ok = int(check_fn(z, prep)[0]) == 0
+    t_check_first = time.time() - t0
+    ok = ok and int(check_fn(z, prep)[0]) == 0
+    t0 = time.time()
+    nbs = [check_fn(z, prep)[0] for _ in range(10)]
+    torch.cuda.synchronize()
+    t_check = (time.time() - t0) / 10
+    assert ok and sum(int(x) for x in nbs) == 0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[perf] config5 R={R}: host build {t_build:.3f} s, check layout {t_layout:.3f} s, witness layout "
+          f"{t_wit_layout:.4f} s, witness completion {t_wit:.4f} s, check {t_check:.4f} s (first "
+          f"{t_check_first:.4f} s) = {R / t_check:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
+    rows = np.sort(np.random.default_rng(SEED + 16).choice(R, CONFIG5_SAMPLES, replace=False))
+    slots = np.concatenate([r1cs.a.cols[2 * rows], r1cs.a.cols[2 * rows + 1], r1cs.b.cols[rows], N0 + 1 + rows])
+    zi = z_ints(z, slots)
+    sums = row_sums_int(r1cs, zi, rows)
+    assert all(sa * sb % SCALAR.p == sc for sa, sb, sc in zip(sums["a"], sums["b"], sums["c"])), "config5 product"
+    print(f"[probe] config5: the completed product at {CONFIG5_SAMPLES} sampled rows equals A·z · B·z over the "
+          f"Python ints")
+    zb = z.clone()
+    zb[c5.FLIP_SLOT, 0] ^= 1
+    bad = tuple(int(x) for x in check_fn(zb, prep))
+    row = c5.flipped_first_row(r1cs, c5.FLIP_SLOT)
+    zi = z_ints(zb, list(r1cs.a.cols[2 * row : 2 * row + 2]) + [r1cs.b.cols[row], N0 + 1 + row])
+    s = row_sums_int(r1cs, zi, [row])
+    assert (s["a"][0] * s["b"][0] - s["c"][0]) % SCALAR.p, "the expected row holds over the Python ints"
+    assert bad[0] > 0 and bad[1] == row, (bad, row)
+    print(f"[probe] config5: z[{c5.FLIP_SLOT}, 0] ^= 1 gives verdict {bad}: first = row {row}, the least row "
+          f"whose A or B reads slot {c5.FLIP_SLOT} with a nonzero net coefficient")
+    del zb
+    torch.cuda.empty_cache()
+    config5_kernels("config5", r1cs, z, meta, prep, dev, bound, tables)
+    return counts
+
+
+def row_sharded_path(dev, card, bound, tables):
+    """Config 5's generator at 2^20 rows (the benchmark's default size and
+    its one-device row-sharded-mesh mode): RowShardedSatisfier (limbs, one
+    shard) on the completed witness, its launches, time and verdicts equal
+    to the semi and canonical routes' of the row-chunked check, clean and
+    with z[5, 0] flipped; mul_digits on A's gathered raw z and
+    coefficients, reduce_digits on its digit sums and mul on the shard's
+    A·z and B·z, the operands check_local gives it. Returns the launches of one check."""
+    r1cs, zfree, N0, t_build = c5.config5_r1cs(ROW_SHARDED_LOG2_R)
+    R = r1cs.num_constraints
+    t0 = time.time()
+    sat = RowShardedSatisfier(r1cs, device=dev)
+    torch.cuda.synchronize()
+    t_shard_build = time.time() - t0
+    n_chk = max(1, R >> c5.LOG2_RPC_CHECK)
+    semi, prep = build_row_chunked_check(r1cs, n_chk, device=dev)
+    canon, _ = build_row_chunked_check(r1cs, n_chk, use_pallas=False, reuse=(semi._layout_meta, prep), device=dev)
+    assert (semi._route, canon._route) == ("semi", "canonical")
+    prod_fn, prep_ab = build_row_chunked_product(r1cs, R >> c5.LOG2_RPC_WIT, reuse=(semi._layout_meta, prep),
+                                                 device=dev)
+    z = c5.config5_z(zfree, R, dev)
+    z[N0 + 1 :] = prod_fn(z, prep_ab)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    verdict = tuple(int(x) for x in sat._check(z))
+    counts = fk.launch_counts()
+    print(f"[step] row_sharded R={R}: verdict {verdict} launches {counts}")
+    assert counts == {**dict.fromkeys(fk.KERNELS, 0), "mul_digits": 3, "reduce_digits": 3, "mul": 1}, counts
+    zb = z.clone()
+    zb[c5.FLIP_SLOT, 0] ^= 1
+    for what, zz in (("clean", z), ("z[5, 0] flipped", zb)):
+        got = [tuple(int(x) for x in f(zz)) for f in (sat._check, lambda t: semi(t, prep), lambda t: canon(t, prep))]
+        assert got[0] == got[1] == got[2], (what, got)
+        assert (got[0] == (0, 0xFFFFFFFF)) == (zz is z), (what, got)
+        print(f"[probe] row_sharded R={R} {what}: RowShardedSatisfier, the semi and the canonical routes all "
+              f"give {got[0]}")
+    assert got[0][1] == c5.flipped_first_row(r1cs, c5.FLIP_SLOT)
+    del zb
+    ok = sat.is_satisfied(z) and sat.is_satisfied(z)
+    t0 = time.time()
+    nbs = [sat._check(z)[0] for _ in range(10)]
+    torch.cuda.synchronize()
+    t_check = (time.time() - t0) / 10
+    assert ok and sum(int(x) for x in nbs) == 0
+    t_semi = wall_s(lambda: semi(z, prep), 10)
+    print(f"[perf] row_sharded R={R}: host build {t_build:.3f} s, shard build {t_shard_build:.3f} s, check "
+          f"{t_check:.4f} s = {R / t_check:.4e} constraint-evals/s (the row-chunked semi check at "
+          f"{R // n_chk} rows a chunk {t_semi:.4f} s), on {card}")
+    local, _origin = sat._shards[0]
+    e = local["a"]
+    zv = _gather_rows(z, e["cols"]).t().contiguous()
+    cv = sat._coeff_lm.index_select(1, e["cids"]).contiguous()
+    n = zv.shape[1]
+    got = fk.mul_digits(zv, cv, SCALAR)
+    for i in (0, 1, 2, n - 1):
+        v = col_int(zv, i) * col_int(cv, i) % SCALAR.p
+        assert [int(x) for x in to_u32(got[:, i]).tolist()] == [(v >> (8 * j)) & 0xFF for j in range(32)]
+    tables["mul_digits"].append(compare(
+        f"mul_digits row_sharded A raw z N={n}", lambda: fk.mul_digits(zv, cv, SCALAR),
+        lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2))
+    dsum = got.reshape(32, -1, 2).sum(2, dtype=torch.int32)
+    n = dsum.shape[1]
+    tables["reduce_digits"].append(compare(
+        f"reduce_digits row_sharded A digit sums N={n}", lambda: fk.reduce_digits(dsum, SCALAR),
+        lambda: fk.reduce_digits_plain(dsum, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2))
+    az, bz = (sat._matvec_local(m, z, local) for m in "ab")  # the operands check_local gives mul
+    n = az.shape[1]
+    tables["mul"].append(compare(f"mul row_sharded A·z by B·z N={n}", lambda: fk.mul(az, bz, SCALAR),
+                                 lambda: fk.mul_plain(az, bz, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS),
+                                 plain_reps=2))
+    del zv, cv, got, dsum, az, bz, sat, z
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing runs on the CPU", file=sys.stderr)
@@ -1750,6 +2010,10 @@ def main() -> int:
     launches["merkle"] = merkle_path(dev, card, bound, tables, chain_built)
     torch.cuda.empty_cache()
     launches["num_family"] = num_family_step(dev, card, bound, tables)
+    torch.cuda.empty_cache()
+    launches["config5"] = config5_path(dev, card, bound, tables)
+    torch.cuda.empty_cache()
+    launches["row_sharded"] = row_sharded_path(dev, card, bound, tables)
 
     kernels = []
     for k in fk.KERNELS:

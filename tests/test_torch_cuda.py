@@ -13,7 +13,9 @@ step, a step with free field inputs and the Satisfier on the card give
 the CPU's verdicts, clean and corrupted. The chained witness replays one
 CUDA graph a block, equal to an eager loop of the same evaluator, cached
 for each batch; the Merkle step and the num family's mixed block equal
-the CPU."""
+the CPU. mul and mul_digits hold on operands in [p, 2^256) (config 5's
+raw witness values), and config 5's check at 2^16 rows gives the CPU's
+verdicts on both routes and in RowShardedSatisfier."""
 
 import random
 
@@ -37,6 +39,8 @@ from bellpepper_tpu_torch import (
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
+from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
+from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z, flipped_first_row
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 
 RNG = np.random.default_rng(0x5EED_0006)
@@ -691,3 +695,49 @@ def test_num_mixed_block_on_card_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         verdict = build_production_step(prog, template, B, dev)(free[None].to(dev), ff[None].to(dev))
         assert tuple(int(v) for v in verdict) == (0, 0xFFFFFFFF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 33, 4096])
+def test_mul_and_mul_digits_on_non_canonical_operands_on_card(cuda, N):
+    """Operands in [p, 2^256), as config 5's raw witness rows are (the
+    corners p, 2p, 2^256 − 1 and p + 1 first): mul and mul_digits equal
+    their plain versions and a·b mod p over the Python ints."""
+    p = SCALAR.p
+    rnd = random.Random(0x5EED_0009 + N)
+    corners = [p, 2 * p, (1 << 256) - 1, p + 1]
+    av = (corners + [rnd.randrange(p, 1 << 256) for _ in range(N)])[:N]
+    bv = (corners[::-1] + [rnd.randrange(p, 1 << 256) for _ in range(N)])[:N]
+    a = from_numpy_u32(FieldBackend.to_limbs(av).T.copy(), cuda)
+    b = from_numpy_u32(FieldBackend.to_limbs(bv).T.copy(), cuda)
+    got, dig = fk.mul(a, b, SCALAR), fk.mul_digits(a, b, SCALAR)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.mul_plain(a, b, SCALAR))
+    assert torch.equal(dig, fk.mul_digits_plain(a, b, SCALAR))
+    want = [x * y % p for x, y in zip(av, bv)]
+    assert _lm_ints(got) == want
+    d = to_numpy_u32(dig).astype(object)
+    assert [sum(int(d[j, i]) << (8 * j) for j in range(32)) for i in range(N)] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [None, False], ids=["semi", "canonical"])
+def test_config5_check_on_card_matches_cpu(cuda, use_pallas):
+    """Config 5's generator at 2^16 rows: the witness completed on the
+    card checks clean on the route; with z[5, 0] flipped the card, the
+    CPU and RowShardedSatisfier give one verdict, first at the row numpy
+    names."""
+    r1cs, zfree, N0, _ = config5_r1cs(16)
+    R = r1cs.num_constraints
+    check, prep = build_row_chunked_check(r1cs, 4, use_pallas=use_pallas, device=cuda)
+    assert check._route == ("semi" if use_pallas is None else "canonical")
+    prod, prep_ab = build_row_chunked_product(r1cs, 16, reuse=(check._layout_meta, prep), device=cuda)
+    z = config5_z(zfree, R, cuda)
+    z[N0 + 1 :] = prod(z, prep_ab)
+    assert tuple(int(v) for v in check(z, prep)) == (0, 0xFFFFFFFF)
+    z[5, 0] ^= 1
+    got = tuple(int(v) for v in check(z, prep))
+    cpu_check, cpu_prep = build_row_chunked_check(r1cs, 4, use_pallas=use_pallas, device="cpu")
+    assert got == tuple(int(v) for v in cpu_check(z.cpu(), cpu_prep))
+    assert got == tuple(int(v) for v in RowShardedSatisfier(r1cs, device=cuda)._check(z))
+    assert got[0] > 0 and got[1] == flipped_first_row(r1cs, 5)

@@ -3,7 +3,8 @@ and its modules (and chip_smoke.py), building and running the sha256 and
 config-1 templates on the CPU (the packed, mixed and limbs steps, the
 chunked check and both satisfiers), configs 2 and 3 and blake2s (the
 bits form, the mixed packed step and the packed step), and the chained
-and Merkle steps and a num gadget, pulls in no `jax` and nothing of the
+and Merkle steps and a num gadget, and config 5's row-chunked check and
+product and the row-sharded checker, pulls in no `jax` and nothing of the
 JAX package, and the native library builds from the port's own C++
 source. Without a card, an entry point called without a device raises."""
 
@@ -50,6 +51,8 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.backend.limbs
         import bellpepper_tpu_torch.backend.matvec
         import bellpepper_tpu_torch.backend.satisfier
+        import bellpepper_tpu_torch.backend.row_chunked
+        import bellpepper_tpu_torch.backend.row_sharded
         import bellpepper_tpu_torch.backend.field_backend
         import bellpepper_tpu_torch.backend.field_consts
         import bellpepper_tpu_torch.backend.words
@@ -129,6 +132,19 @@ def test_port_never_imports_jax():
         free = torch.randint(-2**31, 2**31 - 1, (1, 1, 768), dtype=torch.int32)
         assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
 
+        # one huge R1CS: config 5's generator at 2^10 rows through the
+        # row-chunked product and check and RowShardedSatisfier
+        from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
+        from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z
+        r1cs, zfree, n0, _ = config5_r1cs(10)
+        z = config5_z(zfree, 1 << 10, "cpu")
+        check, prep = build_row_chunked_check(r1cs, 4, device="cpu")
+        prod, pprep = build_row_chunked_product(r1cs, 8, reuse=(check._layout_meta, prep), device="cpu")
+        z[n0 + 1 :] = prod(z, pprep)
+        assert [int(v) for v in check(z, prep)] == [0, 0xFFFFFFFF]
+        z[5, 0] ^= 1
+        assert RowShardedSatisfier(r1cs, 2, device="cpu").which_is_unsatisfied(z) is not None
+
         bad = sorted(
             m for m in sys.modules
             if m in ("jax", "bellpepper_tpu") or m.startswith(("jax.", "jaxlib", "bellpepper_tpu."))
@@ -193,6 +209,7 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     from bellpepper_tpu_torch import (
         NativeBuilder,
         PipelinedSatisfier,
+        RowShardedSatisfier,
         Satisfier,
         TemplatedSatisfier,
         WitnessProgram,
@@ -204,9 +221,13 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         build_packed_chunked_witness,
         build_packed_production_step,
         build_production_step,
+        build_row_chunked_check,
+        build_row_chunked_eval,
+        build_row_chunked_product,
         build_templated_check,
     )
     from bellpepper_tpu_torch.backend.limbs import build_limbs_check
+    from bellpepper_tpu_torch.backend.row_chunked import DeviceR1CS
     from bellpepper_tpu_torch.backend.matvec import BitsCheck, MixedCheck, PackedBitsCheck, PackedFieldCheck
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -255,6 +276,11 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         lambda: build_chained_production_step(sha_prog, sha_t, [], 32),
         lambda: build_merkle_tree_step(sha_prog, sha_t, [], 2),
         lambda: PipelinedSatisfier(sha_t, 32, 1, witness_form="bits"),
+        lambda: DeviceR1CS.from_r1cs(field_t),
+        lambda: build_row_chunked_eval(field_t, 1),
+        lambda: build_row_chunked_check(field_t, 1),
+        lambda: build_row_chunked_product(field_t, 1),
+        lambda: RowShardedSatisfier(field_t),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
