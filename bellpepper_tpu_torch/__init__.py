@@ -51,14 +51,34 @@ Ported paths:
     check (``build_row_chunked_eval``, ``build_row_chunked_product``,
     ``build_row_chunked_check``) on ``mul``, ``reduce_digits`` and
     ``mulcmp``, and ``RowShardedSatisfier`` (one device, any number of
-    row shards) on ``mul_digits``, ``reduce_digits`` and ``mul``.
+    row shards) on ``mul_digits``, ``reduce_digits`` and ``mul``;
+  * the sharded steps and checkers on ``torch.distributed``, one shard and
+    one device a rank of a process group (``default_group``,
+    ``rank_device``): ``sharded_packed_witness_and_check`` (the flagship's
+    multi-device program, the mixed packed layout included),
+    ``sharded_witness_and_check``, ``ShardedSatisfier`` and
+    ``RowShardedSatisfier(..., group=...)``, their verdicts reduced over
+    the ranks by ``global_count`` (a SUM) or ``global_verdict`` (SUM and
+    MIN in int64); the multi-process glue of ``utils.multihost``
+    (``initialize_multihost``, ``global_group``, ``make_global_batch``,
+    ``multihost_verdict_step``) and the dry run ``tools.dryrun_multichip``,
+    on the kernels of the paths they shard.
 
 The kernels are CUDA C++ (``csrc/``)."""
 
 from .backend.matvec import build_templated_check
 from .backend.row_chunked import build_row_chunked_check, build_row_chunked_eval, build_row_chunked_product
 from .backend.row_sharded import RowShardedSatisfier
-from .backend.satisfier import Satisfier, TemplatedSatisfier
+from .backend.satisfier import Satisfier, TemplatedSatisfier, which_from_flat
+from .backend.sharding import (
+    ShardedSatisfier,
+    default_group,
+    global_count,
+    global_verdict,
+    rank_device,
+    sharded_packed_witness_and_check,
+    sharded_witness_and_check,
+)
 from .backend.words import pack_bits, unpack_bits
 from .compile.pipeline import (
     PipelinedSatisfier,
@@ -70,12 +90,12 @@ from .compile.pipeline import (
     build_packed_production_step,
     build_merkle_tree_step,
     build_production_step,
-    which_from_flat,
 )
 from .compile.witness_program import WitnessProgram
 from .fields import FIELDS, PALLAS_SCALAR, SCALAR, VESTA_SCALAR, PrimeField
 from .native import NativeBuilder
 from .r1cs import R1CS, COOMatrix
+from .utils.multihost import global_group, initialize_multihost, make_global_batch, multihost_verdict_step
 
 __all__ = [
     "COOMatrix",
@@ -88,6 +108,7 @@ __all__ = [
     "RowShardedSatisfier",
     "SCALAR",
     "Satisfier",
+    "ShardedSatisfier",
     "TemplatedSatisfier",
     "VESTA_SCALAR",
     "WitnessProgram",
@@ -103,7 +124,17 @@ __all__ = [
     "build_row_chunked_eval",
     "build_row_chunked_product",
     "build_templated_check",
+    "default_group",
+    "global_count",
+    "global_group",
+    "global_verdict",
+    "initialize_multihost",
+    "make_global_batch",
+    "multihost_verdict_step",
     "pack_bits",
+    "rank_device",
+    "sharded_packed_witness_and_check",
+    "sharded_witness_and_check",
     "unpack_bits",
     "which_from_flat",
 ]

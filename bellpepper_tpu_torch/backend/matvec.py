@@ -36,7 +36,10 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
     zero-test, product rows through ``mulcmp``, multipack/MultiEq rows as
     exact integer window sums, and the ``rest`` rows through the limbs
     form (``limbs.build_limbs_check``) on their used slots;
-  * ``build_templated_check(..., "limbs")`` → ``limbs.build_limbs_check``.
+  * ``build_templated_check(..., "limbs")`` → ``limbs.build_limbs_check``;
+  * ``build_packed_parts``: a witness program's packed evaluator and the
+    check of its layout, the pieces of the packed production step and of
+    its sharded form.
 
 Witness words are int32 tensors (see ``words``); the check works
 slot-major (``vals_p`` int32[S_t, Bw]) and the public entry points take
@@ -933,3 +936,16 @@ def build_templated_check(template: R1CS, batch: int, witness_form: str = "bits_
         f"witness_form {witness_form!r}{' with field_slots' if field_slots else ''} is not ported yet"
     )
 
+
+def build_packed_parts(prog, template: R1CS, batch: int, device: torch.device):
+    """The packed step's evaluator and check at `batch` instances for the
+    witness program `prog`: ``check.verdict_slot_major(*evaluator.slot_
+    major(free_packed))`` is a chunk's verdict. A program whose field
+    values are only ``pack`` outputs takes the mixed packed layout
+    (``build_packed_mixed``'s limb sidecar, checked by ``PackedFieldCheck``
+    with the field rows in row order as `field_slots`)."""
+    mixed = not prog.is_packable and prog.is_packable_mixed
+    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
+    check = build_templated_check(template, batch, "bits_packed", field_slots=field_slots, device=device)
+    evaluator = prog.build_packed_mixed(device) if mixed else prog.build_packed(device)
+    return evaluator, check

@@ -12,11 +12,12 @@ The rows split into contiguous ranges, one a shard, with one shared ELL
 bucket signature, so one function (``RowShardedSatisfier.check_local``)
 evaluates any shard. The reference runs that function under
 ``shard_map`` on a mesh and reduces the verdict with ``psum``/``pmin``.
-Here every shard runs on one device, one after the other, and the shards'
-verdicts reduce on that device: ``n_bad`` by a sum, ``first`` by a min.
-``check_local`` is the per-rank function a multi-GPU checker calls before
-its ``all_reduce``. The TILE padding of the Pallas adapters is a TPU
-detail and is not ported."""
+Without a process group every shard runs on one device, one after the
+other, and the shards' verdicts reduce on that device: ``n_bad`` by a
+sum, ``first`` by a min. Given a ``group``, each rank holds its own shard
+on its own device and the verdict reduces over the ranks
+(``sharding.global_verdict``). The TILE padding of the Pallas adapters is
+a TPU detail and is not ported."""
 
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve
 from ..r1cs import R1CS
@@ -33,6 +35,7 @@ from .field_consts import L8, L16
 from .field_kernels import mul, mul_digits, reduce_digits
 from .layout import _assert_row_density
 from .row_chunked import _gather_rows
+from .sharding import global_verdict, rank_device
 from .words import from_numpy_u32
 
 
@@ -159,9 +162,13 @@ def build_row_sharded_parts(r1cs: R1CS, n_shards: int, with_coeff_digits: bool =
 class RowShardedSatisfier:
     """Constraint-axis sharding of ONE huge (non-templated) R1CS — the
     reference's answer for config 5 below the row-chunked scan's sizes.
-    The rows split into `n_shards` contiguous ranges with a shared ELL
-    bucket signature; each shard's tables live on `device` (the CUDA card
-    by default) and ``check_local`` evaluates one shard.
+    The rows split into `n_shards` contiguous ranges (1 by default) with a
+    shared ELL bucket signature; each shard's tables live on `device` (the
+    CUDA card by default) and ``check_local`` evaluates one shard. Given a
+    process `group`, there is one shard a rank (`n_shards`, if given, must
+    be the group's size): each rank keeps only its own shard's tables, on
+    its device (``sharding.rank_device``), z is replicated on every rank,
+    and every rank gets the same answers.
 
     witness_form ``"limbs"`` (the default; z int32[N, 16] limbs of any
     256-bit values): every entry's product with its coefficient by
@@ -170,11 +177,23 @@ class RowShardedSatisfier:
     0/1 values): the coefficient's digit planes masked by the witness bit
     in place of ``mul_digits``."""
 
-    def __init__(self, r1cs: R1CS, n_shards: int = 1, witness_form: Optional[str] = None, device=None):
+    def __init__(self, r1cs: R1CS, n_shards: Optional[int] = None, witness_form: Optional[str] = None, device=None,
+                 group=None):
         witness_form = witness_form or "limbs"
         if witness_form not in ("limbs", "bits"):
             raise ValueError(f"witness_form must be 'limbs' or 'bits', got {witness_form!r}")
-        self.device = resolve(device)
+        self.group = group
+        if group is None:
+            n_shards = n_shards or 1
+            self.device = resolve(device)
+            own = range(n_shards)
+        else:
+            world = dist.get_world_size(group)
+            if n_shards not in (None, world):
+                raise ValueError(f"a group of {world} ranks checks {world} shards, not {n_shards}")
+            n_shards = world
+            self.device = rank_device(group, device)
+            own = [dist.get_rank(group)]
         self.r1cs = r1cs
         self.field = r1cs.field
         self.n_shards = n_shards
@@ -187,7 +206,8 @@ class RowShardedSatisfier:
         self._meta = meta
         dev = self.device
         self._coeff_lm = from_numpy_u32(FieldBackend.to_limbs(meta["coeff_table"]).T, dev)  # [16, K]
-        for d in range(n_shards):
+        self._shard_ids = list(own)
+        for d in own:
             local = {}
             for name in "abc":
                 p = parts[name]
@@ -226,14 +246,17 @@ class RowShardedSatisfier:
         return bad.sum(), torch.where(bad, orig, SENTINEL).min()
 
     def _check(self, z: torch.Tensor):
-        """(n_bad, first) of z over every shard, reduced on the device."""
+        """(n_bad, first) of z over every shard, reduced on the device (or
+        over the group's ranks)."""
         want = (self.num_slots,) if self.witness_form == "bits" else (self.num_slots, L16)
         if z.dtype != torch.int32 or tuple(z.shape) != want:
             raise ValueError(f"z must be int32{list(want)}, got {z.dtype}{tuple(z.shape)}")
         if not self.r1cs.num_constraints:
             zero = torch.zeros((), dtype=torch.int64, device=z.device)
             return zero, zero + SENTINEL
-        verdicts = [self.check_local(z, local, origin, d) for d, (local, origin) in enumerate(self._shards)]
+        verdicts = [self.check_local(z, local, origin, d) for d, (local, origin) in zip(self._shard_ids, self._shards)]
+        if self.group is not None:  # check_local has added rank · rows_per_shard
+            return global_verdict(*verdicts[0], 0, self.group)
         nbs, firsts = zip(*verdicts)
         return torch.stack(nbs).sum(), torch.stack(firsts).min()
 

@@ -25,6 +25,12 @@ def _row_name(r1cs: R1CS, row: int) -> str:
     return r1cs.names[row] if r1cs.names is not None else f"constraint #{row}"
 
 
+def which_from_flat(template: R1CS, flat: int) -> str:
+    """A flat violation index b·R + row as 'instance b: name'."""
+    inst, row = divmod(int(flat), template.num_constraints)
+    return f"instance {inst}: {_row_name(template, row)}"
+
+
 class Satisfier:
     """Compiled satisfiability checker for one R1CS (inputs allowed): the
     templated limbs check of the whole system as one instance.
@@ -98,7 +104,4 @@ class TemplatedSatisfier:
 
     def which_is_unsatisfied(self, z) -> Optional[str]:
         nb, first = self._verdict(z)
-        if not nb:
-            return None
-        inst, row = divmod(first, self.r1cs.num_constraints)
-        return f"instance {inst}: {_row_name(self.r1cs, row)}"
+        return which_from_flat(self.r1cs, first) if nb else None

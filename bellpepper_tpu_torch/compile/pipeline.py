@@ -10,7 +10,8 @@ included),
 (``_carry_extractor`` ``:278``, ``build_chained_witness`` ``:297``,
 ``build_chained_production_step`` ``:340``, ``_STATE_TO_MSG_PERM``
 ``:382``, ``build_merkle_tree_step`` ``:387``), ``PipelinedSatisfier``
-(``:441``, without its ``config=``) and ``which_from_flat`` (``:487``).
+(``:441``, without its ``config=``) and ``which_from_flat`` (``:487``, in
+``backend/satisfier.py`` beside the checkers that name rows).
 The reference's single jitted ``lax.scan`` over chunks becomes a Python
 loop that enqueues every chunk's work on the current stream and reads
 nothing back: the host first waits when the caller reads the verdict. The
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from ..backend.check_common import NONE, SENTINEL
-from ..backend.matvec import build_templated_check
+from ..backend.matvec import build_packed_parts, build_templated_check
+from ..backend.satisfier import which_from_flat
 from ..backend.words import device_table
 from ..device import resolve
 from ..r1cs import R1CS
@@ -158,11 +160,7 @@ def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
     the mixed packed layout: ``build_packed_mixed``'s limb sidecar, checked
     by ``PackedFieldCheck`` with the field rows in row order as
     `field_slots`."""
-    device = resolve(device)
-    mixed = not prog.is_packable and prog.is_packable_mixed
-    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
-    check = build_templated_check(template, batch, "bits_packed", field_slots=field_slots, device=device)
-    evaluator = prog.build_packed_mixed(device) if mixed else prog.build_packed(device)
+    evaluator, check = build_packed_parts(prog, template, batch, resolve(device))
     span = batch * template.num_constraints
 
     def step(free_packed: torch.Tensor):
@@ -424,10 +422,3 @@ class PipelinedSatisfier:
             return None
         chunk, rest = divmod(int(first), self.batch * self.r1cs.num_constraints)
         return f"chunk {chunk}: {which_from_flat(self.r1cs, rest)}"
-
-
-def which_from_flat(template: R1CS, flat: int) -> str:
-    """A flat violation index b·R + row as 'instance b: name'."""
-    inst, row = divmod(int(flat), template.num_constraints)
-    name = template.names[row] if template.names is not None else f"constraint #{row}"
-    return f"instance {inst}: {name}"

@@ -32,3 +32,30 @@ class Op:
     def __repr__(self) -> str:  # pragma: no cover
         more = "..." if len(self.outs) > 4 else ""
         return f"Op({self.opcode}, outs={self.outs[:4]}{more})"
+
+
+class SnapshotTape:
+    """A tape made of a snapshot (num_inputs, num_aux, ops, free_slots)."""
+
+    def __init__(self, field, snap):
+        self.field = field
+        self._snap = snap
+
+    def snapshot(self):
+        return self._snap
+
+
+def corrupted(tape, opcode: str, pick: str = "last", into: str = "and", swap: bool = False, where=None):
+    """The tape with one `opcode` op rewritten: the first or the last
+    (`pick`) of those for which ``where(op)`` holds (every one without
+    `where`) computes `into` instead or, with `swap`, takes its first two
+    arguments swapped."""
+    ni, na, ops, free = tape.snapshot()
+    hits = [k for k, op in enumerate(ops) if op.opcode == opcode and (where is None or where(op))]
+    i = {"first": hits[0], "last": hits[-1]}[pick]
+    ops = list(ops)
+    args = list(ops[i].args)
+    if swap:
+        args[0], args[1] = args[1], args[0]
+    ops[i] = Op(ops[i].opcode if swap else into, ops[i].outs, args)
+    return SnapshotTape(tape.field, (ni, na, ops, free))

@@ -46,3 +46,23 @@ class R1CS:
     @property
     def num_vars(self) -> int:
         return self.num_inputs + self.num_aux
+
+    def replicate(self, n: int) -> "R1CS":
+        """n independent copies of this input-free template as one R1CS
+        (rows and aux columns offset a copy, ONE shared, no names): the
+        reference's ``R1CS.replicate``, the compiled form of synthesizing
+        n disjoint copies (constraint_system.rs:138-148)."""
+        if self.num_inputs != 1:
+            raise ValueError("replicate requires an input-free template")
+        mats = {}
+        for name in ("a", "b", "c"):
+            m = getattr(self, name)
+            is_aux = m.cols >= self.num_inputs
+            mats[name] = COOMatrix(
+                rows=np.concatenate([m.rows + np.int32(i * self.num_constraints) for i in range(n)]),
+                cols=np.concatenate([np.where(is_aux, m.cols + np.int32(i * self.num_aux), m.cols)
+                                     for i in range(n)]),
+                coeff_ids=np.tile(m.coeff_ids, n),
+            )
+        return R1CS(field=self.field, num_inputs=1, num_aux=self.num_aux * n,
+                    num_constraints=self.num_constraints * n, coeff_table=list(self.coeff_table), **mats)

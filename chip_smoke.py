@@ -106,7 +106,24 @@ Phases (one line each, or a few):
     launches and time, its verdicts equal to the row-chunked check's semi
     and canonical routes', clean and with z[5, 0] flipped; mul_digits on
     A's gathered raw z and coefficients, reduce_digits on its digit sums
-    and mul on the shard's A·z and B·z.
+    and mul on the shard's A·z and B·z;
+  * the sharded steps and checkers on torch.distributed, on one rank over
+    NCCL and on two ranks over gloo that share the one card (spawned by
+    tools/dryrun_multichip.RankJob; the two-rank times measure the
+    rank logic, not scaling): each rank runs the dry run's checks
+    (dryrun_rank), then the packed step at 131,072 instances (the
+    flagship's 4 × 32,768 in one call) and the bits step at 4,096, each
+    clean and with one xor of two free bits computing `and` (those bits
+    zeroed in the batch's first half, so the first failure lies on the
+    last rank), the limbs ShardedSatisfier on sha256 at 1,024 (clean and
+    with a flipped limb at instance 700) and RowShardedSatisfier at 2^20
+    rows (clean, z[5, 0] flipped, and a product slot of the last quarter
+    flipped); every verdict and (n_bad, first), and the witness shards in
+    rank order (their sha256 digests), equal to single-rank execution of
+    the same inputs, run first in this process; each path's launches
+    counted on every rank; then, one rank at a time, each kernel of those
+    paths against its plain version at the rank's shapes, on the operands
+    the rank's check gives it.
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once: for the kernels that read the
@@ -130,6 +147,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bellpepper_tpu_torch import (
     SCALAR,
@@ -159,10 +177,18 @@ from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.row_chunked import _chunk, _ell_digit_sums, _gather_rows
-from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_u32
+from bellpepper_tpu_torch.backend.sharding import (
+    ShardedSatisfier,
+    default_group,
+    sharded_packed_witness_and_check,
+    sharded_witness_and_check,
+)
+from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_numpy_u32, to_u32
 from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, _carry_extractor
+from bellpepper_tpu_torch.compile.tape import corrupted
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
 from bellpepper_tpu_torch.tools import config5 as c5
+from bellpepper_tpu_torch.tools.dryrun_multichip import RankJob, dryrun_rank, sha256_template
 
 B = 32768  # sha256 instances per chunk
 N_CHUNKS = 4
@@ -215,6 +241,13 @@ NUM_B, NUM_B_MAX, NUM_STEP_S = 1024, 4096, 5.0
 CONFIG2_SEED, CONFIG3_SEED = 6, 7
 # the op-rate probe: rows (ILP), rounds and elements of each launch
 PROBE_R, PROBE_K, PROBE_N = 8, 256, 1 << 20
+# the sharding phase: the packed step's global batch (the flagship's 4 ×
+# 32,768 instances in one call), the bits step's, the limbs
+# ShardedSatisfier's, and each run's ranks and backend (one card: NCCL
+# refuses two ranks on one device, so the 2-rank run takes gloo)
+SHARD_PACKED_B, SHARD_BITS_B, SHARD_LIMBS_B = 4 * 32768, 4096, 1024
+SHARD_RUNS = ((1, "nccl"), (2, "gloo"))
+SHARD_LIMBS_FLIP = (700, 9000, 0)  # (instance, slot, limb) of the flipped limb
 SEED = 0x5962BE3D
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
@@ -472,13 +505,28 @@ def mulcmp_at(name: str, N: int, dev, bound):
     (a, b, c), want = mulcmp_operands(N, dev)
     out = fk.mulcmp(a, b, c, SCALAR)
     assert ((out[: len(want)] != 0).cpu().numpy() == want).all(), ("mulcmp planted columns", N)
+    del out
+    return mulcmp_on(name, a, b, c, bound)
+
+
+def mulcmp_on(name: str, a, b, c, bound):
+    """mulcmp on operands int32[17, N] in which both verdicts occur: its
+    0/1 mask bit-exact against the plain version (run over slices of 2^20
+    columns, which bounds its int64 temporaries), whose mask holds both
+    verdicts; its time beside its bound."""
+    N = a.shape[1]
+    out = fk.mulcmp(a, b, c, SCALAR)
     step = 1 << 20
-    err = max(max_abs_err(out[s : s + step], fk.mulcmp_plain(
-        *(o[:, s : s + step].contiguous() for o in (a, b, c)), SCALAR)) for s in range(0, N, step))
+    plain = torch.cat([fk.mulcmp_plain(*(o[:, s : s + step].contiguous() for o in (a, b, c)), SCALAR)
+                       for s in range(0, N, step)])
+    both_verdicts(f"mulcmp {name}", plain)
+    err = max_abs_err(out, plain)
+    del plain
     ms = cuda_ms(lambda: fk.mulcmp(a, b, c, SCALAR), 5)
     b_ms, b_by = mulcmp_bound(bound, N)
     print(f"[kernel] mulcmp {name} N={N}: max_abs_err {err} kernel {ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     assert err == 0, f"mulcmp disagrees with its plain version at N={N}"
+    assert ms >= b_ms, f"mulcmp {name} beat its bound: the bound counts work these inputs do not need"
     del a, b, c, out
     torch.cuda.empty_cache()
     return {"table": f"{name} N={N}", "max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
@@ -1924,6 +1972,19 @@ def row_sharded_path(dev, card, bound, tables):
     print(f"[perf] row_sharded R={R}: host build {t_build:.3f} s, shard build {t_shard_build:.3f} s, check "
           f"{t_check:.4f} s = {R / t_check:.4e} constraint-evals/s (the row-chunked semi check at "
           f"{R // n_chk} rows a chunk {t_semi:.4f} s), on {card}")
+    for k, table in row_shard_kernels("row_sharded", sat, z, bound).items():
+        tables[k].append(table)
+    del sat, z
+    torch.cuda.empty_cache()
+    return counts
+
+
+def row_shard_kernels(label, sat, z, bound) -> dict:
+    """The kernels of RowShardedSatisfier.check_local at its first shard's
+    shapes, on the operands it gives them: mul_digits on A's gathered raw
+    z and coefficients (a few columns against Python ints too),
+    reduce_digits on the digit sums of A's rows (two entries a row) and
+    mul on the shard's A·z and B·z. {kernel: its table}."""
     local, _origin = sat._shards[0]
     e = local["a"]
     zv = _gather_rows(z, e["cols"]).t().contiguous()
@@ -1933,22 +1994,306 @@ def row_sharded_path(dev, card, bound, tables):
     for i in (0, 1, 2, n - 1):
         v = col_int(zv, i) * col_int(cv, i) % SCALAR.p
         assert [int(x) for x in to_u32(got[:, i]).tolist()] == [(v >> (8 * j)) & 0xFF for j in range(32)]
-    tables["mul_digits"].append(compare(
-        f"mul_digits row_sharded A raw z N={n}", lambda: fk.mul_digits(zv, cv, SCALAR),
-        lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2))
+    out = {"mul_digits": compare(
+        f"mul_digits {label} A raw z N={n}", lambda: fk.mul_digits(zv, cv, SCALAR),
+        lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2)}
     dsum = got.reshape(32, -1, 2).sum(2, dtype=torch.int32)
     n = dsum.shape[1]
-    tables["reduce_digits"].append(compare(
-        f"reduce_digits row_sharded A digit sums N={n}", lambda: fk.reduce_digits(dsum, SCALAR),
-        lambda: fk.reduce_digits_plain(dsum, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2))
+    out["reduce_digits"] = compare(
+        f"reduce_digits {label} A digit sums N={n}", lambda: fk.reduce_digits(dsum, SCALAR),
+        lambda: fk.reduce_digits_plain(dsum, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2)
     az, bz = (sat._matvec_local(m, z, local) for m in "ab")  # the operands check_local gives mul
     n = az.shape[1]
-    tables["mul"].append(compare(f"mul row_sharded A·z by B·z N={n}", lambda: fk.mul(az, bz, SCALAR),
-                                 lambda: fk.mul_plain(az, bz, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS),
-                                 plain_reps=2))
-    del zv, cv, got, dsum, az, bz, sat, z
+    out["mul"] = compare(f"mul {label} A·z by B·z N={n}", lambda: fk.mul(az, bz, SCALAR),
+                         lambda: fk.mul_plain(az, bz, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS), plain_reps=2)
+    del zv, cv, got, dsum, az, bz
     torch.cuda.empty_cache()
-    return counts
+    return out
+
+
+# --- the sharded steps and checkers on torch.distributed ---------------------------
+def corrupt_free_xor(tape):
+    """The tape with its first xor of two free bits computing `and`, and
+    the two bits' positions among the free inputs: that xor's row fails
+    at every instance where either bit is 1, and holds where both are 0."""
+    _ni, _na, ops, free = tape.snapshot()
+    pos = {s: k for k, s in enumerate(free)}
+    of_free = lambda op: all(a in pos for a in op.args)  # noqa: E731
+    op = next(op for op in ops if op.opcode == "xor" and of_free(op))
+    return corrupted(tape, "xor", "first", into="and", where=of_free), [pos[a] for a in op.args]
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(to_numpy_u32(t).tobytes()).hexdigest()
+
+
+def shard_inputs():
+    """The sharding phase's global inputs, made from seeds: the packed
+    step's free words [SHARD_PACKED_B/32, 512] and the bits step's free
+    bits [SHARD_BITS_B, 512], each clean and with the corrupted xor's two
+    free bits zeroed in the first half of the batch (so its first failing
+    instance lies in the second half, the last rank's), and the limbs
+    check's free bits [SHARD_LIMBS_B, 512]."""
+    rng = np.random.default_rng(SEED + 21)
+    _t, tape = sha256_template()
+    _bad, (i, j) = corrupt_free_xor(tape)
+    inp = {"packed": rng.integers(0, 1 << 32, size=(SHARD_PACKED_B // 32, 512), dtype=np.uint64).astype(np.uint32),
+           "bits": rng.integers(0, 2, size=(SHARD_BITS_B, 512)).astype(np.uint32),
+           "limbs": rng.integers(0, 2, size=(SHARD_LIMBS_B, 512)).astype(np.uint32)}
+    for key in ("packed", "bits"):
+        bad = inp[key].copy()
+        bad[: bad.shape[0] // 2, [i, j]] = 0
+        inp[key + "_bad"] = bad
+    return inp
+
+
+def row_shard_witness(dev):
+    """Config 5's generator at 2^ROW_SHARDED_LOG2_R rows, its witness
+    completed on `dev`, and the (slot, row) of two flips: z[5, 0], first
+    read in the first half of the rows, and the product slot of the row
+    3R/4 + 1, read by that row alone (C's identity), in the second half."""
+    r1cs, zfree, N0, _ = c5.config5_r1cs(ROW_SHARDED_LOG2_R)
+    R = r1cs.num_constraints
+    semi, prep = build_row_chunked_check(r1cs, max(1, R >> c5.LOG2_RPC_CHECK), device=dev)
+    prod_fn, prep_ab = build_row_chunked_product(r1cs, R >> c5.LOG2_RPC_WIT, reuse=(semi._layout_meta, prep),
+                                                 device=dev)
+    z = c5.config5_z(zfree, R, dev)
+    z[N0 + 1 :] = prod_fn(z, prep_ab)
+    late = 3 * R // 4 + 1
+    return r1cs, z, ((c5.FLIP_SLOT, c5.flipped_first_row(r1cs, c5.FLIP_SLOT)), (N0 + 1 + late, late))
+
+
+def flipped(z: torch.Tensor, slot: int) -> torch.Tensor:
+    zb = z.clone()
+    zb[slot, 0] ^= 1
+    return zb
+
+
+def shard_run(fn):
+    """fn() once with every launch count reset just before and read just
+    after: (its result, the counts, host seconds ending in a synchronize)."""
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fk.launch_counts(), time.time() - t0
+
+
+def both_verdicts(name: str, mask: torch.Tensor):
+    """A compare's plain 0/1 verdict mask must hold both verdicts, so that
+    agreeing with it shows the kernel flags violations and passes the
+    rest."""
+    n_bad = int((mask != 0).sum())
+    assert 0 < n_bad < mask.numel(), f"{name}: the plain mask holds one verdict only ({n_bad} of {mask.numel()})"
+
+
+def bits_check_kernels(label, packed, words, bound, seed, slice_words=None) -> dict:
+    """The kernels of a PackedBitsCheck on its words int32[S, Bw], the
+    operands the check gives them with the odd words random (so both
+    verdicts occur, which the plain masks show): bitplane_eq at its plane
+    table, bits_matvec_semi at its big row's buckets and mulcmp on those
+    buckets' A·z, B·z and C·z. {kernel: its table}."""
+    S_w, Bw = words.shape
+    words = words.clone()
+    words[:, 1::2] = from_numpy_u32(np.random.default_rng(seed).integers(
+        0, 1 << 32, size=(S_w, Bw // 2), dtype=np.uint64).astype(np.uint32), words.device)
+    spec = packed.pow2_spec
+    n, m_a, m_c = spec["a_cols"].shape[0], spec["a_cols"].shape[2], spec["c_cols"].shape[2]
+    both_verdicts(f"bitplane_eq {label}", fk.bitplane_eq_plain(
+        words, packed.plane_idx, n, fk.padded_positions(spec["n_pos"]), m_a, m_c))
+    out = {"bitplane_eq": bitplane_at(label, words, spec, packed.plane_idx, bound),
+           "bits_matvec_semi": semi_buckets(label, words, packed.big, bound, library=False, slice_words=slice_words)}
+    a, b, c = (packed.big._matvec(n, words) for n in "abc")
+    out["mulcmp"] = mulcmp_on(label, a, b, c, bound)
+    return out
+
+
+def sharding_rank(dev, inp: dict, max_mhz: float) -> dict:
+    """One rank of a sharding run (the group is the world; spawned by
+    tools/dryrun_multichip.RankJob): the dry run's checks, then the
+    packed step at SHARD_PACKED_B and the bits step at SHARD_BITS_B
+    (clean and with the corrupted xor), the limbs ShardedSatisfier at
+    SHARD_LIMBS_B (clean and with a flipped limb) and RowShardedSatisfier
+    at 2^ROW_SHARDED_LOG2_R rows (clean and two flips), each once warm
+    with its launches counted; then, one rank after the other, each
+    kernel of those paths at this rank's shapes on this rank's operands.
+    Returns the verdicts, the witness shards' digests, the launches, the
+    times and the kernel tables."""
+    group = default_group()
+    W, rank = dist.get_world_size(group), dist.get_rank(group)
+    label = f"sharded {dist.get_backend(group)} W={W} rank {rank}"
+    cuda_lib.load_kernels()  # built by the parent: a rank only loads it
+    bound = Bound(max_mhz)
+    out = {"rank": rank, "device": str(dev), "dryrun": dryrun_rank(dev), "verdict": {}, "digest": {},
+           "launches": {}, "s": {}}
+    template, tape = sha256_template()
+    tape_bad, _ = corrupt_free_xor(tape)
+    prog, prog_bad = WitnessProgram(tape), WitnessProgram(tape_bad)
+
+    def record(path, fn):
+        fn()  # warm-up
+        res, counts, dt = shard_run(fn)
+        out["launches"][path], out["s"][path] = counts, dt
+        return res
+
+    step, shard = sharded_packed_witness_and_check(prog, template, SHARD_PACKED_B, group, dev)
+    fp = shard(inp["packed"])
+    nb, first, vals = record("packed", lambda: step(fp))
+    out["verdict"]["packed"] = (int(nb), int(first))
+    out["digest"]["packed"] = digest(vals)
+    step_bad, _ = sharded_packed_witness_and_check(prog_bad, template, SHARD_PACKED_B, group, dev)
+    out["verdict"]["packed_bad"] = tuple(int(v) for v in step_bad(shard(inp["packed_bad"]))[:2])
+    words_packed = vals.t().contiguous()
+    del step, step_bad, fp, vals
+
+    step, shard = sharded_witness_and_check(prog, template, SHARD_BITS_B, group, dev)
+    fb = shard(inp["bits"])
+    nb, z_bits = record("bits", lambda: step(fb))
+    out["verdict"]["bits"] = int(nb)
+    out["digest"]["bits"] = digest(z_bits)
+    step_bad, shard = sharded_witness_and_check(prog_bad, template, SHARD_BITS_B, group, dev)
+    out["verdict"]["bits_bad"] = int(step_bad(shard(inp["bits_bad"]))[0])
+    del step, step_bad, fb
+
+    sat = ShardedSatisfier(template, SHARD_LIMBS_B, group, "limbs", dev)
+    z3 = prog.z_template_limbs(*prog.build(dev)(from_numpy_u32(inp["limbs"], dev))).cpu()
+    zl = sat.shard_z(z3)
+    inst, slot, limb = SHARD_LIMBS_FLIP
+    z3[inst, slot, limb] ^= 1
+    zl_bad = sat.shard_z(z3)
+    del z3
+    out["verdict"]["limbs"] = record("limbs", lambda: sat._verdict(zl))
+    out["verdict"]["limbs_bad"] = (sat._verdict(zl_bad), sat.which_is_unsatisfied(zl_bad))
+    del zl_bad
+
+    r1cs, z, flips = row_shard_witness(dev)
+    rsat = RowShardedSatisfier(r1cs, device=dev, group=group)
+    assert len(rsat._shards) == 1, "a rank holds its own shard only"
+    out["verdict"]["row"] = tuple(int(v) for v in record("row", lambda: rsat._check(z)))
+    out["verdict"]["row_bad"] = [(tuple(int(v) for v in rsat._check(flipped(z, s))),
+                                  rsat.which_is_unsatisfied(flipped(z, s))) for s, _row in flips]
+
+    # the kernels at this rank's shapes, one rank at a time (each timed alone on the card)
+    tables = {k: [] for k in fk.KERNELS}
+    for r in range(W):
+        if r == rank:
+            check = build_templated_check(template, SHARD_PACKED_B // W, device=dev)
+            for k, t in bits_check_kernels(f"{label} packed", check, words_packed, bound, SEED + 22 + rank,
+                                           1024).items():
+                tables[k].append(t)
+            del check, words_packed
+            check = build_templated_check(template, SHARD_BITS_B // W, "bits", device=dev)
+            words = pack_rows(z_bits.t(), check.Bw)
+            for k, t in bits_check_kernels(f"{label} bits", check.packed, words, bound, SEED + 24 + rank).items():
+                tables[k].append(t)
+            del check, words, z_bits
+            lcheck, zt = sat._check, zl.permute(1, 2, 0).contiguous()
+            tables["limbs_matvec"].append(limbs_buckets(f"{label} limbs", zt, lcheck, bound, 128))
+            a, b, c = (lcheck._matvec_fused(n, zt) for n in "abc")
+            c[:, 1::2] = 0  # the odd columns' products no longer match where they are not 0: both verdicts occur
+            tables["mulcmp"].append(mulcmp_on(f"{label} limbs", a, b, c, bound))
+            del a, b, c, zt, zl, sat
+            for k, t in row_shard_kernels(f"{label} row", rsat, z, bound).items():
+                tables[k].append(t)
+            torch.cuda.empty_cache()
+        dist.barrier(group)
+    out["tables"] = tables
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def sharding_path(dev, card, tables, max_mhz: float):
+    """The sharded steps and checkers at full width, run twice: on one
+    rank over NCCL, and on two ranks over gloo that share the one card
+    (the rank logic, not scaling). Each run's verdicts, (n_bad, first) of
+    every flip and witness shards (their digests, in rank order) equal
+    single-rank execution, which this process runs first (the
+    single-device step, check and checker on the same inputs); each run's
+    launches are counted on every rank; its kernel compares join the
+    tables. Returns {path: launches summed over the ranks}."""
+    inp = shard_inputs()
+    template, tape = sha256_template()
+    R = template.num_constraints
+    tape_bad, _ = corrupt_free_xor(tape)
+    prog, prog_bad = WitnessProgram(tape), WitnessProgram(tape_bad)
+    want, slices = {}, {}
+    fp = from_numpy_u32(inp["packed"], dev)
+    for key, pg in (("packed", prog), ("packed_bad", prog_bad)):
+        f = from_numpy_u32(inp[key], dev)
+        want[key] = tuple(int(v) for v in build_packed_production_step(pg, template, SHARD_PACKED_B, dev)(f[None]))
+    vals = prog.build_packed(dev)(fp)
+    slices["packed"] = {W: [digest(v) for v in vals.chunk(W)] for W, _ in SHARD_RUNS}
+    del fp, vals
+    for key, pg in (("bits", prog), ("bits_bad", prog_bad)):
+        f = from_numpy_u32(inp[key], dev)
+        want[key] = int(build_production_step(pg, template, SHARD_BITS_B, dev)(f[None])[0])
+    z_bits = prog.build(dev)(from_numpy_u32(inp["bits"], dev))[0]
+    slices["bits"] = {W: [digest(v) for v in z_bits.chunk(W)] for W, _ in SHARD_RUNS}
+    del z_bits
+    sat = TemplatedSatisfier(template, SHARD_LIMBS_B, device=dev)
+    z3 = prog.z_template_limbs(*prog.build(dev)(from_numpy_u32(inp["limbs"], dev)))
+    want["limbs"] = tuple(int(v) for v in sat.check.verdict(z3))
+    inst, slot, limb = SHARD_LIMBS_FLIP
+    z3[inst, slot, limb] ^= 1
+    want["limbs_bad"] = (tuple(int(v) for v in sat.check.verdict(z3)), sat.which_is_unsatisfied(z3))
+    del sat, z3
+    r1cs, z, flips = row_shard_witness(dev)
+    one = RowShardedSatisfier(r1cs, device=dev)
+    want["row"] = tuple(int(v) for v in one._check(z))
+    want["row_bad"] = [(tuple(int(v) for v in one._check(flipped(z, s))), one.which_is_unsatisfied(flipped(z, s)))
+                       for s, _row in flips]
+    del one, z
+    torch.cuda.empty_cache()
+    assert want["packed"] == want["limbs"] == want["row"] == (0, 0xFFFFFFFF) and want["bits"] == 0, want
+    assert want["packed_bad"][0] > 0 and want["packed_bad"][1] // R >= SHARD_PACKED_B // 2, want["packed_bad"]
+    assert want["bits_bad"] > 0, want["bits_bad"]
+    assert want["limbs_bad"][0][0] > 0 and want["limbs_bad"][0][1] // R == inst, want["limbs_bad"]
+    assert [v[0][1] for v in want["row_bad"]] == [row for _s, row in flips], want["row_bad"]
+    print(f"[shard] single-rank references on one card: {want}")
+    print(f"[shard] NCCL across cards not run: torch.cuda.device_count() is {torch.cuda.device_count()}")
+
+    launches = {}
+    for W, backend in SHARD_RUNS:
+        where = f"{backend}, {W} rank{'s' if W > 1 else ''} on {torch.cuda.device_count()} card"
+        t0 = time.time()
+        results = RankJob(sharding_rank, W, inp, max_mhz, backend=backend, device=DEVICE).join(timeout=600)
+        wall = time.time() - t0
+        for r, res in enumerate(results):
+            assert res["rank"] == r and res["device"] == f"cuda:{r % torch.cuda.device_count()}", (r, res["device"])
+            assert res["verdict"] == want, (where, r, res["verdict"], want)
+            d = res["dryrun"]
+            assert (d["world"], d["backend"], d["packed"]) == (W, backend, (0, 0xFFFFFFFF)), d
+        dry = results[0]["dryrun"]
+        assert all(res["dryrun"]["which"] == dry["which"] for res in results)
+        print(f"[shard] dryrun_multichip ({where}): unpacked step at {W}, packed step at {512 * W}, each "
+              f"shard word-equal to single-rank execution; the {dry['big_rows']}-row row-sharded check clean and "
+              f"its flips located as on one rank: {dry['which']}")
+        for path in ("packed", "bits"):
+            assert [res["digest"][path] for res in results] == slices[path][W], (where, path)
+        expect = {"packed": {"bitplane_eq": 1, "bits_matvec_semi": 3, "mulcmp": 1},
+                  "bits": {"bitplane_eq": 1, "bits_matvec_semi": 3, "mulcmp": 1},
+                  "limbs": {"limbs_matvec": 17, "mulcmp": 1},
+                  "row": {"mul_digits": 3, "reduce_digits": 3, "mul": 1}}
+        for path, counts in expect.items():
+            for res in results:
+                assert res["launches"][path] == {**dict.fromkeys(fk.KERNELS, 0), **counts}, (where, path, res["launches"])
+            launches[f"sharded {path} {backend} W={W}"] = {
+                k: sum(res["launches"][path][k] for res in results) for k in fk.KERNELS}
+        for res in results:
+            for k, ts in res["tables"].items():
+                tables[k].extend(ts)
+        secs = {path: max(res["s"][path] for res in results) for path in expect}
+        note = "" if W == 1 else " (two ranks sharing one card: the rank logic, not scaling)"
+        print(f"[perf] sharded ({where}){note}: packed step {SHARD_PACKED_B} instances {secs['packed']:.4f} s = "
+              f"{SHARD_PACKED_B * R / secs['packed']:.4e} constraint-evals/s, bits step {SHARD_BITS_B} "
+              f"{secs['bits']:.4f} s, limbs ShardedSatisfier {SHARD_LIMBS_B} {secs['limbs']:.4f} s, "
+              f"RowShardedSatisfier 2^{ROW_SHARDED_LOG2_R} rows {secs['row']:.4f} s (the slowest rank's each); "
+              f"peak {max(res['peak_gib'] for res in results):.2f} GiB a rank; {wall:.1f} s for the run with "
+              f"its processes' start, on {card}")
+        print(f"[shard] {where}: every verdict, flip and witness shard equal to single-rank execution; "
+              f"launches {[res['launches'] for res in results]}")
+    return launches
 
 
 def main() -> int:
@@ -2014,6 +2359,8 @@ def main() -> int:
     launches["config5"] = config5_path(dev, card, bound, tables)
     torch.cuda.empty_cache()
     launches["row_sharded"] = row_sharded_path(dev, card, bound, tables)
+    torch.cuda.empty_cache()
+    launches.update(sharding_path(dev, card, tables, max_mhz))
 
     kernels = []
     for k in fk.KERNELS:

@@ -40,6 +40,7 @@ from bellpepper_tpu_torch import (
 )
 from bellpepper_tpu_torch.backend import matvec as mv
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_numpy_u32
+from bellpepper_tpu_torch.compile.tape import SnapshotTape
 
 RNG = np.random.default_rng(0x5EED_000B)
 SENT = 0xFFFFFFFF
@@ -184,22 +185,13 @@ def test_no_majority_fallback_matches_reference():
     assert tuple(int(x) for x in bits.verdict(from_numpy_u32(z))) == _ref_verdict(want)
 
 
-class _Tape:
-    def __init__(self, field, snap):
-        self.field = field
-        self._snap = snap
-
-    def snapshot(self):
-        return self._snap
-
-
 def _corrupted(tape):
     """The tape with its last xor computing and."""
     ni, na, ops, free = tape.snapshot()
     i = max(k for k, op in enumerate(ops) if op.opcode == "xor")
     ops = list(ops)
     ops[i] = RefOp("and", ops[i].outs, ops[i].args)
-    return _Tape(tape.field, (ni, na, ops, free))
+    return SnapshotTape(tape.field, (ni, na, ops, free))
 
 
 @pytest.mark.parametrize("corrupt", [False, True], ids=["clean", "corrupted"])

@@ -15,7 +15,8 @@ CUDA graph a block, equal to an eager loop of the same evaluator, cached
 for each batch; the Merkle step and the num family's mixed block equal
 the CPU. mul and mul_digits hold on operands in [p, 2^256) (config 5's
 raw witness values), and config 5's check at 2^16 rows gives the CPU's
-verdicts on both routes and in RowShardedSatisfier."""
+verdicts on both routes and in RowShardedSatisfier. The dry run of the
+sharded steps and checkers passes on one rank of an NCCL group."""
 
 import random
 
@@ -39,8 +40,10 @@ from bellpepper_tpu_torch import (
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
+from bellpepper_tpu_torch.compile.tape import SnapshotTape
 from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
 from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z, flipped_first_row
+from bellpepper_tpu_torch.tools.dryrun_multichip import dryrun_multichip
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 
 RNG = np.random.default_rng(0x5EED_0006)
@@ -246,15 +249,6 @@ def test_wrappers_refuse_rather_than_fall_back(cuda):
         op_rate.op_rate(x, "u32_mul", 4)
 
 
-class _Tape:
-    def __init__(self, field, snap):
-        self.field = field
-        self._snap = snap
-
-    def snapshot(self):
-        return self._snap
-
-
 @pytest.mark.cuda
 def test_step_on_card_matches_cpu(cuda):
     nb = NativeBuilder()
@@ -266,7 +260,7 @@ def test_step_on_card_matches_cpu(cuda):
     bad_ops = list(ops)
     bad_ops[i] = type(ops[i])("ch", ops[i].outs, ops[i].args)
     words = RNG.integers(0, 1 << 32, size=(2, 16, 512), dtype=np.uint64).astype(np.uint32)
-    for t in (tape, _Tape(tape.field, (ni, na, bad_ops, free))):
+    for t in (tape, SnapshotTape(tape.field, (ni, na, bad_ops, free))):
         prog = WitnessProgram(t)
         want = build_packed_production_step(prog, template, 512, device="cpu")(from_numpy_u32(words))
         got = build_packed_production_step(prog, template, 512, device=cuda)(
@@ -405,7 +399,7 @@ def test_field_step_on_card_matches_cpu(cuda, nonzero):
     bad_ops = list(ops)
     bad_ops[i] = type(ops[i])("fmul", ops[i].outs, ops[i].args)
     bits = RNG.integers(0, 2, size=(2, 512, 128)).astype(np.uint32)
-    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+    for t, corrupt in ((tape, False), (SnapshotTape(tape.field, (ni, na, bad_ops, free)), True)):
         prog = WitnessProgram(t)
         want = build_production_step(prog, template, 512, device="cpu")(from_numpy_u32(bits))
         fk.reset_launch_counts()
@@ -505,7 +499,7 @@ def test_limbs_step_on_card_matches_cpu(cuda):
     bad_ops = list(ops)
     bad_ops[i] = type(ops[i])("fmul", ops[i].outs, ops[i].args)
     bits = RNG.integers(0, 2, size=(2, 256, 128)).astype(np.uint32)
-    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+    for t, corrupt in ((tape, False), (SnapshotTape(tape.field, (ni, na, bad_ops, free)), True)):
         prog = WitnessProgram(t)
         want = build_production_step(prog, template, 256, "cpu", witness_form="limbs")(from_numpy_u32(bits))
         fk.reset_launch_counts()
@@ -576,7 +570,7 @@ def test_packed_mixed_step_on_card_matches_cpu(cuda):
     args = list(ops[i].args)
     bad_ops[i] = type(ops[i])("pack", ops[i].outs, [args[1], args[0]] + args[2:])
     fw = RNG.integers(0, 1 << 32, size=(2, 16, 128), dtype=np.uint64).astype(np.uint32)
-    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+    for t, corrupt in ((tape, False), (SnapshotTape(tape.field, (ni, na, bad_ops, free)), True)):
         prog = WitnessProgram(t)
         want = build_packed_production_step(prog, template, 512, device="cpu")(from_numpy_u32(fw))
         fk.reset_launch_counts()
@@ -609,7 +603,7 @@ def test_free_field_step_on_card_matches_cpu(cuda, form):
     B = 256
     bits = from_numpy_u32(RNG.integers(0, 2, size=(2, B, 34)).astype(np.uint32))  # x, y, then 32 bits
     ff = torch.stack([_canonical(SCALAR, 2 * B, 7 + k, "cpu").t().reshape(2, B, 16) for k in range(2)], dim=2)
-    for t, corrupt in ((tape, False), (_Tape(tape.field, (ni, na, bad_ops, free)), True)):
+    for t, corrupt in ((tape, False), (SnapshotTape(tape.field, (ni, na, bad_ops, free)), True)):
         prog = WitnessProgram(t)
         assert len(prog.free_field_slots) == 2
         want = build_production_step(prog, template, B, "cpu", witness_form=form)(bits, ff)
@@ -741,3 +735,13 @@ def test_config5_check_on_card_matches_cpu(cuda, use_pallas):
     assert got == tuple(int(v) for v in cpu_check(z.cpu(), cpu_prep))
     assert got == tuple(int(v) for v in RowShardedSatisfier(r1cs, device=cuda)._check(z))
     assert got[0] > 0 and got[1] == flipped_first_row(r1cs, 5)
+
+
+@pytest.mark.cuda
+def test_sharded_paths_one_rank_on_nccl(cuda):
+    """The dry run on one rank of an NCCL group on the card: the sharded
+    unpacked and packed steps' shards equal single-rank execution, and the
+    row-sharded check locates its flips as on one rank."""
+    (res,) = dryrun_multichip(1, backend="nccl")
+    assert (res["backend"], res["device"], res["packed"]) == ("nccl", "cuda:0", (0, 0xFFFFFFFF)), res
+    assert res["which"] == ["constraint #699", "constraint #53403"], res["which"]

@@ -6,7 +6,9 @@ bits form, the mixed packed step and the packed step), and the chained
 and Merkle steps and a num gadget, and config 5's row-chunked check and
 product and the row-sharded checker, pulls in no `jax` and nothing of the
 JAX package, and the native library builds from the port's own C++
-source. Without a card, an entry point called without a device raises."""
+source; nor does importing the sharding, multihost and dry-run modules
+and running the dry run on one CPU rank. Without a card, an entry point
+called without a device raises."""
 
 import os
 import subprocess
@@ -53,6 +55,9 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.backend.satisfier
         import bellpepper_tpu_torch.backend.row_chunked
         import bellpepper_tpu_torch.backend.row_sharded
+        import bellpepper_tpu_torch.backend.sharding
+        import bellpepper_tpu_torch.utils.multihost
+        import bellpepper_tpu_torch.tools.dryrun_multichip
         import bellpepper_tpu_torch.backend.field_backend
         import bellpepper_tpu_torch.backend.field_consts
         import bellpepper_tpu_torch.backend.words
@@ -192,6 +197,35 @@ def test_chained_merkle_and_num_gadgets_without_jax():
         template, tape = nb.finish()
         free = torch.randint(0, 2, (1, 4, 40), dtype=torch.int32)
         assert [int(v) for v in build_production_step(WitnessProgram(tape), template, 4, "cpu")(free)] == [0, 0xFFFFFFFF]
+
+        bad = sorted(
+            m for m in sys.modules
+            if m in ("jax", "bellpepper_tpu") or m.startswith(("jax.", "jaxlib", "bellpepper_tpu."))
+        )
+        assert not bad, bad
+        print("ok")
+        """
+    )
+
+
+def test_sharding_and_dryrun_without_jax():
+    """The sharded steps and checkers, the multihost glue and the dry run
+    (one rank, a gloo group on the CPU, spawned by the tool's launcher)
+    run without JAX; tests/test_torch_sharding.py,
+    tests/test_torch_multihost.py and tests/test_torch_sharded_limbs.py
+    check their ranks the same way."""
+    _run_without_jax(
+        """
+        import os
+        import sys
+        from bellpepper_tpu_torch import initialize_multihost
+        from bellpepper_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+        assert initialize_multihost() is False
+        os.environ["OMP_NUM_THREADS"] = "1"  # the rank's threads, beside the suite's other workers
+        (res,) = dryrun_multichip(1, device="cpu")
+        assert (res["backend"], res["device"], res["packed"]) == ("gloo", "cpu", (0, 0xFFFFFFFF)), res
+        assert res["which"] == ["constraint #699", "constraint #53403"], res["which"]
 
         bad = sorted(
             m for m in sys.modules

@@ -22,20 +22,12 @@ from bellpepper_tpu_torch import (
 )
 from bellpepper_tpu_torch.compile.pipeline import _aggregate
 from bellpepper_tpu_torch.backend.words import from_numpy_u32
+from bellpepper_tpu_torch.compile.tape import SnapshotTape
 import test_packed
 
 RNG = np.random.default_rng(0x5EED_0005)
 B, N_CHUNKS = 512, 2
 SENT = 0xFFFFFFFF
-
-
-class _Tape:
-    def __init__(self, field, snap):
-        self.field = field
-        self._snap = snap
-
-    def snapshot(self):
-        return self._snap
 
 
 def _corrupted(tape, opcode="xor", into="and"):
@@ -44,7 +36,7 @@ def _corrupted(tape, opcode="xor", into="and"):
     i = max(k for k, op in enumerate(ops) if op.opcode == opcode)
     ops = list(ops)
     ops[i] = Op(into, ops[i].outs, ops[i].args)
-    return _Tape(tape.field, (ni, na, ops, free))
+    return SnapshotTape(tape.field, (ni, na, ops, free))
 
 
 def _free(prog):

@@ -14,6 +14,7 @@ from bellpepper_tpu.compile.witness_program import WitnessProgram as RefProgram
 from bellpepper_tpu.native import NativeBuilder as RefBuilder
 from bellpepper_tpu_torch import NativeBuilder, WitnessProgram
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
+from bellpepper_tpu_torch.compile.tape import SnapshotTape
 import test_packed
 
 RNG = np.random.default_rng(0x5EED_0002)
@@ -257,15 +258,6 @@ def test_packed_words_match_reference_sha256(sha_ref, sha_port):
     assert (got == want).all()
 
 
-class _Tape:
-    def __init__(self, field, snap):
-        self.field = field
-        self._snap = snap
-
-    def snapshot(self):
-        return self._snap
-
-
 def test_num_iszero_words_match_reference():
     """num_iszero (a PACKED_OPS opcode no gadget emits without a field
     companion) on a hand-built tape: small-coefficient LCs over bit slots
@@ -283,8 +275,8 @@ def test_num_iszero_words_match_reference():
         RefOp("ch", [18], [(V_VAR, 17, 0), (V_VAR, 11, 1), (0, 1, 0)]),
     ]
     snap = (1, 18, ops, free)
-    ref = RefProgram(_Tape(SCALAR, snap))
-    prog = WitnessProgram(_Tape(SCALAR, snap))
+    ref = RefProgram(SnapshotTape(SCALAR, snap))
+    prog = WitnessProgram(SnapshotTape(SCALAR, snap))
     _assert_same_stages(prog, ref)
     words = RNG.integers(0, 1 << 32, size=(4, n_free), dtype=np.uint64).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(words)))
@@ -300,7 +292,7 @@ def test_field_opcodes_are_refused():
     from bellpepper_tpu.fields import SCALAR
 
     snap = (1, 3, [RefOp("fmul", [3], [1, 2])], [1, 2])
-    prog = WitnessProgram(_Tape(SCALAR, snap))
+    prog = WitnessProgram(SnapshotTape(SCALAR, snap))
     assert [st.opcode for st in prog.stages] == ["fmul"] and not prog.is_packable
     assert not prog.is_packable_mixed
     with pytest.raises(NotImplementedError):
@@ -309,7 +301,7 @@ def test_field_opcodes_are_refused():
         prog.build_packed_mixed("cpu")
     views = [(V_VAR, 1 + k, k % 3 == 0) for k in range(20)] + [(0, 1, 0), (V_VAR, 21, 0)]
     snap = (1, 22, [RefOp("xor", [21], [1, 2]), RefOp("pack", [22], views)], list(range(1, 21)))
-    prog, ref = WitnessProgram(_Tape(SCALAR, snap)), RefProgram(_Tape(SCALAR, snap))
+    prog, ref = WitnessProgram(SnapshotTape(SCALAR, snap)), RefProgram(SnapshotTape(SCALAR, snap))
     assert (prog.is_packable, prog.is_packable_mixed) == (ref.is_packable, ref.is_packable_mixed) == (False, True)
     words = RNG.integers(0, 1 << 32, size=(3, 20), dtype=np.uint64).astype(np.uint32)
     want = ref.build_packed_mixed()(jnp.asarray(words))
