@@ -4,10 +4,22 @@ The JAX package ``bellpepper_tpu`` stays the reference. This package
 imports ``torch`` and never ``jax``, and nothing of the JAX package: it
 carries its own host layer (the fields, the R1CS data types, the native
 builder with its C++ source, the tape types, the stage compile, the row
-classifiers and the field constants). Its functions read templates and
-tapes by their fields alone, so the JAX package's ``R1CS`` objects and
-``TapeCS`` tapes work too. Circuits are synthesized through
-``NativeBuilder``.
+classifiers and the field constants) and its own copy of the Python
+circuit frontend, with the reference's names and signatures:
+``LinearCombination``, ``ConstraintSystem`` and ``Circuit``; the
+``util_cs`` systems (``TestConstraintSystem``, ``WitnessCS``,
+``MetricCS``, ``BenchCS``); ``r1cs.ShapeCS`` and ``compile.TapeCS``; and
+the gadgets (``gadgets.boolean``, ``num``, ``boolean_utils``, ``multieq``,
+``uint32``, ``multipack``, ``lookup``, ``sha256``, ``blake2s``).
+
+A circuit is written the bellpepper way, against a ``ConstraintSystem``,
+and synthesized once into ``ShapeCS`` (its R1CS template) and once into
+``TapeCS`` (its witness tape) for the steps below; or it is synthesized
+with values into ``TestConstraintSystem`` and checked on the card through
+``R1CS.from_test_cs`` and ``Satisfier``. ``NativeBuilder`` builds the same
+templates and tapes of the fixed gadget set from C++. The port's functions
+read templates and tapes by their fields alone, so the JAX package's
+``R1CS`` objects and ``TapeCS`` tapes work too.
 
 Every entry point runs on the CUDA card unless it is given another
 device (``device="cpu"`` runs the plain PyTorch versions of the kernels).
@@ -67,6 +79,13 @@ Ported paths:
 The kernels are CUDA C++ (``csrc/``)."""
 
 from .backend.matvec import build_templated_check
+from .constraint_system import (
+    BELLPEPPER_TPU_VERSION,
+    Circuit,
+    ConstraintSystem,
+    Namespace,
+    SynthesisError,
+)
 from .backend.row_chunked import build_row_chunked_check, build_row_chunked_eval, build_row_chunked_product
 from .backend.row_sharded import RowShardedSatisfier
 from .backend.satisfier import Satisfier, TemplatedSatisfier, which_from_flat
@@ -93,13 +112,37 @@ from .compile.pipeline import (
 )
 from .compile.witness_program import WitnessProgram
 from .fields import FIELDS, PALLAS_SCALAR, SCALAR, VESTA_SCALAR, PrimeField
+from .lc import Index, LinearCombination, Variable
 from .native import NativeBuilder
 from .r1cs import R1CS, COOMatrix
+from .util_cs import (
+    BenchCS,
+    Comparable,
+    Constraint,
+    Delta,
+    MetricCS,
+    SizedWitness,
+    TestConstraintSystem,
+    WitnessCS,
+)
 from .utils.multihost import global_group, initialize_multihost, make_global_batch, multihost_verdict_step
 
+__version__ = BELLPEPPER_TPU_VERSION
+
 __all__ = [
+    "BELLPEPPER_TPU_VERSION",
+    "BenchCS",
     "COOMatrix",
+    "Circuit",
+    "Comparable",
+    "Constraint",
+    "ConstraintSystem",
+    "Delta",
     "FIELDS",
+    "Index",
+    "LinearCombination",
+    "MetricCS",
+    "Namespace",
     "NativeBuilder",
     "PALLAS_SCALAR",
     "PipelinedSatisfier",
@@ -109,15 +152,20 @@ __all__ = [
     "SCALAR",
     "Satisfier",
     "ShardedSatisfier",
+    "SizedWitness",
+    "SynthesisError",
     "TemplatedSatisfier",
+    "TestConstraintSystem",
     "VESTA_SCALAR",
+    "Variable",
+    "WitnessCS",
     "WitnessProgram",
     "build_chained_production_step",
     "build_chained_witness",
     "build_chunked_check",
     "build_chunked_witness",
-    "build_packed_chunked_witness",
     "build_merkle_tree_step",
+    "build_packed_chunked_witness",
     "build_packed_production_step",
     "build_production_step",
     "build_row_chunked_check",

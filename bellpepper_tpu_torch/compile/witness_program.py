@@ -222,8 +222,9 @@ def _detect_linear_chain(run):
 
 class WitnessProgram:
     """A compiled witness tape: any object with ``.field`` and
-    ``.snapshot()`` → (num_inputs, num_aux, ops, free_slots), such as the
-    native builder's tape or the JAX package's TapeCS."""
+    ``.snapshot()`` → (num_inputs, num_aux, ops, free_slots), such as a
+    ``tape.TapeCS`` that recorded a circuit of the port's gadgets, or the
+    native builder's tape."""
 
     def __init__(self, tape):
         self.field = tape.field

@@ -59,6 +59,23 @@ Phases (one line each, or a few):
     kernels at each path's own tables (bitplane_eq's generic instantiation
     at configs 2 and 3, bits_matvec_semi at blake2s's 46-row buckets,
     mulcmp at its N);
+  * the Python circuit frontend: the flagship (one sha256 compression
+    over 512 allocated bits) and configs 1-3 written with the port's
+    gadgets as benchmarks/configs_1_2_3.py writes them, recorded into
+    ShapeCS and TapeCS (host seconds of each beside NativeBuilder's build
+    of the same circuit); each template equal to NativeBuilder's array for
+    array and each program's free slots and stages equal to its program's;
+    the flagship on the packed step at 4 × 32,768 and configs 2 and 3 (3
+    in the mixed packed layout) there too, config 1 at 4 × 8,192 on the
+    mixed step: clean verdicts, launches, chunk 0 equal to NativeBuilder's
+    program's, planted corruptions found at their instance, time and rate
+    (their kernel tables are NativeBuilder's, compared above); then the
+    Satisfier loop: the full sha256 of 64 bytes in TestConstraintSystem
+    (45,386 rows, digest equal to hashlib's) → R1CS.from_test_cs →
+    Satisfier on the card, satisfied, its launches and seconds, mul_digits,
+    reduce_digits and mul at its own tables, and after cs.set of a bit
+    (flipped, then a random field element in another) the card's
+    which_is_unsatisfied equal to TestConstraintSystem's;
   * sha256 in the generic bits form (build_production_step's default for
     a pure-bit program) at 4 × 1,024, then 2,048 and 4,096 while the
     extrapolated peak stays under 40 GiB: verdicts, launches, chunk 0's
@@ -175,6 +192,7 @@ from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import get_backend
 from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
+from bellpepper_tpu_torch.backend.limbs import LimbsCheck
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
 from bellpepper_tpu_torch.backend.row_chunked import _chunk, _ell_digit_sums, _gather_rows
 from bellpepper_tpu_torch.backend.sharding import (
@@ -185,8 +203,15 @@ from bellpepper_tpu_torch.backend.sharding import (
 )
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_numpy_u32, to_u32
 from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, _carry_extractor
-from bellpepper_tpu_torch.compile.tape import corrupted
+from bellpepper_tpu_torch.compile.tape import TapeCS, corrupted
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
+from bellpepper_tpu_torch.gadgets.boolean import AllocatedBit, Boolean
+from bellpepper_tpu_torch.gadgets.multieq import MultiEq
+from bellpepper_tpu_torch.gadgets.multipack import pack_bits as gpack_bits
+from bellpepper_tpu_torch.gadgets.sha256 import get_sha256_iv, sha256 as gsha256, sha256_compression_function
+from bellpepper_tpu_torch.gadgets.uint32 import UInt32
+from bellpepper_tpu_torch.r1cs import R1CS, ShapeCS
+from bellpepper_tpu_torch.util_cs import TestConstraintSystem
 from bellpepper_tpu_torch.tools import config5 as c5
 from bellpepper_tpu_torch.tools.dryrun_multichip import RankJob, dryrun_rank, sha256_template
 
@@ -707,7 +732,11 @@ def sha256_path(dev, card):
     return template, prog
 
 
-def sha256_step(dev, card, template, prog):
+def sha256_step(dev, card, template, prog, name="sha256", same_as=None):
+    """The packed sha256 step at N_CHUNKS × B: the clean verdict and its
+    launches, chunk 0 equal to the CPU evaluator on 16 words (and, with
+    `same_as`, to that program's words on the card), a flipped bit found
+    at its instance; its time, rate and peak."""
     R = template.num_constraints
     Bw = B // 32
     rng = np.random.default_rng(SEED)
@@ -715,10 +744,10 @@ def sha256_step(dev, card, template, prog):
     free = from_numpy_u32(free_np, dev)
     t0 = time.time()
     step = build_packed_production_step(prog, template, B, device=dev)
-    print(f"[step] sha256 built in {time.time() - t0:.2f} s")
+    print(f"[step] {name} built in {time.time() - t0:.2f} s")
     step(free)  # warm-up
     verdict, launches = path_run(step, free)
-    print(f"[step] sha256 verdict {verdict} launches {launches}")
+    print(f"[step] {name} verdict {verdict} launches {launches}")
     assert verdict == (0, 0xFFFFFFFF), verdict
     assert all(launches[k] > 0 for k in ("bitplane_eq", "bits_matvec_semi", "mulcmp")), launches
 
@@ -726,17 +755,20 @@ def sha256_step(dev, card, template, prog):
     vals0 = gen(free)[0]
     cpu_words = prog.build_packed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
     assert torch.equal(vals0[:16].cpu(), cpu_words), "chunk 0 words differ from the CPU evaluator"
+    if same_as is not None:
+        assert torch.equal(vals0, same_as.build_packed(dev)(free[0])), f"{name} chunk 0 differs from the other program"
     check = build_templated_check(template, B, device=dev)
     assert tuple(int(v) for v in check.verdict(vals0)) == (0, 0xFFFFFFFF)
     vbad = vals0.clone()
     vbad[Bw // 2, 600] ^= 1 << 7
     nbad, fbad = (int(v) for v in check.verdict(vbad))
     assert nbad > 0 and fbad // R == 32 * (Bw // 2) + 7, (nbad, fbad)
-    print(f"[probe] sha256 chunk-0 words match the CPU evaluator; corruption at "
+    same = " and, all of it, NativeBuilder's program's" if same_as is not None else ""
+    print(f"[probe] {name} chunk-0 words match the CPU evaluator{same}; corruption at "
           f"vp[{Bw // 2}, 600] bit 7 found: n_bad {nbad}, instance {fbad // R}")
     del vals0, vbad, gen, check
 
-    perf_step("sha256", step, free, B, R, card, 5)
+    perf_step(name, step, free, B, R, card, 5)
     return launches
 
 
@@ -1258,14 +1290,15 @@ def bit_synth():
     return built
 
 
-def packed_bit_step(dev, card, bound, name, template, prog, seed, tables):
+def packed_bit_step(dev, card, bound, name, template, prog, seed, tables, same_as=None):
     """Config 2, config 3 (the mixed packed layout) or blake2s on
     build_packed_production_step at N_CHUNKS × B with random free words:
     the clean verdict and the path's launches; chunk 0 equal to the CPU
-    evaluator on 16 words; planted corruptions found at their instance and
-    at the row the CPU check names for that word's 32 instances alone; the
-    kernels at the path's own tables (on chunk 0's words with random odd
-    words, so both verdicts occur); the step's time, rate and peak."""
+    evaluator on 16 words (and, with `same_as`, to that program's words on
+    the card); planted corruptions found at their instance and at the row
+    the CPU check names for that word's 32 instances alone; with `tables`,
+    the kernels at the path's own tables (on chunk 0's words with random
+    odd words, so both verdicts occur); the step's time, rate and peak."""
     R = template.num_constraints
     Bw = B // 32
     mixed = not prog.is_packable
@@ -1291,6 +1324,10 @@ def packed_bit_step(dev, card, bound, name, template, prog, seed, tables):
         vals0, fl0 = prog.build_packed(dev)(free[0]), None
         cpu_vals = prog.build_packed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
     assert torch.equal(vals0[:16].cpu(), cpu_vals), f"{name} chunk-0 words differ from the CPU evaluator"
+    if same_as is not None:
+        other = same_as.build_packed_mixed(dev)(free[0]) if mixed else (same_as.build_packed(dev)(free[0]), None)
+        assert torch.equal(vals0, other[0]) and (fl0 is None or torch.equal(fl0, other[1])), \
+            f"{name} chunk 0 differs from the other program"
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
 
     def probe(what, word, bit, slot=None, limb=None):
@@ -1316,21 +1353,24 @@ def packed_bit_step(dev, card, bound, name, template, prog, seed, tables):
         row = probe("a flipped bit (limb 1, bit 4) of the pack output", Bw // 3, 11, limb=(1, 4))
         assert row == int(check.pf_rows[0]), row  # the multipack row
         probe(f"a flipped addend bit (free slot {prog.free_slots[40]})", 5, 30, slot=prog.free_slots[40])
-    print(f"[probe] {name} chunk-0 words match the CPU evaluator on 16 words"
+    same = " and, all of it, NativeBuilder's program's" if same_as is not None else ""
+    print(f"[probe] {name} chunk-0 words match the CPU evaluator on 16 words{same}"
           f"{' (limbs too)' if mixed else ''}; the chunk's verdict is clean")
 
-    vals_p = vals0.t().contiguous()
-    rng = np.random.default_rng(seed + 1)
-    vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
-                                                  dtype=np.uint64).astype(np.uint32), dev)
-    inner = check.inner if mixed else check
-    if inner.pow2_spec is not None:
-        tables["bitplane_eq"].append(bitplane_at(name, vals_p, inner.pow2_spec, inner.plane_idx, bound))
-    if inner.big is not None:
-        tables["bits_matvec_semi"].append(semi_buckets(name, vals_p, inner.big, bound, library=False,
-                                                       slice_words=256))
-        tables["mulcmp"].append(mulcmp_at(f"{name} packed", inner.big.Rtp * B, dev, bound))
-    del vals0, fl0, vals_p, check, cpu_check
+    if tables is not None:
+        vals_p = vals0.t().contiguous()
+        rng = np.random.default_rng(seed + 1)
+        vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
+                                                      dtype=np.uint64).astype(np.uint32), dev)
+        inner = check.inner if mixed else check
+        if inner.pow2_spec is not None:
+            tables["bitplane_eq"].append(bitplane_at(name, vals_p, inner.pow2_spec, inner.plane_idx, bound))
+        if inner.big is not None:
+            tables["bits_matvec_semi"].append(semi_buckets(name, vals_p, inner.big, bound, library=False,
+                                                           slice_words=256))
+            tables["mulcmp"].append(mulcmp_at(f"{name} packed", inner.big.Rtp * B, dev, bound))
+        del vals_p
+    del vals0, fl0, check, cpu_check
     torch.cuda.empty_cache()
     perf_step(name, step, free, B, R, card, 5)
     return counts
@@ -2296,6 +2336,264 @@ def sharding_path(dev, card, tables, max_mhz: float):
     return launches
 
 
+# --- the Python circuit frontend ---------------------------------------------
+# The flagship and configs 1-3 written with the port's gadgets, as
+# tests/test_native_synthesis.py:75-91 and benchmarks/configs_1_2_3.py:88-113,
+# 172-186, 222-236 write them, recorded into ShapeCS (the template) and
+# TapeCS (the tape); then the Satisfier loop on a TestConstraintSystem.
+def fe_sha256(cs):
+    """One sha256 compression over 512 allocated bits."""
+    bits = [Boolean.from_bit(AllocatedBit.alloc(cs, None)) for _ in range(512)]
+    sha256_compression_function(cs, bits, get_sha256_iv())
+
+
+def fe_config1(cs):
+    """Config 1: 128 allocated bits, two packs, (mul, add, square) × 30."""
+    bs = [Boolean.from_bit(AllocatedBit.alloc(cs.namespace(f"b{i}"), None)) for i in range(128)]
+    a = gpack_bits(cs.namespace("pa"), bs[:64])
+    b = gpack_bits(cs.namespace("pb"), bs[64:])
+    x = a
+    for i in range(30):
+        x = x.mul(cs.namespace(f"m{i}"), b)
+        x = x.add(cs.namespace(f"a{i}"), a)
+        x = x.square(cs.namespace(f"s{i}"))
+
+
+def fe_config2(cs):
+    """Config 2: 8 allocated u32 words, 7 × (xor with rotr(5i), addmany
+    with shr(3)) under one MultiEq."""
+    ops = [UInt32.alloc(cs.namespace(f"op {i}"), None) for i in range(8)]
+    with MultiEq(cs) as mcs:
+        x = ops[0]
+        for i in range(1, 8):
+            x = x.xor(mcs.namespace(f"x{i}"), ops[i].rotr(5 * i))
+            x = UInt32.addmany(mcs.namespace(f"s{i}"), [x, ops[i - 1].shr(3)])
+
+
+def fe_config3(cs):
+    """Config 3: 4 allocated u32 words, 3 addmany under one MultiEq, the
+    sum's bits packed into one field element."""
+    words = [UInt32.alloc(cs.namespace(f"w{i}"), None) for i in range(4)]
+    with MultiEq(cs) as mcs:
+        acc = words[0]
+        for i in range(1, 4):
+            acc = UInt32.addmany(mcs.namespace(f"add {i}"), [acc, words[i]])
+    gpack_bits(cs.namespace("pack"), acc.into_bits())
+
+
+def native_sha256():
+    nb = NativeBuilder()
+    nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    template, tape = nb.finish()
+    return template, WitnessProgram(tape)
+
+
+def native_prog(built):
+    template, tape = built
+    return template, WitnessProgram(tape)
+
+
+# name, frontend circuit, NativeBuilder build of the same circuit, (rows, slots)
+FRONTEND = (("sha256", fe_sha256, native_sha256, (26352, 26327)),
+            ("config1", fe_config1, lambda: config1(False), (220, 221)),
+            ("config2", fe_config2, lambda: native_prog(config2_circuit()), (712, 712)),
+            ("config3", fe_config3, lambda: native_prog(config3_circuit()), (229, 229)))
+FE_SHA256_ROWS = 512 + 44874  # the full sha256 of one 512-bit message (tests/test_sha256.py:57-67)
+
+
+def assert_r1cs_equal(got, want):
+    """Rows, cols and coefficient values through each table
+    (tests/test_native_synthesis.py:23-35)."""
+    assert (got.num_inputs, got.num_aux, got.num_constraints) == \
+        (want.num_inputs, want.num_aux, want.num_constraints)
+    for m in "abc":
+        x, y = getattr(got, m), getattr(want, m)
+        assert np.array_equal(x.rows, y.rows) and np.array_equal(x.cols, y.cols), m
+        assert [got.coeff_table[i] for i in x.coeff_ids] == [want.coeff_table[i] for i in y.coeff_ids], m
+
+
+def frontend_synth():
+    """Each frontend circuit into ShapeCS and TapeCS, timed beside the
+    NativeBuilder build of the same circuit: rows and slots, the template
+    equal to NativeBuilder's array for array, the program's free slots
+    and stages equal to its program's. {name: ((template, prog), (native
+    template, native prog))}."""
+    built = {}
+    for name, circuit, native, want in FRONTEND:
+        t0 = time.time()
+        shape = ShapeCS()
+        circuit(shape)
+        template = shape.finish()
+        t1 = time.time()
+        tape = TapeCS()
+        circuit(tape)
+        t2 = time.time()
+        prog = WitnessProgram(tape)
+        t3 = time.time()
+        n_template, n_prog = native()
+        t4 = time.time()
+        got = (template.num_constraints, prog.num_slots)
+        assert got == want, (name, got)
+        assert_r1cs_equal(template, n_template)
+        assert prog.free_slots == n_prog.free_slots, f"{name}: free slots differ from NativeBuilder's"
+        assert [st.opcode for st in prog.stages] == [st.opcode for st in n_prog.stages], name
+        print(f"[synth] frontend {name}: {got[0]} rows, {got[1]} slots, {len(prog.free_slots)} free; host seconds "
+              f"ShapeCS {t1 - t0:.3f}, TapeCS {t2 - t1:.3f}, WitnessProgram {t3 - t2:.3f} (NativeBuilder with its "
+              f"program {t4 - t3:.3f}); template, free slots and stages equal to NativeBuilder's")
+        built[name] = ((template, prog), (n_template, n_prog))
+    return built
+
+
+def frontend_config1_step(dev, card, template, prog, native):
+    """Config 1 from the frontend on build_production_step at N_CHUNKS ×
+    B_FIELD (the mixed form): the clean verdict, chain and mulcmp launched,
+    chunk 0 equal to NativeBuilder's program's on the card, a flipped bit
+    of a chain row found at its instance; the step's time, rate and peak."""
+    R = template.num_constraints
+    free = from_numpy_u32(np.random.default_rng(5).integers(0, 2, size=(N_CHUNKS, B_FIELD, 128)).astype(np.uint32),
+                          dev)
+    step = build_production_step(prog, template, B_FIELD, device=dev)
+    step(free)  # warm-up
+    verdict, counts = path_run(step, free)
+    print(f"[step] frontend config1 verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF) and counts["chain"] == counts["mulcmp"] == N_CHUNKS, (verdict, counts)
+    vals0, fl0 = prog.build(dev)(free[0])
+    n_vals, n_fl = native.build(dev)(free[0])
+    assert torch.equal(vals0, n_vals) and torch.equal(fl0, n_fl), "frontend config1 chunk 0 differs from NativeBuilder's"
+    check = build_templated_check(template, B_FIELD, "mixed", field_slots=prog.field_slots, device=dev)
+    assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
+    row = int(_detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])["out_rows"][45])
+    inst = B_FIELD // 3
+    fbad = fl0.clone()
+    fbad[inst, row, 0] ^= 1
+    nbad, first = (int(v) for v in check.verdict(vals0, fbad))
+    assert nbad > 0 and first // R == inst, (nbad, first)
+    print(f"[probe] frontend config1 chunk 0 equals NativeBuilder's program's (vals and flimbs); a flipped bit of "
+          f"field row {row} at instance {inst} found: n_bad {nbad}, instance {first // R}")
+    del vals0, fl0, n_vals, n_fl, fbad, check
+    perf_step("frontend config1", step, free, B_FIELD, R, card, 5)
+    return counts
+
+
+def limbs_check_kernels(label, check, z, bound) -> dict:
+    """The kernels of a non-fused LimbsCheck at batch 1 (a Satisfier's
+    route) at its own tables, on the operands its mask gives them:
+    mul_digits on each matrix's gathered z and coefficients, reduce_digits
+    on each matrix's bucket row sums, mul on A·z and B·z. {kernel:
+    [tables]}."""
+    zl = z[:, :, None].permute(1, 2, 0)  # [16, 1, S_t], the check's limb-major view
+    out = {"mul_digits": [], "reduce_digits": [], "mul": []}
+    for name in "abc":
+        cols, coeffs, buckets = check.mats[name]
+        n = cols.shape[0]
+        zv = zl.index_select(2, cols).reshape(16, n).contiguous()
+        cv = coeffs.contiguous()
+        out["mul_digits"].append(compare(
+            f"mul_digits {label} {name} entries N={n}", lambda: fk.mul_digits(zv, cv, SCALAR),
+            lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2))
+        dig = fk.mul_digits(zv, cv, SCALAR)
+        sums = torch.cat([dig[:, s : s + nr * k].reshape(32, nr, k).sum(-1, dtype=torch.int32)
+                          for k, s, nr in buckets], dim=1).contiguous()
+        m = sums.shape[1]
+        assert m == check.Rtp, (m, check.Rtp)
+        out["reduce_digits"].append(compare(
+            f"reduce_digits {label} {name} row sums N={m}", lambda: fk.reduce_digits(sums, SCALAR),
+            lambda: fk.reduce_digits_plain(sums, SCALAR), bound((32 + 16) * 4 * m, m * REDUCE_MULS), plain_reps=2))
+        del zv, cv, dig, sums
+    az, bz = (check._matvec(m, zl) for m in "ab")
+    n = az.shape[1]
+    out["mul"].append(compare(f"mul {label} A·z by B·z N={n}", lambda: fk.mul(az, bz, SCALAR),
+                              lambda: fk.mul_plain(az, bz, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS), plain_reps=2))
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_satisfier(dev, card, bound, tables):
+    """The Satisfier loop as users debug a circuit: the full sha256 of a
+    512-bit message synthesized with values into TestConstraintSystem
+    (512 + 44,874 rows), its digest equal to hashlib's; R1CS.from_test_cs
+    → Satisfier on the card, satisfied on cs's inputs and aux (its
+    launches and seconds); its kernels at its own tables; then one named
+    aux value set with cs.set (a flipped bit, then a random field element
+    in another bit), each time the card's which_is_unsatisfied equal to
+    TestConstraintSystem's."""
+    p = SCALAR.p
+    data = np.random.default_rng(SEED + 12).integers(0, 256, 64, dtype=np.uint8).tobytes()
+    t0 = time.time()
+    cs = TestConstraintSystem()
+    bits = [Boolean.from_bit(AllocatedBit.alloc(cs.namespace(f"input bit {i}"), bool((data[i // 8] >> (7 - i % 8)) & 1)))
+            for i in range(512)]
+    out = gsha256(cs.namespace("sha256"), bits)
+    t_cs = time.time() - t0
+    digest = bytes(sum(int(out[8 * i + j].get_value()) << (7 - j) for j in range(8)) for i in range(32))
+    assert cs.num_constraints() == FE_SHA256_ROWS and digest == hashlib.sha256(data).digest(), cs.num_constraints()
+    t0 = time.time()
+    r1cs = R1CS.from_test_cs(cs)
+    t_r1cs = time.time() - t0
+    t0 = time.time()
+    sat = Satisfier(r1cs, device=dev)
+    t_build = time.time() - t0
+    assert isinstance(sat._check, LimbsCheck) and not sat._check.fused  # the limbs route at batch 1
+    print(f"[synth] frontend sha256 of 64 bytes in TestConstraintSystem: {r1cs.num_constraints} rows, "
+          f"{r1cs.num_aux} aux, digest equal to hashlib's; host seconds TestConstraintSystem {t_cs:.3f}, "
+          f"from_test_cs {t_r1cs:.3f}, Satisfier build {t_build:.3f}")
+    z = sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux())
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    ok = sat.is_satisfied(z)
+    counts = fk.launch_counts()
+    print(f"[step] frontend satisfier is_satisfied {ok} launches {counts}")
+    assert ok and (counts["mul_digits"], counts["reduce_digits"], counts["mul"]) == (3, 3, 1), counts
+    assert not any(counts[k] for k in ("limbs_matvec", "mulcmp", "bitplane_eq", "bits_matvec_semi", "chain")), counts
+    t_chk = wall_s(lambda: sat.is_satisfied(z), 5)
+    for k, ts in limbs_check_kernels("frontend sha256 Satisfier", sat._check, z, bound).items():
+        tables[k].extend(ts)
+    bit_paths = [n for n in cs.aux() if n.startswith("sha256/") and n.endswith("/boolean")]
+    rnd = random.Random(SEED + 12)
+    for what, path, value in (("a flipped bit", bit_paths[len(bit_paths) // 2], None),
+                              ("a random field element", bit_paths[rnd.randrange(len(bit_paths))], rnd.randrange(p))):
+        old = cs.get(path)
+        cs.set(path, 1 - old if value is None else value)
+        name = sat.which_is_unsatisfied(sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux()))
+        want = cs.which_is_unsatisfied()
+        assert want is not None and name == want, (path, name, want)
+        print(f"[probe] frontend satisfier: {what} at {path!r}; the card names {name!r}, as TestConstraintSystem does")
+        cs.set(path, old)
+    print(f"[perf] frontend satisfier check {t_chk:.4f} s for {r1cs.num_constraints} rows, on {card}")
+    return counts
+
+
+def frontend_path(dev, card, bound, tables):
+    """The frontend phase: the templates and tapes of the flagship and
+    configs 1-3 from the port's gadgets (equal to NativeBuilder's), the
+    flagship at N_CHUNKS × B on the packed step, config 1 at N_CHUNKS ×
+    B_FIELD on the mixed step, configs 2 and 3 at N_CHUNKS × B on the
+    packed step (config 3 mixed packed), and the Satisfier loop. The
+    flagship's and configs' kernel tables are NativeBuilder's, compared
+    above (the templates are asserted equal); the Satisfier's are compared
+    here. {path: launches}."""
+    t0 = time.time()
+    built = frontend_synth()
+    launches = {}
+    (template, prog), (_, n_prog) = built["sha256"]
+    launches["frontend_sha256"] = sha256_step(dev, card, template, prog, "frontend sha256", same_as=n_prog)
+    torch.cuda.empty_cache()
+    (template, prog), (_, n_prog) = built["config1"]
+    launches["frontend_config1"] = frontend_config1_step(dev, card, template, prog, n_prog)
+    torch.cuda.empty_cache()
+    for name, seed in (("config2", CONFIG2_SEED), ("config3", CONFIG3_SEED)):
+        (template, prog), (_, n_prog) = built[name]
+        assert (prog.is_packable, prog.is_packable_mixed) == ((True, True) if name == "config2" else (False, True))
+        launches[f"frontend_{name}"] = packed_bit_step(dev, card, bound, f"frontend {name}", template, prog, seed,
+                                                       None, same_as=n_prog)
+        assert launches[f"frontend_{name}"]["bitplane_eq"] == N_CHUNKS, launches[f"frontend_{name}"]
+        torch.cuda.empty_cache()
+    launches["frontend_satisfier"] = frontend_satisfier(dev, card, bound, tables)
+    torch.cuda.empty_cache()
+    print(f"[frontend] phase done in {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing runs on the CPU", file=sys.stderr)
@@ -2347,6 +2645,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     assert launches["config2"]["bitplane_eq"] == launches["config3"]["bitplane_eq"] == N_CHUNKS
     assert (launches["blake2s"]["bits_matvec_semi"], launches["blake2s"]["mulcmp"]) == (4 * N_CHUNKS, N_CHUNKS)
+    launches.update(frontend_path(dev, card, bound, tables))
     launches["sha256_bits"] = sha256_bits_step(dev, card, bound, template, prog, tables)
     torch.cuda.empty_cache()
     chain_built, iv_bits = chain_synth()

@@ -16,7 +16,10 @@ for each batch; the Merkle step and the num family's mixed block equal
 the CPU. mul and mul_digits hold on operands in [p, 2^256) (config 5's
 raw witness values), and config 5's check at 2^16 rows gives the CPU's
 verdicts on both routes and in RowShardedSatisfier. The dry run of the
-sharded steps and checkers passes on one rank of an NCCL group."""
+sharded steps and checkers passes on one rank of an NCCL group. Circuits
+of the Python frontend (ShapeCS, TapeCS, TestConstraintSystem) give the
+CPU's verdicts on the card, and the card's Satisfier names what
+TestConstraintSystem names."""
 
 import random
 
@@ -40,11 +43,16 @@ from bellpepper_tpu_torch import (
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
-from bellpepper_tpu_torch.compile.tape import SnapshotTape
+from bellpepper_tpu_torch.compile.tape import SnapshotTape, TapeCS, corrupted
 from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
 from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z, flipped_first_row
 from bellpepper_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+from bellpepper_tpu_torch import R1CS, TestConstraintSystem
+from bellpepper_tpu_torch.gadgets.multieq import MultiEq
+from bellpepper_tpu_torch.gadgets.uint32 import UInt32
+from bellpepper_tpu_torch.r1cs import ShapeCS
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
+from chip_smoke import fe_config2, fe_sha256  # the card script's frontend circuits
 
 RNG = np.random.default_rng(0x5EED_0006)
 
@@ -745,3 +753,44 @@ def test_sharded_paths_one_rank_on_nccl(cuda):
     (res,) = dryrun_multichip(1, backend="nccl")
     assert (res["backend"], res["device"], res["packed"]) == ("nccl", "cuda:0", (0, 0xFFFFFFFF)), res
     assert res["which"] == ["constraint #699", "constraint #53403"], res["which"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sha256", "config2"])
+def test_frontend_circuits_on_card_match_cpu(cuda, name):
+    """The sha256 compression and config 2 through the port's ShapeCS and
+    TapeCS (chip_smoke.py's circuits): the packed step at 2 × 512 on the
+    card gives the CPU's verdicts, clean and with one xor of the tape
+    computing `and`, and its kernels are launched; config 2 with values in
+    TestConstraintSystem → R1CS.from_test_cs → Satisfier on the card names
+    what TestConstraintSystem names after a cs.set."""
+    circuit = {"sha256": fe_sha256, "config2": fe_config2}[name]
+    shape, tape = ShapeCS(), TapeCS()
+    circuit(shape)
+    circuit(tape)
+    template = shape.finish()
+    words = RNG.integers(0, 1 << 32, size=(2, 16, len(WitnessProgram(tape).free_slots)),
+                         dtype=np.uint64).astype(np.uint32)
+    for t in (tape, corrupted(tape, "xor", pick="first")):
+        prog = WitnessProgram(t)
+        want = build_packed_production_step(prog, template, 512, device="cpu")(from_numpy_u32(words))
+        fk.reset_launch_counts()
+        got = build_packed_production_step(prog, template, 512, device=cuda)(from_numpy_u32(words, cuda))
+        assert tuple(int(v) for v in got) == tuple(int(v) for v in want)
+        assert fk.launch_counts()["bitplane_eq"] == 2
+    assert int(want[0]) > 0
+    if name == "config2":
+        cs = TestConstraintSystem()
+        ops = [UInt32.alloc(cs.namespace(f"op {i}"), int(RNG.integers(0, 1 << 32))) for i in range(8)]
+        with MultiEq(cs) as mcs:
+            x = ops[0]
+            for i in range(1, 8):
+                x = x.xor(mcs.namespace(f"x{i}"), ops[i].rotr(5 * i))
+                x = UInt32.addmany(mcs.namespace(f"s{i}"), [x, ops[i - 1].shr(3)])
+        sat = Satisfier(R1CS.from_test_cs(cs), device=cuda)
+        assert sat.is_satisfied(sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux()))
+        cs.set("s5/result bit 9/boolean", 1 - cs.get("s5/result bit 9/boolean"))
+        fk.reset_launch_counts()
+        named = sat.which_is_unsatisfied(sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux()))
+        assert named == cs.which_is_unsatisfied() is not None
+        assert fk.launch_counts()["mul_digits"] == 3

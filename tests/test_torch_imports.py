@@ -3,10 +3,12 @@ and its modules (and chip_smoke.py), building and running the sha256 and
 config-1 templates on the CPU (the packed, mixed and limbs steps, the
 chunked check and both satisfiers), configs 2 and 3 and blake2s (the
 bits form, the mixed packed step and the packed step), and the chained
-and Merkle steps and a num gadget, and config 5's row-chunked check and
-product and the row-sharded checker, pulls in no `jax` and nothing of the
-JAX package, and the native library builds from the port's own C++
-source; nor does importing the sharding, multihost and dry-run modules
+and Merkle steps and a num gadget, config 5's row-chunked check and
+product and the row-sharded checker, and the Python circuit frontend
+(every module, and config 2 through ShapeCS, TapeCS and
+TestConstraintSystem into its packed step and Satisfier), pulls in no
+`jax` and nothing of the JAX package, and the native library builds
+from the port's own C++ source; nor does importing the sharding, multihost and dry-run modules
 and running the dry run on one CPU rank. Without a card, an entry point
 called without a device raises."""
 
@@ -149,6 +151,54 @@ def test_port_never_imports_jax():
         assert [int(v) for v in check(z, prep)] == [0, 0xFFFFFFFF]
         z[5, 0] ^= 1
         assert RowShardedSatisfier(r1cs, 2, device="cpu").which_is_unsatisfied(z) is not None
+
+        # the Python circuit frontend: every module, then config 2
+        # (benchmarks/configs_1_2_3.py's circuit) through ShapeCS, TapeCS
+        # and TestConstraintSystem, its packed step and its Satisfier
+        import bellpepper_tpu_torch.lc
+        import bellpepper_tpu_torch.constraint_system
+        import bellpepper_tpu_torch.util_cs
+        import bellpepper_tpu_torch.util_cs.test_cs
+        import bellpepper_tpu_torch.util_cs.witness_cs
+        import bellpepper_tpu_torch.util_cs.metric_cs
+        import bellpepper_tpu_torch.util_cs.bench_cs
+        import bellpepper_tpu_torch.gadgets
+        import bellpepper_tpu_torch.gadgets.boolean
+        import bellpepper_tpu_torch.gadgets.num
+        import bellpepper_tpu_torch.gadgets.boolean_utils
+        import bellpepper_tpu_torch.gadgets.multieq
+        import bellpepper_tpu_torch.gadgets.uint32
+        import bellpepper_tpu_torch.gadgets.multipack
+        import bellpepper_tpu_torch.gadgets.lookup
+        import bellpepper_tpu_torch.gadgets.sha256
+        import bellpepper_tpu_torch.gadgets.blake2s
+        from bellpepper_tpu_torch import R1CS, TestConstraintSystem
+        from bellpepper_tpu_torch.compile import TapeCS
+        from bellpepper_tpu_torch.gadgets.multieq import MultiEq
+        from bellpepper_tpu_torch.gadgets.uint32 import UInt32
+        from bellpepper_tpu_torch.r1cs import ShapeCS
+
+        def config2(cs, words):
+            ops = [UInt32.alloc(cs.namespace(f"op {i}"), words[i]) for i in range(8)]
+            with MultiEq(cs) as mcs:
+                x = ops[0]
+                for i in range(1, 8):
+                    x = x.xor(mcs.namespace(f"x{i}"), ops[i].rotr(5 * i))
+                    x = UInt32.addmany(mcs.namespace(f"s{i}"), [x, ops[i - 1].shr(3)])
+
+        shape, tcs, cs = ShapeCS(), TapeCS(), TestConstraintSystem()
+        config2(shape, [None] * 8)
+        config2(tcs, [None] * 8)
+        config2(cs, [0x9E3779B9 * (i + 1) & 0xFFFFFFFF for i in range(8)])
+        template, prog = shape.finish(), WitnessProgram(tcs)
+        assert template.num_constraints == cs.num_constraints() == 712 and prog.is_packable
+        free = torch.randint(-2**31, 2**31 - 1, (2, 1, len(prog.free_slots)), dtype=torch.int32)
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        sat = Satisfier(R1CS.from_test_cs(cs), device="cpu")
+        assert cs.is_satisfied() and sat.is_satisfied(sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux()))
+        cs.set("s3/result bit 4/boolean", 1 - cs.get("s3/result bit 4/boolean"))
+        z = sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux())
+        assert sat.which_is_unsatisfied(z) == cs.which_is_unsatisfied() is not None
 
         bad = sorted(
             m for m in sys.modules
