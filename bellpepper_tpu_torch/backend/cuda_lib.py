@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "bp_chain": [_vp, _vp, _vp, _i64, _i32, _i32, _u64, _u64, _u64, _vp, _vp],
     "bp_mul16": [_vp, _vp, _vp, _i64, _vp, _vp],
     "bp_mul_digits": [_vp, _vp, _vp, _i64, _vp, _vp],
-    "bp_reduce_digits": [_vp, _vp, _i64, _vp, _vp],
+    "bp_reduce_digits": [_vp, _vp, _i64, _i32, _vp, _vp],
     "bp_op_rate": [_vp, _vp, _i32, _i64, _i32, _i32, _vp],
 }
 

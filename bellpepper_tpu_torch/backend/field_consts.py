@@ -124,19 +124,16 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
     * ``reduce``     [4·32 + MAX_SHIFTS·17 + 1]: fold rows 0..3 (8-bit
       digits), the shift-subtract moduli p·2^k (``ps``, k = n − 1 … 0)
       padded to MAX_SHIFTS rows of 17 limbs, and n = 266 − NUM_BITS, for
-      the fold matvec and reduce_digits (the semi output reads the fold
-      rows alone; for a field with more than MAX_SHIFTS steps the moduli
-      are left out, n is 0, and the canonical wrappers refuse the field);
+      the fold matvec (the semi output reads the fold rows alone; for a
+      field with more than MAX_SHIFTS steps the moduli are left out, n is
+      0, and the canonical form refuses the field);
     * ``mulcmp``     [9 + 8 + 1]: p·2^11 as 9 32-bit words, p as 8 words,
       and −p^-1 mod 2^32, for mulcmp (``bp::MulcmpConsts``);
-    * ``modmul``     [16·16 + 16·16 + 3·16 + 3·17 + 1]: fold16 and
-      fold16_hi rows 0..15, fold16b, p·2^k (k = 2, 1, 0) as 17 limbs, and
-      the quotient-estimate constant qe, for mul_digits (``None`` for a
-      field without qe);
     * ``chain``      [8 + 8·8 + 2]: p as 8 words, the fold rows
       2^(32·(8+i)) mod p (i < 8) as 8 words each, and mu = floor(2^291/p)
-      as its low and high words, for chain and mul (``bp::ChainConsts``;
-      ``None`` for a field without qe, as ``modmul``)."""
+      as its low and high words, for chain, mul, mul_digits and
+      reduce_digits (``bp::ChainConsts``; ``None`` for a field without
+      qe, a field outside 253..256 bits)."""
     out = _KERNEL_CONSTS.get(field.p)
     if out is not None:
         return out
@@ -147,20 +144,12 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
     if p >= 1 << 256:
         raise ValueError("the word kernels hold p in 8 32-bit words")
     mulcmp = _digits(p << 11, 32, 9) + _digits(p, 32, 8) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
-    modmul = chain = None
+    chain = None
     if c.qe is not None:
         chain = np.asarray(
             _digits(p, 32, 8)
             + [v for i in range(8) for v in _digits(pow(2, 32 * (8 + i), p), 32, 8)]
             + _digits(chain_mu(p), 32, 2),
-            np.uint32,
-        )
-        modmul = np.asarray(
-            [v for row in c.fold16[:L16] for v in row]
-            + [v for row in c.fold16_hi[:L16] for v in row]
-            + [v for row in c.fold16b for v in row]
-            + [v for k in (2, 1, 0) for v in _digits(field.p << k, 16, 17)]
-            + [c.qe],
             np.uint32,
         )
     ps = c.ps if len(c.ps) <= MAX_SHIFTS else []
@@ -173,7 +162,6 @@ def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
     out = _KERNEL_CONSTS[field.p] = {
         "reduce": np.asarray(reduce, np.uint32),
         "mulcmp": np.asarray(mulcmp, np.uint32),
-        "modmul": modmul,
         "chain": chain,
     }
     return out

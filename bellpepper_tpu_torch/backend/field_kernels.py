@@ -660,10 +660,12 @@ def _mul_rows(a16: List[torch.Tensor], b16: List[torch.Tensor], consts) -> List[
     return _reduce16_rows(_conv16_rows(a16, b16), consts)
 
 
-def _modmul_consts(field: PrimeField, kernel: str = "modmul"):
-    k = kernel_consts(field)[kernel]
+def _chain_consts(field: PrimeField):
+    """The word kernels' constants (``bp::ChainConsts``): chain, mul,
+    mul_digits and reduce_digits take 253..256-bit fields."""
+    k = kernel_consts(field)["chain"]
     if k is None:
-        raise ValueError(f"no modmul kernel for {field.NUM_BITS}-bit fields (needs 253..256)")
+        raise ValueError(f"no word kernel for {field.NUM_BITS}-bit fields (needs 253..256)")
     return k
 
 
@@ -716,7 +718,7 @@ def chain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeF
     code = _chain_code(descs, n_ext)
     if not _on_cuda(x0, ext):
         return chain_plain(x0, ext, descs, n_reps, field)
-    k = _modmul_consts(field, "chain")
+    k = _chain_consts(field)
     d = len(descs)
     out = torch.empty((n_reps * d * L16, N), dtype=torch.int32, device=x0.device)
     if N and n_reps:
@@ -762,7 +764,7 @@ def mul(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
     _check_words("b", b, (L16, N))
     if not _on_cuda(a, b):
         return mul_plain(a, b, field)
-    k = _modmul_consts(field, "chain")
+    k = _chain_consts(field)
     out = torch.empty((L16, N), dtype=torch.int32, device=a.device)
     if N:
         _launch("bp_mul16", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
@@ -805,7 +807,7 @@ def pow_ladder(x: torch.Tensor, bits: List[int], field: PrimeField) -> torch.Ten
         return r.clone() if r is x else r
     if not N or not by_x:
         return x.clone()
-    k = _modmul_consts(field, "chain").ctypes.data
+    k = _chain_consts(field).ctypes.data
     bufs = (torch.empty_like(x), torch.empty_like(x))
     fn, stream = load_kernels().bp_mul16, _stream(x)
     xp = src = x.data_ptr()
@@ -823,8 +825,11 @@ def pow_ladder(x: torch.Tensor, bits: List[int], field: PrimeField) -> torch.Ten
 # Kernels 3b: PallasFieldOps.mul_digits and reduce_digits
 # ---------------------------------------------------------------------------
 def mul_digits(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """Canonical a, b int32[16, N] → int32[32, N]: the 8-bit digits of the
-    canonical a·b mod p (digit 2l + h is byte h of limb l)."""
+    """a, b int32[16, N] limb-major, a < 2^256 (canonical, or a raw
+    witness value in [p, 2^256)) and b canonical → int32[32, N]: the 8-bit
+    digits of the canonical a·b mod p (digit 2l + h is byte h of limb l).
+    The card takes 253..256-bit fields (``mul``'s range) and raises for
+    others."""
     if a.dim() != 2:
         raise ValueError("a must be [16, N]")
     N = a.shape[1]
@@ -832,7 +837,7 @@ def mul_digits(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Ten
     _check_words("b", b, (L16, N))
     if not _on_cuda(a, b):
         return mul_digits_plain(a, b, field)
-    k = _modmul_consts(field)
+    k = _chain_consts(field)
     out = torch.empty((L8, N), dtype=torch.int32, device=a.device)
     if N:
         _launch("bp_mul_digits", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
@@ -850,19 +855,38 @@ def mul_digits_plain(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> tor
 mul_digits.launches = 0
 
 
+def _element_major(d: torch.Tensor) -> bool:
+    """d [32, N] is the transposed view of a contiguous [N, 32] tensor,
+    16-byte aligned: the kernel reads each element's 128 bytes as one
+    line."""
+    return d.stride() == (1, L8) and d.data_ptr() % 16 == 0
+
+
 def reduce_digits(d: torch.Tensor, field: PrimeField) -> torch.Tensor:
     """d int32[32, N] digit sums (8-bit basis, each below 2^24; the caller
-    holds that bound) → int32[16, N] canonical limbs of Σ d[j]·2^(8j) mod p."""
+    holds that bound) → int32[16, N] canonical limbs of Σ d[j]·2^(8j) mod
+    p. d may be contiguous or the transposed view of a contiguous
+    int32[N, 32] (element-major, as the row-chunked evaluator builds its
+    sums), which the kernel reads as it lies; any other layout is copied
+    to contiguous once. The card takes 253..256-bit fields (``mul``'s
+    range) and raises for others."""
     if d.dim() != 2:
         raise ValueError("d must be [32, N]")
     N = d.shape[1]
-    _check_words("d", d, (L8, N))
+    if d.dtype != torch.int32:
+        raise TypeError(f"d must be int32 words, got {d.dtype}")
+    if tuple(d.shape) != (L8, N):
+        raise ValueError(f"d must have shape {(L8, N)}, got {tuple(d.shape)}")
     if not _on_cuda(d):
         return reduce_digits_plain(d, field)
-    k = _reduce_consts(field, True)
+    k = _chain_consts(field)
+    element_major = N > 1 and _element_major(d)
+    if not element_major:
+        d = d.contiguous()
     out = torch.empty((L16, N), dtype=torch.int32, device=d.device)
     if N:
-        _launch("bp_reduce_digits", d.data_ptr(), out.data_ptr(), N, k.ctypes.data, stream=_stream(d))
+        _launch("bp_reduce_digits", d.data_ptr(), out.data_ptr(), N, int(element_major), k.ctypes.data,
+                stream=_stream(d))
         reduce_digits.launches += 1
     return out
 

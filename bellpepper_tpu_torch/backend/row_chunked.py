@@ -152,7 +152,7 @@ def _sparse_matvec_lm(be: FieldBackend, mat: DeviceMatrix, coeff_limbs, z, num_r
     digits = _split8(mul(zv, cv, be.field).t())  # [E, 32], each < 256
     rowsum = torch.zeros((num_rows, L8), dtype=torch.int32, device=z.device)
     rowsum.index_add_(0, mat.rows, digits)  # < 2^24 by _assert_row_density
-    return reduce_digits(rowsum.t().contiguous(), be.field)
+    return reduce_digits(rowsum.t(), be.field)  # element-major: the kernel reads it as it lies
 
 
 def sparse_matvec(be: FieldBackend, mat: DeviceMatrix, coeff_limbs: torch.Tensor, z: torch.Tensor,
@@ -276,7 +276,7 @@ class RowChunkedEval:
         else:
             digits = torch.zeros((self._rpc, L8), dtype=torch.int32, device=v.device)
             digits.index_add_(0, mx["lrow"], _split8(v))
-        return reduce_digits(digits.t().contiguous(), self.field)
+        return reduce_digits(digits.t(), self.field)  # element-major, read as it lies
 
     def _blocks(self, zsrc, cl, xs, nm):
         return tuple(self._block(zsrc, cl, x, n) for n, x in zip(nm, xs))

@@ -1,18 +1,18 @@
 // Shared integer helpers of the field kernels. Two families:
 //
-// * 16-bit limbs (fold_matvec, mul_digits, reduce_digits): carry passes
-//   over digit and limb rows, the semi-reduction and the canonical
-//   reduction of matvec digit sums, and the canonical modular multiply,
-//   with uint32_t wraparound exactly as the JAX package's kernels
+// * 16-bit limbs (fold_matvec): carry passes over digit rows, the
+//   semi-reduction and the canonical reduction of matvec digit sums, with
+//   uint32_t wraparound exactly as the JAX package's kernels
 //   (bellpepper_tpu/backend/field_pallas.py) compute it;
-// * 32-bit words (mulcmp, chain, mul): a field element as 8 or 9
-//   little-endian words, every product one 32×32 → 64-bit mul.wide.u32, a
-//   multiply-add of rows with carries, the Montgomery reduction and the
-//   zero-test of mulcmp, and the canonical multiply of chain and mul (a
-//   fold of the high words by 2^(32·(8+i)) mod p, then a 64-bit quotient
-//   estimate) and chain's add. These give the same canonical residues and
-//   the same verdicts as the 16-bit pipeline, not its intermediate
-//   integers.
+// * 32-bit words (mulcmp, chain, mul, mul_digits, reduce_digits): a field
+//   element as 8 or 9 little-endian words, every product one 32×32 →
+//   64-bit mul.wide.u32, a multiply-add of rows with carries, the
+//   Montgomery reduction and the zero-test of mulcmp, the canonical
+//   multiply (a fold of the high words by 2^(32·(8+i)) mod p, then the
+//   64-bit quotient-estimate tail canon_words), the canonical reduction
+//   of 8-bit-basis digit sums (the same tail), and chain's add. These give
+//   the same canonical residues and the same verdicts as the 16-bit
+//   pipeline, not its intermediate integers.
 //
 // Every helper works on one element whose rows live in registers
 // (fixed-size arrays, fully unrolled, every index static).
@@ -34,19 +34,6 @@ static __device__ __forceinline__ void carry8(const uint32_t (&in)[N_IN],
     const uint32_t tot = (i < N_IN ? in[i] : 0u) + carry;
     out[i] = tot & 0xFFu;
     carry = tot >> 8;
-  }
-}
-
-// the same over 16-bit limbs (field_pallas._carry16_rows).
-template <int N_IN, int N_OUT>
-static __device__ __forceinline__ void carry16(const uint32_t (&in)[N_IN],
-                                               uint32_t (&out)[N_OUT]) {
-  uint32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < N_OUT; ++i) {
-    const uint32_t tot = (i < N_IN ? in[i] : 0u) + carry;
-    out[i] = tot & 0xFFFFu;
-    carry = tot >> 16;
   }
 }
 
@@ -117,12 +104,13 @@ static inline ReduceConsts load_reduce_consts(const uint32_t* s) {
 }
 
 // 32 digit sums (8-bit basis, each < 2^32) → 16 canonical limbs
-// (field_pallas._reduce_rows): carry → fold → carry → fold → carry →
-// join16 → the shift-subtract chain (_chain_rows). The TPU carries to 66
-// positions and folds all 34 rows past position 31; for sums below 2^32
-// every position past 34 is zero after the first carry and past 33 after
-// the second, so folding rows 0..3 and then 0..1 adds the same (nothing
-// else), and the bits are the TPU kernel's.
+// (field_pallas._reduce_rows; fold_matvec's canonical output, while the
+// reduce_digits kernel takes reduce_digit_words): carry → fold → carry →
+// fold → carry → join16 → the shift-subtract chain (_chain_rows). The
+// TPU carries to 66 positions and folds all 34 rows past position 31; for
+// sums below 2^32 every position past 34 is zero after the first carry
+// and past 33 after the second, so folding rows 0..3 and then 0..1 adds
+// the same (nothing else), and the bits are the TPU kernel's.
 static __device__ __forceinline__ void reduce_digits(const uint32_t (&acc)[32],
                                                      const ReduceConsts& k,
                                                      uint32_t (&out)[16]) {
@@ -153,111 +141,6 @@ static __device__ __forceinline__ void reduce_digits(const uint32_t (&acc)[32],
     if (s < static_cast<int>(k.n_ps)) cond_sub<17>(x, k.ps[s]);
 #pragma unroll
   for (int i = 0; i < 16; ++i) out[i] = x[i];
-}
-
-// Constants of the canonical modular multiply, in the layout of
-// field_consts.kernel_consts(field)["modmul"]: fold rows 0..15 of the
-// 16-bit basis and their split-multiplier companions, the final fold rows
-// at 8-bit granularity, p·4, p·2 and p as 17 limbs, and the
-// quotient-estimate constant (field_pallas._Consts.qe).
-struct ModConsts {
-  uint32_t fold16[16][16];
-  uint32_t fold16_hi[16][16];
-  uint32_t fold16b[3][16];
-  uint32_t ps[3][17];
-  uint32_t qe;
-};
-
-static inline ModConsts load_mod_consts(const uint32_t* s) {
-  ModConsts k;
-  for (int r = 0; r < 16; ++r)
-    for (int l = 0; l < 16; ++l) k.fold16[r][l] = *s++;
-  for (int r = 0; r < 16; ++r)
-    for (int l = 0; l < 16; ++l) k.fold16_hi[r][l] = *s++;
-  for (int r = 0; r < 3; ++r)
-    for (int l = 0; l < 16; ++l) k.fold16b[r][l] = *s++;
-  for (int r = 0; r < 3; ++r)
-    for (int l = 0; l < 17; ++l) k.ps[r][l] = *s++;
-  k.qe = *s;
-  return k;
-}
-
-// 17-limb x < 2^266 → 16 canonical limbs (field_pallas._canon_tail_v2):
-// q̂ = floor(x15·qe / 2^28) + floor(x16·qe / 2^12) underestimates x / p by
-// at most 6, so x − q̂·p < 7p, and conditional subtracts of 4p, 2p and p
-// finish. q̂·p is carry-normalized limb by limb inside the borrow chain.
-static __device__ __forceinline__ void canon_tail(const uint32_t (&x)[17],
-                                                  const ModConsts& k,
-                                                  uint32_t (&out)[16]) {
-  const uint32_t qh = ((x[15] * k.qe) >> 28) + ((x[16] * k.qe) >> 12);
-  uint32_t r[17];
-  uint32_t carry = 0, borrow = 0;
-#pragma unroll
-  for (int i = 0; i < 17; ++i) {
-    uint32_t lo = 0, hi = 0;
-    if (i < 16) {
-      const uint32_t t = qh * k.ps[2][i];
-      lo = t & 0xFFFFu;
-      hi = t >> 16;
-    }
-    const uint32_t tot = lo + carry;
-    carry = (tot >> 16) + hi;
-    const uint32_t d = x[i] - (tot & 0xFFFFu) - borrow;
-    borrow = d >> 31;
-    r[i] = d & 0xFFFFu;
-  }
-  cond_sub<17>(r, k.ps[0]);
-  cond_sub<17>(r, k.ps[1]);
-  cond_sub<17>(r, k.ps[2]);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = r[i];
-}
-
-// Canonical a·b mod p of canonical 16-limb a, b
-// (field_pallas._reduce16_rows(_conv16_rows(a, b))): the 16×16 limb
-// convolution with each product's lo and hi halves accumulated apart
-// (32 positions < 2^21), a carry, the fold of positions 16..31 with split
-// 8-bit multipliers, a carry, the final fold at 8-bit granularity, a
-// carry, and the quotient-estimate canonicalization.
-static __device__ __forceinline__ void mul_canon(const uint32_t (&a)[16],
-                                                 const uint32_t (&b)[16],
-                                                 const ModConsts& k,
-                                                 uint32_t (&out)[16]) {
-  uint32_t acc[32];
-#pragma unroll
-  for (int p = 0; p < 32; ++p) acc[p] = 0;
-#pragma unroll
-  for (int x = 0; x < 16; ++x) {
-#pragma unroll
-    for (int y = 0; y < 16; ++y) {
-      const uint32_t t = a[x] * b[y];
-      acc[x + y] += t & 0xFFFFu;
-      acc[x + y + 1] += t >> 16;
-    }
-  }
-  uint32_t d[32];
-  carry16<32, 32>(acc, d);
-  uint32_t f[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l) f[l] = d[l];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const uint32_t m0 = d[16 + r] & 0xFFu, m1 = d[16 + r] >> 8;
-#pragma unroll
-    for (int l = 0; l < 16; ++l)
-      f[l] += m0 * k.fold16[r][l] + m1 * k.fold16_hi[r][l];
-  }
-  uint32_t d2[18];
-  carry16<16, 18>(f, d2);
-  const uint32_t m0 = d2[16] & 0xFFu, m1 = d2[16] >> 8, m2 = d2[17];
-  uint32_t fin[16];
-#pragma unroll
-  for (int l = 0; l < 16; ++l)
-    fin[l] = d2[l] + m0 * k.fold16b[0][l] + m1 * k.fold16b[1][l] +
-             m2 * k.fold16b[2][l];
-  uint32_t x17[17];
-  carry16<16, 17>(fin, x17);
-  canon_tail(x17, k, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -377,12 +260,35 @@ static inline ChainConsts load_chain_consts(const uint32_t* s) {
   return k;
 }
 
-// Canonical a·b mod p of canonical 8-word a, b, for 2^252 ≤ p < 2^256.
-// T = a·b (16 words); S = T mod 2^256 + Σ_i T[8+i]·fold[i] < 2^256 +
-// 8·2^32·p < 2^291 (10 words, the top below 8); h = floor(S/2^227) < 2^64
-// and q̂ = floor(h·mu/2^64) satisfy q − 2 ≤ q̂ ≤ q for q = floor(S/p)
-// (mu ≥ 2^291/p − 1 and 2^227/p < 2^-26), so S − q̂·p < 3p, computed
-// modulo 2^288, and two conditional subtracts of p finish. 64 + 64 + 16
+// Canonical S mod p of S < 2^291 (10 words), for 2^252 ≤ p < 2^256:
+// h = floor(S/2^227) < 2^64 and q̂ = floor(h·mu/2^64) satisfy q − 2 ≤ q̂
+// ≤ q for q = floor(S/p) (mu ≥ 2^291/p − 1 and 2^227/p < 2^-25), so
+// S − q̂·p < 3p, computed modulo 2^288, and two conditional subtracts of
+// p finish. 16 word products and one 64-bit high product.
+static __device__ __forceinline__ void canon_words(const uint32_t (&s)[10], const ChainConsts& k,
+                                                   uint32_t (&out)[8]) {
+  const uint64_t h = (static_cast<uint64_t>(s[9]) << 61) | (static_cast<uint64_t>(s[8]) << 29) | (s[7] >> 3);
+  const uint64_t q = __umul64hi(h, (static_cast<uint64_t>(k.mu_hi) << 32) | k.mu_lo);
+  uint32_t qp[9];  // q̂·p modulo 2^288
+#pragma unroll
+  for (int i = 0; i < 9; ++i) qp[i] = 0;
+  qp[8] = mac_row(qp, 0, static_cast<uint32_t>(q), k.p);
+  mac_row(qp, 1, static_cast<uint32_t>(q >> 32), k.p);
+  uint32_t s9[9], x[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) s9[i] = s[i];
+  sub_words(s9, qp, x);
+  cond_sub_p(x, k.p);
+  cond_sub_p(x, k.p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = x[i];
+}
+
+// Canonical a·b mod p of 8-word a, b < 2^256 (chain and mul take canonical
+// operands; mul and mul_digits also take a raw witness value a in
+// [p, 2^256)), for 2^252 ≤ p < 2^256. T = a·b (16 words); S = T mod
+// 2^256 + Σ_i T[8+i]·fold[i] < 2^256 + 8·2^32·p < 2^291 (10 words, the top
+// below 8), whatever a and b below 2^256; then canon_words. 64 + 64 + 16
 // word products, against the 136 a Montgomery multiply needs.
 static __device__ __forceinline__ void mulmod_words(const uint32_t (&a)[8], const uint32_t (&b)[8],
                                                     const ChainConsts& k, uint32_t (&out)[8]) {
@@ -401,21 +307,30 @@ static __device__ __forceinline__ void mulmod_words(const uint32_t (&a)[8], cons
     s[8] = static_cast<uint32_t>(u);
     s[9] += static_cast<uint32_t>(u >> 32);
   }
-  const uint64_t h = (static_cast<uint64_t>(s[9]) << 61) | (static_cast<uint64_t>(s[8]) << 29) | (s[7] >> 3);
-  const uint64_t q = __umul64hi(h, (static_cast<uint64_t>(k.mu_hi) << 32) | k.mu_lo);
-  uint32_t qp[9];  // q̂·p modulo 2^288
+  canon_words(s, k, out);
+}
+
+// Canonical V mod p of V = Σ_j d[j]·2^(8j), 32 digit sums d[j] < 2^32
+// (the 8-bit basis of the matvec row sums), for 2^252 ≤ p < 2^256. Four
+// sums make a word: w_i = d[4i] + d[4i+1]·2^8 + d[4i+2]·2^16 +
+// d[4i+3]·2^24 + the carry of w_(i−1), each below 2^57 in 64 bits, its
+// high half the next carry. V < 2^32·2^248·256/255 < 2^281, so its 9
+// words already meet canon_words' S < 2^291 and no fold is needed (V's
+// word 8 is below 2^25).
+static __device__ __forceinline__ void reduce_digit_words(const uint32_t (&d)[32], const ChainConsts& k,
+                                                          uint32_t (&out)[8]) {
+  uint32_t s[10];
+  uint64_t carry = 0;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) qp[i] = 0;
-  qp[8] = mac_row(qp, 0, static_cast<uint32_t>(q), k.p);
-  mac_row(qp, 1, static_cast<uint32_t>(q >> 32), k.p);
-  uint32_t s9[9], x[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) s9[i] = s[i];
-  sub_words(s9, qp, x);
-  cond_sub_p(x, k.p);
-  cond_sub_p(x, k.p);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = x[i];
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t w = carry + d[4 * i] + (static_cast<uint64_t>(d[4 * i + 1]) << 8) +
+                       (static_cast<uint64_t>(d[4 * i + 2]) << 16) + (static_cast<uint64_t>(d[4 * i + 3]) << 24);
+    s[i] = static_cast<uint32_t>(w);
+    carry = w >> 32;
+  }
+  s[8] = static_cast<uint32_t>(carry);
+  s[9] = 0;
+  canon_words(s, k, out);
 }
 
 // Canonical a + b mod p: a 9-word sum below 2p, one conditional subtract.

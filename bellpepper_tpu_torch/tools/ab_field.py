@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the word-arithmetic field kernels (``mulcmp``, ``chain``) and of
-``mul`` against an older tree of the port, on one CUDA card, one process
-per side: parent, change, change, parent.
+"""A/B of the word-arithmetic field kernels (``mulcmp``, ``chain``,
+``mul``, ``mul_digits``, ``reduce_digits``) against an older tree of the
+port, on one CUDA card, one process per side: parent, change, change,
+parent.
 
     python3 bellpepper_tpu_torch/tools/ab_field.py --parent DIR
 
@@ -24,16 +25,34 @@ and the kernels' own device time as torch.profiler reads it. The shapes:
     [16, 8,192], the Satisfier's [16, 426,920] and [16, 2^20];
   * ``FieldBackend.inv`` at the variant's [1, 16, 8,192] (dim 1), the
     inversion ladder of its ``finv``;
+  * ``mul_digits`` at the chain ``Satisfier``'s [16, 1,258,176] (canonical
+    operands) and the row-sharded check's [16, 2,097,152] (a raw, below
+    2^256, by canonical b);
+  * ``reduce_digits`` at config 5's product chunk [32, 131,072], the chain
+    ``Satisfier``'s [32, 426,920] and the row-sharded check's [32, 2^20]
+    on random sums below 2^24: limb-major on both sides, and from
+    element-major sums ([N, 32], as the row-chunked evaluator builds
+    them), which this tree reads as they lie and an older one, whose
+    wrapper takes only limb-major sums, copies to limb-major first (as its
+    callers did); for both kernels also the kernel's own device time with
+    L2 flushed before each call;
+  * config 5's witness completion at 2^24 rows (``tools/config5.py``; the
+    host clock around calls that end in a synchronize, the median of 7
+    rounds of 3 calls, before any profiler session and again after them
+    all, and the device work a call: every kernel's device time summed);
   * the steps that launch ``mulcmp``, ``chain`` or ``mul`` (host clock
     around calls that end in a synchronize, seconds a step): the packed
     sha256 step at 4 × 32,768, config 1's at 4 × 8,192 in the mixed and
     the limbs forms, the variant's (config 1 with num_assert_nonzero) at
     4 × 8,192, and the sha256 limbs step at 4 × 1,024.
 
-Both sides must agree on every output (a digest a shape: the count of
-mulcmp's nonzero words, the sum of chain's and mul's words, each step's
-verdict; inv's sum of words). Prints one
-``[ab]`` line a shape and, last, one JSON object with every side's
+The host's clock comes first on each side (config 5's completion, then
+the steps), before any profiler session, since one slows the process's
+later launches. Both sides must agree on every output (a digest a shape:
+the count of mulcmp's nonzero words, the sum of chain's, mul's,
+mul_digits' and reduce_digits' words, each step's verdict; inv's sum of
+words; the sum of the completed product's words). Prints one ``[ab]``
+line a shape and, last, one JSON object with every side's
 numbers; writes the same JSON to ``chiprun_out/ab_field.json``."""
 
 import argparse
@@ -54,6 +73,8 @@ MULCMP_N = {
 }
 CHAIN_N = (8192, 4096, 16384)
 MUL_N = (32, 8192, 426920, 1 << 20)
+MUL_DIGITS_N = (1258176, 2097152)  # the second with a raw a, as the row-sharded check gathers it
+REDUCE_N = (131072, 426920, 1 << 20)
 
 
 def side() -> dict:
@@ -67,12 +88,18 @@ def side() -> dict:
     from bellpepper_tpu_torch.backend.words import from_numpy_u32
 
     dev = torch.device("cuda")
-    out = {"events": {}, "device": {}, "digest": {}, "steps": {}}
+    out = {"events": {}, "device": {}, "cold": {}, "digest": {}, "steps": {}, "after_profiler": {}}
+    # the host's clock first: a torch.profiler session slows the process's later launches
+    key5, completion = config5_completion(out, dev)
+    steps(out, dev)
+    torch.cuda.empty_cache()
 
-    def shape(key, fn, digest, reps=10):
+    def shape(key, fn, digest, reps=10, kernel=None):
         out["digest"][key] = digest
         out["events"][key] = cuda_ms(torch, fn, reps)
         out["device"][key] = device_ms(torch, fn, reps)
+        if kernel is not None:  # the named kernel alone, its inputs from device memory
+            out["cold"][key] = device_ms(torch, fn, reps, kernel=kernel, cold=True)
 
     gen = torch.Generator(device=dev)
     for label, N in MULCMP_N.items():
@@ -108,9 +135,70 @@ def side() -> dict:
     digest = int(be.inv(x, 1).to(torch.int64).sum())
     shape("FieldBackend.inv [1, 16, 8192]", lambda: be.inv(x, 1), digest, reps=2)
     del x0, ext, ma, mb, x
-    torch.cuda.empty_cache()
-    steps(out, dev)
+    for N in MUL_DIGITS_N:
+        if N == MUL_DIGITS_N[-1]:
+            ma = from_numpy_u32(rng.integers(0, 1 << 16, size=(16, N), dtype=np.uint32), dev)
+        else:
+            ma = canonical(N)
+        mb = canonical(N)
+        digest = int(fk.mul_digits(ma, mb, SCALAR).to(torch.int64).sum())
+        shape(f"mul_digits [16, {N}]", lambda: fk.mul_digits(ma, mb, SCALAR), digest, reps=20,
+              kernel=("mul_kernel", "mul_digits_kernel"))  # this tree's name, the older tree's
+    del ma, mb
+    for N in REDUCE_N:
+        em = from_numpy_u32(rng.integers(0, 1 << 24, size=(N, 32), dtype=np.uint32), dev)
+        lm = em.t().contiguous()
+        digest = int(fk.reduce_digits(lm, SCALAR).to(torch.int64).sum())
+        shape(f"reduce_digits [32, {N}] limb-major", lambda: fk.reduce_digits(lm, SCALAR), digest, reps=20,
+              kernel="reduce_digits_kernel")
+        try:
+            fk.reduce_digits(em.t(), SCALAR)
+            em_call = lambda: fk.reduce_digits(em.t(), SCALAR)  # noqa: E731
+        except ValueError:  # an older tree: its callers copied to limb-major first
+            em_call = lambda: fk.reduce_digits(em.t().contiguous(), SCALAR)  # noqa: E731
+        shape(f"reduce_digits [{N}, 32] element-major sums", em_call, digest, reps=20, kernel="reduce_digits_kernel")
+    del em, lm
+    out["device"][key5] = device_ms(torch, completion, 5)
+    out["after_profiler"][key5] = median_wall(completion)
     return out
+
+
+def median_wall(run) -> float:
+    """Seconds a call of run() on the host's clock: the median of 7 rounds
+    of 3 calls and one synchronize."""
+    import time
+
+    import torch
+
+    rounds = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        rounds.append((time.time() - t0) / 3)
+    return sorted(rounds)[3]
+
+
+def config5_completion(out: dict, dev):
+    """Config 5's witness completion at 2^24 rows: its seconds a call
+    (median_wall) into out; returns its key and a call of it."""
+    import torch
+
+    from bellpepper_tpu_torch import build_row_chunked_check, build_row_chunked_product
+    from bellpepper_tpu_torch.tools import config5 as c5
+
+    r1cs, zfree, _, _ = c5.config5_r1cs(c5.LOG2_R)
+    R = r1cs.num_constraints
+    check, prep = build_row_chunked_check(r1cs, R >> c5.LOG2_RPC_CHECK, device=dev)
+    prod, pprep = build_row_chunked_product(r1cs, R >> c5.LOG2_RPC_WIT, reuse=(check._layout_meta, prep),
+                                            device=dev)
+    z = c5.config5_z(zfree, R, dev)
+    key = f"config5 witness completion R={R}"
+    out["digest"][key] = int(prod(z, pprep).to(torch.int64).sum())  # warm-up
+    out["steps"][key] = median_wall(lambda: prod(z, pprep))
+    return key, lambda: prod(z, pprep)
 
 
 def steps(out: dict, dev) -> None:
@@ -189,11 +277,20 @@ def main() -> int:
             return {label: fmt([r[group][key] for r in side_runs]) for label, side_runs in runs.items()}
         if key in runs["change"][0]["steps"]:
             st = both("steps")
-            print(f"[ab] {key}: parent {st['parent']} s, change {st['change']} s")
+            dv = f"; device parent {both('device')['parent']} ms, change {both('device')['change']} ms" if (
+                key in runs["change"][0]["device"]) else ""
+            if key in runs["change"][0]["after_profiler"]:
+                ap = both("after_profiler")
+                dv += f"; after the profiler sessions parent {ap['parent']} s, change {ap['change']} s"
+            print(f"[ab] {key}: parent {st['parent']} s, change {st['change']} s{dv}")
         else:
             ev, dv = both("events"), both("device")
+            cold = ""
+            if key in runs["change"][0]["cold"]:
+                cd = both("cold")
+                cold = f"; the kernel alone, L2 flushed: parent {cd['parent']} ms, change {cd['change']} ms"
             print(f"[ab] {key}: events parent {ev['parent']} ms, change {ev['change']} ms; "
-                  f"device parent {dv['parent']} ms, change {dv['change']} ms")
+                  f"device parent {dv['parent']} ms, change {dv['change']} ms{cold}")
     write_report("ab_field", runs)
     return 0
 

@@ -57,21 +57,38 @@ def cuda_ms(torch, fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps=REPS):
-    """Device time of fn() a call: the CUDA kernels' own time over reps
-    calls, as torch.profiler reads it (None where it reads no device
-    time); free of the host's time to launch them."""
+def device_ms(torch, fn, reps=REPS, kernel=None, cold=False):
+    """Device time of fn() as torch.profiler reads it over reps calls, free
+    of the host's time to launch (None where it reads none). Without
+    kernel: every CUDA kernel's time summed, a call (divided by reps; an
+    event the profiler drops reads low). With kernel, a name or a tuple of
+    names one of which the kernel's name holds, launched once a call: that
+    kernel's time a launch, divided by the launches the profiler recorded,
+    since it sometimes drops some. cold=True (with kernel) writes 128 MB,
+    past the card's 50 MB L2, before each call, so the kernel reads its
+    inputs from device memory as a bytes bound counts them; else they stay
+    in L2 between calls where they fit. A profiler session slows the
+    host's later launches in the same process: time the host's clock
+    first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    assert kernel is not None or not cold, "the flush's own kernel would count"
+    scratch = torch.empty(32 << 20, dtype=torch.int32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold:
+                scratch.fill_(1)
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us else None
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    found = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+             and (names is None or any(n in e.key for n in names))]
+    us = sum(e.self_device_time_total for e in found)
+    count = reps if names is None else sum(e.count for e in found)
+    return us / 1e3 / count if us else None
 
 
 def side() -> dict:

@@ -9,7 +9,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (one line each, or a few):
 
   * the card's name and power limit; the kernel build (all nvcc processes
-    at once) and ptxas's register and spill report, with mul's line apart;
+    at once) and ptxas's register and spill report, with the lines of mul,
+    mul_digits and the two reduce_digits instantiations apart;
   * native synthesis of one sha256 compression (26,352 rows, 26,327
     slots), of config 1 (pack → (mul, add, square) × 30: 220 rows, 221
     slots) and of its variant with num_assert_nonzero (221 rows, 222
@@ -24,9 +25,13 @@ Phases (one line each, or a few):
     step's larger batches right after each one runs; mul at one block
     (N = 32, its launch floor), the variant's 8,192, 2^20 and the
     Satisfier's 426,920, bit-exact also against Python ints at the corner
-    pairs; with the kernel's, the plain version's and, where one PyTorch
-    call computes the same work, that call's times, and the least time the
-    card could take (``bound``, below);
+    pairs; mul_digits (raw operands in [p, 2^256) among its corners) and
+    reduce_digits (limb-major at the Satisfier's 426,920, element-major at
+    2^20, each with the corner sums of digit_sum_corners) against Python
+    ints too (their profiler device times come last); with the kernel's,
+    the plain version's and, where one PyTorch call computes the same
+    work, that call's times, and the least time the card could take
+    (``bound``, below);
   * the op-rate probe (the counterpart of benchmarks/probe_vpu_ops.py):
     G op/s of each of its seven op classes;
   * the packed sha256 step at 4 chunks of 32,768 instances, the config-1
@@ -117,7 +122,9 @@ Phases (one line each, or a few):
     peak; exact launch counts; the completed product at 4,096 sampled
     rows against Python ints; z[5, 0] flipped reported at the row numpy
     names; mulcmp, mul (on a premul slice of the raw, non-canonical z and
-    on a product chunk) and reduce_digits at its shapes;
+    on a product chunk) and reduce_digits at its shapes (the product
+    chunk's A digit sums element-major, as the completion passes them,
+    and limb-major);
   * config 5's generator at 2^20 rows (the benchmark's default size):
     RowShardedSatisfier (limbs, one shard) on the completed witness, its
     launches and time, its verdicts equal to the row-chunked check's semi
@@ -140,7 +147,11 @@ Phases (one line each, or a few):
     the same inputs, run first in this process; each path's launches
     counted on every rank; then, one rank at a time, each kernel of those
     paths against its plain version at the rank's shapes, on the operands
-    the rank's check gives it.
+    the rank's check gives it;
+  * last, device_times: torch.profiler's device time a launch of every
+    mul_digits and reduce_digits table above, with L2 flushed and warm,
+    beside its event time (after every timed step: a profiler session
+    slows the process's later launches).
 
 ``bound``: the larger of the bytes a kernel's function must move (each
 input read once, each output written once: for the kernels that read the
@@ -213,6 +224,7 @@ from bellpepper_tpu_torch.gadgets.uint32 import UInt32
 from bellpepper_tpu_torch.r1cs import R1CS, ShapeCS
 from bellpepper_tpu_torch.util_cs import TestConstraintSystem
 from bellpepper_tpu_torch.tools import config5 as c5
+from bellpepper_tpu_torch.tools.ab_gather import device_ms
 from bellpepper_tpu_torch.tools.dryrun_multichip import RankJob, dryrun_rank, sha256_template
 
 B = 32768  # sha256 instances per chunk
@@ -332,13 +344,15 @@ ROW_REDUCE_MULS = reduction_products(17)
 REDUCE_MULS = reduction_products(10)
 
 
-def kernel_ptxas(log: str, kernel: str) -> str:
+def kernel_ptxas(log: str, kernel: str, targs: str = "") -> str:
     """ptxas's register and spill lines for one kernel of an nvcc -Xptxas
-    -v log (its mangled name holds the length-prefixed kernel name)."""
+    -v log (its mangled name holds the length-prefixed kernel name, then
+    targs, the mangled template arguments of one instantiation, as "ILb1E"
+    for <true>)."""
     found, on = [], False
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            on = f"{len(kernel)}{kernel}" in ln
+            on = f"{len(kernel)}{kernel}{targs}" in ln
         elif on and ("registers" in ln or "spill" in ln):
             found.append(ln.strip())
     return " | ".join(found) or "no ptxas report (library built before this run)"
@@ -397,9 +411,11 @@ class Bound:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, kernel, plain, bound, reps=20, plain_reps=3, library=None):
+def compare(name, kernel, plain, bound, reps=20, plain_reps=3, library=None, device=None):
     """Kernel vs plain version on the same card inputs:
-    dict(err, ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    dict(err, ms, plain_ms, bound_ms, bound_by, library_ms). With device,
+    (wrapper, n, layout) of a mul_digits or reduce_digits table, the table
+    also waits in DEVICE_TIMED for device_times."""
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = max_abs_err(out, ref)
@@ -410,8 +426,91 @@ def compare(name, kernel, plain, bound, reps=20, plain_reps=3, library=None):
           f"plain {plain_ms:.4f} ms{lib} bound {bound[0]:.4f} ms ({bound[1]})")
     assert err == 0, f"{name} disagrees with its plain version"
     assert ms >= bound[0], f"{name} beat its bound: the bound counts work these inputs do not need"
-    return {"table": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": lib_ms}
+    out = {"table": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+           "bound_by": bound[1], "library_ms": lib_ms}
+    if device:
+        DEVICE_TIMED.append((out, device))
+    return out
+
+
+DEVICE_TIMED = []  # (table, (wrapper, n, layout)) of compare(device=...), for device_times
+
+
+def device_times(dev) -> None:
+    """The profiler's device time a launch, free of the host's launch, of
+    every table in DEVICE_TIMED, taken after every path: a profiler
+    session slows the process's later launches, and no step is timed
+    after one. On fresh seeded inputs of the table's shape and layout
+    (the kernels' time does not depend on the values: mul_digits' a below
+    2^256, b canonical; reduce_digits' sums below 2^24), with L2 flushed
+    before each call (device_ms: the inputs from device memory, as bound
+    counts them; held to the bound) and warm (device_warm_ms: the inputs
+    left in L2 where they fit, as a caller that has just written them
+    finds them; it may read below the bound, which counts device-memory
+    bytes). Adds both to each table."""
+    gen = torch.Generator(device=dev)
+    for table, (wrapper, n, layout) in DEVICE_TIMED:
+        gen.manual_seed(SEED + n)
+        if wrapper == "mul_digits":
+            a, b = (torch.randint(0, 1 << 16, (16, n), generator=gen, device=dev, dtype=torch.int32)
+                    for _ in range(2))
+            b[15] %= SCALAR.p >> 240
+            call, kernel = (lambda: fk.mul_digits(a, b, SCALAR)), "mul_kernel"
+        else:
+            em = torch.randint(0, 1 << 24, (n, 32), generator=gen, device=dev, dtype=torch.int32)
+            d = em.t() if layout == "element-major" else em.t().contiguous()
+            call, kernel = (lambda: fk.reduce_digits(d, SCALAR)), "reduce_digits_kernel"
+        cold, warm = (device_ms(torch, call, 20, kernel=kernel, cold=c) for c in (True, False))
+        print(f"[device] {table['table']}: kernel {table['ms']:.4f} ms event, device "
+              + ", ".join("not measured" if t is None else f"{t:.4f} ms" for t in (cold, warm))
+              + f" with L2 flushed, warm; bound {table['bound_ms']:.4f} ms")
+        assert cold is None or cold >= table["bound_ms"], f"{table['table']} beat its bound in device time"
+        table.update(device_ms=cold, device_warm_ms=warm)
+    DEVICE_TIMED.clear()
+    torch.cuda.empty_cache()
+
+
+def digit_sum_corners(p: int, seed: int) -> np.ndarray:
+    """uint32[N, 32] element-major digit sums at reduce_digits' corners:
+    every sum 0, 1 or 2^24 − 1 (the callers' bound); each position at each
+    of those among random sums; values p and p − 1; values ≡ 0 and ≡ −1
+    (mod p) made of large sums (random sums of at least 256, less the
+    bytes of the excess); then random sums below 2^24."""
+    top = (1 << 24) - 1
+    rnd = random.Random(seed)
+
+    def value(col):
+        return sum(x << (8 * j) for j, x in enumerate(col))
+
+    cols = [[v] * 32 for v in (0, 1, top)]
+    for j in range(32):
+        for v in (0, 1, top):
+            col = [rnd.randrange(top + 1) for _ in range(32)]
+            col[j] = v
+            cols.append(col)
+    cols += [[(x >> (8 * j)) & 0xFF for j in range(32)] for x in (p, p - 1)]
+    for _ in range(4):
+        for target in (0, p - 1):
+            col = [rnd.randrange(256, top + 1) for _ in range(32)]
+            r = (value(col) - target) % p
+            cols.append([x - ((r >> (8 * j)) & 0xFF) for j, x in enumerate(col)])
+    cols += [[rnd.randrange(top + 1) for _ in range(32)] for _ in range(25)]
+    return np.asarray(cols, np.uint32)
+
+
+def digit_sums_at(n: int, p: int, seed: int) -> np.ndarray:
+    """uint32[n, 32] element-major: digit_sum_corners first, then random
+    sums below 2^24."""
+    corners = digit_sum_corners(p, seed)
+    rest = np.random.default_rng(seed).integers(0, 1 << 24, size=(n - len(corners), 32), dtype=np.uint32)
+    return np.concatenate([corners, rest])
+
+
+def check_reduced(got: torch.Tensor, sums: np.ndarray, p: int, what: str) -> None:
+    """reduce_digits' output on digit_sums_at's sums, its corner columns
+    and its last, against Python's Σ d_j·2^(8j) mod p."""
+    for i in [*range(len(digit_sum_corners(p, 0))), len(sums) - 1]:
+        assert col_int(got, i) == sum(int(sums[i, j]) << (8 * j) for j in range(32)) % p, (what, i)
 
 
 def limbs(v, n=17):
@@ -952,7 +1051,7 @@ def limbs_buckets(label, zt, lcheck, bound, slice_b):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def limbs_kernels(dev, bound, sha_limbs, config1_fold):
+def limbs_kernels(dev, bound, sha_limbs, config1_fold, tables):
     """limbs_matvec at its paths' real buckets (config 1's a-bucket, semi
     and canonical; the sha256 limbs check's widest a-bucket, semi) on
     random limbs, and at the K = 2,064 bound with every digit and fold
@@ -979,11 +1078,12 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold):
     limbs_matvec_at("all 255", zt, cols, F, ("semi", "canonical"), bound, exact_ints=False)
     del zt, cols, F
     # mul_digits: random canonical operands, the corner pairs of 0, 1 and
-    # p − 1 in the first 9 columns
+    # p − 1 in the first 9 columns, then raw a in {p, p + 1, 2^256 − 1}
+    # (config 5's and the limbs checks' gathered z) by b in {0, 1, p − 1}
     n = MUL_DIGITS_N
     rnd = random.Random(SEED + 3)
-    av = [0, 1, p - 1] * 3 + [rnd.randrange(p) for _ in range(64)]
-    bv = [v for v in (0, 1, p - 1) for _ in range(3)] + [rnd.randrange(p) for _ in range(64)]
+    av = [0, 1, p - 1] * 3 + [p, p + 1, (1 << 256) - 1] * 3 + [rnd.randrange(p) for _ in range(64)]
+    bv = [v for v in (0, 1, p - 1) for _ in range(3)] * 2 + [rnd.randrange(p) for _ in range(64)]
     top = p >> 240
     ops = []
     for vs in (av, bv):
@@ -997,21 +1097,26 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold):
         assert sum(int(d) << (8 * j) for j, d in enumerate(to_u32(got[:, i]).tolist())) == av[i] * bv[i] % p
     results["mul_digits"] = compare(
         f"mul_digits N={n}", lambda: fk.mul_digits(ma, mb, SCALAR), lambda: fk.mul_digits_plain(ma, mb, SCALAR),
-        bound((2 * 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2)
+        bound((2 * 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2, device=("mul_digits", n, "limb-major"))
     del ma, mb, got, ops
-    # reduce_digits: digit sums of 2^24 − 1, 0 and 1 first, then random
-    # sums below 2^24
-    n = CHAIN_ROWS_N
-    dn = rng.integers(0, 1 << 24, size=(32, n), dtype=np.uint32)
-    dn[:, 0], dn[:, 1], dn[:, 2] = (1 << 24) - 1, 0, 1
-    d = from_numpy_u32(dn, dev)
-    got = fk.reduce_digits(d, SCALAR)
-    for i in (0, 1, 2, 3, n - 1):
-        assert col_int(got, i) == sum(int(dn[j, i]) << (8 * j) for j in range(32)) % p, ("reduce", i)
-    results["reduce_digits"] = compare(
-        f"reduce_digits N={n}", lambda: fk.reduce_digits(d, SCALAR), lambda: fk.reduce_digits_plain(d, SCALAR),
-        bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2)
-    del d, got
+    # reduce_digits: the corner sums first, then random sums below 2^24;
+    # limb-major at the Satisfier's N (its layout), element-major (the
+    # transposed view the row-chunked evaluator passes) at 2^20
+    for n, layout in ((CHAIN_ROWS_N, "limb-major"), (MUL_WIDE_N, "element-major")):
+        sums = digit_sums_at(n, p, SEED + n)
+        em = from_numpy_u32(sums, dev)
+        d = em.t().contiguous() if layout == "limb-major" else em.t()
+        got = fk.reduce_digits(d, SCALAR)
+        check_reduced(got, sums, p, layout)
+        table = compare(
+            f"reduce_digits {layout} N={n}", lambda: fk.reduce_digits(d, SCALAR),
+            lambda: fk.reduce_digits_plain(d, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2,
+            device=("reduce_digits", n, layout))
+        if layout == "limb-major":  # the line's numbers: the Satisfier's N
+            results["reduce_digits"] = table
+        else:
+            tables["reduce_digits"].append(table)
+        del em, d, got
     torch.cuda.empty_cache()
     for name, rows, batch in (("config1 mixed", CONFIG1_MUL_ROWS, B_FIELD),
                               ("variant mixed", VARIANT_MUL_ROWS, B_FIELD),
@@ -1835,7 +1940,8 @@ def config5_kernels(label, r1cs, z, meta, prep, dev, bound, tables):
     """The kernels at config 5's own shapes and operands: mulcmp on chunk
     0's semi blocks (every other C column zeroed, so half the mask is 1),
     mul on one premul slice of the raw (non-canonical) z, mul on the
-    product's chunk 0 and reduce_digits on its A digit sums."""
+    product's chunk 0, reduce_digits on its A digit sums in both layouts
+    and on the corner sums at its shape."""
     p = SCALAR.p
     R = r1cs.num_constraints
     names = ("a", "b", "c")
@@ -1870,11 +1976,20 @@ def config5_kernels(label, r1cs, z, meta, prep, dev, bound, tables):
     tables["mul"].append(compare(f"mul {label} product chunk N={n}", lambda: fk.mul(az, bz, SCALAR),
                                  lambda: fk.mul_plain(az, bz, SCALAR), bound(3 * 16 * 4 * n, n * MODMUL_MULS),
                                  plain_reps=2))
-    d = _ell_digit_sums(ew._gathered(zsrc, cl, x0[0], "a"), 2).t().contiguous()
-    tables["reduce_digits"].append(compare(
-        f"reduce_digits {label} product chunk A digit sums N={n}", lambda: fk.reduce_digits(d, SCALAR),
-        lambda: fk.reduce_digits_plain(d, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2))
-    del zsrc, az, bz, d
+    em = _ell_digit_sums(ew._gathered(zsrc, cl, x0[0], "a"), 2)  # [n, 32], as _block passes it
+    for layout, d in (("element-major", em.t()), ("limb-major", em.t().contiguous())):
+        tables["reduce_digits"].append(compare(
+            f"reduce_digits {label} product chunk A digit sums {layout} N={n}", lambda: fk.reduce_digits(d, SCALAR),
+            lambda: fk.reduce_digits_plain(d, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2,
+            device=("reduce_digits", n, layout)))
+    sums = digit_sums_at(n, p, SEED + 17)  # the corner sums at the chunk's shape, element-major
+    d = from_numpy_u32(sums, dev).t()
+    got = fk.reduce_digits(d, SCALAR)
+    check_reduced(got, sums, p, f"{label} corners")
+    assert torch.equal(got, fk.reduce_digits_plain(d, SCALAR)), f"reduce_digits {label} corners"
+    print(f"[kernel] reduce_digits {label} corner sums element-major N={n}: equal to Python ints and the plain "
+          f"version")
+    del zsrc, az, bz, em, d, got
     torch.cuda.empty_cache()
 
 
@@ -2036,12 +2151,14 @@ def row_shard_kernels(label, sat, z, bound) -> dict:
         assert [int(x) for x in to_u32(got[:, i]).tolist()] == [(v >> (8 * j)) & 0xFF for j in range(32)]
     out = {"mul_digits": compare(
         f"mul_digits {label} A raw z N={n}", lambda: fk.mul_digits(zv, cv, SCALAR),
-        lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2)}
+        lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2,
+        device=("mul_digits", n, "limb-major"))}
     dsum = got.reshape(32, -1, 2).sum(2, dtype=torch.int32)
     n = dsum.shape[1]
     out["reduce_digits"] = compare(
         f"reduce_digits {label} A digit sums N={n}", lambda: fk.reduce_digits(dsum, SCALAR),
-        lambda: fk.reduce_digits_plain(dsum, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2)
+        lambda: fk.reduce_digits_plain(dsum, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2,
+        device=("reduce_digits", n, "limb-major"))
     az, bz = (sat._matvec_local(m, z, local) for m in "ab")  # the operands check_local gives mul
     n = az.shape[1]
     out["mul"] = compare(f"mul {label} A·z by B·z N={n}", lambda: fk.mul(az, bz, SCALAR),
@@ -2490,7 +2607,8 @@ def limbs_check_kernels(label, check, z, bound) -> dict:
         cv = coeffs.contiguous()
         out["mul_digits"].append(compare(
             f"mul_digits {label} {name} entries N={n}", lambda: fk.mul_digits(zv, cv, SCALAR),
-            lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2))
+            lambda: fk.mul_digits_plain(zv, cv, SCALAR), bound((16 + 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2,
+            device=("mul_digits", n, "limb-major")))
         dig = fk.mul_digits(zv, cv, SCALAR)
         sums = torch.cat([dig[:, s : s + nr * k].reshape(32, nr, k).sum(-1, dtype=torch.int32)
                           for k, s, nr in buckets], dim=1).contiguous()
@@ -2498,7 +2616,8 @@ def limbs_check_kernels(label, check, z, bound) -> dict:
         assert m == check.Rtp, (m, check.Rtp)
         out["reduce_digits"].append(compare(
             f"reduce_digits {label} {name} row sums N={m}", lambda: fk.reduce_digits(sums, SCALAR),
-            lambda: fk.reduce_digits_plain(sums, SCALAR), bound((32 + 16) * 4 * m, m * REDUCE_MULS), plain_reps=2))
+            lambda: fk.reduce_digits_plain(sums, SCALAR), bound((32 + 16) * 4 * m, m * REDUCE_MULS), plain_reps=2,
+            device=("reduce_digits", m, "limb-major")))
         del zv, cv, dig, sums
     az, bz = (check._matvec(m, zl) for m in "ab")
     n = az.shape[1]
@@ -2613,7 +2732,12 @@ def main() -> int:
                                      if "registers" in ln or "spill" in ln)
              for src, log in sorted(lib.build_log.items())]
     print(f"[build] kernels built in {time.time() - t0:.1f} s; ptxas: {' || '.join(ptxas)}")
-    print(f"[build] mul (mul16.cu mul_kernel): {kernel_ptxas(lib.build_log.get('mul16.cu', ''), 'mul_kernel')}")
+    for name, src, kernel, targs in (("mul", "mul16.cu", "mul_kernel", "ILb0E"),
+                                     ("mul_digits", "mul16.cu", "mul_kernel", "ILb1E"),
+                                     ("reduce_digits limb-major", "reduce_digits.cu", "reduce_digits_kernel", "ILb0E"),
+                                     ("reduce_digits element-major", "reduce_digits.cu", "reduce_digits_kernel",
+                                      "ILb1E")):
+        print(f"[build] {name} ({src} {kernel}{targs}): {kernel_ptxas(lib.build_log.get(src, ''), kernel, targs)}")
 
     template, prog = sha256_path(dev, card)
     built = field_synth()
@@ -2624,7 +2748,8 @@ def main() -> int:
           f"{time.time() - t0:.2f} s (fold tables included)")
     results = sha256_kernels(dev, bound, template, prog)
     results.update(field_kernels(dev, bound))
-    results.update(limbs_kernels(dev, bound, sha_limbs, config1_fold))
+    tables = {k: [] for k in fk.KERNELS}
+    results.update(limbs_kernels(dev, bound, sha_limbs, config1_fold, tables))
     del sha_limbs, config1_fold  # the steps' peaks count only their own tables
     op_rate_probe(bound)
     torch.cuda.empty_cache()
@@ -2638,7 +2763,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["satisfier"] = satisfier_chain(dev, card)
     torch.cuda.empty_cache()
-    tables = {k: [] for k in fk.KERNELS}
     for path, (template_b, prog_b) in bit_synth().items():
         seed = {"config2": CONFIG2_SEED, "config3": CONFIG3_SEED}.get(path, SEED + 8)
         launches[path] = packed_bit_step(dev, card, bound, path, template_b, prog_b, seed, tables)
@@ -2660,6 +2784,7 @@ def main() -> int:
     launches["row_sharded"] = row_sharded_path(dev, card, bound, tables)
     torch.cuda.empty_cache()
     launches.update(sharding_path(dev, card, tables, max_mhz))
+    device_times(dev)
 
     kernels = []
     for k in fk.KERNELS:

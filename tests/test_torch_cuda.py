@@ -14,12 +14,13 @@ the CPU's verdicts, clean and corrupted. The chained witness replays one
 CUDA graph a block, equal to an eager loop of the same evaluator, cached
 for each batch; the Merkle step and the num family's mixed block equal
 the CPU. mul and mul_digits hold on operands in [p, 2^256) (config 5's
-raw witness values), and config 5's check at 2^16 rows gives the CPU's
-verdicts on both routes and in RowShardedSatisfier. The dry run of the
-sharded steps and checkers passes on one rank of an NCCL group. Circuits
-of the Python frontend (ShapeCS, TapeCS, TestConstraintSystem) give the
-CPU's verdicts on the card, and the card's Satisfier names what
-TestConstraintSystem names."""
+raw witness values), reduce_digits on limb-major and element-major sums
+and at their corners against Python ints, and config 5's check at 2^16
+rows gives the CPU's verdicts on both routes and in RowShardedSatisfier.
+The dry run of the sharded steps and checkers passes on one rank of an
+NCCL group. Circuits of the Python frontend (ShapeCS, TapeCS,
+TestConstraintSystem) give the CPU's verdicts on the card, and the card's
+Satisfier names what TestConstraintSystem names."""
 
 import random
 
@@ -52,7 +53,7 @@ from bellpepper_tpu_torch.gadgets.multieq import MultiEq
 from bellpepper_tpu_torch.gadgets.uint32 import UInt32
 from bellpepper_tpu_torch.r1cs import ShapeCS
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
-from chip_smoke import fe_config2, fe_sha256  # the card script's frontend circuits
+from chip_smoke import digit_sum_corners, fe_config2, fe_sha256  # the card script's circuits and corners
 
 RNG = np.random.default_rng(0x5EED_0006)
 
@@ -482,6 +483,11 @@ def test_op_rate_on_card(cuda, op):
 @pytest.mark.parametrize("field", [SCALAR, PALLAS_SCALAR], ids=lambda f: f.name)
 @pytest.mark.parametrize("N", [1000, 1])
 def test_mul_digits_and_reduce_digits_on_card(cuda, field, N):
+    """Both kernels against their plain versions; reduce_digits on
+    limb-major sums, on the transposed view of element-major ones (read
+    as it lies), on such a view 4 bytes off 16-byte alignment (copied
+    first), and at the corner sums of test_torch_digit_kernels against
+    Python ints in both layouts."""
     a = _canonical(field, max(N, 3), 5, cuda)[:, :N].contiguous()
     b = _canonical(field, max(N, 3), 6, cuda).flip(1)[:, :N].contiguous()
     before = (fk.mul_digits.launches, fk.reduce_digits.launches)
@@ -489,10 +495,22 @@ def test_mul_digits_and_reduce_digits_on_card(cuda, field, N):
     d = _u32((32, N), cuda, 1 << 24)
     d[:, 0] = (1 << 24) - 1
     red = fk.reduce_digits(d, field)
+    em = d.t().contiguous()
+    red_em = fk.reduce_digits(em.t(), field)
+    off = torch.empty(32 * N + 1, dtype=torch.int32, device=cuda)[1:].view(N, 32)
+    off.copy_(em)
+    red_off = fk.reduce_digits(off.t(), field)
     torch.cuda.synchronize()
-    assert (fk.mul_digits.launches, fk.reduce_digits.launches) == (before[0] + 1, before[1] + 1)
+    assert (fk.mul_digits.launches, fk.reduce_digits.launches) == (before[0] + 1, before[1] + 3)
     assert torch.equal(got, fk.mul_digits_plain(a, b, field))
-    assert torch.equal(red, fk.reduce_digits_plain(d, field))
+    want = fk.reduce_digits_plain(d, field)
+    assert torch.equal(red, want) and torch.equal(red_em, want) and torch.equal(red_off, want)
+    if N > 1:
+        corners = digit_sum_corners(field.p, N)
+        want = [sum(int(x) << (8 * j) for j, x in enumerate(col)) % field.p for col in corners]
+        em = from_numpy_u32(corners, cuda)
+        for sums in (em.t(), em.t().contiguous()):
+            assert _lm_ints(fk.reduce_digits(sums, field)) == want
 
 
 @pytest.mark.cuda
@@ -720,6 +738,14 @@ def test_mul_and_mul_digits_on_non_canonical_operands_on_card(cuda, N):
     assert _lm_ints(got) == want
     d = to_numpy_u32(dig).astype(object)
     assert [sum(int(d[j, i]) << (8 * j) for j in range(32)) for i in range(N)] == want
+    # raw a by the canonical corners b, as the limbs checks' coefficients are
+    pairs = [(x, y) for x in (p, p + 1, (1 << 256) - 1) for y in (0, 1, p - 1)]
+    a, b = (from_numpy_u32(FieldBackend.to_limbs([t[k] for t in pairs]).T.copy(), cuda) for k in (0, 1))
+    got, dig = fk.mul(a, b, SCALAR), fk.mul_digits(a, b, SCALAR)
+    want = [x * y % p for x, y in pairs]
+    assert _lm_ints(got) == want and torch.equal(dig, fk.mul_digits_plain(a, b, SCALAR))
+    d = to_numpy_u32(dig).astype(object)
+    assert [sum(int(d[j, i]) << (8 * j) for j in range(32)) for i in range(len(pairs))] == want
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The 32-bit-word arithmetic of the mulcmp, chain and mul CUDA kernels
-(``bp::mulcmp_words``, ``bp::mulmod_words``, ``bp::addmod_words`` in
+"""The 32-bit-word arithmetic of the mulcmp, chain, mul, mul_digits and
+reduce_digits CUDA kernels (``bp::mulcmp_words``, ``bp::canon_words``,
+``bp::mulmod_words``, ``bp::reduce_digit_words``, ``bp::addmod_words`` in
 ``csrc/field.cuh``), step for step in Python ints over the constant blocks
 the kernels take (``field_consts.kernel_consts``), against a·b mod p and
 against the plain versions. Every 64-bit intermediate is asserted to fit,
@@ -80,21 +81,13 @@ def mulcmp_words(a, b, c, k):
     return int(x != 0 and x != p)
 
 
-def mulmod_words(a, b, k):
-    """bp::mulmod_words on Python ints; also returns q − q̂."""
+def canon_words(s, k):
+    """bp::canon_words on Python ints: S < 2^291 in 10 words → (S mod p,
+    q − q̂)."""
     p8 = [int(v) for v in k[:8]]
-    fold = [[int(v) for v in k[8 + 8 * i : 16 + 8 * i]] for i in range(8)]
     mu = int(k[72]) | (int(k[73]) << 32)
-    t = [0] * 16
-    _mad_words(_words(a, 8), _words(b, 8), t)
-    s = t[:8] + [0, 0]
-    for i in range(8):
-        carry = _mac_row(s, 0, t[8 + i], fold[i])
-        u = s[8] + carry
-        s[8] = u & MASK
-        s[9] += u >> 32
     S, p = _int(s), _int(p8)
-    assert S < 1 << 291 and s[9] < 8 and S % p == (a * b) % p
+    assert S < 1 << 291 and s[9] < 8
     h = (s[9] << 61) | (s[8] << 29) | (s[7] >> 3)
     assert h == S >> 227 and h < 1 << 64
     q = (h * mu) >> 64
@@ -105,6 +98,37 @@ def mulmod_words(a, b, k):
     assert _int(x) == S - q * p < 3 * p
     x = _cond_sub_p(_cond_sub_p(x, p8), p8)
     return _int(x[:8]), S // p - q
+
+
+def mulmod_words(a, b, k):
+    """bp::mulmod_words on Python ints (a, b < 2^256); also returns q − q̂."""
+    fold = [[int(v) for v in k[8 + 8 * i : 16 + 8 * i]] for i in range(8)]
+    t = [0] * 16
+    _mad_words(_words(a, 8), _words(b, 8), t)
+    s = t[:8] + [0, 0]
+    for i in range(8):
+        carry = _mac_row(s, 0, t[8 + i], fold[i])
+        u = s[8] + carry
+        s[8] = u & MASK
+        s[9] += u >> 32
+    p = _int([int(v) for v in k[:8]])
+    assert _int(s) % p == a * b % p
+    return canon_words(s, k)
+
+
+def reduce_digit_words(d, k):
+    """bp::reduce_digit_words on Python ints: 32 digit sums d[j] < 2^32 →
+    (Σ d[j]·2^(8j) mod p, q − q̂)."""
+    s, carry = [], 0
+    for i in range(8):
+        w = carry + d[4 * i] + (d[4 * i + 1] << 8) + (d[4 * i + 2] << 16) + (d[4 * i + 3] << 24)
+        assert w < 1 << 57
+        s.append(w & MASK)
+        carry = w >> 32
+    assert carry < 1 << 25
+    s += [carry, 0]
+    assert _int(s) == sum(x << (8 * j) for j, x in enumerate(d)) < 1 << 281
+    return canon_words(s, k)
 
 
 def addmod_words(a, b, k):
@@ -243,3 +267,55 @@ def test_mul_plain_matches_word_model(field):
         rw = _words(r, 8)
         got = [x for w in rw for x in (w & 0xFFFF, w >> 16)]
         assert got == want[:, i].tolist(), (a, b)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_reduce_digit_words_matches_python_ints_and_plain(field):
+    """The reduce_digits kernel's steps (bp::reduce_digit_words, its 16
+    canonical limbs split from the 8 words): every sum 0, 1, 2^24 − 1 (the
+    callers' bound) and 2^32 − 1 (the helper's), sums whose value is a
+    multiple of p or one below one, and random sums below 2^24; Python's
+    Σ d_j·2^(8j) mod p, and reduce_digits_plain (the TPU's pipeline) below
+    2^24. The estimate never falls more than 2 short."""
+    p = field.p
+    k = kernel_consts(field)["chain"]
+    rnd = random.Random(16)
+    cols = [[v] * 32 for v in (0, 1, (1 << 24) - 1, (1 << 32) - 1)]
+    for target in (0, p - 1):
+        d = [rnd.randrange(256, 1 << 24) for _ in range(32)]
+        r = (sum(x << (8 * j) for j, x in enumerate(d)) - target) % p
+        cols.append([x - ((r >> (8 * j)) & 0xFF) for j, x in enumerate(d)])
+    cols += [[(p >> (8 * j)) & 0xFF for j in range(32)]]
+    cols += [[rnd.randrange(1 << 24) for _ in range(32)] for _ in range(40)]
+    small = [c for c in cols if max(c) < 1 << 24]
+    want = to_numpy_u32(fk.reduce_digits_plain(from_numpy_u32(np.asarray(small, np.uint32).T.copy()), field))
+    i_small = 0
+    for d in cols:
+        V = sum(x << (8 * j) for j, x in enumerate(d))
+        got, short = reduce_digit_words(d, k)
+        assert got == V % p and 0 <= short <= 2
+        if max(d) < 1 << 24:
+            assert [(got >> (16 * l)) & 0xFFFF for l in range(16)] == want[:, i_small].tolist()
+            i_small += 1
+    assert [sum(x << (8 * j) for j, x in enumerate(c)) % p for c in cols[4:6]] == [0, p - 1]
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_mul_digits_plain_matches_word_model(field):
+    """The mul_digits kernel's steps: the words of a < 2^256 (raw values
+    p, p + 1, 2^256 − 1 among them) and b canonical, bp::mulmod_words,
+    digit 4w + h = byte h of word w; the same digits as mul_digits_plain."""
+    p = field.p
+    k = kernel_consts(field)["chain"]
+    rnd = random.Random(17)
+    pairs = [(a, b) for a in (0, 1, p - 1, p, p + 1, (1 << 256) - 1) for b in (0, 1, p - 1)]
+    pairs += [(rnd.randrange(1 << 256), rnd.randrange(p)) for _ in range(12)]
+
+    def lm(vals):
+        return from_numpy_u32(np.asarray([[(v >> (16 * l)) & 0xFFFF for v in vals] for l in range(16)], np.uint32))
+
+    want = to_numpy_u32(fk.mul_digits_plain(lm([a for a, _ in pairs]), lm([b for _, b in pairs]), field))
+    for i, (a, b) in enumerate(pairs):
+        r, _ = mulmod_words(a, b, k)
+        got = [(w >> (8 * h)) & 0xFF for w in _words(r, 8) for h in range(4)]
+        assert r == a * b % p and got == want[:, i].tolist(), (a, b)
