@@ -24,6 +24,21 @@ read templates and tapes by their fields alone, so the JAX package's
 Every entry point runs on the CUDA card unless it is given another
 device (``device="cpu"`` runs the plain PyTorch versions of the kernels).
 
+The device layer keeps the reference's public API: ``config`` (``Config``,
+``default_config``, ``set_default_config``), ``utils.profiling``
+(``phase``, ``phase_report``), ``utils.serialize`` (``save_r1cs``,
+``load_r1cs``, ``save_witness``, ``load_witness``, ``shape_fingerprint``,
+in the reference's npz format), and every builder and checker of
+``backend.matvec``, ``backend.sharding``, ``compile.pipeline``,
+``compile.witness_program`` and ``utils.multihost`` with the reference's
+parameters in the reference's order and defaults (``use_pallas``,
+``config=``, ``mesh``, ``axis``). The port's own ``device``, ``group`` and
+``n_shards`` come after them, keyword-only, so a program written against
+``bellpepper_tpu`` runs here once its imports name this package (and,
+on the CPU, its calls add ``device="cpu"``). ``use_pallas`` picks a route
+through the kernels and accepts only None, True or False; a ``mesh`` is a
+``torch.distributed`` ``DeviceMesh`` (``default_mesh``, ``global_mesh``).
+
 Ported paths:
 
   * the packed sha256 step: ``NativeBuilder`` → ``WitnessProgram.
@@ -74,7 +89,10 @@ Ported paths:
     MIN in int64); the multi-process glue of ``utils.multihost``
     (``initialize_multihost``, ``global_group``, ``make_global_batch``,
     ``multihost_verdict_step``) and the dry run ``tools.dryrun_multichip``,
-    on the kernels of the paths they shard.
+    on the kernels of the paths they shard;
+  * the second route of ``Satisfier``: ``Satisfier(r1cs, False)`` checks
+    through ``DeviceR1CS`` and ``violation_mask`` on ``mul`` and
+    ``reduce_digits``, with no row classifier to build.
 
 The kernels are CUDA C++ (``csrc/``)."""
 
@@ -92,6 +110,7 @@ from .backend.satisfier import Satisfier, TemplatedSatisfier, which_from_flat
 from .backend.sharding import (
     ShardedSatisfier,
     default_group,
+    default_mesh,
     global_count,
     global_verdict,
     rank_device,
@@ -111,6 +130,7 @@ from .compile.pipeline import (
     build_production_step,
 )
 from .compile.witness_program import WitnessProgram
+from .config import Config, default_config, set_default_config
 from .fields import FIELDS, PALLAS_SCALAR, SCALAR, VESTA_SCALAR, PrimeField
 from .lc import Index, LinearCombination, Variable
 from .native import NativeBuilder
@@ -125,7 +145,8 @@ from .util_cs import (
     TestConstraintSystem,
     WitnessCS,
 )
-from .utils.multihost import global_group, initialize_multihost, make_global_batch, multihost_verdict_step
+from .utils import load_r1cs, load_witness, phase, phase_report, save_r1cs, save_witness, shape_fingerprint
+from .utils.multihost import global_group, global_mesh, initialize_multihost, make_global_batch, multihost_verdict_step
 
 __version__ = BELLPEPPER_TPU_VERSION
 
@@ -135,6 +156,7 @@ __all__ = [
     "COOMatrix",
     "Circuit",
     "Comparable",
+    "Config",
     "Constraint",
     "ConstraintSystem",
     "Delta",
@@ -172,15 +194,26 @@ __all__ = [
     "build_row_chunked_eval",
     "build_row_chunked_product",
     "build_templated_check",
+    "default_config",
     "default_group",
+    "default_mesh",
     "global_count",
     "global_group",
+    "global_mesh",
     "global_verdict",
     "initialize_multihost",
+    "load_r1cs",
+    "load_witness",
     "make_global_batch",
     "multihost_verdict_step",
     "pack_bits",
+    "phase",
+    "phase_report",
     "rank_device",
+    "save_r1cs",
+    "save_witness",
+    "set_default_config",
+    "shape_fingerprint",
     "sharded_packed_witness_and_check",
     "sharded_witness_and_check",
     "unpack_bits",

@@ -25,10 +25,14 @@ import numpy as np
 import torch
 
 from ..fields import PrimeField
-from .field_consts import L16, _digits, consts_for
+from .field_consts import L8, L16, _digits, consts_for  # noqa: F401  (L8: the reference module's name)
 from . import field_kernels as fk
 from .field_kernels import _add_canon_rows, _cond_sub_rows, _signed_carry, _table
 from .words import to_i32, to_u32
+
+
+MASK16 = np.uint32(0xFFFF)
+MASK8 = np.uint32(0xFF)
 
 
 class FieldBackend:
@@ -115,6 +119,14 @@ class FieldBackend:
     def square(self, a: torch.Tensor, dim: int = -1) -> torch.Tensor:
         x = self._limb_major(a, dim)
         return self._unlimb(fk.mul(x, x, self.field), a, dim)
+
+    def mul_pow2(self, a: torch.Tensor, k: int, dim: int = -1) -> torch.Tensor:
+        """a · 2^k mod p for a host-known k (field_jnp.py:280-285): one
+        ``mul`` by the canonical limbs of 2^k mod p."""
+        c = torch.tensor(_digits(pow(2, k, self.field.p), 16, L16), dtype=torch.int32, device=a.device)
+        shape = [1] * a.dim()
+        shape[dim] = L16
+        return self.mul(a, c.reshape(shape), dim)
 
     def _ladder(self, a: torch.Tensor, bits: List[int], dim: int) -> torch.Tensor:
         """a^e for the MSB-first exponent bits e of an e ≥ 1: one

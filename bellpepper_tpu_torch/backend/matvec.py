@@ -54,7 +54,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
 from .field_consts import _digits
 from .field_kernels import bitplane_eq, bits_matvec_semi, fold_operand, mulcmp, padded_positions
@@ -71,7 +71,7 @@ from .layout import (
 )
 from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _mulcmp_bad, _neg_const, _Operand
 from .limbs import build_limbs_check
-from .words import U32, ctz32, device_table as _t, pack_rows, popcount32, to_i32, to_u32, unpack_rows
+from .words import U32, ctz32, device_table as _t, from_numpy_u32, pack_rows, popcount32, to_i32, to_u32, unpack_rows
 
 ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2", "rest")  # MixedCheck's row classes, in its row order
 
@@ -908,16 +908,24 @@ class MixedCheck:
         return nb, torch.where(first == NONE, SENTINEL, first)
 
 
-def build_templated_check(template: R1CS, batch: int, witness_form: str = "bits_packed",
-                          field_slots=None, device=None):
+def build_templated_check(template: R1CS, batch: int, use_pallas: bool, witness_form: str = "limbs",
+                          field_slots=None, *, device=None):
     """The templated satisfiability check on `device` (the CUDA card by
-    default). Ported forms: ``bits_packed`` (bit-sliced packed witnesses
-    of pure-bit templates, ``PackedBitsCheck``; with `field_slots`, the
-    mixed packed pair of ``build_packed_mixed``, ``PackedFieldCheck``),
-    ``bits`` (0/1 values int32[B, S_t], ``BitsCheck``), ``mixed`` (the
-    witness program's (vals, flimbs) pair, ``MixedCheck``; needs
-    `field_slots`, the slot of each flimbs row) and ``limbs`` (canonical
-    limbs int32[B, S_t, 16] of any template, ``limbs.build_limbs_check``)."""
+    default), with the reference's parameters and default form
+    (``"limbs"``). Ported forms: ``limbs`` (canonical limbs int32[B, S_t,
+    16] of any template, ``limbs.build_limbs_check``), ``bits_packed``
+    (bit-sliced packed witnesses of pure-bit templates,
+    ``PackedBitsCheck``; with `field_slots`, the mixed packed pair of
+    ``build_packed_mixed``, ``PackedFieldCheck``), ``bits`` (0/1 values
+    int32[B, S_t], ``BitsCheck``) and ``mixed`` (the witness program's
+    (vals, flimbs) pair, ``MixedCheck``; needs `field_slots`, the slot of
+    each flimbs row). The reference's private ``_partition`` and
+    ``_slot_major`` switches are not ported.
+
+    `use_pallas` (None, True or False) swaps the reference's jnp code for
+    its Pallas kernels; every form here has one implementation on the
+    port's kernels, so it is checked and the same kernels run."""
+    check_use_pallas(use_pallas)
     if not (template.num_inputs == 1 or batch == 1):
         raise ValueError("multi-instance templates must be input-free")
     if witness_form == "mixed":
@@ -946,6 +954,32 @@ def build_packed_parts(prog, template: R1CS, batch: int, device: torch.device):
     with the field rows in row order as `field_slots`)."""
     mixed = not prog.is_packable and prog.is_packable_mixed
     field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
-    check = build_templated_check(template, batch, "bits_packed", field_slots=field_slots, device=device)
-    evaluator = prog.build_packed_mixed(device) if mixed else prog.build_packed(device)
+    check = build_templated_check(template, batch, None, "bits_packed", field_slots=field_slots, device=device)
+    evaluator = prog.build_packed_mixed(device=device) if mixed else prog.build_packed(device=device)
     return evaluator, check
+
+
+def assemble_z(be: FieldBackend, inputs, aux, *, device=None) -> torch.Tensor:
+    """Host witness → z = inputs ++ aux as canonical limbs int32[N, 16] on
+    `device` (the CUDA card by default; reference ``:756``)."""
+    return from_numpy_u32(be.to_limbs(list(inputs) + list(aux)), resolve(device))
+
+
+# The reference module's other public names, from the port modules that
+# hold them, so that ``from bellpepper_tpu_torch.backend.matvec import X``
+# works for every X the reference exports. Imported last: satisfier and
+# row_sharded import this module's checks.
+from .field_backend import FieldBackend, get_backend  # noqa: E402
+from .layout import FIELD_SRC, MAX_ROW_NNZ, U32_SRC, EllMatrix  # noqa: E402
+from .row_chunked import (  # noqa: E402
+    DeviceMatrix,
+    DeviceR1CS,
+    build_row_chunked_check,
+    build_row_chunked_eval,
+    build_row_chunked_product,
+    r1cs_eval,
+    sparse_matvec,
+    violation_mask,
+)
+from .row_sharded import build_row_sharded_parts  # noqa: E402
+from .satisfier import Satisfier, TemplatedSatisfier  # noqa: E402

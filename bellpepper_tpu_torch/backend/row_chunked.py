@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
 from .check_common import SENTINEL
 from .field_backend import FieldBackend
@@ -129,7 +129,7 @@ class DeviceR1CS:
     num_aux: int
 
     @staticmethod
-    def from_r1cs(r: R1CS, device=None) -> "DeviceR1CS":
+    def from_r1cs(r: R1CS, *, device=None) -> "DeviceR1CS":
         """`r` on `device` (the CUDA card by default)."""
         device = resolve(device)
         for name in ("a", "b", "c"):
@@ -319,7 +319,7 @@ class RowChunkedEval:
 
 
 def build_row_chunked_eval(r: R1CS, n_chunks: int, names=("a", "b", "c"), premul_table: Optional[bool] = None,
-                           reuse=None, device=None):
+                           reuse=None, *, device=None):
     """Row-chunked A·z/B·z/C·z for one huge system: only one block's
     per-entry intermediates are live at a time.
 
@@ -501,17 +501,20 @@ def build_row_chunked_eval(r: R1CS, n_chunks: int, names=("a", "b", "c"), premul
     return RowChunkedEval(r, rpc, n_chunks, names, meta), prep
 
 
-def build_row_chunked_product(r: R1CS, n_chunks: int, premul_table: Optional[bool] = None, reuse=None,
-                              device=None):
+def build_row_chunked_product(r: R1CS, n_chunks: int, premul_table: Optional[bool] = None,
+                              use_pallas: Optional[bool] = None, reuse=None, *, device=None):
     """(A·z)∘(B·z) row-chunked: the witness completion of product-form
     systems. Each chunk's canonical blocks go through ``mul``; only the
-    product is kept.
+    product is kept. `use_pallas` swaps the reference's jnp multiply for
+    its Pallas one; the port has one route, so it is checked and ``mul``
+    runs.
 
     Returns (prod_fn, prep); prod_fn(z, prep) → a new int32[R, 16]. It
     reads every chunk of z before its caller writes the product anywhere:
     a caller that completes z in place does so after the call.
     ``reuse=(check_fn._layout_meta, prep)`` shares another call's layout
     and device tables."""
+    check_use_pallas(use_pallas)
     eval_fn, prep = build_row_chunked_eval(r, n_chunks, names=("a", "b"), premul_table=premul_table,
                                            reuse=reuse, device=device)
     R_ = r.num_constraints
@@ -534,7 +537,7 @@ def build_row_chunked_product(r: R1CS, n_chunks: int, premul_table: Optional[boo
 
 
 def build_row_chunked_check(r: R1CS, n_chunks: int, premul_table: Optional[bool] = None,
-                            use_pallas: Optional[bool] = None, reuse=None, device=None):
+                            use_pallas: Optional[bool] = None, reuse=None, *, device=None):
     """Row-chunked satisfiability of one huge system on one device: only
     (n_bad, first) survives a chunk.
 
@@ -552,6 +555,7 @@ def build_row_chunked_check(r: R1CS, n_chunks: int, premul_table: Optional[bool]
     0-d tensors on the device, first the least violated row or 0xFFFFFFFF;
     nothing syncs with the host. ``check_fn._layout_meta`` and prep can be
     passed as `reuse` to build_row_chunked_product."""
+    check_use_pallas(use_pallas)
     eval_fn, prep = build_row_chunked_eval(r, n_chunks, premul_table=premul_table, reuse=reuse, device=device)
     R_ = r.num_constraints
     rpc = eval_fn._rpc

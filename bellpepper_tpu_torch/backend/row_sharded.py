@@ -12,11 +12,11 @@ The rows split into contiguous ranges, one a shard, with one shared ELL
 bucket signature, so one function (``RowShardedSatisfier.check_local``)
 evaluates any shard. The reference runs that function under
 ``shard_map`` on a mesh and reduces the verdict with ``psum``/``pmin``.
-Without a process group every shard runs on one device, one after the
-other, and the shards' verdicts reduce on that device: ``n_bad`` by a
-sum, ``first`` by a min. Given a ``group``, each rank holds its own shard
-on its own device and the verdict reduces over the ranks
-(``sharding.global_verdict``). The TILE padding of the Pallas adapters is
+Without a mesh or a process group every shard runs on one device, one
+after the other, and the shards' verdicts reduce on that device:
+``n_bad`` by a sum, ``first`` by a min. Given a ``mesh`` or a ``group``,
+each rank holds its own shard on its own device and the verdict reduces
+over the ranks (``sharding.global_verdict``). The TILE padding of the Pallas adapters is
 a TPU detail and is not ported."""
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..device import resolve
+from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
 from .check_common import SENTINEL
 from .field_backend import FieldBackend
@@ -35,7 +35,6 @@ from .field_consts import L8, L16
 from .field_kernels import mul, mul_digits, reduce_digits
 from .layout import _assert_row_density
 from .row_chunked import _gather_rows
-from .sharding import global_verdict, rank_device
 from .words import from_numpy_u32
 
 
@@ -162,26 +161,47 @@ def build_row_sharded_parts(r1cs: R1CS, n_shards: int, with_coeff_digits: bool =
 class RowShardedSatisfier:
     """Constraint-axis sharding of ONE huge (non-templated) R1CS — the
     reference's answer for config 5 below the row-chunked scan's sizes.
-    The rows split into `n_shards` contiguous ranges (1 by default) with a
-    shared ELL bucket signature; each shard's tables live on `device` (the
-    CUDA card by default) and ``check_local`` evaluates one shard. Given a
-    process `group`, there is one shard a rank (`n_shards`, if given, must
-    be the group's size): each rank keeps only its own shard's tables, on
-    its device (``sharding.rank_device``), z is replicated on every rank,
-    and every rank gets the same answers.
+    The rows split into contiguous ranges with a shared ELL bucket
+    signature, and ``check_local`` evaluates one shard.
+
+    Given a `mesh` (a ``DeviceMesh``: its group along `axis`) or a
+    process `group`, there is one shard a rank: each rank keeps only its
+    own shard's tables, on its device (``sharding.rank_device``), z is
+    replicated on every rank, and every rank gets the same answers
+    (`n_shards`, if given, must be the group's size). Without either,
+    `n_shards` shards (1 by default) run one after the other on `device`
+    (the CUDA card by default). A `config` gives `mesh`
+    (``config.make_mesh()``, unless a group or `n_shards` is given),
+    `use_pallas`, `axis` and `witness_form` where they are None.
 
     witness_form ``"limbs"`` (the default; z int32[N, 16] limbs of any
     256-bit values): every entry's product with its coefficient by
     ``mul_digits``, bucket row sums, ``reduce_digits``, then ``mul`` and a
     limb compare: 3, 3 and 1 launches a shard. ``"bits"`` (z int32[N] of
     0/1 values): the coefficient's digit planes masked by the witness bit
-    in place of ``mul_digits``."""
+    in place of ``mul_digits``. The reference's `use_pallas` swaps its jnp
+    adapter for its Pallas one; here it is checked and the same kernels
+    run."""
 
-    def __init__(self, r1cs: R1CS, n_shards: Optional[int] = None, witness_form: Optional[str] = None, device=None,
-                 group=None):
+    def __init__(self, r1cs: R1CS, mesh=None, use_pallas: bool | None = None, axis: str | None = None,
+                 witness_form: str | None = None, config=None, *, n_shards: Optional[int] = None, group=None,
+                 device=None):
+        from .sharding import mesh_group, rank_device
+
+        if config is not None:
+            if mesh is None and group is None and n_shards is None:
+                mesh = config.make_mesh()
+            use_pallas = config.use_pallas if use_pallas is None else use_pallas
+            axis = config.mesh_axis if axis is None else axis
+            witness_form = config.witness_form if witness_form is None else witness_form
+        axis = axis or "data"
         witness_form = witness_form or "limbs"
         if witness_form not in ("limbs", "bits"):
             raise ValueError(f"witness_form must be 'limbs' or 'bits', got {witness_form!r}")
+        self.use_pallas = check_use_pallas(use_pallas)
+        if mesh is not None:
+            group = mesh_group(mesh, axis)
+        self.mesh = mesh
         self.group = group
         if group is None:
             n_shards = n_shards or 1
@@ -256,6 +276,8 @@ class RowShardedSatisfier:
             return zero, zero + SENTINEL
         verdicts = [self.check_local(z, local, origin, d) for d, (local, origin) in zip(self._shard_ids, self._shards)]
         if self.group is not None:  # check_local has added rank · rows_per_shard
+            from .sharding import global_verdict
+
             return global_verdict(*verdicts[0], 0, self.group)
         nbs, firsts = zip(*verdicts)
         return torch.stack(nbs).sum(), torch.stack(firsts).min()

@@ -1,12 +1,19 @@
 """Multi-GPU scaling on ``torch.distributed``: the sharded steps and the
 sharded templated checker.
 
-Counterpart of ``bellpepper_tpu/backend/sharding.py``: ``default_mesh``
-(``:35``) becomes ``default_group`` and ``rank_device``;
+Counterpart of ``bellpepper_tpu/backend/sharding.py``, with its
+signatures: ``default_mesh`` (``:35``) is a 1-D ``torch.distributed``
+``DeviceMesh`` over the ranks of the process group, and every ``mesh``
+argument takes one (``mesh.get_group(axis)`` is the group it shards
+over); ``default_group`` and ``rank_device`` are the port's own.
 ``ShardedSatisfier`` (``:42-136``), ``sharded_witness_and_check``
 (``:139-193``) and ``sharded_packed_witness_and_check`` (``:196-283``)
-keep their names. ``RowShardedSatisfier`` (``:286-415``) across ranks is
-``backend/row_sharded.py``'s class given a ``group``.
+keep their names and parameters, with the port's ``group`` and ``device``
+after them, keyword-only: a caller names a mesh or a group (neither: the
+world group). ``RowShardedSatisfier`` (``:286-415``) is
+``backend/row_sharded.py``'s class, re-exported here. The reference's
+``use_pallas`` swaps jnp code for Pallas kernels; here it is checked and
+the same kernels run.
 
 One shard a rank and one device a rank. Where the reference runs one SPMD
 program under ``shard_map`` over a mesh, every rank of a process group
@@ -30,16 +37,15 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..device import resolve
+from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
 from .check_common import NONE, SENTINEL
 from .matvec import build_packed_parts, build_templated_check
 from .satisfier import which_from_flat
-from .words import from_numpy_u32
+from .words import as_words
 
 
 def default_group(n_ranks: Optional[int] = None):
@@ -52,6 +58,52 @@ def default_group(n_ranks: Optional[int] = None):
     if n_ranks is None or n_ranks == dist.get_world_size():
         return dist.group.WORLD
     return dist.new_group(list(range(n_ranks)))
+
+
+def rank_mesh(ranks, axis: str = "data"):
+    """A 1-D ``DeviceMesh`` named `axis` over `ranks` of the process group:
+    one device a rank, so a mesh of n ranks shards over n devices. Its
+    device type follows the group's backend (``cuda`` for NCCL, ``cpu`` for
+    gloo); the port reads only its group. Building a mesh is collective:
+    every rank of the world makes the same call, and a rank outside the
+    mesh gets one whose ``get_coordinate()`` is None. Without a process
+    group it raises, as ``default_group`` does."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: initialize one first (utils.multihost.initialize_multihost)")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = [int(r) for r in ranks]
+    if not ranks or not all(0 <= r < dist.get_world_size() for r in ranks):
+        raise ValueError(f"a mesh takes ranks in 0..{dist.get_world_size() - 1}, got {ranks}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, ranks, mesh_dim_names=(axis,))
+
+
+def default_mesh(n_devices: Optional[int] = None, axis: str = "data"):
+    """``rank_mesh`` over the first `n_devices` ranks (every rank when
+    None): the counterpart of the reference's mesh over the first
+    `n_devices` devices."""
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    return rank_mesh(range(world if n_devices is None else n_devices), axis)
+
+
+def mesh_group(mesh=None, axis: str = "data", group=None):
+    """The process group a sharded entry point runs over: `mesh`'s group
+    along `axis`, else `group`, else the world group. A rank outside the
+    mesh, a mesh without that axis or both a mesh and a group raise."""
+    if mesh is None:
+        return default_group() if group is None else group
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh or None, got {type(mesh).__name__}")
+    if group is not None:
+        raise ValueError("pass a mesh or a group, not both")
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {axis!r} (it has {mesh.mesh_dim_names})")
+    if mesh.get_coordinate() is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+    return mesh.get_group(axis)
 
 
 def rank_device(group=None, device=None) -> torch.device:
@@ -107,13 +159,10 @@ def shard_rows(x, n_global: int, group, device) -> torch.Tensor:
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     n = n_global // world
     part = x[rank * n : (rank + 1) * n]
-    if isinstance(part, np.ndarray):
-        return from_numpy_u32(part, device)
-    return part.to(device=device, dtype=torch.int32).contiguous()
+    return as_words(part, device)
 
 
 def _world(group, batch: int):
-    group = default_group() if group is None else group
     world = dist.get_world_size(group)
     if batch % world:
         raise ValueError(f"batch {batch} must divide evenly over the {world} ranks")
@@ -121,23 +170,42 @@ def _world(group, batch: int):
 
 
 class ShardedSatisfier:
-    """Templated satisfiability over the ranks of a process group: the
-    global batch of `batch` instances splits into contiguous shares of
+    """Templated satisfiability over the ranks of a mesh or process group:
+    the global batch of `batch` instances splits into contiguous shares of
     batch / world, each rank checks its own with the single-device
     templated check (``build_templated_check`` at the local batch) on its
     device, and the verdict reduces over the ranks. ``witness_form``:
-    ``"limbs"`` (z int32[B, S_t, 16]) or ``"bits"`` (z int32[B, S_t] of 0/1
-    values). Every rank gets the same answers."""
+    ``"limbs"`` (the default; z int32[B, S_t, 16]) or ``"bits"`` (z
+    int32[B, S_t] of 0/1 values). A `config` gives `batch`, `mesh`
+    (``config.make_mesh()``, unless a `group` is given), `use_pallas`,
+    `axis` and `witness_form` where they are None. Every rank gets the same
+    answers."""
 
-    def __init__(self, template: R1CS, batch: int, group=None, witness_form: str = "limbs", device=None):
+    def __init__(self, template: R1CS, batch: int | None = None, mesh=None, use_pallas: bool | None = None,
+                 axis: str | None = None, witness_form: str | None = None, config=None, *, group=None,
+                 device=None):
+        if config is not None:
+            batch = config.batch if batch is None else batch
+            if mesh is None and group is None:
+                mesh = config.make_mesh()
+            use_pallas = config.use_pallas if use_pallas is None else use_pallas
+            axis = config.mesh_axis if axis is None else axis
+            witness_form = config.witness_form if witness_form is None else witness_form
+        if batch is None:
+            raise ValueError("batch required (directly or via config)")
+        axis = axis or "data"
+        witness_form = witness_form or "limbs"
         if witness_form not in ("limbs", "bits"):
             raise ValueError(f"witness_form must be 'limbs' or 'bits', got {witness_form!r}")
-        self.group, self.local_b = _world(group, batch)
+        self.use_pallas = check_use_pallas(use_pallas)
+        self.group, self.local_b = _world(mesh_group(mesh, axis, group), batch)
+        self.mesh = mesh
+        self.axis = axis
         self.r1cs = template
         self.batch = batch
         self.witness_form = witness_form
         self.device = rank_device(self.group, device)
-        self._check = build_templated_check(template, self.local_b, witness_form, device=self.device)
+        self._check = build_templated_check(template, self.local_b, use_pallas, witness_form, device=self.device)
         self._span = self.local_b * template.num_constraints
         self.num_constraints_total = batch * template.num_constraints
 
@@ -151,18 +219,19 @@ class ShardedSatisfier:
         nb, first = global_verdict(nb, first, self._span, self.group)
         return int(nb), int(first)
 
-    def is_satisfied(self, z_local: torch.Tensor) -> bool:
-        """z_local: this rank's share, as ``shard_z`` gives it."""
-        return int(global_count(self._check.verdict(z_local)[0], self.group)) == 0
+    def is_satisfied(self, z3: torch.Tensor) -> bool:
+        """z3: this rank's share, as ``shard_z`` gives it."""
+        return int(global_count(self._check.verdict(z3)[0], self.group)) == 0
 
-    def which_is_unsatisfied(self, z_local: torch.Tensor) -> Optional[str]:
+    def which_is_unsatisfied(self, z3: torch.Tensor) -> Optional[str]:
         """'instance {inst}: {name}' of the first violation over every
-        rank, or None."""
-        nb, first = self._verdict(z_local)
+        rank, or None; z3 is this rank's share."""
+        nb, first = self._verdict(z3)
         return which_from_flat(self.r1cs, first) if nb else None
 
 
-def sharded_witness_and_check(prog, template: R1CS, batch: int, group=None, device=None):
+def sharded_witness_and_check(prog, template: R1CS, batch: int, mesh, use_pallas: bool | None = None,
+                              axis: str = "data", *, group=None, device=None):
     """The sharded production step: free inputs → witness generation
     (``prog.build``) → the templated check, on every rank for its share.
 
@@ -173,11 +242,12 @@ def sharded_witness_and_check(prog, template: R1CS, batch: int, group=None, devi
     limbs int32[local_b, S, 16] (the limbs form). The witness stays
     sharded. shard(x) puts this rank's share of a global host array on its
     device."""
-    group, local_b = _world(group, batch)
+    check_use_pallas(use_pallas)
+    group, local_b = _world(mesh_group(mesh, axis, group), batch)
     dev = rank_device(group, device)
     pure_bits = prog.is_pure_bits
-    check = build_templated_check(template, local_b, "bits" if pure_bits else "limbs", device=dev)
-    evaluator = prog.build(dev)
+    check = build_templated_check(template, local_b, use_pallas, "bits" if pure_bits else "limbs", device=dev)
+    evaluator = prog.build(use_pallas, device=dev)
 
     def step(free_bits: torch.Tensor, free_field=None):
         if free_bits.shape[0] != local_b:
@@ -189,7 +259,8 @@ def sharded_witness_and_check(prog, template: R1CS, batch: int, group=None, devi
     return step, lambda x: shard_rows(x, batch, group, dev)
 
 
-def sharded_packed_witness_and_check(prog, template: R1CS, batch: int, group=None, device=None):
+def sharded_packed_witness_and_check(prog, template: R1CS, batch: int, mesh, use_pallas: bool | None = None,
+                                     axis: str = "data", *, group=None, device=None):
     """The bit-sliced production step over the ranks: packed free bits →
     packed witness generation (32 instances a word) → the ``bits_packed``
     check's verdict, reduced over the ranks. The multi-device program of
@@ -203,7 +274,8 @@ def sharded_packed_witness_and_check(prog, template: R1CS, batch: int, group=Non
     clean), and this rank's packed witness int32[local_b/32, S]. shard(x)
     puts this rank's share of the global words [batch/32, n_free] on its
     device."""
-    group, local_b = _world(group, batch)
+    check_use_pallas(use_pallas)
+    group, local_b = _world(mesh_group(mesh, axis, group), batch)
     if local_b % 512:
         raise ValueError("packed sharding needs >= 512 instances (16 packed words) a rank, a multiple of 512")
     dev = rank_device(group, device)
@@ -220,3 +292,8 @@ def sharded_packed_witness_and_check(prog, template: R1CS, batch: int, group=Non
         return total, first, vals_p.t().contiguous()
 
     return step, lambda x: shard_rows(x, batch // 32, group, dev)
+
+
+# The reference module's row-sharded checker. Imported last: row_sharded
+# imports this module's reductions.
+from .row_sharded import RowShardedSatisfier  # noqa: E402

@@ -39,6 +39,14 @@ def from_numpy_u32(a: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
 
+def as_words(x, device=None) -> torch.Tensor:
+    """uint32 numpy or a tensor of words → contiguous int32 words on
+    `device` (the same bits)."""
+    if isinstance(x, np.ndarray):
+        return from_numpy_u32(x, device)
+    return x.to(device=device, dtype=torch.int32).contiguous()
+
+
 def to_numpy_u32(x: torch.Tensor) -> np.ndarray:
     """int32 word tensor → uint32 numpy array (same bits)."""
     return x.detach().cpu().contiguous().numpy().view(np.uint32)

@@ -10,8 +10,12 @@ included),
 (``_carry_extractor`` ``:278``, ``build_chained_witness`` ``:297``,
 ``build_chained_production_step`` ``:340``, ``_STATE_TO_MSG_PERM``
 ``:382``, ``build_merkle_tree_step`` ``:387``), ``PipelinedSatisfier``
-(``:441``, without its ``config=``) and ``which_from_flat`` (``:487``, in
-``backend/satisfier.py`` beside the checkers that name rows).
+(``:441``) and ``which_from_flat`` (``:487``, in ``backend/satisfier.py``
+beside the checkers that name rows). Every builder takes the reference's
+parameters in its order, and ``device`` after them, keyword-only. The
+reference's ``use_pallas`` swaps its jnp code for Pallas kernels; the
+port has one implementation of each step, so the argument is checked
+(None, True or False) and the same kernels run.
 The reference's single jitted ``lax.scan`` over chunks becomes a Python
 loop that enqueues every chunk's work on the current stream and reads
 nothing back: the host first waits when the caller reads the verdict. The
@@ -32,7 +36,7 @@ from ..backend.check_common import NONE, SENTINEL
 from ..backend.matvec import build_packed_parts, build_templated_check
 from ..backend.satisfier import which_from_flat
 from ..backend.words import device_table
-from ..device import resolve
+from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
 from .tape import V_CONST, V_VAR
 
@@ -46,7 +50,8 @@ def _aggregate(nbs: torch.Tensor, firsts: torch.Tensor, chunk_span: int):
     return total, torch.where(glob == NONE, SENTINEL, glob)
 
 
-def build_production_step(prog, template: R1CS, batch: int, device=None, witness_form=None):
+def build_production_step(prog, template: R1CS, batch: int, use_pallas: Optional[bool] = None,
+                          witness_form: Optional[str] = None, *, device=None):
     """The field path's production step: free inputs for n_chunks × batch
     instances → witness generation (``WitnessProgram.build``) → templated
     check → (total_bad, first_violation), both int64 0-d tensors on
@@ -74,10 +79,11 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
         raise ValueError("the bits form takes pure-bit programs only")
     device = resolve(device)
     if witness_form == "mixed":
-        check = build_templated_check(template, batch, "mixed", field_slots=prog.field_slots, device=device)
+        check = build_templated_check(template, batch, use_pallas, "mixed", field_slots=prog.field_slots,
+                                      device=device)
     else:
-        check = build_templated_check(template, batch, witness_form, device=device)
-    evaluator = prog.build(device)
+        check = build_templated_check(template, batch, use_pallas, witness_form, device=device)
+    evaluator = prog.build(use_pallas, device=device)
     span = batch * template.num_constraints
     n_fr, n_ff = prog.n_field_rows, len(prog.free_field_slots)
 
@@ -107,15 +113,15 @@ def build_production_step(prog, template: R1CS, batch: int, device=None, witness
     return step
 
 
-def build_chunked_check(template: R1CS, batch: int, n_chunks: int, device=None,
-                        witness_form: str = "limbs"):
+def build_chunked_check(template: R1CS, batch: int, n_chunks: int, use_pallas: Optional[bool] = None,
+                        witness_form: str = "limbs", *, device=None):
     """Check pre-generated witnesses of n_chunks × batch instances: z4
     int32[n_chunks, batch, S_t, 16] canonical limbs (``"limbs"``) or
     int32[n_chunks, batch, S_t] 0/1 values (``"bits"``) → (total_bad,
     first_violation) as in ``build_production_step``."""
     if witness_form not in ("bits", "limbs"):
         raise ValueError(f"witness_form must be 'bits' or 'limbs', got {witness_form!r}")
-    check = build_templated_check(template, batch, witness_form, device=resolve(device))
+    check = build_templated_check(template, batch, use_pallas, witness_form, device=resolve(device))
     span = batch * template.num_constraints
 
     def run(z4: torch.Tensor):
@@ -131,12 +137,12 @@ def build_chunked_check(template: R1CS, batch: int, n_chunks: int, device=None,
     return run
 
 
-def build_chunked_witness(prog, device=None):
+def build_chunked_witness(prog, use_pallas: Optional[bool] = None, *, device=None):
     """Witness generation only: free_bits int32[n_chunks, batch, n_free]
     (and free_field int32[n_chunks, batch, nf, 16] when the program has
     free field inputs) → vals int32[n_chunks, batch, S], the u32 value
     buffer of every instance."""
-    evaluator = prog.build(device)
+    evaluator = prog.build(use_pallas, device=device)
 
     def gen(free_bits: torch.Tensor, free_field=None) -> torch.Tensor:
         return torch.stack([
@@ -147,7 +153,8 @@ def build_chunked_witness(prog, device=None):
     return gen
 
 
-def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
+def build_packed_production_step(prog, template: R1CS, batch: int, use_pallas: Optional[bool] = None, *,
+                                 device=None):
     """Bit-sliced production path: packed free bits for n_chunks × batch
     instances → packed witness generation (32 instances per word) →
     bits_packed check → (total_bad, first_violation), both int64 0-d
@@ -160,6 +167,7 @@ def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
     the mixed packed layout: ``build_packed_mixed``'s limb sidecar, checked
     by ``PackedFieldCheck`` with the field rows in row order as
     `field_slots`."""
+    check_use_pallas(use_pallas)
     evaluator, check = build_packed_parts(prog, template, batch, resolve(device))
     span = batch * template.num_constraints
 
@@ -179,10 +187,10 @@ def build_packed_production_step(prog, template: R1CS, batch: int, device=None):
     return step
 
 
-def build_packed_chunked_witness(prog, device=None):
+def build_packed_chunked_witness(prog, *, device=None):
     """Packed witness generation only: free_packed int32[n_chunks, batch/32,
     n_free] → vals int32[n_chunks, batch/32, S] (batch-major words)."""
-    evaluator = prog.build_packed(device)
+    evaluator = prog.build_packed(device=device)
 
     def gen(free_packed: torch.Tensor) -> torch.Tensor:
         return torch.stack([evaluator(fp) for fp in free_packed])
@@ -237,11 +245,11 @@ class ChainedWitness:
     (vals, final_state). ``evaluator`` and ``extract`` are its block's
     parts; ``graphs`` holds the captured block of each batch on the card."""
 
-    def __init__(self, prog, carry_views, device):
+    def __init__(self, prog, carry_views, use_pallas, device):
         if not prog.is_pure_bits:
             raise ValueError("chained pipelines take pure-bit programs")
         self.device = device
-        self.evaluator = prog.build(device)
+        self.evaluator = prog.build(use_pallas, device=device)
         self.extract = _carry_extractor(carry_views, device)
         self.n_carry = len(carry_views)
         self.n_free = len(prog.free_slots)
@@ -287,7 +295,7 @@ class ChainedWitness:
         return out, free[:, : self.n_carry].clone()
 
 
-def build_chained_witness(prog, carry_views, device=None) -> ChainedWitness:
+def build_chained_witness(prog, carry_views, use_pallas: Optional[bool] = None, *, device=None) -> ChainedWitness:
     """Chained witness generation: instance t+1's first n_carry free
     inputs are computed from instance t's witness (a hash chain: the digest
     of block t is the IV of block t+1).
@@ -305,16 +313,16 @@ def build_chained_witness(prog, carry_views, device=None) -> ChainedWitness:
     warm-up on a side stream) and cached; a failed capture raises. The
     loop copies msgs[t] into the graph's input, replays and copies the
     graph's vals out, all on the current stream, with no host sync."""
-    return ChainedWitness(prog, carry_views, resolve(device))
+    return ChainedWitness(prog, carry_views, use_pallas, resolve(device))
 
 
 class ChainedProductionStep:
     """``build_chained_production_step``'s step: ``gen`` (the chained
     witness) then ``verdict`` (the chunked bits check of its vals)."""
 
-    def __init__(self, prog, template: R1CS, carry_views, check_batch: int, device: torch.device):
-        self.gen = build_chained_witness(prog, carry_views, device)
-        self.check = build_templated_check(template, check_batch, "bits", device=device)
+    def __init__(self, prog, template: R1CS, carry_views, check_batch: int, use_pallas, device: torch.device):
+        self.gen = build_chained_witness(prog, carry_views, use_pallas, device=device)
+        self.check = build_templated_check(template, check_batch, use_pallas, "bits", device=device)
         self.check_batch = check_batch
         self.span = check_batch * template.num_constraints
 
@@ -342,7 +350,7 @@ class ChainedProductionStep:
 
 
 def build_chained_production_step(prog, template: R1CS, carry_views, check_batch: int = 128,
-                                  device=None) -> ChainedProductionStep:
+                                  use_pallas: Optional[bool] = None, *, device=None) -> ChainedProductionStep:
     """Chained witness generation, then the bits check of all T·B
     instances in chunks of check_batch: step(init_state int32[B, n_carry],
     msgs int32[T, B, n_msg]) → (total_bad, first_flat, final_state).
@@ -350,7 +358,7 @@ def build_chained_production_step(prog, template: R1CS, carry_views, check_batch
     ``which_from_flat`` reads it (0xFFFFFFFF when clean); T·B must be a
     multiple of check_batch, or the step raises ValueError before any
     block runs."""
-    return ChainedProductionStep(prog, template, carry_views, check_batch, resolve(device))
+    return ChainedProductionStep(prog, template, carry_views, check_batch, use_pallas, resolve(device))
 
 
 # digest state bits (8 words × 32, LSB first) → message bits (big-endian
@@ -358,7 +366,8 @@ def build_chained_production_step(prog, template: R1CS, carry_views, check_batch
 _STATE_TO_MSG_PERM = np.asarray([w * 32 + (31 - t) for w in range(8) for t in range(32)], np.int32)
 
 
-def build_merkle_tree_step(prog, template: R1CS, digest_views, n_leaves: int, device=None):
+def build_merkle_tree_step(prog, template: R1CS, digest_views, n_leaves: int, use_pallas: Optional[bool] = None,
+                           *, device=None):
     """Merkle tree reduction: each level hashes sibling pairs with one
     batched evaluation and one bits check (the batch halves a level), and
     the digests become the next level's message bits through
@@ -374,13 +383,13 @@ def build_merkle_tree_step(prog, template: R1CS, digest_views, n_leaves: int, de
     if not prog.is_pure_bits:
         raise ValueError("the Merkle pipeline takes a pure-bit program")
     device = resolve(device)
-    evaluator = prog.build(device)
+    evaluator = prog.build(use_pallas, device=device)
     extract = _carry_extractor(digest_views, device)
     perm = device_table(_STATE_TO_MSG_PERM, device)
     checks = {}
     b = n_leaves // 2
     while b >= 1:
-        checks[b] = build_templated_check(template, b, "bits", device=device)
+        checks[b] = build_templated_check(template, b, use_pallas, "bits", device=device)
         b //= 2
 
     def step(leaf_digests: torch.Tensor):
@@ -401,15 +410,23 @@ def build_merkle_tree_step(prog, template: R1CS, digest_views, n_leaves: int, de
 class PipelinedSatisfier:
     """The TemplatedSatisfier API over chunked witness buffers
     [n_chunks, batch, ...] (``build_chunked_check``'s z4), one verdict a
-    call. The reference's ``config=`` waits for the port of its
-    ``config.py``."""
+    call. A `config` gives `use_pallas` where it is None, and
+    `witness_form` only where it is falsy: the reference reads
+    ``witness_form or config.witness_form``, so its default ``"limbs"``
+    stands against a ``Config(witness_form="bits")``."""
 
-    def __init__(self, template: R1CS, batch: int, n_chunks: int, device=None, witness_form: str = "limbs"):
+    def __init__(self, template: R1CS, batch: int, n_chunks: int, use_pallas: Optional[bool] = None,
+                 witness_form: str = "limbs", config=None, *, device=None):
+        if config is not None:
+            if use_pallas is None:
+                use_pallas = config.use_pallas
+            witness_form = witness_form or config.witness_form
+        self.use_pallas = check_use_pallas(use_pallas)
         self.r1cs = template
         self.batch = batch
         self.n_chunks = n_chunks
         self.witness_form = witness_form
-        self._check = build_chunked_check(template, batch, n_chunks, device, witness_form)
+        self._check = build_chunked_check(template, batch, n_chunks, use_pallas, witness_form, device=device)
         self.num_constraints_total = n_chunks * batch * template.num_constraints
 
     def is_satisfied(self, z4: torch.Tensor) -> bool:

@@ -46,9 +46,11 @@ import torch
 from ..backend import field_kernels as fk
 from ..backend.field_kernels import MAX_PATTERN  # longest chain pattern _detect_linear_chain accepts
 from ..backend.field_backend import FieldBackend, get_backend
-from ..backend.words import FULL, U32, device_table as _dev, to_i32, to_u32, unpack_rows
-from ..device import resolve
-from .tape import V_CONST, V_VAR, Op
+from ..backend.words import FULL, U32, as_words, device_table as _dev, to_i32, to_u32, unpack_rows
+from ..backend.words import pack_bits, unpack_bits  # noqa: F401  (the reference module's names)
+from ..device import check_use_pallas, resolve
+from ..fields import PrimeField  # noqa: F401  (the reference module's name)
+from .tape import V_CONST, V_VAR, Op, TapeCS  # noqa: F401  (TapeCS: the reference module's name)
 
 BIT_OUT_OPS = {"xor", "and", "and_not", "nor", "ch", "maj", "addmany",
                "num_iszero", "fbits_le"}
@@ -230,6 +232,7 @@ class WitnessProgram:
         self.field = tape.field
         self.num_inputs, self.num_aux, ops, self.free_slots = tape.snapshot()
         self.num_slots = self.num_inputs + self.num_aux
+        self._evals = {}  # run()'s evaluators, one a device, built at their first call
         self._compile(ops)
 
     def _compile(self, op_list: List[Op]) -> None:
@@ -446,14 +449,35 @@ class WitnessProgram:
             zt.index_copy_(0, _dev(self.free_field_slots, dev), free_T[: len(self.free_field_slots)])
         return zt
 
-    def build(self, device=None) -> "Evaluator":
+    def build(self, use_pallas: bool | None = None, *, device=None) -> "Evaluator":
         """The evaluator on `device` (the CUDA card by default):
         (free_bits int32[B, n_free], free_field int32[B, nf, 16] or None)
         → (vals int32[B, S], flimbs int32[B, F, 16]), F = max(n_field_rows,
-        1), words holding uint32 values and canonical limbs."""
+        1), words holding uint32 values and canonical limbs. The reference's
+        `use_pallas` swaps its jnp field ops for Pallas kernels; here it is
+        checked and the same kernels (``chain``, ``mul``) run."""
+        check_use_pallas(use_pallas)
         return Evaluator(self, resolve(device))
 
-    def build_packed(self, device=None) -> "PackedEvaluator":
+    def run(self, free_bits, free_field=None, *, device=None):
+        """Evaluate B instances with ``build()``'s evaluator on `device` (the
+        CUDA card by default), built at the first call on that device and
+        kept. free_bits: uint32 numpy or int32 words [B, n_free], the free
+        slots' values in allocation order; free_field: [B, n_free_field,
+        16] limbs of the free slots in ``free_field_slots``, zeros when
+        None. Returns (vals int32[B, S], flimbs int32[B, F, 16]) on the
+        evaluator's device."""
+        dev = resolve(device)
+        ev = self._evals.get(dev)
+        if ev is None:
+            ev = self._evals[dev] = self.build(device=dev)
+        free_bits = as_words(free_bits, dev)
+        if free_field is None:
+            free_field = torch.zeros((free_bits.shape[0], max(len(self.free_field_slots), 1), 16),
+                                     dtype=torch.int32, device=dev)
+        return ev(free_bits, as_words(free_field, dev))
+
+    def build_packed(self, *, device=None) -> "PackedEvaluator":
         """Bit-sliced evaluator on `device` (the CUDA card by default):
         free_packed int32[Bw, n_free] (bit j of word w = instance 32·w + j,
         free slots in allocation order) → vals int32[Bw, S] in the same
@@ -466,7 +490,7 @@ class WitnessProgram:
             )
         return PackedEvaluator(self, resolve(device))
 
-    def build_packed_mixed(self, device=None) -> "PackedEvaluator":
+    def build_packed_mixed(self, *, device=None) -> "PackedEvaluator":
         """Bit-sliced evaluator with a field-limb sidecar, on `device` (the
         CUDA card by default): bit slots 32 instances a word, as
         ``build_packed``, and the field-valued ``pack`` outputs as

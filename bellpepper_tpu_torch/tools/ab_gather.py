@@ -121,10 +121,10 @@ def side() -> dict:
     rng = np.random.default_rng(SEED)
     Bw = B // 32
     free = from_numpy_u32(rng.integers(0, 1 << 32, size=(Bw, 512), dtype=np.uint64).astype(np.uint32), dev)
-    vals_p = prog.build_packed(dev)(free).t().contiguous()
+    vals_p = prog.build_packed(device=dev)(free).t().contiguous()
     vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
                                                   dtype=np.uint64).astype(np.uint32), dev)
-    check = build_templated_check(template, B, device=dev)
+    check = build_templated_check(template, B, None, "bits_packed", device=dev)
 
     # bitplane_eq: the whole kernel form is the same call on both sides
     ref = check._pow2_bad_words(vals_p)
@@ -178,9 +178,9 @@ def side() -> dict:
         x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
     c1_template, _tape = nb.finish()
     gen = torch.Generator(device=dev)
-    for label, lcheck, Bm in (("config1", build_templated_check(c1_template, B_FIELD, "limbs", device=dev).fold,
+    for label, lcheck, Bm in (("config1", build_templated_check(c1_template, B_FIELD, None, "limbs", device=dev).fold,
                                B_FIELD),
-                              ("sha256", build_templated_check(template, B_SHA_LIMBS, "limbs", device=dev),
+                              ("sha256", build_templated_check(template, B_SHA_LIMBS, None, "limbs", device=dev),
                                B_SHA_LIMBS)):
         gen.manual_seed(SEED)
         zt = torch.randint(0, 1 << 16, (lcheck.S_t, 16, Bm), generator=gen, device=dev, dtype=torch.int32)

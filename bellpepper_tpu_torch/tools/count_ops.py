@@ -46,7 +46,7 @@ def main() -> int:
     nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
     template, tape = nb.finish()
     prog = WitnessProgram(tape)
-    evaluator = prog.build("cpu")
+    evaluator = prog.build(device="cpu")
     print(f"chain template: {template.num_constraints} rows, {prog.num_slots} slots, {len(prog.stages)} stages; "
           f"package from {os.path.abspath(args.root)}")
     for B in (1, 64):

@@ -152,32 +152,32 @@ def dryrun_rank(dev, seed: int = 3) -> dict:
     rng = np.random.default_rng(seed)  # the same draws on every rank
 
     # the unpacked step: one instance a rank, the bits form
-    step, shard = sharded_witness_and_check(prog, template, W, group, dev)
+    step, shard = sharded_witness_and_check(prog, template, W, None, group=group, device=dev)
     free = rng.integers(0, 2, size=(W, 512)).astype(np.uint32)
     n_bad, z = step(shard(free))
     assert int(n_bad) == 0, f"unpacked dryrun found {int(n_bad)} violations"
-    vals_single, _ = prog.build(dev)(from_numpy_u32(free, dev))
+    vals_single, _ = prog.build(device=dev)(from_numpy_u32(free, dev))
     assert torch.equal(z, vals_single[rank : rank + 1]), "sharded witness differs from single-rank execution"
 
     # the packed step: 512 instances a rank
     Bp = 512 * W
-    pstep, pshard = sharded_packed_witness_and_check(prog, template, Bp, group, dev)
+    pstep, pshard = sharded_packed_witness_and_check(prog, template, Bp, None, group=group, device=dev)
     free_p = from_numpy_u32(rng.integers(0, 2, size=(Bp, 512)).astype(np.uint32), dev)
     fp = pack_bits(free_p)
     nb_p, first_p, vals_p = pstep(pshard(fp))
     packed = (int(nb_p), int(first_p))
     assert packed == (0, SENTINEL), f"packed dryrun verdict {packed}"
     words = Bp // 32 // W
-    single = prog.build_packed(dev)(fp)
+    single = prog.build_packed(device=dev)(fp)
     assert torch.equal(vals_p, single[rank * words : (rank + 1) * words]), "sharded packed witness differs"
 
     # the row-sharded check of 3 replicated compressions
     rep = 3
     big = template.replicate(rep)
-    vals3, _ = prog.build(dev)(free_p[:rep])
+    vals3, _ = prog.build(device=dev)(free_p[:rep])
     z_mono = torch.cat([vals3[0, :1]] + [vals3[i, 1:] for i in range(rep)])
     sat = RowShardedSatisfier(big, witness_form="bits", device=dev, group=group)
-    one = RowShardedSatisfier(big, 1, witness_form="bits", device=dev)
+    one = RowShardedSatisfier(big, n_shards=1, witness_form="bits", device=dev)
     assert sat.is_satisfied(z_mono), "row-sharded dryrun: the clean witness is rejected"
     which = []
     for slot in (700, 700 + (rep - 1) * (template.num_aux)):  # a bit of the first and of the last copy

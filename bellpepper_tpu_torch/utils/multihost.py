@@ -1,10 +1,14 @@
 """Multi-process and multi-host glue on ``torch.distributed``.
 
-Counterpart of ``bellpepper_tpu/utils/multihost.py:37-95``. The reference
-joins processes with ``jax.distributed.initialize`` into one device set
-that one mesh spans; here every process is one rank of a process group
-with one device (``backend.sharding.rank_device``), and the sharded steps
-reduce their verdicts with ``all_reduce`` over the group. The launcher
+Counterpart of ``bellpepper_tpu/utils/multihost.py:37-95``, with its
+signatures. The reference joins processes with
+``jax.distributed.initialize`` into one device set that one mesh spans;
+here every process is one rank of a process group with one device
+(``backend.sharding.rank_device``), ``global_mesh`` is a 1-D
+``DeviceMesh`` over the ranks, and the sharded steps reduce their
+verdicts with ``all_reduce`` over the mesh's group. The port's ``group``
+and ``device`` come after the reference's parameters, keyword-only; a
+caller passes ``mesh=None`` with a ``group``. The launcher
 contract is the reference's: ``COORDINATOR_ADDRESS`` (host:port of rank
 0's TCP store), ``NUM_PROCESSES`` and ``PROCESS_ID``.
 
@@ -19,12 +23,18 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..backend.sharding import default_group, rank_device, sharded_witness_and_check
-from ..backend.words import from_numpy_u32
+from ..backend.sharding import (
+    default_group,
+    default_mesh,
+    mesh_group,
+    rank_device,
+    rank_mesh,
+    sharded_witness_and_check,
+)
+from ..backend.words import as_words
 from ..device import resolve
 
 
@@ -59,25 +69,34 @@ def initialize_multihost(coordinator_address: Optional[str] = None, num_processe
 
 def global_group():
     """The group of every rank (local and remote after
-    ``initialize_multihost``): the counterpart of ``global_mesh``. Ranks
+    ``initialize_multihost``), the group of ``global_mesh()``. Ranks
     are ordered by process id, so a contiguous shard stays on its
     process and only the verdict crosses processes."""
     return default_group()
 
 
-def make_global_batch(local_batch, group=None, device=None) -> torch.Tensor:
+def global_mesh(axis: str = "data", devices=None):
+    """1-D ``DeviceMesh`` named `axis` over every rank of the process group
+    (local and remote after ``initialize_multihost``), or over the ranks
+    listed in `devices`. Ranks are ordered by process id, so a contiguous
+    shard stays on its process and only the verdict crosses processes.
+    Collective, as ``backend.sharding.default_mesh``."""
+    return default_mesh(None, axis) if devices is None else rank_mesh(devices, axis)
+
+
+def make_global_batch(local_batch, mesh, axis: str = "data", *, group=None, device=None) -> torch.Tensor:
     """This rank's share of the instance batch (numpy uint32 or a tensor
-    of words), which the process passes, as int32 on the rank's device:
-    the global batch is the ranks' shares in rank order and is never
+    of words), which the process passes, as int32 on the rank's device
+    (`mesh`'s group along `axis`, else `group`, else the world's): the
+    global batch is the ranks' shares in rank order and is never
     materialized in one place (``make_array_from_process_local_data``)."""
-    dev = rank_device(default_group() if group is None else group, device)
-    if isinstance(local_batch, np.ndarray):
-        return from_numpy_u32(local_batch, dev)
-    return local_batch.to(device=dev, dtype=torch.int32).contiguous()
+    dev = rank_device(mesh_group(mesh, axis, group), device)
+    return as_words(local_batch, dev)
 
 
-def multihost_verdict_step(prog, template, global_batch: int, group=None, device=None):
-    """The production step over the ranks of a (possibly multi-host)
-    group: ``sharded_witness_and_check``; the same code on one host or
-    many."""
-    return sharded_witness_and_check(prog, template, global_batch, group, device)
+def multihost_verdict_step(prog, template, global_batch: int, mesh, axis: str = "data", *, group=None,
+                           device=None):
+    """The production step over the ranks of a (possibly multi-host) mesh
+    or group: ``sharded_witness_and_check``; the same code on one host or
+    many. Returns (step, shard)."""
+    return sharded_witness_and_check(prog, template, global_batch, mesh, axis=axis, group=group, device=device)

@@ -148,6 +148,26 @@ Phases (one line each, or a few):
     counted on every rank; then, one rank at a time, each kernel of those
     paths against its plain version at the rank's shapes, on the operands
     the rank's check gives it;
+  * the reference's device-layer API (api_path), every call written as a
+    program against bellpepper_tpu writes it, with no device argument
+    (the card by default): Satisfier(r, False) and Satisfier(r, True) on
+    the 16-block sha256 chain (the DeviceR1CS route against the templated
+    limbs route): both clean, the planted fault of the satisfier phase
+    named at the Python-int row by both, each route's build and check
+    seconds and peak, the False route's launches (4 mul, 3 reduce_digits a
+    check) and its mul at [16, E] and element-major reduce_digits against
+    their plain versions; the chain's R1CS and witness through save_r1cs,
+    save_witness, load_r1cs and load_witness (its fingerprint, the loaded
+    z bit-equal, Satisfier(loaded, False) with the same verdicts); the
+    flagship as set_default_config(Config(use_pallas=True)) and
+    build_packed_production_step(prog, template, 32768, True) inside
+    phase("sha256 step", trace=True), its verdict and the corrupted
+    chunk's equal to the sha256 phase's; PipelinedSatisfier(config 1,
+    8192, 4, config=Config(use_pallas=True)) clean and with a flipped limb
+    named at its chunk, instance and Python-int row; WitnessProgram.run
+    on config 1 at 8,192 equal to build()'s evaluator; FieldBackend.
+    mul_pow2 at [2^20, 16] against Python ints at the corner values; and
+    the phase_report of its phases (no profiler session starts here);
   * last, device_times: torch.profiler's device time a launch of every
     mul_digits and reduce_digits table above, with L2 flushed and warm,
     beside its event time (after every timed step: a profiler session
@@ -166,11 +186,14 @@ kernel's numbers at its first table and, under ``other_tables``, those at
 the later paths' tables. Any failed phase raises and the script exits
 non-zero. Without a CUDA device it exits 1 at once."""
 
+import functools
 import hashlib
 import json
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -205,7 +228,7 @@ from bellpepper_tpu_torch.backend.field_consts import SEMI
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.limbs import LimbsCheck
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
-from bellpepper_tpu_torch.backend.row_chunked import _chunk, _ell_digit_sums, _gather_rows
+from bellpepper_tpu_torch.backend.row_chunked import _chunk, _ell_digit_sums, _gather_rows, _split8
 from bellpepper_tpu_torch.backend.sharding import (
     ShardedSatisfier,
     default_group,
@@ -216,6 +239,7 @@ from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_num
 from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, _carry_extractor
 from bellpepper_tpu_torch.compile.tape import TapeCS, corrupted
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
+from bellpepper_tpu_torch.config import Config, default_config, set_default_config
 from bellpepper_tpu_torch.gadgets.boolean import AllocatedBit, Boolean
 from bellpepper_tpu_torch.gadgets.multieq import MultiEq
 from bellpepper_tpu_torch.gadgets.multipack import pack_bits as gpack_bits
@@ -226,6 +250,7 @@ from bellpepper_tpu_torch.util_cs import TestConstraintSystem
 from bellpepper_tpu_torch.tools import config5 as c5
 from bellpepper_tpu_torch.tools.ab_gather import device_ms
 from bellpepper_tpu_torch.tools.dryrun_multichip import RankJob, dryrun_rank, sha256_template
+from bellpepper_tpu_torch.utils import load_r1cs, load_witness, phase, phase_report, save_r1cs, save_witness
 
 B = 32768  # sha256 instances per chunk
 N_CHUNKS = 4
@@ -265,6 +290,8 @@ CHAIN_FLIP_BLOCK = 700  # the block whose witness bit the config-4 probe flips
 CHAIN_MULTI_B = (8, 64)
 CHAIN_CURVE_B = (1, 8, 64, 256, 1024, 4096)  # the replay of one block at these chain counts
 MERKLE_LEAVES = 1024
+MUL_POW2_N = 1 << 20  # FieldBackend.mul_pow2's operand rows in the api phase
+MUL_POW2_K = (0, 1, 16, 255, 256, 511)
 # config 5 (its generator and sizes in tools/config5.py): the rows whose
 # completed product is held to Python ints; the row-sharded check's log2
 # rows (the benchmark's default size)
@@ -726,9 +753,9 @@ def sha256_kernels(dev, bound, template, prog):
     rng = np.random.default_rng(SEED)
     Bw = B // 32
     results = {}
-    check = build_templated_check(template, B, device=dev)
+    check = build_templated_check(template, B, None, "bits_packed", device=dev)
     free = from_numpy_u32(rng.integers(0, 1 << 32, size=(Bw, 512), dtype=np.uint64).astype(np.uint32), dev)
-    vals_p = prog.build_packed(dev)(free).t().contiguous()  # [S_t, Bw]
+    vals_p = prog.build_packed(device=dev)(free).t().contiguous()  # [S_t, Bw]
     vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
                                                   dtype=np.uint64).astype(np.uint32), dev)
     del free
@@ -831,6 +858,16 @@ def sha256_path(dev, card):
     return template, prog
 
 
+PROBES = {}  # path → the verdicts its phase found, which the api phase's reference-style calls must equal
+
+
+def sha256_free(dev):
+    """The sha256 steps' packed free bits [N_CHUNKS, B/32, 512] (seed SEED)."""
+    rng = np.random.default_rng(SEED)
+    free_np = rng.integers(0, 1 << 32, size=(N_CHUNKS, B // 32, 512), dtype=np.uint64).astype(np.uint32)
+    return free_np, from_numpy_u32(free_np, dev)
+
+
 def sha256_step(dev, card, template, prog, name="sha256", same_as=None):
     """The packed sha256 step at N_CHUNKS × B: the clean verdict and its
     launches, chunk 0 equal to the CPU evaluator on 16 words (and, with
@@ -838,9 +875,7 @@ def sha256_step(dev, card, template, prog, name="sha256", same_as=None):
     at its instance; its time, rate and peak."""
     R = template.num_constraints
     Bw = B // 32
-    rng = np.random.default_rng(SEED)
-    free_np = rng.integers(0, 1 << 32, size=(N_CHUNKS, Bw, 512), dtype=np.uint64).astype(np.uint32)
-    free = from_numpy_u32(free_np, dev)
+    free_np, free = sha256_free(dev)
     t0 = time.time()
     step = build_packed_production_step(prog, template, B, device=dev)
     print(f"[step] {name} built in {time.time() - t0:.2f} s")
@@ -852,11 +887,12 @@ def sha256_step(dev, card, template, prog, name="sha256", same_as=None):
 
     gen = build_packed_chunked_witness(prog, device=dev)
     vals0 = gen(free)[0]
-    cpu_words = prog.build_packed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+    cpu_words = prog.build_packed(device="cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
     assert torch.equal(vals0[:16].cpu(), cpu_words), "chunk 0 words differ from the CPU evaluator"
     if same_as is not None:
-        assert torch.equal(vals0, same_as.build_packed(dev)(free[0])), f"{name} chunk 0 differs from the other program"
-    check = build_templated_check(template, B, device=dev)
+        assert torch.equal(vals0, same_as.build_packed(device=dev)(free[0])), \
+            f"{name} chunk 0 differs from the other program"
+    check = build_templated_check(template, B, None, "bits_packed", device=dev)
     assert tuple(int(v) for v in check.verdict(vals0)) == (0, 0xFFFFFFFF)
     vbad = vals0.clone()
     vbad[Bw // 2, 600] ^= 1 << 7
@@ -865,6 +901,7 @@ def sha256_step(dev, card, template, prog, name="sha256", same_as=None):
     same = " and, all of it, NativeBuilder's program's" if same_as is not None else ""
     print(f"[probe] {name} chunk-0 words match the CPU evaluator{same}; corruption at "
           f"vp[{Bw // 2}, 600] bit 7 found: n_bad {nbad}, instance {fbad // R}")
+    PROBES[name] = {"verdict": verdict, "corrupt": (nbad, fbad)}
     del vals0, vbad, gen, check
 
     perf_step(name, step, free, B, R, card, 5)
@@ -912,9 +949,9 @@ def field_steps(dev, card, built):
     # probes on config 1's chunk 0
     template, prog = built["config1"]
     R = template.num_constraints
-    ev = prog.build(dev)
+    ev = prog.build(device=dev)
     vals0, fl0 = ev(free[0])
-    cpu_vals, cpu_fl = prog.build("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+    cpu_vals, cpu_fl = prog.build(device="cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
     assert torch.equal(vals0[:16].cpu(), cpu_vals) and torch.equal(fl0[:16].cpu(), cpu_fl), \
         "config-1 chunk 0 differs from the CPU evaluator"
     spec = _detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])
@@ -923,7 +960,7 @@ def field_steps(dev, card, built):
         for r, want in enumerate(chain_steps(free_np[0, i])):
             got = [col_int(fl0[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)]
             assert got == want, ("chain probe", i, r)
-    check = build_templated_check(template, B_FIELD, "mixed", field_slots=prog.field_slots, device=dev)
+    check = build_templated_check(template, B_FIELD, None, "mixed", field_slots=prog.field_slots, device=dev)
     assert check.n_mul == CONFIG1_MUL_ROWS  # mulcmp's N on this path, compared above
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
     fbad = fl0.clone()
@@ -941,9 +978,9 @@ def field_steps(dev, card, built):
     fin = next(st for st in prog_v.stages if st.opcode == "finv")
     assert int(fin.arrs["a_kind"][0]) == SRC_ROW
     x_row, inv_row = int(fin.arrs["a_idx"][0]), int(fin.outs[0])
-    ev_v = prog_v.build(dev)
+    ev_v = prog_v.build(device=dev)
     vals_v, fl_v = ev_v(free[0])
-    cpu_vals, cpu_fl = prog_v.build("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+    cpu_vals, cpu_fl = prog_v.build(device="cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
     assert torch.equal(vals_v[:16].cpu(), cpu_vals) and torch.equal(fl_v[:16].cpu(), cpu_fl), \
         "variant chunk 0 differs from the CPU evaluator"
     for i in (0, 1, B_FIELD // 2, B_FIELD - 1):
@@ -968,7 +1005,7 @@ def field_steps(dev, card, built):
           f"({split}), on {card}")
     # the variant's: witness, its finv alone (the ladder of mul launches)
     # and check
-    check_v = build_templated_check(built["variant"][0], B_FIELD, "mixed", field_slots=prog_v.field_slots,
+    check_v = build_templated_check(built["variant"][0], B_FIELD, None, "mixed", field_slots=prog_v.field_slots,
                                     device=dev)
     vals_p, fl_p = ev_v.slot_major(free[0])
     assert int(check_v.verdict_slot_major(vals_p, fl_p)[0]) == 0
@@ -1148,7 +1185,7 @@ def config1_limbs_step(dev, card, built):
     sat = TemplatedSatisfier(template, B_FIELD, device=dev)
     # the limbs check's mulcmp launches run at the shapes compared above
     assert (sat.check.n_triv, sat.check.fold.Rtp) == (CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS)
-    z = prog.z_template_limbs(*prog.build(dev)(free[0]))
+    z = prog.z_template_limbs(*prog.build(device=dev)(free[0]))
     assert sat.is_satisfied(z)
     slot = prog.free_slots[int(np.random.default_rng(SEED).integers(0, 128))]
     bad = z.clone()
@@ -1189,11 +1226,11 @@ def sha256_limbs_step(dev, card, bound, template, prog):
     assert verdict == (0, 0xFFFFFFFF), verdict
     assert counts["limbs_matvec"] == 17 * N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
 
-    check = build_templated_check(template, Bl, "limbs", device=dev)
+    check = build_templated_check(template, Bl, None, "limbs", device=dev)
     assert check.Rtp == SHA256_LIMBS_ROWS, check.Rtp  # mulcmp's shape, compared above
-    packed = build_templated_check(template, Bl, device=dev)
-    z = prog.z_template_limbs(*prog.build(dev)(free[0]))
-    words = prog.build_packed(dev)(pack_bits(free[0]))
+    packed = build_templated_check(template, Bl, None, "bits_packed", device=dev)
+    z = prog.z_template_limbs(*prog.build(device=dev)(free[0]))
+    words = prog.build_packed(device=dev)(pack_bits(free[0]))
     slot, inst = 9000, Bl // 3  # an intermediate slot: its bit flipped in both forms
     zf, wf = z.clone(), words.clone()
     zf[inst, slot, 0] ^= 1
@@ -1295,41 +1332,57 @@ def python_int_first_bad(template, z_limbs, slot):
     return (bad[0] if bad else None), len(rows)
 
 
-def satisfier_chain(dev, card):
-    """The Satisfier of a 16-block sha256 chain at batch 1 (the non-fused
-    limbs route): z from instance 0 of the chain's evaluator, satisfied;
-    then one bit slot of block 9 set to a random field element and named
-    as the Python-int evaluation names it."""
-    p = SCALAR.p
-    t0 = time.time()
+@functools.cache
+def satisfier_chain_synth():
+    """The 16-block sha256 chain's template and program (NativeBuilder),
+    built once."""
     nb = NativeBuilder()
     state = nb.sha256_iv()
     for _ in range(CHAIN_BLOCKS):
         state = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
     template, tape = nb.finish()
-    prog = WitnessProgram(tape)
+    return template, WitnessProgram(tape)
+
+
+def satisfier_chain_witness(template, prog, dev):
+    """Instance 0 of the chain's evaluator as limbs z, and z with one bit
+    slot of block 9 set to a random field element: (z, bad, slot, block,
+    the least row on the slot that fails over the Python ints, the rows on
+    the slot)."""
+    free = from_numpy_u32(np.random.default_rng(SEED + 5).integers(0, 2, size=(1, 512 * CHAIN_BLOCKS))
+                          .astype(np.uint32), dev)
+    z = prog.z_template_limbs(*prog.build(device=dev)(free))[0]
+    block = min(9, CHAIN_BLOCKS - 1)
+    slot = prog.free_slots[512 * block + int(np.random.default_rng(SEED).integers(0, 512))]
+    bad = z.clone()
+    bad[slot] = canonical_lm([random.Random(SEED + 2).randrange(SCALAR.p)], dev)[:, 0]
+    row, n_ref = python_int_first_bad(template, to_u32(bad).cpu().numpy(), slot)
+    assert row is not None
+    return z, bad, slot, block, row, n_ref
+
+
+def satisfier_chain(dev, card):
+    """The Satisfier of a 16-block sha256 chain at batch 1 (the non-fused
+    limbs route): z from instance 0 of the chain's evaluator, satisfied;
+    then one bit slot of block 9 set to a random field element and named
+    as the Python-int evaluation names it."""
+    t0 = time.time()
+    template, prog = satisfier_chain_synth()
     R, S = template.num_constraints, prog.num_slots
     sat = Satisfier(template, device=dev)
     if CHAIN_BLOCKS == 16:  # reduce_digits' and mul's N, compared above
         assert (R, S, sat._check.Rtp) == (426912, 426497, CHAIN_ROWS_N), (R, S, sat._check.Rtp)
     print(f"[synth] sha256 chain of {CHAIN_BLOCKS}: {R} rows, {S} slots; Satisfier built in "
           f"{time.time() - t0:.2f} s (native build included)")
-    free = from_numpy_u32(np.random.default_rng(SEED + 5).integers(0, 2, size=(1, 512 * CHAIN_BLOCKS))
-                          .astype(np.uint32), dev)
-    z = prog.z_template_limbs(*prog.build(dev)(free))[0]
+    z, bad, slot, block, row, n_ref = satisfier_chain_witness(template, prog, dev)
     torch.cuda.synchronize()
     fk.reset_launch_counts()
     ok = sat.is_satisfied(z)
     counts = fk.launch_counts()
     print(f"[step] satisfier chain is_satisfied {ok} launches {counts}")
     assert ok and (counts["mul_digits"], counts["reduce_digits"], counts["mul"]) == (3, 3, 1), counts
-    block = min(9, CHAIN_BLOCKS - 1)
-    slot = prog.free_slots[512 * block + int(np.random.default_rng(SEED).integers(0, 512))]
-    bad = z.clone()
-    bad[slot] = canonical_lm([random.Random(SEED + 2).randrange(p)], dev)[:, 0]
     name = sat.which_is_unsatisfied(bad)
-    row, n_ref = python_int_first_bad(template, to_u32(bad).cpu().numpy(), slot)
-    assert row is not None and name == f"constraint #{row}", (name, row)
+    assert name == f"constraint #{row}", (name, row)
     print(f"[probe] satisfier chain: bit slot {slot} of block {block} set to a random field element; "
           f"which_is_unsatisfied names {name!r}, the least of the {n_ref} rows on the slot that fails "
           f"over the Python ints")
@@ -1419,18 +1472,19 @@ def packed_bit_step(dev, card, bound, name, template, prog, seed, tables, same_a
     assert verdict == (0, 0xFFFFFFFF), verdict
 
     field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
-    check = build_templated_check(template, B, "bits_packed", field_slots=field_slots, device=dev)
-    cpu_check = build_templated_check(template, 32, "bits_packed", field_slots=field_slots, device="cpu")
+    check = build_templated_check(template, B, None, "bits_packed", field_slots=field_slots, device=dev)
+    cpu_check = build_templated_check(template, 32, None, "bits_packed", field_slots=field_slots, device="cpu")
     if mixed:
-        vals0, fl0 = prog.build_packed_mixed(dev)(free[0])
-        cpu_vals, cpu_fl = prog.build_packed_mixed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+        vals0, fl0 = prog.build_packed_mixed(device=dev)(free[0])
+        cpu_vals, cpu_fl = prog.build_packed_mixed(device="cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
         assert torch.equal(fl0[: 16 * 32].cpu(), cpu_fl), f"{name} chunk-0 limbs differ from the CPU evaluator"
     else:
-        vals0, fl0 = prog.build_packed(dev)(free[0]), None
-        cpu_vals = prog.build_packed("cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
+        vals0, fl0 = prog.build_packed(device=dev)(free[0]), None
+        cpu_vals = prog.build_packed(device="cpu")(torch.from_numpy(free_np[0, :16].view(np.int32)))
     assert torch.equal(vals0[:16].cpu(), cpu_vals), f"{name} chunk-0 words differ from the CPU evaluator"
     if same_as is not None:
-        other = same_as.build_packed_mixed(dev)(free[0]) if mixed else (same_as.build_packed(dev)(free[0]), None)
+        other = (same_as.build_packed_mixed(device=dev)(free[0]) if mixed
+                 else (same_as.build_packed(device=dev)(free[0]), None))
         assert torch.equal(vals0, other[0]) and (fl0 is None or torch.equal(fl0, other[1])), \
             f"{name} chunk 0 differs from the other program"
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
@@ -1506,9 +1560,9 @@ def sha256_bits_step(dev, card, bound, template, prog, tables):
     assert (counts["bitplane_eq"], counts["bits_matvec_semi"], counts["mulcmp"]) == (
         N_CHUNKS, 3 * N_CHUNKS, N_CHUNKS), counts
 
-    bits = build_templated_check(template, Bb, "bits", device=dev)
-    packed = build_templated_check(template, Bb, device=dev)
-    vals, _ = prog.build(dev)(free[0])
+    bits = build_templated_check(template, Bb, None, "bits", device=dev)
+    packed = build_templated_check(template, Bb, None, "bits_packed", device=dev)
+    vals, _ = prog.build(device=dev)(free[0])
     words = pack_bits(vals)
     slot, inst = 9000, Bb // 3
     vf, wf = vals.clone(), words.clone()
@@ -1541,7 +1595,8 @@ def sha256_bits_step(dev, card, bound, template, prog, tables):
         assert verdict == (0, 0xFFFFFFFF), verdict
         peaks.append((Bn, perf_step(f"sha256 bits {Bn}", step, free, Bn, R, card, 2)))
         assert peaks[-1][1] < PEAK_GIB, f"peak memory {peaks[-1][1]:.2f} GiB at {Bn} (estimated {est:.2f})"
-        bits_kernels_at(f"sha256 bits {Bn}", template, prog.build(dev)(free[0])[0], dev, bound, tables, SEED + Bn)
+        bits_kernels_at(f"sha256 bits {Bn}", template, prog.build(device=dev)(free[0])[0], dev, bound, tables,
+                        SEED + Bn)
         del step, free
         torch.cuda.empty_cache()
     return counts
@@ -1652,7 +1707,7 @@ def bits_kernels_at(label, template, vals_bm, dev, bound, tables, seed):
     words are random, or where Bw is 1 the word's upper 16 lanes (padding
     lanes where B ≤ 16: the kernels read them all the same)."""
     Bn = vals_bm.shape[0]
-    check = build_templated_check(template, Bn, "bits", device=dev)
+    check = build_templated_check(template, Bn, None, "bits", device=dev)
     packed, words = check.packed, pack_rows(vals_bm.t(), check.Bw)
     S_w, Bw = words.shape
     rnd = np.random.default_rng(seed).integers(0, 1 << 32, size=(S_w, max(Bw // 2, 1)), dtype=np.uint64)
@@ -1690,7 +1745,7 @@ def chained_paths(dev, card, bound, tables, built, iv_np):
     print(f"[probe] chained: sha256 of a 64-byte message as two chained blocks = {digest.hex()} (hashlib's), "
           f"verdict {(int(total), int(first))}")
 
-    gen = build_chained_witness(prog, views, dev)
+    gen = build_chained_witness(prog, views, device=dev)
     rng = np.random.default_rng(SEED + 11)
     iv4 = from_numpy_u32(rng.integers(0, 2, size=(4, 256)).astype(np.uint32), dev)
     msgs8 = from_numpy_u32(rng.integers(0, 2, size=(8, 4, 512)).astype(np.uint32), dev)
@@ -1726,15 +1781,15 @@ def chained_paths(dev, card, bound, tables, built, iv_np):
     bad = vals.clone()
     bad[blk, 0, slot] ^= 1
     z4 = bad.reshape(CHAIN_T // CHAIN_CHECK_BATCH, CHAIN_CHECK_BATCH, S)
-    nbad, fbad = (int(x) for x in build_chunked_check(template, CHAIN_CHECK_BATCH, z4.shape[0], dev,
+    nbad, fbad = (int(x) for x in build_chunked_check(template, CHAIN_CHECK_BATCH, z4.shape[0], device=dev,
                                                        witness_form="bits")(z4))
-    cpu_n, cpu_first = (int(x) for x in build_templated_check(template, 1, "bits", device="cpu")
+    cpu_n, cpu_first = (int(x) for x in build_templated_check(template, 1, None, "bits", device="cpu")
                         .verdict(bad[blk].cpu()))
     name = which_from_flat(template, fbad)
     assert nbad > 0 and name == f"instance {blk}: constraint #{cpu_first}", (nbad, name, cpu_first)
     print(f"[probe] chained (config 4): bit slot {slot} of block {blk} flipped: n_bad {nbad}, which_from_flat "
           f"{name!r} (the CPU check of that instance: n_bad {cpu_n}, row {cpu_first})")
-    sat = PipelinedSatisfier(template, CHAIN_CHECK_BATCH, z4.shape[0], dev, witness_form="bits")
+    sat = PipelinedSatisfier(template, CHAIN_CHECK_BATCH, z4.shape[0], device=dev, witness_form="bits")
     assert sat.is_satisfied(vals.reshape(z4.shape))
     which = sat.which_is_unsatisfied(z4)
     assert which == f"chunk 1: instance {blk - CHAIN_CHECK_BATCH}: constraint #{cpu_first}", which
@@ -1765,7 +1820,7 @@ def chained_paths(dev, card, bound, tables, built, iv_np):
         torch.cuda.empty_cache()
     curve = {}
     for Bc in CHAIN_CURVE_B:  # the witness's chains-versus-throughput curve, one block's replay each
-        gen = build_chained_witness(prog, views, dev)
+        gen = build_chained_witness(prog, views, device=dev)
         gen(iv[None].expand(Bc, 256).contiguous(), torch.zeros((1, Bc, 512), dtype=torch.int32, device=dev))
         curve[Bc] = cuda_ms(gen.graphs[Bc].graph.replay, 10)
         del gen
@@ -1805,7 +1860,7 @@ def merkle_path(dev, card, bound, tables, built):
     print(f"[perf] merkle step {t_step:.4f} s for {MERKLE_LEAVES} leaves = "
           f"{(MERKLE_LEAVES - 1) * R / t_step:.4e} constraint-evals/s, peak {peak:.2f} GiB, on {card}")
     perm = torch.as_tensor(_STATE_TO_MSG_PERM, device=dev).long()
-    evaluator, extract = prog.build(dev), _carry_extractor(views, dev)
+    evaluator, extract = prog.build(device=dev), _carry_extractor(views, dev)
     d = leaves
     while d.shape[0] > 1:  # the step's levels, each with its own tables
         msg = torch.cat([d[0::2][:, perm], d[1::2][:, perm]], dim=1)
@@ -1838,8 +1893,8 @@ def num_kernels_at(label, template, prog, free0, ff0, dev, bound, tables):
     the check assembles it), mulcmp at the N of the product rows and of
     the rest rows, mul at [16, B] (one step of the inverse's ladder)."""
     Bn = free0.shape[0]
-    check = build_templated_check(template, Bn, "mixed", field_slots=prog.field_slots, device=dev)
-    vals, fl = prog.build(dev)(free0, ff0)
+    check = build_templated_check(template, Bn, None, "mixed", field_slots=prog.field_slots, device=dev)
+    vals, fl = prog.build(device=dev)(free0, ff0)
     zt = check.rest_z(vals.t().contiguous(), torch.cat([fl, ff0], dim=1).permute(1, 2, 0).contiguous())
     del vals, fl
     assert check.rest.fused, "the num block's rest rows take the fused limbs check"
@@ -1880,10 +1935,10 @@ def num_family_step(dev, card, bound, tables):
         assert verdict == (0, 0xFFFFFFFF) and path_counts["mul"] > 0 and path_counts["mulcmp"] > 0, path_counts
         counts = counts or path_counts
         if Bn == NUM_B:
-            vals, fl = prog.build(dev)(free[0], ff[0])
-            cvals, cfl = prog.build("cpu")(free[0, :64].cpu(), ff[0, :64].cpu())
+            vals, fl = prog.build(device=dev)(free[0], ff[0])
+            cvals, cfl = prog.build(device="cpu")(free[0, :64].cpu(), ff[0, :64].cpu())
             assert torch.equal(vals[:64].cpu(), cvals) and torch.equal(fl[:64].cpu(), cfl), "num family chunk 0"
-            check = build_templated_check(template, Bn, "mixed", field_slots=prog.field_slots, device=dev)
+            check = build_templated_check(template, Bn, None, "mixed", field_slots=prog.field_slots, device=dev)
             fl_check = torch.cat([fl, ff[0]], dim=1)
             assert tuple(int(x) for x in check.verdict(vals, fl_check)) == (0, 0xFFFFFFFF)
             inv_row = int(next(st.outs[0] for st in prog.stages if st.opcode == "num_inv_or_one"))
@@ -2294,27 +2349,27 @@ def sharding_rank(dev, inp: dict, max_mhz: float) -> dict:
         out["launches"][path], out["s"][path] = counts, dt
         return res
 
-    step, shard = sharded_packed_witness_and_check(prog, template, SHARD_PACKED_B, group, dev)
+    step, shard = sharded_packed_witness_and_check(prog, template, SHARD_PACKED_B, None, group=group, device=dev)
     fp = shard(inp["packed"])
     nb, first, vals = record("packed", lambda: step(fp))
     out["verdict"]["packed"] = (int(nb), int(first))
     out["digest"]["packed"] = digest(vals)
-    step_bad, _ = sharded_packed_witness_and_check(prog_bad, template, SHARD_PACKED_B, group, dev)
+    step_bad, _ = sharded_packed_witness_and_check(prog_bad, template, SHARD_PACKED_B, None, group=group, device=dev)
     out["verdict"]["packed_bad"] = tuple(int(v) for v in step_bad(shard(inp["packed_bad"]))[:2])
     words_packed = vals.t().contiguous()
     del step, step_bad, fp, vals
 
-    step, shard = sharded_witness_and_check(prog, template, SHARD_BITS_B, group, dev)
+    step, shard = sharded_witness_and_check(prog, template, SHARD_BITS_B, None, group=group, device=dev)
     fb = shard(inp["bits"])
     nb, z_bits = record("bits", lambda: step(fb))
     out["verdict"]["bits"] = int(nb)
     out["digest"]["bits"] = digest(z_bits)
-    step_bad, shard = sharded_witness_and_check(prog_bad, template, SHARD_BITS_B, group, dev)
+    step_bad, shard = sharded_witness_and_check(prog_bad, template, SHARD_BITS_B, None, group=group, device=dev)
     out["verdict"]["bits_bad"] = int(step_bad(shard(inp["bits_bad"]))[0])
     del step, step_bad, fb
 
-    sat = ShardedSatisfier(template, SHARD_LIMBS_B, group, "limbs", dev)
-    z3 = prog.z_template_limbs(*prog.build(dev)(from_numpy_u32(inp["limbs"], dev))).cpu()
+    sat = ShardedSatisfier(template, SHARD_LIMBS_B, group=group, witness_form="limbs", device=dev)
+    z3 = prog.z_template_limbs(*prog.build(device=dev)(from_numpy_u32(inp["limbs"], dev))).cpu()
     zl = sat.shard_z(z3)
     inst, slot, limb = SHARD_LIMBS_FLIP
     z3[inst, slot, limb] ^= 1
@@ -2335,12 +2390,12 @@ def sharding_rank(dev, inp: dict, max_mhz: float) -> dict:
     tables = {k: [] for k in fk.KERNELS}
     for r in range(W):
         if r == rank:
-            check = build_templated_check(template, SHARD_PACKED_B // W, device=dev)
+            check = build_templated_check(template, SHARD_PACKED_B // W, None, "bits_packed", device=dev)
             for k, t in bits_check_kernels(f"{label} packed", check, words_packed, bound, SEED + 22 + rank,
                                            1024).items():
                 tables[k].append(t)
             del check, words_packed
-            check = build_templated_check(template, SHARD_BITS_B // W, "bits", device=dev)
+            check = build_templated_check(template, SHARD_BITS_B // W, None, "bits", device=dev)
             words = pack_rows(z_bits.t(), check.Bw)
             for k, t in bits_check_kernels(f"{label} bits", check.packed, words, bound, SEED + 24 + rank).items():
                 tables[k].append(t)
@@ -2378,18 +2433,19 @@ def sharding_path(dev, card, tables, max_mhz: float):
     fp = from_numpy_u32(inp["packed"], dev)
     for key, pg in (("packed", prog), ("packed_bad", prog_bad)):
         f = from_numpy_u32(inp[key], dev)
-        want[key] = tuple(int(v) for v in build_packed_production_step(pg, template, SHARD_PACKED_B, dev)(f[None]))
-    vals = prog.build_packed(dev)(fp)
+        step = build_packed_production_step(pg, template, SHARD_PACKED_B, device=dev)
+        want[key] = tuple(int(v) for v in step(f[None]))
+    vals = prog.build_packed(device=dev)(fp)
     slices["packed"] = {W: [digest(v) for v in vals.chunk(W)] for W, _ in SHARD_RUNS}
     del fp, vals
     for key, pg in (("bits", prog), ("bits_bad", prog_bad)):
         f = from_numpy_u32(inp[key], dev)
-        want[key] = int(build_production_step(pg, template, SHARD_BITS_B, dev)(f[None])[0])
-    z_bits = prog.build(dev)(from_numpy_u32(inp["bits"], dev))[0]
+        want[key] = int(build_production_step(pg, template, SHARD_BITS_B, device=dev)(f[None])[0])
+    z_bits = prog.build(device=dev)(from_numpy_u32(inp["bits"], dev))[0]
     slices["bits"] = {W: [digest(v) for v in z_bits.chunk(W)] for W, _ in SHARD_RUNS}
     del z_bits
     sat = TemplatedSatisfier(template, SHARD_LIMBS_B, device=dev)
-    z3 = prog.z_template_limbs(*prog.build(dev)(from_numpy_u32(inp["limbs"], dev)))
+    z3 = prog.z_template_limbs(*prog.build(device=dev)(from_numpy_u32(inp["limbs"], dev)))
     want["limbs"] = tuple(int(v) for v in sat.check.verdict(z3))
     inst, slot, limb = SHARD_LIMBS_FLIP
     z3[inst, slot, limb] ^= 1
@@ -2574,10 +2630,10 @@ def frontend_config1_step(dev, card, template, prog, native):
     verdict, counts = path_run(step, free)
     print(f"[step] frontend config1 verdict {verdict} launches {counts}")
     assert verdict == (0, 0xFFFFFFFF) and counts["chain"] == counts["mulcmp"] == N_CHUNKS, (verdict, counts)
-    vals0, fl0 = prog.build(dev)(free[0])
-    n_vals, n_fl = native.build(dev)(free[0])
+    vals0, fl0 = prog.build(device=dev)(free[0])
+    n_vals, n_fl = native.build(device=dev)(free[0])
     assert torch.equal(vals0, n_vals) and torch.equal(fl0, n_fl), "frontend config1 chunk 0 differs from NativeBuilder's"
-    check = build_templated_check(template, B_FIELD, "mixed", field_slots=prog.field_slots, device=dev)
+    check = build_templated_check(template, B_FIELD, None, "mixed", field_slots=prog.field_slots, device=dev)
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
     row = int(_detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])["out_rows"][45])
     inst = B_FIELD // 3
@@ -2713,6 +2769,189 @@ def frontend_path(dev, card, bound, tables):
     return launches
 
 
+class PathCounts:
+    """The launches of a path driven in several calls: each call runs with
+    every count set to 0 just before it and read just after, and the
+    counts add up; launches made between the calls (the compares) are not
+    counted."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(fk.KERNELS, 0)
+
+    def __call__(self, fn):
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = fk.launch_counts()
+        for k in self.counts:
+            self.counts[k] += got[k]
+        return out, got
+
+
+def api_route(label, make, z, bad, row, run):
+    """Build a chain Satisfier with `make` (timed, to a synchronize), check
+    the clean and the planted witness and time a check; its peak is the
+    device memory it took above what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    with phase(f"{label} build"):
+        sat = make()
+        torch.cuda.synchronize()
+    t_build = time.time() - t0
+    ok, counts = run(lambda: sat.is_satisfied(z))
+    name, _ = run(lambda: sat.which_is_unsatisfied(bad))
+    assert ok and name == f"constraint #{row}", (label, ok, name, row)
+    with phase(f"{label} check"):
+        t_chk = wall_s(lambda: sat.is_satisfied(z), 3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return sat, t_build, t_chk, peak, counts
+
+
+def api_satisfier_routes(dev, card, bound, tables, run):
+    """Satisfier(r, False) and Satisfier(r, True) on the 16-block chain,
+    the False route's kernels at its shapes, and the chain through the
+    serialize round trip."""
+    p = SCALAR.p
+    template, prog = satisfier_chain_synth()
+    R = template.num_constraints
+    z, bad, slot, block, row, n_ref = satisfier_chain_witness(template, prog, dev)
+    sats = {}
+    for use_pallas in (False, True):
+        label = f"Satisfier(chain, {use_pallas})"
+        sat, t_build, t_chk, peak, counts = api_route(label, lambda: Satisfier(template, use_pallas), z, bad, row, run)
+        print(f"[api] {label}: route {sat.route}, built in {t_build:.4f} s, check {t_chk:.4f} s for {R} rows, "
+              f"peak {peak:.3f} GiB above its inputs; clean, and bit slot {slot} of block {block} set to a random "
+              f"field element named constraint #{row} as over the Python ints; launches a check {counts}; on {card}")
+        want = ({"mul": 4, "reduce_digits": 3} if use_pallas is False
+                else {"mul_digits": 3, "reduce_digits": 3, "mul": 1})
+        assert {k: v for k, v in counts.items() if v} == want, (label, counts)
+        sats[use_pallas] = sat
+    del sats[True]
+    torch.cuda.empty_cache()
+
+    # the False route's kernels on its own operands: the entries of its
+    # widest matrix, then their digits' row sums element-major
+    sat = sats[False]
+    d = sat.device_r1cs
+    name, m = max((("a", d.a), ("b", d.b), ("c", d.c)), key=lambda nm: nm[1].cols.numel())
+    zv = _gather_rows(z, m.cols).t().contiguous()
+    cv = d.coeff_limbs.t().index_select(1, m.coeff_ids).contiguous()
+    E = zv.shape[1]
+    tables["mul"].append(compare(f"mul api DeviceR1CS {name} entries N={E}", lambda: fk.mul(zv, cv, SCALAR),
+                                 lambda: fk.mul_plain(zv, cv, SCALAR), bound(3 * 16 * 4 * E, E * MODMUL_MULS),
+                                 plain_reps=2))
+    rowsum = torch.zeros((R, 32), dtype=torch.int32, device=dev)
+    rowsum.index_add_(0, m.rows, _split8(fk.mul(zv, cv, SCALAR).t()))
+    em = rowsum.t()  # element-major, as violation_mask passes it
+    tables["reduce_digits"].append(compare(
+        f"reduce_digits api DeviceR1CS {name} row sums element-major N={R}", lambda: fk.reduce_digits(em, SCALAR),
+        lambda: fk.reduce_digits_plain(em, SCALAR), bound((32 + 16) * 4 * R, R * REDUCE_MULS), plain_reps=2))
+    del zv, cv, rowsum, em
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        with phase("serialize chain"):
+            fp = save_r1cs(os.path.join(tmp, "chain_r1cs.npz"), template)
+            save_witness(os.path.join(tmp, "chain_z.npz"), z, fp)
+            loaded = load_r1cs(os.path.join(tmp, "chain_r1cs.npz"), expect_fingerprint=fp)
+            zl_np, meta = load_witness(os.path.join(tmp, "chain_z.npz"), expect_fingerprint=fp)
+        t_io = time.time() - t0
+        sizes = [os.path.getsize(os.path.join(tmp, f)) for f in ("chain_r1cs.npz", "chain_z.npz")]
+    zl = from_numpy_u32(zl_np, dev)
+    assert torch.equal(zl, z) and meta["r1cs_fingerprint"] == fp
+    sat_l = Satisfier(loaded, False)
+    got, _ = run(lambda: (sat_l.is_satisfied(zl), sat_l.which_is_unsatisfied(zl), sat_l.is_satisfied(bad),
+                          sat_l.which_is_unsatisfied(bad)))
+    assert got == (True, None, False, f"constraint #{row}"), got
+    print(f"[api] serialize: the chain's R1CS ({sizes[0]} B) and witness ({sizes[1]} B) saved and loaded in "
+          f"{t_io:.2f} s, fingerprint {fp}; the loaded z bit-equal, Satisfier(loaded, False) verdicts {got}")
+
+
+def api_path(dev, card, bound, tables, built, sha_template, sha_prog):
+    """The reference's device-layer API, each call as a program written
+    against bellpepper_tpu writes it (no device: the card)."""
+    p = SCALAR.p
+    run = PathCounts()
+    phase_report(reset=True)
+    api_satisfier_routes(dev, card, bound, tables, run)
+    torch.cuda.empty_cache()
+
+    # the flagship, reference-style
+    before = default_config()
+    set_default_config(Config(use_pallas=True))
+    cfg = default_config()
+    free_np, free = sha256_free(dev)
+    with phase("sha256 step", trace=True):
+        step = build_packed_production_step(sha_prog, sha_template, B, cfg.use_pallas)  # B = 32768
+        step(free)
+        torch.cuda.synchronize()
+    verdict, counts = run(lambda: tuple(int(v) for v in step(free)))
+    assert verdict == PROBES["sha256"]["verdict"], (verdict, PROBES["sha256"])
+    vals0 = build_packed_chunked_witness(sha_prog)(free)[0]
+    check = build_templated_check(sha_template, B, cfg.use_pallas, "bits_packed")
+    vbad = vals0.clone()
+    vbad[(B // 32) // 2, 600] ^= 1 << 7
+    corrupt, _ = run(lambda: tuple(int(v) for v in check.verdict(vbad)))
+    assert corrupt == PROBES["sha256"]["corrupt"], (corrupt, PROBES["sha256"])
+    set_default_config(before)
+    print(f"[api] sha256 step written reference-style under Config(use_pallas=True): verdict {verdict}, the "
+          f"corrupted chunk's {corrupt}, both equal to the sha256 phase's; launches {counts}")
+    del step, vals0, vbad, check
+    torch.cuda.empty_cache()
+
+    # config 1 in the limbs form through PipelinedSatisfier, and run()
+    template, prog = built["config1"]
+    free_np1 = np.random.default_rng(5).integers(0, 2, size=(N_CHUNKS, B_FIELD, 128)).astype(np.uint32)
+    free1 = from_numpy_u32(free_np1, dev)
+    ev = prog.build(True)
+    z4 = torch.stack([prog.z_template_limbs(*ev(f)) for f in free1])
+    with phase("PipelinedSatisfier config1 build"):
+        psat = PipelinedSatisfier(template, B_FIELD, N_CHUNKS, config=Config(use_pallas=True))
+    ok, counts = run(lambda: psat.is_satisfied(z4))
+    pack = sorted(prog.field_rows, key=prog.field_rows.get)[0]
+    chunk, inst = 2, B_FIELD // 3
+    z4[chunk, inst, pack, 2] ^= 1
+    name, _ = run(lambda: psat.which_is_unsatisfied(z4))
+    row, _n = python_int_first_bad(template, to_u32(z4[chunk, inst]).cpu().numpy(), pack)
+    assert ok and psat.witness_form == "limbs" and name == f"chunk {chunk}: instance {inst}: constraint #{row}", (
+        ok, name, row)
+    t_chk = wall_s(lambda: psat.is_satisfied(z4), 3)
+    print(f"[api] PipelinedSatisfier(config1, {B_FIELD}, {N_CHUNKS}, config=Config(use_pallas=True)): clean, a "
+          f"flipped limb of pack slot {pack} named {name!r} as over the Python ints; check {t_chk:.4f} s; "
+          f"launches of the clean check {counts}, on {card}")
+    del z4, psat
+    (vals, flimbs), counts = run(lambda: prog.run(free_np1[0]))
+    want_v, want_f = ev(free1[0])
+    assert torch.equal(vals, want_v) and torch.equal(flimbs, want_f)
+    print(f"[api] WitnessProgram.run on config 1 at {B_FIELD}: vals and flimbs equal to build()'s evaluator; "
+          f"launches {counts}")
+
+    be = get_backend(SCALAR)
+    top = p >> 240
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.integers(0, 1 << 16, size=(MUL_POW2_N, 16), dtype=np.uint32)
+    x[:, 15] = rng.integers(0, top, size=MUL_POW2_N, dtype=np.uint32)
+    corners = [0, 1, 2, p - 1, p - 2, (p + 1) // 2, (1 << 240) - 1, ((top - 1) << 240) | ((1 << 240) - 1)]
+    for i, c in enumerate(corners):
+        x[i] = limbs(c, 16)
+    a = from_numpy_u32(x, dev)
+    idx = list(range(len(corners))) + [MUL_POW2_N // 2, MUL_POW2_N - 1]
+    vals_a = be.from_limbs(a[idx])
+    for k in MUL_POW2_K:
+        got, _ = run(lambda: be.mul_pow2(a, k))
+        assert be.from_limbs(got[idx]) == [v * pow(2, k, p) % p for v in vals_a], ("mul_pow2", k)
+    print(f"[api] FieldBackend.mul_pow2 at [{MUL_POW2_N}, 16], k in {MUL_POW2_K}: the corner values and two "
+          f"random rows equal to Python ints")
+    print(f"[api] phase_report {json.dumps(phase_report(reset=True))}")
+    print(f"[api] launches {run.counts}")
+    assert run.counts["mul"] and run.counts["reduce_digits"] and run.counts["bitplane_eq"], run.counts
+    return run.counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing runs on the CPU", file=sys.stderr)
@@ -2742,8 +2981,8 @@ def main() -> int:
     template, prog = sha256_path(dev, card)
     built = field_synth()
     t0 = time.time()
-    sha_limbs = build_templated_check(template, B_SHA_LIMBS, "limbs", device=dev)
-    config1_fold = build_templated_check(built["config1"][0], B_FIELD, "limbs", device=dev).fold
+    sha_limbs = build_templated_check(template, B_SHA_LIMBS, None, "limbs", device=dev)
+    config1_fold = build_templated_check(built["config1"][0], B_FIELD, None, "limbs", device=dev).fold
     print(f"[step] limbs checks of sha256 at {B_SHA_LIMBS} and config 1 at {B_FIELD} built in "
           f"{time.time() - t0:.2f} s (fold tables included)")
     results = sha256_kernels(dev, bound, template, prog)
@@ -2784,6 +3023,9 @@ def main() -> int:
     launches["row_sharded"] = row_sharded_path(dev, card, bound, tables)
     torch.cuda.empty_cache()
     launches.update(sharding_path(dev, card, tables, max_mhz))
+    torch.cuda.empty_cache()
+    launches["api"] = api_path(dev, card, bound, tables, built, template, prog)
+    torch.cuda.empty_cache()
     device_times(dev)
 
     kernels = []

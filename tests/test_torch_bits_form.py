@@ -77,7 +77,7 @@ def templates():
 
 def _bits_witness(prog, B):
     free = RNG.integers(0, 2, size=(B, len(prog.free_slots))).astype(np.int32)
-    vals, _ = prog.build("cpu")(torch.from_numpy(free))
+    vals, _ = prog.build(device="cpu")(torch.from_numpy(free))
     return to_numpy_u32(vals)
 
 
@@ -91,7 +91,7 @@ def test_bits_check_matches_reference(templates, name, B):
     template, prog = templates[name]
     R = template.num_constraints
     ref = jax.jit(ref_mv.build_templated_check(template, B, False, "bits"))
-    check = mv.build_templated_check(template, B, "bits", device="cpu")
+    check = mv.build_templated_check(template, B, None, "bits", device="cpu")
     assert isinstance(check, mv.BitsCheck)
     vals = _bits_witness(prog, B)
     cases = [(vals, None)]
@@ -118,7 +118,7 @@ def test_padded_instances_are_cut(templates):
     leave them out."""
     template, prog = templates["sha256"]
     B = 33
-    check = mv.build_templated_check(template, B, "bits", device="cpu")
+    check = mv.build_templated_check(template, B, None, "bits", device="cpu")
     z_T = from_numpy_u32(_bits_witness(prog, B)).t()
     words = pack_rows(z_T, check.Bw)
     nb_pad, first_pad = (int(x) for x in check.packed.verdict_slot_major(words))
@@ -159,7 +159,7 @@ def test_no_majority_fallback_matches_reference():
     x = RNG.integers(0, 1 << 32, size=(B // 32, n + 1), dtype=np.uint64).astype(np.uint32)
     vals = np.concatenate([np.full((B // 32, 1), SENT, np.uint32), x, x], axis=1)
     ref = jax.jit(ref_mv.build_templated_check(template, B, False, "bits_packed"))
-    check = mv.build_templated_check(template, B, "bits_packed", device="cpu")
+    check = mv.build_templated_check(template, B, None, "bits_packed", device="cpu")
     assert check.fallback is not None
     R = template.num_constraints
     for slot, word, bit in ((None, 0, 0), (n + 4, 3, 17), (1, 15, 31)):
@@ -180,7 +180,7 @@ def test_no_majority_fallback_matches_reference():
     z[5, 3] = z[5, n + 4] = 1
     z[20, 2] = 1  # x_1 without y_1
     want = np.asarray(ref_mv.build_templated_check(template, 33, False, "bits")(jnp.asarray(z)))
-    bits = mv.build_templated_check(template, 33, "bits", device="cpu")
+    bits = mv.build_templated_check(template, 33, None, "bits", device="cpu")
     assert (bits(from_numpy_u32(z)).numpy() == want).all() and want.any()
     assert tuple(int(x) for x in bits.verdict(from_numpy_u32(z))) == _ref_verdict(want)
 
@@ -235,7 +235,7 @@ def test_templated_satisfier_bits_on_pasta(field):
     tr, tape_r = sha256(RefBuilder, field)
     prog = WitnessProgram(tape)
     vals = _bits_witness(prog, B)
-    sat = TemplatedSatisfier(t, B, "bits", device="cpu")
+    sat = TemplatedSatisfier(t, B, witness_form="bits", device="cpu")
     ref = RefSatisfier(tr, B, use_pallas=False, witness_form="bits")
     assert sat.is_satisfied(sat.z_from_instances(vals)) and ref.is_satisfied(jnp.asarray(vals))
     bad = vals.copy()
@@ -252,4 +252,4 @@ def test_bits_form_refuses_small_fields(templates):
     small = R1CS(PrimeField("m127", (1 << 127) - 1), t.num_inputs, t.num_aux, t.num_constraints,
                  t.a, t.b, t.c, t.coeff_table)
     with pytest.raises(NotImplementedError):
-        mv.build_templated_check(small, 64, "bits", device="cpu")
+        mv.build_templated_check(small, 64, None, "bits", device="cpu")

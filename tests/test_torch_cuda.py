@@ -10,7 +10,9 @@ backend's inversion is a ladder of mul launches that Python's pow agrees
 with, and the packed sha256 step, the config-1 field step in the mixed and
 the limbs forms, the bits form at a ragged batch, config 3's mixed packed
 step, a step with free field inputs and the Satisfier on the card give
-the CPU's verdicts, clean and corrupted. The chained witness replays one
+the CPU's verdicts, clean and corrupted (the Satisfier on both of its
+routes: the templated limbs check and, given use_pallas=False, the
+DeviceR1CS route). The chained witness replays one
 CUDA graph a block, equal to an eager loop of the same evaluator, cached
 for each batch; the Merkle step and the num family's mixed block equal
 the CPU. mul and mul_digits hold on operands in [p, 2^256) (config 5's
@@ -527,15 +529,15 @@ def test_limbs_step_on_card_matches_cpu(cuda):
     bits = RNG.integers(0, 2, size=(2, 256, 128)).astype(np.uint32)
     for t, corrupt in ((tape, False), (SnapshotTape(tape.field, (ni, na, bad_ops, free)), True)):
         prog = WitnessProgram(t)
-        want = build_production_step(prog, template, 256, "cpu", witness_form="limbs")(from_numpy_u32(bits))
+        want = build_production_step(prog, template, 256, device="cpu", witness_form="limbs")(from_numpy_u32(bits))
         fk.reset_launch_counts()
-        got = build_production_step(prog, template, 256, cuda, witness_form="limbs")(from_numpy_u32(bits, cuda))
+        got = build_production_step(prog, template, 256, device=cuda, witness_form="limbs")(from_numpy_u32(bits, cuda))
         got = tuple(int(v) for v in got)
         assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
         counts = fk.launch_counts()
         assert counts["limbs_matvec"] == 6 and counts["mulcmp"] == 4
     prog = WitnessProgram(tape)
-    z = prog.z_template_limbs(*prog.build("cpu")(from_numpy_u32(bits[0, :1])))[0]
+    z = prog.z_template_limbs(*prog.build(device="cpu")(from_numpy_u32(bits[0, :1])))[0]
     z[prog.free_slots[7]] = z[prog.free_slots[7]].flip(0) + 3  # a non-bit canonical value
     got, want = Satisfier(template, device=cuda), Satisfier(template, device="cpu")
     fk.reset_launch_counts()
@@ -561,11 +563,11 @@ def test_bits_check_on_card_matches_cpu(cuda):
     template, prog = _sha256_prog()
     B = 33
     free = from_numpy_u32(RNG.integers(0, 2, size=(B, 512)).astype(np.uint32))
-    vals, _ = prog.build("cpu")(free)
+    vals, _ = prog.build(device="cpu")(free)
     bad = vals.clone()
     bad[B - 1, 9000] ^= 1
-    cpu = build_templated_check(template, B, "bits", device="cpu")
-    card = build_templated_check(template, B, "bits", device=cuda)
+    cpu = build_templated_check(template, B, None, "bits", device="cpu")
+    card = build_templated_check(template, B, None, "bits", device=cuda)
     for z in (vals, bad):
         fk.reset_launch_counts()
         got_mask = card(z.to(cuda)).cpu()
@@ -632,8 +634,8 @@ def test_free_field_step_on_card_matches_cpu(cuda, form):
     for t, corrupt in ((tape, False), (SnapshotTape(tape.field, (ni, na, bad_ops, free)), True)):
         prog = WitnessProgram(t)
         assert len(prog.free_field_slots) == 2
-        want = build_production_step(prog, template, B, "cpu", witness_form=form)(bits, ff)
-        got = build_production_step(prog, template, B, cuda, witness_form=form)(bits.to(cuda), ff.to(cuda))
+        want = build_production_step(prog, template, B, device="cpu", witness_form=form)(bits, ff)
+        got = build_production_step(prog, template, B, device=cuda, witness_form=form)(bits.to(cuda), ff.to(cuda))
         got = tuple(int(v) for v in got)
         assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
 
@@ -654,18 +656,18 @@ def test_chained_graph_matches_eager_and_caches(cuda):
     eager loop's and the CPU's bit for bit; a second call at B = 3 replays
     the cached graph, a call at B = 2 captures a second one."""
     template, prog, views = _chain_prog()
-    gen = build_chained_witness(prog, views, cuda)
+    gen = build_chained_witness(prog, views, device=cuda)
     iv = from_numpy_u32(RNG.integers(0, 2, size=(3, 256)).astype(np.uint32))
     msgs = from_numpy_u32(RNG.integers(0, 2, size=(4, 3, 512)).astype(np.uint32))
     vals, final = gen(iv.to(cuda), msgs.to(cuda))
     graph = gen.graphs[3]
     eager_vals, eager_final = eager_chain(gen, iv.to(cuda), msgs.to(cuda))
     assert torch.equal(vals, eager_vals) and torch.equal(final, eager_final)
-    cpu_vals, cpu_final = build_chained_witness(prog, views, "cpu")(iv, msgs)
+    cpu_vals, cpu_final = build_chained_witness(prog, views, device="cpu")(iv, msgs)
     assert torch.equal(vals.cpu(), cpu_vals) and torch.equal(final.cpu(), cpu_final)
     again = gen(final, msgs.flip(0).to(cuda))
     assert list(gen.graphs) == [3] and gen.graphs[3] is graph
-    assert torch.equal(again[0].cpu(), build_chained_witness(prog, views, "cpu")(cpu_final, msgs.flip(0))[0])
+    assert torch.equal(again[0].cpu(), build_chained_witness(prog, views, device="cpu")(cpu_final, msgs.flip(0))[0])
     two = gen(iv[:2].to(cuda), msgs[:, :2].to(cuda))
     assert sorted(gen.graphs) == [2, 3] and gen.graphs[3] is graph
     assert torch.equal(two[0].cpu(), cpu_vals[:, :2]) and torch.equal(two[1].cpu(), cpu_final[:2])
@@ -680,9 +682,9 @@ def test_merkle_step_on_card_matches_cpu(cuda):
     template, tape = nb.finish()
     prog, views = WitnessProgram(tape), [nb.view(v) for v in out]
     leaves = from_numpy_u32(RNG.integers(0, 2, size=(16, 256)).astype(np.uint32))
-    want = build_merkle_tree_step(prog, template, views, 16, "cpu")(leaves)
+    want = build_merkle_tree_step(prog, template, views, 16, device="cpu")(leaves)
     fk.reset_launch_counts()
-    root, total = build_merkle_tree_step(prog, template, views, 16, cuda)(leaves.to(cuda))
+    root, total = build_merkle_tree_step(prog, template, views, 16, device=cuda)(leaves.to(cuda))
     counts = fk.launch_counts()
     assert torch.equal(root.cpu(), want[0]) and int(total) == int(want[1]) == 0
     assert counts["bitplane_eq"] == 4 and counts["mulcmp"] == 4
@@ -707,13 +709,13 @@ def test_num_mixed_block_on_card_matches_cpu(cuda):
     B = 64
     free = from_numpy_u32(RNG.integers(0, 2, size=(B, len(prog.free_slots))).astype(np.uint32))
     ff = _canonical(SCALAR, B, 11, "cpu").t().reshape(B, 1, 16).contiguous()
-    want = prog.build("cpu")(free, ff)
+    want = prog.build(device="cpu")(free, ff)
     fk.reset_launch_counts()
-    got = prog.build(cuda)(free.to(cuda), ff.to(cuda))
+    got = prog.build(device=cuda)(free.to(cuda), ff.to(cuda))
     assert fk.launch_counts()["mul"] > 0
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     for dev in ("cpu", cuda):
-        verdict = build_production_step(prog, template, B, dev)(free[None].to(dev), ff[None].to(dev))
+        verdict = build_production_step(prog, template, B, device=dev)(free[None].to(dev), ff[None].to(dev))
         assert tuple(int(v) for v in verdict) == (0, 0xFFFFFFFF)
 
 
@@ -820,3 +822,32 @@ def test_frontend_circuits_on_card_match_cpu(cuda, name):
         named = sat.which_is_unsatisfied(sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux()))
         assert named == cs.which_is_unsatisfied() is not None
         assert fk.launch_counts()["mul_digits"] == 3
+
+
+@pytest.mark.cuda
+def test_device_r1cs_satisfier_route_on_card(cuda):
+    """Satisfier(r1cs, False) on the card: the DeviceR1CS route gives the
+    CPU's and the templated route's verdicts, clean and with a planted
+    fault, through 4 mul launches (3 matrices' entries, then A·z∘B·z) and 3
+    reduce_digits launches a check."""
+    nb = NativeBuilder()
+    bits = [nb.alloc_bit() for _ in range(64)]
+    a, b = nb.pack_bits(bits[:32]), nb.pack_bits(bits[32:])
+    x = a
+    for _ in range(6):
+        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    z = prog.z_template_limbs(*prog.build(device="cpu")(_u32((1, 64), "cpu", 2)))[0]
+    bad = z.clone()
+    bad[prog.free_slots[5], 0] ^= 1
+    card, cpu = Satisfier(template, False, device=cuda), Satisfier(template, False, device="cpu")
+    templated = Satisfier(template, device=cuda)
+    for zz in (z, bad):
+        fk.reset_launch_counts()
+        got = (card.is_satisfied(zz.to(cuda)), card.which_is_unsatisfied(zz.to(cuda)))
+        counts = fk.launch_counts()
+        assert counts["mul"] == 8 and counts["reduce_digits"] == 6
+        assert got == (cpu.is_satisfied(zz), cpu.which_is_unsatisfied(zz))
+        assert got == (templated.is_satisfied(zz.to(cuda)), templated.which_is_unsatisfied(zz.to(cuda)))
+    assert got[0] is False and got[1] is not None

@@ -144,9 +144,9 @@ def test_config2_packed_step_from_frontend_tape():
     free = from_numpy_u32(free_np)
     step = build_packed_production_step(prog, template, B, device="cpu")
     assert [int(v) for v in step(free)] == [0, 0xFFFFFFFF]
-    vals = prog.build_packed("cpu")(free[0])
-    assert (to_numpy_u32(vals) == to_numpy_u32(native("config2")[1].build_packed("cpu")(free[0]))).all()
-    check = build_templated_check(template, B, "bits_packed", device="cpu")
+    vals = prog.build_packed(device="cpu")(free[0])
+    assert (to_numpy_u32(vals) == to_numpy_u32(native("config2")[1].build_packed(device="cpu")(free[0]))).all()
+    check = build_templated_check(template, B, None, "bits_packed", device="cpu")
     assert [int(v) for v in check.verdict(vals)] == [0, 0xFFFFFFFF]
     R, slot = template.num_constraints, prog.num_slots // 2
     bad = vals.clone()

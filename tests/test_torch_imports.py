@@ -4,9 +4,11 @@ config-1 templates on the CPU (the packed, mixed and limbs steps, the
 chunked check and both satisfiers), configs 2 and 3 and blake2s (the
 bits form, the mixed packed step and the packed step), and the chained
 and Merkle steps and a num gadget, config 5's row-chunked check and
-product and the row-sharded checker, and the Python circuit frontend
-(every module, and config 2 through ShapeCS, TapeCS and
-TestConstraintSystem into its packed step and Satisfier), pulls in no
+product and the row-sharded checker, the Python circuit frontend (every
+module, and config 2 through ShapeCS, TapeCS and TestConstraintSystem into
+its packed step and Satisfier, on both of the Satisfier's routes), and the
+device-layer modules of the reference's API (config, utils.profiling,
+utils.serialize: an R1CS saved and loaded back), pulls in no
 `jax` and nothing of the JAX package, and the native library builds
 from the port's own C++ source; nor does importing the sharding, multihost and dry-run modules
 and running the dry run on one CPU rank. Without a card, an entry point
@@ -67,6 +69,10 @@ def test_port_never_imports_jax():
         import bellpepper_tpu_torch.device
         import bellpepper_tpu_torch.fields
         import bellpepper_tpu_torch.r1cs
+        import bellpepper_tpu_torch.config
+        import bellpepper_tpu_torch.utils
+        import bellpepper_tpu_torch.utils.profiling
+        import bellpepper_tpu_torch.utils.serialize
         import torch
         from bellpepper_tpu_torch import (
             NativeBuilder, Satisfier, TemplatedSatisfier, WitnessProgram, build_chunked_check,
@@ -82,7 +88,7 @@ def test_port_never_imports_jax():
         prog = WitnessProgram(tape)
         assert template.num_constraints == 26352 and prog.num_slots == 26327
         free = torch.zeros((1, 1, 512), dtype=torch.int32)
-        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, device="cpu")(free)] == [0, 0xFFFFFFFF]
 
         nb = NativeBuilder()
         bits = [nb.alloc_bit() for _ in range(128)]
@@ -94,11 +100,11 @@ def test_port_never_imports_jax():
         prog = WitnessProgram(tape)
         assert (template.num_constraints, prog.num_slots) == (220, 221)
         free = torch.randint(0, 2, (1, 32, 128), dtype=torch.int32)
-        assert [int(v) for v in build_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
-        limbs_step = build_production_step(prog, template, 128, "cpu", witness_form="limbs")
+        assert [int(v) for v in build_production_step(prog, template, 32, device="cpu")(free)] == [0, 0xFFFFFFFF]
+        limbs_step = build_production_step(prog, template, 128, device="cpu", witness_form="limbs")
         free = torch.randint(0, 2, (1, 128, 128), dtype=torch.int32)
         assert [int(v) for v in limbs_step(free)] == [0, 0xFFFFFFFF]
-        z = prog.z_template_limbs(*prog.build("cpu")(free[0]))
+        z = prog.z_template_limbs(*prog.build(device="cpu")(free[0]))
         assert TemplatedSatisfier(template, 128, device="cpu").is_satisfied(z)
         assert [int(v) for v in build_chunked_check(template, 128, 1, device="cpu")(z[None])] == [0, 0xFFFFFFFF]
         sat = Satisfier(template, device="cpu")
@@ -119,7 +125,7 @@ def test_port_never_imports_jax():
         template, tape = nb.finish()
         prog = WitnessProgram(tape)
         free = torch.randint(0, 2, (1, 33, 256), dtype=torch.int32)
-        assert [int(v) for v in build_production_step(prog, template, 33, "cpu")(free)] == [0, 0xFFFFFFFF]
+        assert [int(v) for v in build_production_step(prog, template, 33, device="cpu")(free)] == [0, 0xFFFFFFFF]
         nb = NativeBuilder()
         words = [nb.alloc_u32() for _ in range(4)]
         nb.multieq_begin()
@@ -131,13 +137,13 @@ def test_port_never_imports_jax():
         template, tape = nb.finish()
         prog = WitnessProgram(tape)
         free = torch.randint(-2**31, 2**31 - 1, (1, 1, 128), dtype=torch.int32)
-        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, device="cpu")(free)] == [0, 0xFFFFFFFF]
         nb = NativeBuilder()
         nb.blake2s_compression([nb.alloc_bit() for _ in range(256)], [nb.alloc_bit() for _ in range(512)], 64, True)
         template, tape = nb.finish()
         prog = WitnessProgram(tape)
         free = torch.randint(-2**31, 2**31 - 1, (1, 1, 768), dtype=torch.int32)
-        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, device="cpu")(free)] == [0, 0xFFFFFFFF]
 
         # one huge R1CS: config 5's generator at 2^10 rows through the
         # row-chunked product and check and RowShardedSatisfier
@@ -150,7 +156,7 @@ def test_port_never_imports_jax():
         z[n0 + 1 :] = prod(z, pprep)
         assert [int(v) for v in check(z, prep)] == [0, 0xFFFFFFFF]
         z[5, 0] ^= 1
-        assert RowShardedSatisfier(r1cs, 2, device="cpu").which_is_unsatisfied(z) is not None
+        assert RowShardedSatisfier(r1cs, n_shards=2, device="cpu").which_is_unsatisfied(z) is not None
 
         # the Python circuit frontend: every module, then config 2
         # (benchmarks/configs_1_2_3.py's circuit) through ShapeCS, TapeCS
@@ -193,12 +199,28 @@ def test_port_never_imports_jax():
         template, prog = shape.finish(), WitnessProgram(tcs)
         assert template.num_constraints == cs.num_constraints() == 712 and prog.is_packable
         free = torch.randint(-2**31, 2**31 - 1, (2, 1, len(prog.free_slots)), dtype=torch.int32)
-        assert [int(v) for v in build_packed_production_step(prog, template, 32, "cpu")(free)] == [0, 0xFFFFFFFF]
+        assert [int(v) for v in build_packed_production_step(prog, template, 32, device="cpu")(free)] == [0, 0xFFFFFFFF]
         sat = Satisfier(R1CS.from_test_cs(cs), device="cpu")
         assert cs.is_satisfied() and sat.is_satisfied(sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux()))
         cs.set("s3/result bit 4/boolean", 1 - cs.get("s3/result bit 4/boolean"))
         z = sat.z_from_assignments(cs.scalar_inputs(), cs.scalar_aux())
         assert sat.which_is_unsatisfied(z) == cs.which_is_unsatisfied() is not None
+
+        # the reference's device-layer API: the DeviceR1CS route of the
+        # Satisfier, and the R1CS through save_r1cs / load_r1cs
+        import tempfile
+        from bellpepper_tpu_torch.config import Config
+        from bellpepper_tpu_torch.utils import load_r1cs, phase, phase_report, save_r1cs
+        r_cs = R1CS.from_test_cs(cs)
+        with phase("device_r1cs", trace=True):
+            dsat = Satisfier(r_cs, False, device="cpu")
+            assert dsat.route == "device_r1cs" and dsat.which_is_unsatisfied(z) == cs.which_is_unsatisfied()
+        assert phase_report(reset=True)["device_r1cs"]["count"] == 1
+        with tempfile.TemporaryDirectory() as d:
+            fp = save_r1cs(os.path.join(d, "r.npz"), r_cs)
+            loaded = load_r1cs(os.path.join(d, "r.npz"), expect_fingerprint=fp)
+        assert Satisfier(loaded, config=Config(use_pallas=False), device="cpu").which_is_unsatisfied(z) \
+            == cs.which_is_unsatisfied()
 
         bad = sorted(
             m for m in sys.modules
@@ -229,16 +251,16 @@ def test_chained_merkle_and_num_gadgets_without_jax():
         prog, views = WitnessProgram(tape), [nb.view(v) for v in out]
         iv = torch.tensor([[nb.view(v)[1] for v in nb.sha256_iv()]], dtype=torch.int32)
         msgs = torch.randint(0, 2, (2, 1, 512), dtype=torch.int32)
-        total, first, final = build_chained_production_step(prog, template, views, 2, "cpu")(iv, msgs)
+        total, first, final = build_chained_production_step(prog, template, views, 2, device="cpu")(iv, msgs)
         assert (int(total), int(first)) == (0, 0xFFFFFFFF) and final.shape == (1, 256)
-        vals, _ = build_chained_witness(prog, views, "cpu")(iv, msgs)
-        sat = PipelinedSatisfier(template, 2, 1, "cpu", witness_form="bits")
+        vals, _ = build_chained_witness(prog, views, device="cpu")(iv, msgs)
+        sat = PipelinedSatisfier(template, 2, 1, device="cpu", witness_form="bits")
         assert sat.is_satisfied(vals.reshape(1, 2, -1))
 
         nb = NativeBuilder()
         out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
         template, tape = nb.finish()
-        step = build_merkle_tree_step(WitnessProgram(tape), template, [nb.view(v) for v in out], 2, "cpu")
+        step = build_merkle_tree_step(WitnessProgram(tape), template, [nb.view(v) for v in out], 2, device="cpu")
         root, total = step(torch.randint(0, 2, (2, 256), dtype=torch.int32))
         assert root.shape == (256,) and int(total) == 0
 
@@ -246,7 +268,8 @@ def test_chained_merkle_and_num_gadgets_without_jax():
         nb.num_is_zero(nb.pack_bits([nb.alloc_bit() for _ in range(40)]))
         template, tape = nb.finish()
         free = torch.randint(0, 2, (1, 4, 40), dtype=torch.int32)
-        assert [int(v) for v in build_production_step(WitnessProgram(tape), template, 4, "cpu")(free)] == [0, 0xFFFFFFFF]
+        step = build_production_step(WitnessProgram(tape), template, 4, device="cpu")
+        assert [int(v) for v in step(free)] == [0, 0xFFFFFFFF]
 
         bad = sorted(
             m for m in sys.modules
@@ -332,25 +355,25 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     pack_prog = WitnessProgram(pack_tape)
     for make in (
         lambda: pack_prog.build_packed_mixed(),
-        lambda: build_templated_check(pack_t, 32, "bits_packed", field_slots=pack_prog.field_slots),
+        lambda: build_templated_check(pack_t, 32, None, "bits_packed", field_slots=pack_prog.field_slots),
         lambda: PackedFieldCheck(pack_t, 32, pack_prog.field_slots),
         lambda: build_packed_production_step(pack_prog, pack_t, 32),
-        lambda: build_templated_check(sha_t, 32, "bits"),
+        lambda: build_templated_check(sha_t, 32, None, "bits"),
         lambda: BitsCheck(sha_t, 32),
         lambda: build_production_step(sha_prog, sha_t, 32),
         lambda: build_chunked_check(sha_t, 32, 1, witness_form="bits"),
-        lambda: TemplatedSatisfier(sha_t, 32, "bits"),
+        lambda: TemplatedSatisfier(sha_t, 32, witness_form="bits"),
         lambda: field_prog.build(),
         lambda: sha_prog.build_packed(),
-        lambda: build_templated_check(sha_t, 32),
-        lambda: build_templated_check(field_t, 32, "mixed", field_slots=fs),
+        lambda: build_templated_check(sha_t, 32, None, "bits_packed"),
+        lambda: build_templated_check(field_t, 32, None, "mixed", field_slots=fs),
         lambda: PackedBitsCheck(sha_t, 32),
         lambda: MixedCheck(field_t, 32, fs),
         lambda: build_production_step(field_prog, field_t, 32),
         lambda: build_packed_production_step(sha_prog, sha_t, 32),
         lambda: build_chunked_witness(field_prog),
         lambda: build_packed_chunked_witness(sha_prog),
-        lambda: build_templated_check(field_t, 32, "limbs"),
+        lambda: build_templated_check(field_t, 32, None, "limbs"),
         lambda: build_limbs_check(field_t, 32),
         lambda: build_production_step(field_prog, field_t, 32, witness_form="limbs"),
         lambda: build_chunked_check(field_t, 32, 1),
@@ -368,4 +391,4 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
-    assert field_prog.build("cpu").device == torch.device("cpu")
+    assert field_prog.build(device="cpu").device == torch.device("cpu")

@@ -79,7 +79,7 @@ def sha256_words():
     template, tape = nb.finish()
     prog = WitnessProgram(tape)
     free = _u32((16, len(prog.free_slots)))
-    return template, prog.build_packed("cpu")(from_numpy_u32(free))
+    return template, prog.build_packed(device="cpu")(from_numpy_u32(free))
 
 
 def test_pow2_kernel_form_matches_adder_forms(sha256_words):

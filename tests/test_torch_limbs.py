@@ -125,7 +125,7 @@ def test_z_template_limbs_matches_reference(name):
     ff = np.zeros((B, max(len(prog.free_field_slots), 1), 16), np.uint32)
     if prog.free_field_slots:
         ff[:, 0] = [_limbs16(random.Random(k).randrange(P)) for k in range(B)]
-    vals, flimbs = prog.build("cpu")(from_numpy_u32(free), from_numpy_u32(ff) if prog.free_field_slots else None)
+    vals, flimbs = prog.build(device="cpu")(from_numpy_u32(free), from_numpy_u32(ff) if prog.free_field_slots else None)
     rv, rf = ref.build(False)(jnp.asarray(free), jnp.asarray(ff))
     for fsrc in ((None, None), (from_numpy_u32(ff), jnp.asarray(ff))):
         got = prog.z_template_limbs(vals, flimbs, fsrc[0])
@@ -137,7 +137,7 @@ def test_z_template_limbs_matches_reference(name):
 def _config1_z(B):
     t, prog, tr, _ref = _programs("config1")
     free = RNG.integers(0, 2, size=(B, 128)).astype(np.uint32)
-    vals, flimbs = prog.build("cpu")(from_numpy_u32(free))
+    vals, flimbs = prog.build(device="cpu")(from_numpy_u32(free))
     return t, tr, to_numpy_u32(prog.z_template_limbs(vals, flimbs)), prog
 
 
@@ -193,7 +193,7 @@ def test_limbs_check_matches_reference(name, B, partition, want_type, fused):
         tr = t
         bit_slot, field_slot = z.shape[1] - 2, z.shape[1] - 1  # a bit, the pack output
     if partition:
-        check = build_templated_check(t, B, "limbs", device="cpu")
+        check = build_templated_check(t, B, None, "limbs", device="cpu")
     else:
         check = LimbsCheck(t, B, torch.device("cpu"))
     assert type(check) is want_type
@@ -225,6 +225,6 @@ def test_limbs_checks_refuse_a_field_below_250_bits():
     t = R1CS(field=PrimeField("m127", (1 << 127) - 1), num_inputs=1, num_aux=2, num_constraints=1,
              a=m(1), b=m(1), c=m(2), coeff_table=[1])
     with pytest.raises(NotImplementedError):
-        build_templated_check(t, 128, "limbs", device="cpu")
+        build_templated_check(t, 128, None, "limbs", device="cpu")
     with pytest.raises(NotImplementedError):
         LimbsCheck(t, 128, torch.device("cpu"))

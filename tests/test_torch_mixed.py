@@ -154,7 +154,7 @@ def test_stages_chain_and_classes_match_reference(built):
 def test_evaluator_matches_reference(built):
     _name, (_t, _tape, prog), (_tr, _tape_r, ref), _fs = built
     free = _free(len(prog.free_slots), B)
-    vals, flimbs = prog.build("cpu")(_i32(free))
+    vals, flimbs = prog.build(device="cpu")(_i32(free))
     rv, rf = ref.build(False)(jnp.asarray(free), jnp.zeros((B, 1, 16), jnp.uint32))
     assert vals.shape == (B, prog.num_slots) and flimbs.shape == (B, prog.n_field_rows, 16)
     assert (to_numpy_u32(vals) == np.asarray(rv)).all()
@@ -209,12 +209,12 @@ def test_evaluator_all_opcodes_match_reference():
     ff = np.zeros((n, 1, 16), np.uint32)
     ff[:, 0] = [[(v >> (16 * l)) & 0xFFFF for l in range(16)]
                 for v in [random.Random(k).randrange(P) for k in range(n)]]
-    vals, flimbs = prog.build("cpu")(_i32(free), _i32(ff))
+    vals, flimbs = prog.build(device="cpu")(_i32(free), _i32(ff))
     rv, rf = ref.build(False)(jnp.asarray(free), jnp.asarray(ff))
     assert (to_numpy_u32(vals) == np.asarray(rv)).all()
     assert (to_numpy_u32(flimbs) == np.asarray(rf)).all()
     with pytest.raises(ValueError):  # the free field input is required
-        prog.build("cpu")(_i32(free))
+        prog.build(device="cpu")(_i32(free))
 
 
 def _corruptions(prog, t, fs, vals, flimbs):
@@ -247,8 +247,8 @@ def _corruptions(prog, t, fs, vals, flimbs):
 def test_mixed_check_matches_reference(built):
     _name, (t, _tape, prog), (tr, _tr, _ref), fs = built
     free = _free(len(prog.free_slots), B)
-    vals, flimbs = (to_numpy_u32(x) for x in prog.build("cpu")(_i32(free)))
-    port = build_templated_check(t, B, "mixed", field_slots=fs, device="cpu")
+    vals, flimbs = (to_numpy_u32(x) for x in prog.build(device="cpu")(_i32(free)))
+    port = build_templated_check(t, B, None, "mixed", field_slots=fs, device="cpu")
     ref = jax.jit(ref_mv.build_templated_check(tr, B, False, "mixed", field_slots=fs))
     R = t.num_constraints
     for k, (v, f) in enumerate([(vals, flimbs)] + _corruptions(prog, t, fs, vals, flimbs)):
@@ -378,7 +378,7 @@ def test_pow2_guard_rows_the_reference_routes_elsewhere(kind):
         fvals.append((a * c_inv + b % 2) % P)  # C·z = A·z, plus one at odd instances
     fl = np.asarray([[(v >> (16 * l)) & 0xFFFF for l in range(16)] for v in fvals], np.uint32)[:, None, :]
     vals[:, f] = fl[:, 0, 0] | (fl[:, 0, 1] << 16)
-    port = build_templated_check(t, n, "mixed", field_slots=[f], device="cpu")
+    port = build_templated_check(t, n, None, "mixed", field_slots=[f], device="cpu")
     ref = jax.jit(ref_mv.build_templated_check(t, n, False, "mixed", field_slots=[f]))
     mask = port(_i32(vals), _i32(fl)).numpy()
     want = np.asarray(ref(jnp.asarray(vals), jnp.asarray(fl)))
@@ -399,7 +399,7 @@ def test_rest_rows_without_field_slots():
     vals[:, 0] = 1
     vals[:, f] = vals[:, 1:f].sum(axis=1, dtype=np.uint64) + np.arange(n) % 2
     fl = np.zeros((n, 0, 16), np.uint32)
-    port = build_templated_check(t, n, "mixed", field_slots=[], device="cpu")
+    port = build_templated_check(t, n, None, "mixed", field_slots=[], device="cpu")
     ref = jax.jit(ref_mv.build_templated_check(t, n, False, "limbs"))
     z3 = np.zeros((n, f + 1, 16), np.uint32)
     z3[:, :, 0], z3[:, :, 1] = vals & 0xFFFF, vals >> 16
@@ -419,7 +419,7 @@ def test_pow2_guard_refuses_an_unsound_row():
     with pytest.raises(ValueError):
         layout._classify_mixed_rows(t, [f])
     with pytest.raises(ValueError):
-        build_templated_check(t, 4, "mixed", field_slots=[f], device="cpu")
+        build_templated_check(t, 4, None, "mixed", field_slots=[f], device="cpu")
     vals = np.zeros((4, t.num_inputs + t.num_aux), np.uint32)
     vals[:, 0] = 1
     vals[:, 1:9] = 0xFFFFFFFF
@@ -446,7 +446,7 @@ def test_pow2_guard_keeps_sound_rows_exact():
     fl = np.asarray([[(v >> (16 * l)) & 0xFFFF for l in range(16)] for v in fvals],
                     np.uint32)[:, None, :]
     vals[:, f] = fl[:, 0, 0] | (fl[:, 0, 1] << 16)
-    mask = build_templated_check(t, n, "mixed", field_slots=[f], device="cpu")(_i32(vals), _i32(fl))
+    mask = build_templated_check(t, n, None, "mixed", field_slots=[f], device="cpu")(_i32(vals), _i32(fl))
     ref = jax.jit(ref_mv.build_templated_check(t, n, False, "mixed", field_slots=[f]))
     assert (mask.numpy() == np.asarray(ref(jnp.asarray(vals), jnp.asarray(fl)))).all()
     assert mask.tolist() == [(s - v) % P != 0 for s, v in zip(sums, fvals)]

@@ -9,8 +9,12 @@ tests/torch_sharding_ranks.py, which imports no JAX), each rank passing
 its own share of the free bits. Their n_bad and witness shards in rank
 order equal the JAX package's sharded_witness_and_check on a 2-device mesh
 of the conftest's virtual CPU devices (use_pallas=False): sha256 in the
-bits form, and a corrupted config-2 program whose rows fail. The limbs
-form is in tests/test_torch_sharded_limbs.py."""
+bits form, called as the reference is on the ranks' global_mesh(), and a
+corrupted config-2 program whose rows fail, on their group. The ranks'
+default_mesh() spans both, default_mesh(1) leaves rank 1 out, and
+RowShardedSatisfier on default_mesh() names the row that the
+single-device checker names. The limbs form is in
+tests/test_torch_sharded_limbs.py."""
 
 import jax
 import jax.numpy as jnp
@@ -48,8 +52,10 @@ RNG = np.random.default_rng(0x5EED_0012)
 def case():
     """The free bits, and the W = 2 ranks started on them (they run while
     the tests compute the references)."""
+    c2_row_z = RNG.integers(0, 2, size=ranks.config2()[0].num_aux + 1).astype(np.uint32)
+    c2_row_z[0] = 1  # ONE
     inp = {"sha_free": RNG.integers(0, 2, size=(SHA_B, 512)).astype(np.uint32),
-           "c2_free": RNG.integers(0, 2, size=(C2_B, 96)).astype(np.uint32)}
+           "c2_free": RNG.integers(0, 2, size=(C2_B, 96)).astype(np.uint32), "c2_row_z": c2_row_z}
     r = test_torch_sharding._Ranks(RankJob(ranks.multihost_rank, W, inp, backend="gloo", device="cpu"))
     yield inp, r
     r.results()
@@ -69,6 +75,11 @@ def test_multihost_verdict_step_matches_reference(case):
             assert res[key][0] == int(n_bad), key
         got = np.concatenate([to_numpy_u32(res[key][1]) for res in results])
         np.testing.assert_array_equal(got, np.asarray(z))
+    assert [res["mesh"] for res in results] == [(W, ("data",), True, 1, False), (W, ("data",), True, 1, True)]
+    one = RowShardedSatisfier(t2, n_shards=W, witness_form="bits", device="cpu")
+    zr = from_numpy_u32(inp["c2_row_z"])
+    want = (W, 1, one.is_satisfied(zr), one.which_is_unsatisfied(zr))
+    assert want[3] is not None and all(res["row_mesh"] == want for res in results)
 
 
 def test_initialize_single_process_fallback(monkeypatch):
@@ -115,10 +126,10 @@ def test_group_and_global_batch_single_rank(group1):
     assert dist.get_world_size(group1) == 1 and dist.get_backend(group1) == "gloo"
     assert sharding.rank_device(group1, "cpu") == torch.device("cpu")
     local = np.arange(12, dtype=np.uint32).reshape(12, 1) | np.uint32(1 << 31)
-    arr = make_global_batch(local, group1, "cpu")
+    arr = make_global_batch(local, None, group=group1, device="cpu")
     assert arr.dtype == torch.int32 and arr.device == torch.device("cpu")
     np.testing.assert_array_equal(to_numpy_u32(arr), local)
-    np.testing.assert_array_equal(to_numpy_u32(make_global_batch(arr, device="cpu")), local)
+    np.testing.assert_array_equal(to_numpy_u32(make_global_batch(arr, None, device="cpu")), local)
 
 
 def test_w1_in_process_matches_single_device(group1):
@@ -128,7 +139,7 @@ def test_w1_in_process_matches_single_device(group1):
     against the evaluator's, RowShardedSatisfier given the group against
     it without one."""
     t, z3s = ranks.field_z3(RNG, 8, ((6, 2), (1, 0)))
-    sat = ShardedSatisfier(t, 8, group1, device="cpu")
+    sat = ShardedSatisfier(t, 8, group=group1, device="cpu")
     one = TemplatedSatisfier(t, 8, device="cpu")
     for z in z3s:
         zl = sat.shard_z(z)
@@ -140,18 +151,18 @@ def test_w1_in_process_matches_single_device(group1):
     for tp in (tape, corrupted(tape, "pack", swap=True)):
         prog = WitnessProgram(tp)
         free = from_numpy_u32(RNG.integers(0, 1 << 32, size=(16, 128), dtype=np.uint64).astype(np.uint32))
-        step, shard = sharded_packed_witness_and_check(prog, t, 512, group1, "cpu")
+        step, shard = sharded_packed_witness_and_check(prog, t, 512, None, group=group1, device="cpu")
         nb, first, vals = step(shard(free))
-        want = build_packed_production_step(prog, t, 512, "cpu")(free[None])
+        want = build_packed_production_step(prog, t, 512, device="cpu")(free[None])
         assert (int(nb), int(first)) == tuple(int(v) for v in want)
-        assert torch.equal(vals, prog.build_packed_mixed("cpu")(free)[0])
+        assert torch.equal(vals, prog.build_packed_mixed(device="cpu")(free)[0])
 
     t, tape = ranks.config2()
     prog = WitnessProgram(tape)
     free = RNG.integers(0, 2, size=(C2_B, 96)).astype(np.uint32)
-    step, shard = multihost_verdict_step(prog, t, C2_B, device="cpu")
+    step, shard = multihost_verdict_step(prog, t, C2_B, None, device="cpu")
     n_bad, z = step(shard(free))
-    assert int(n_bad) == 0 and torch.equal(z, prog.build("cpu")(from_numpy_u32(free))[0])
+    assert int(n_bad) == 0 and torch.equal(z, prog.build(device="cpu")(from_numpy_u32(free))[0])
 
     r1cs = ranks.config2()[0]
     zb = z[5].clone()
@@ -167,14 +178,14 @@ def test_bad_arguments(group1):
     t, tape = ranks.config3()
     prog = WitnessProgram(tape)
     with pytest.raises(ValueError, match="512"):
-        sharded_packed_witness_and_check(prog, t, 256, group1, "cpu")
-    step, _ = sharded_packed_witness_and_check(prog, t, 512, group1, "cpu")
+        sharded_packed_witness_and_check(prog, t, 256, None, group=group1, device="cpu")
+    step, _ = sharded_packed_witness_and_check(prog, t, 512, None, group=group1, device="cpu")
     with pytest.raises(ValueError, match="16 words"):
         step(torch.zeros((8, 128), dtype=torch.int32))
     with pytest.raises(ValueError, match="witness_form"):
-        ShardedSatisfier(t, 32, group1, "mixed", "cpu")
+        ShardedSatisfier(t, 32, group=group1, witness_form="mixed", device="cpu")
     with pytest.raises(ValueError, match="shards"):
-        RowShardedSatisfier(t, 2, device="cpu", group=group1)
-    sat = ShardedSatisfier(t, 32, group1, "bits", "cpu")
+        RowShardedSatisfier(t, n_shards=2, device="cpu", group=group1)
+    sat = ShardedSatisfier(t, 32, group=group1, witness_form="bits", device="cpu")
     with pytest.raises(ValueError, match="leading axis"):
         sat.shard_z(np.zeros((16, t.num_aux + 1), np.uint32))

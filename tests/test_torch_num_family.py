@@ -121,7 +121,7 @@ def test_num_gadget_witness_matches_reference(name):
     fb, ffl = _free_inputs(prog, bit_cols, field_cols)
     want_vals, want_fl = ref_prog.build(False)(jnp.asarray(fb), jnp.asarray(ffl))
     free_field = torch.from_numpy(ffl.view(np.int32)) if prog.free_field_slots else None
-    vals, fl = prog.build("cpu")(torch.from_numpy(fb.view(np.int32)), free_field)
+    vals, fl = prog.build(device="cpu")(torch.from_numpy(fb.view(np.int32)), free_field)
     assert np.array_equal(vals.numpy().view(np.uint32), np.asarray(want_vals))
     assert np.array_equal(fl.numpy().view(np.uint32), np.asarray(want_fl))
 
@@ -140,7 +140,7 @@ def test_is_zero_of_a_wide_field_value():
     values = [0, 1, 12345, (1 << 40) - 1, 1 << 32, 0xABCDE12345]
     fb = np.asarray([[(v >> k) & 1 for k in range(40)] for v in values], np.uint32)
     free = torch.from_numpy(fb.view(np.int32))
-    vals, fl = prog.build("cpu")(free)
+    vals, fl = prog.build(device="cpu")(free)
     out_slot = nb.view(out)[1]
     inv_row = prog.field_rows[next(op.outs[0] for op in tape.snapshot()[2] if op.opcode == "num_inv_or_one")]
     for i, v in enumerate(values):
@@ -185,7 +185,7 @@ def test_is_zero_of_a_free_field_num_and_a_scaled_bit():
     xs = [0, 0, 5, 5, (1 << 32) - 3, (1 << 32) + 7, P - 1, P - 3, P - 4]
     bs = [0, 1, 0, 1, 1, 0, 0, 1, 1]
     fb, ffl = _free_inputs(prog, [bs], [xs])
-    vals, fl = prog.build("cpu")(torch.from_numpy(fb.view(np.int32)), torch.from_numpy(ffl.view(np.int32)))
+    vals, fl = prog.build(device="cpu")(torch.from_numpy(fb.view(np.int32)), torch.from_numpy(ffl.view(np.int32)))
     inv_row = prog.field_rows[next(op.outs[0] for op in tape.snapshot()[2] if op.opcode == "num_inv_or_one")]
     for i, (xv, bv) in enumerate(zip(xs, bs)):
         s = (xv + 3 * bv) % P

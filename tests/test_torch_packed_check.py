@@ -127,7 +127,7 @@ class _Pair:
 
     def __init__(self, template, with_mask=True):
         self.R = template.num_constraints
-        self.port = mv.build_templated_check(template, B, device="cpu")
+        self.port = mv.build_templated_check(template, B, None, "bits_packed", device="cpu")
         ref = ref_mv.build_templated_check(template, B, False, "bits_packed")
         self.ref_mask = jax.jit(ref) if with_mask else None
         self.ref_verdict = jax.jit(ref.verdict)
@@ -151,7 +151,7 @@ def _witness(prog, free=None):
     if free is None:
         free = RNG.integers(0, 1 << 32, size=(B // 32, len(prog.free_slots)),
                             dtype=np.uint64).astype(np.uint32)
-    return to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
+    return to_numpy_u32(prog.build_packed(device="cpu")(from_numpy_u32(free)))
 
 
 def test_check_matches_reference_sha256(sha256):
@@ -197,16 +197,16 @@ def test_check_rejects_wrong_shape(sha256):
     verdict equals the reference's on a packed check's witness with one
     bit flipped; below 250 bits it is refused (the semi-reduced kernels)."""
     template, prog = sha256
-    chk = mv.build_templated_check(template, B, device="cpu")
+    chk = mv.build_templated_check(template, B, None, "bits_packed", device="cpu")
     with pytest.raises(ValueError):
         chk.verdict(torch.zeros((B // 32, 10), dtype=torch.int32))
     small = R1CS(PrimeField("m127", (1 << 127) - 1), template.num_inputs, template.num_aux,
                  template.num_constraints, template.a, template.b, template.c, template.coeff_table)
     with pytest.raises(NotImplementedError):
-        mv.build_templated_check(small, 32, "bits", device="cpu")
-    bits = mv.build_templated_check(template, 32, "bits", device="cpu")
+        mv.build_templated_check(small, 32, None, "bits", device="cpu")
+    bits = mv.build_templated_check(template, 32, None, "bits", device="cpu")
     free = RNG.integers(0, 1 << 32, size=(1, len(prog.free_slots)), dtype=np.uint64).astype(np.uint32)
-    z = unpack_bits(prog.build_packed("cpu")(from_numpy_u32(free)))
+    z = unpack_bits(prog.build_packed(device="cpu")(from_numpy_u32(free)))
     z[17, 9000] ^= 1
     want = np.asarray(jax.jit(ref_mv.build_templated_check(template, 32, False, "bits"))(
         jnp.asarray(to_numpy_u32(z))))

@@ -79,7 +79,7 @@ def test_packed_mixed_witness_matches_reference(built, n_words):
     _t, prog, ref = built
     free = _free(prog, n_words)
     v_r, f_r = ref.build_packed_mixed()(jnp.asarray(free))
-    v, f = prog.build_packed_mixed("cpu")(from_numpy_u32(free))
+    v, f = prog.build_packed_mixed(device="cpu")(from_numpy_u32(free))
     assert v.shape == (n_words, prog.num_slots) and f.shape == (32 * n_words, 1, 16)
     assert (to_numpy_u32(v) == np.asarray(v_r)).all()
     assert (to_numpy_u32(f) == np.asarray(f_r)).all()
@@ -92,7 +92,7 @@ def test_packed_mixed_refuses_field_ops():
     _t, tape = config1_like(NativeBuilder)
     prog = WitnessProgram(tape)
     with pytest.raises(NotImplementedError):
-        prog.build_packed_mixed("cpu")
+        prog.build_packed_mixed(device="cpu")
 
 
 class _Pair:
@@ -102,7 +102,7 @@ class _Pair:
         self.ref = ref_mv.build_templated_check(template, B, False, "bits_packed", field_slots=field_slots)
         self.mask_ref = jax.jit(self.ref)
         self.verdict_ref = jax.jit(self.ref.verdict)
-        self.port = mv.build_templated_check(template, B, "bits_packed", field_slots=field_slots, device="cpu")
+        self.port = mv.build_templated_check(template, B, None, "bits_packed", field_slots=field_slots, device="cpu")
         assert isinstance(self.port, mv.PackedFieldCheck)
 
     def check(self, vals, flimbs):
@@ -170,7 +170,7 @@ def test_packed_field_check_refuses_other_field_rows():
     template, tape = nb.finish()
     prog = WitnessProgram(tape)
     with pytest.raises(NotImplementedError):
-        mv.build_templated_check(template, B, "bits_packed", field_slots=prog.field_slots, device="cpu")
+        mv.build_templated_check(template, B, None, "bits_packed", field_slots=prog.field_slots, device="cpu")
 
 
 def _corrupted(tape):
@@ -215,12 +215,12 @@ def test_field_check_remaps_first_in_int64(built, monkeypatch):
     int64: an instance past 2^32 / R (where the reference's uint32 remap,
     matvec.py:2686, wraps) keeps its exact index."""
     template, prog, _ref = built
-    check = mv.build_templated_check(template, B, "bits_packed", field_slots=_field_slots(prog), device="cpu")
+    check = mv.build_templated_check(template, B, None, "bits_packed", field_slots=_field_slots(prog), device="cpu")
     R, Rs = template.num_constraints, check.Rt_sub
     inst, sub_row = 40_000_000, 5
     assert inst * R > 1 << 32
     big = torch.tensor(inst * Rs + sub_row)
     monkeypatch.setattr(check.inner, "verdict_slot_major", lambda vals_p: (torch.tensor(3), big))
-    vals, flimbs = prog.build_packed_mixed("cpu")(from_numpy_u32(_free(prog, B // 32)))
+    vals, flimbs = prog.build_packed_mixed(device="cpu")(from_numpy_u32(_free(prog, B // 32)))
     nb, first = check.verdict(vals, flimbs)
     assert int(nb) == 3 and int(first) == inst * R + int(check.remaining[sub_row])

@@ -81,7 +81,7 @@ def test_step_matches_chunk_verdicts_sha256(sha256, corrupt):
     assert total.dtype == first.dtype == torch.int64
     words = build_packed_chunked_witness(prog, device="cpu")(free)
     assert words.shape == (N_CHUNKS, B // 32, prog.num_slots)
-    check = build_templated_check(template, B, device="cpu")
+    check = build_templated_check(template, B, None, "bits_packed", device="cpu")
     span = B * template.num_constraints
     nbs, firsts = zip(*(tuple(int(v) for v in check.verdict(w)) for w in words))
     want_first = min((f + k * span for k, (n, f) in enumerate(zip(nbs, firsts)) if n), default=SENT)

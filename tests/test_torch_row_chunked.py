@@ -88,7 +88,7 @@ def _verdict(fn, *args):
 def test_chunked_eval_matches_reference_and_monolithic(n_chunks):
     r1cs, z, _zc, want = _small()
     be = get_backend(SCALAR)
-    _eq(_np(rc.r1cs_eval(be, rc.DeviceR1CS.from_r1cs(r1cs, "cpu"), _t(z))), want)
+    _eq(_np(rc.r1cs_eval(be, rc.DeviceR1CS.from_r1cs(r1cs, device="cpu"), _t(z))), want)
     ref_fn, ref_prep = ref.build_row_chunked_eval(r1cs, n_chunks)
     ev, prep = rc.build_row_chunked_eval(r1cs, n_chunks, device="cpu")
     assert ev._layout_meta == ref_fn._layout_meta and ev._semi_ok == ref_fn._semi_ok
@@ -101,7 +101,7 @@ def test_violation_mask_matches_reference():
     r1cs, z, zc, _ = _small()
     zb = zc.copy()
     zb[33 + 5, 0] ^= 1
-    d, rd = rc.DeviceR1CS.from_r1cs(r1cs, "cpu"), ref.DeviceR1CS.from_r1cs(r1cs)
+    d, rd = rc.DeviceR1CS.from_r1cs(r1cs, device="cpu"), ref.DeviceR1CS.from_r1cs(r1cs)
     for zz in (z, zc, zb):
         got = rc.violation_mask(get_backend(SCALAR), d, _t(zz)).numpy()
         assert (got == np.asarray(ref.violation_mask(ref_backend(SCALAR), rd, jnp.asarray(zz)))).all()

@@ -109,7 +109,7 @@ def _verdict(sat, z):
 @pytest.mark.parametrize("n_shards", SHARDS)
 def test_limbs_satisfier_matches_reference(n_shards):
     r1cs, inputs, aux = _num_circuit()
-    sat = RowShardedSatisfier(r1cs, n_shards, device="cpu")
+    sat = RowShardedSatisfier(r1cs, n_shards=n_shards, device="cpu")
     want = RefSatisfier(r1cs, default_mesh(n_shards), use_pallas=False)
     rnd = random.Random(n_shards)
     for k in range(3):
@@ -125,7 +125,7 @@ def test_limbs_satisfier_matches_reference(n_shards):
 @pytest.mark.parametrize("n_shards", SHARDS)
 def test_bits_satisfier_matches_reference(n_shards):
     r1cs, bits = _bit_circuit()
-    sat = RowShardedSatisfier(r1cs, n_shards, witness_form="bits", device="cpu")
+    sat = RowShardedSatisfier(r1cs, n_shards=n_shards, witness_form="bits", device="cpu")
     want = RefSatisfier(r1cs, default_mesh(n_shards), use_pallas=False, witness_form="bits")
     for flip in (None, 5, len(bits) - 1, 20):
         z = bits.copy()
@@ -142,7 +142,7 @@ def test_which_is_unsatisfied_matches_host_oracle():
     """tests/test_row_sharding.py's check at 4 shards: satisfied, then one
     corrupted aux value at a time named as the host oracle names it."""
     r1cs, inputs, aux = _num_circuit()
-    sat = RowShardedSatisfier(r1cs, 4, device="cpu")
+    sat = RowShardedSatisfier(r1cs, n_shards=4, device="cpu")
     z = sat.z_from_assignments(inputs, aux)
     assert sat.is_satisfied(z) and sat.which_is_unsatisfied(z) is None
     rnd = random.Random(0x5962BE3D)
@@ -158,13 +158,13 @@ def test_which_is_unsatisfied_matches_host_oracle():
 def test_zero_constraint_system_and_bad_arguments():
     e = COOMatrix(rows=np.zeros(0, np.int32), cols=np.zeros(0, np.int32), coeff_ids=np.zeros(0, np.int32))
     r0 = R1CS(field=SCALAR, num_inputs=1, num_aux=3, num_constraints=0, a=e, b=e, c=e, coeff_table=[1])
-    sat = RowShardedSatisfier(r0, 2, device="cpu")
+    sat = RowShardedSatisfier(r0, n_shards=2, device="cpu")
     z = sat.z_from_assignments([1], [5, 6, 7])
     assert sat.is_satisfied(z) and _verdict(sat, z) == (0, 0xFFFFFFFF)
     r1cs, inputs, aux = _num_circuit()
     with pytest.raises(ValueError, match="witness_form"):
         RowShardedSatisfier(r1cs, device="cpu", witness_form="mixed")
-    sat = RowShardedSatisfier(r1cs, 2, device="cpu")
+    sat = RowShardedSatisfier(r1cs, n_shards=2, device="cpu")
     z = sat.z_from_assignments(inputs, aux)
     for bad in (z[:-1], z.to(torch.int64), z[:, 0]):
         with pytest.raises(ValueError, match="z must be"):

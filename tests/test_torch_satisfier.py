@@ -131,7 +131,7 @@ def test_satisfier_sha256_finds_a_non_bit_message_value():
     least row that fails over the Python ints, as the reference names it."""
     template, prog = _sha256()
     free = from_numpy_u32(RNG.integers(0, 2, size=(1, 512)).astype(np.uint32))
-    vals, flimbs = prog.build("cpu")(free)
+    vals, flimbs = prog.build(device="cpu")(free)
     z = prog.z_template_limbs(vals, flimbs)[0]
     sat = Satisfier(template, device="cpu")
     assert sat.is_satisfied(z) and sat.which_is_unsatisfied(z) is None
@@ -157,9 +157,10 @@ def test_templated_satisfier_matches_reference(form):
     t, _tape, prog, tr, _tr, ref = _config1()
     B = 128
     free = from_numpy_u32(RNG.integers(0, 2, size=(B, 128)).astype(np.uint32))
-    vals, flimbs = prog.build("cpu")(free)
+    vals, flimbs = prog.build(device="cpu")(free)
     fs = prog.field_slots
-    sat = TemplatedSatisfier(t, B, form if form == "mixed" else None, field_slots=fs if form == "mixed" else None,
+    mixed = form == "mixed"
+    sat = TemplatedSatisfier(t, B, witness_form=form if mixed else None, field_slots=fs if mixed else None,
                              device="cpu")
     rsat = RefTemplated(tr, B, use_pallas=False, witness_form=form, field_slots=fs if form == "mixed" else None)
     if form == "limbs":
@@ -204,7 +205,8 @@ def test_limbs_production_step_matches_reference(name, corrupt, monkeypatch):
     prog, ref = WitnessProgram(tape), RefProgram(tape_r)
     B = 128
     free = RNG.integers(0, 2, size=(2, B, len(prog.free_slots))).astype(np.uint32)
-    got = tuple(int(v) for v in build_production_step(prog, t, B, "cpu", witness_form="limbs")(from_numpy_u32(free)))
+    step = build_production_step(prog, t, B, device="cpu", witness_form="limbs")
+    got = tuple(int(v) for v in step(from_numpy_u32(free)))
     want = tuple(int(v) for v in ref_step(ref, tr, B, use_pallas=False, witness_form="limbs")(jnp.asarray(free)))
     assert got == want and (got[0] > 0) == corrupt
     if not corrupt:
@@ -217,7 +219,7 @@ def test_chunked_check_matches_reference():
     zs = []
     for _k in range(2):
         free = from_numpy_u32(RNG.integers(0, 2, size=(B, 128)).astype(np.uint32))
-        zs.append(to_numpy_u32(prog.z_template_limbs(*prog.build("cpu")(free))))
+        zs.append(to_numpy_u32(prog.z_template_limbs(*prog.build(device="cpu")(free))))
     z4 = np.stack(zs)
     z4[1, 7, prog.free_slots[2]] = _limbs16(2)
     got = tuple(int(v) for v in build_chunked_check(t, B, 2, device="cpu")(from_numpy_u32(z4)))

@@ -202,7 +202,7 @@ def test_stages_and_words_match_reference_bit_gadgets(name):
     assert prog.is_packable and len(prog.free_slots) == {"config2": 256, "blake2s": 768}[name]
     free = RNG.integers(0, 1 << 32, size=(2, len(prog.free_slots)), dtype=np.uint64).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(free)))
-    got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
+    got = to_numpy_u32(prog.build_packed(device="cpu")(from_numpy_u32(free)))
     assert (got == want).all()
 
 
@@ -241,7 +241,7 @@ def test_stages_and_words_match_reference_fixtures(name, monkeypatch):
             0, 1 << 32, size=(B // 32, len(prog.free_slots)), dtype=np.uint64
         ).astype(np.uint32)
         want = np.asarray(ref.build_packed()(jnp.asarray(free)))
-        got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
+        got = to_numpy_u32(prog.build_packed(device="cpu")(from_numpy_u32(free)))
         assert (got == want).all()
 
 
@@ -253,7 +253,7 @@ def test_packed_words_match_reference_sha256(sha_ref, sha_port):
         0, 1 << 32, size=(16, len(prog.free_slots)), dtype=np.uint64
     ).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(free)))
-    got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(free)))
+    got = to_numpy_u32(prog.build_packed(device="cpu")(from_numpy_u32(free)))
     assert got.shape == (16, 26327)
     assert (got == want).all()
 
@@ -280,7 +280,7 @@ def test_num_iszero_words_match_reference():
     _assert_same_stages(prog, ref)
     words = RNG.integers(0, 1 << 32, size=(4, n_free), dtype=np.uint64).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(words)))
-    got = to_numpy_u32(prog.build_packed("cpu")(from_numpy_u32(words)))
+    got = to_numpy_u32(prog.build_packed(device="cpu")(from_numpy_u32(words)))
     assert (got == want).all()
 
 
@@ -296,22 +296,22 @@ def test_field_opcodes_are_refused():
     assert [st.opcode for st in prog.stages] == ["fmul"] and not prog.is_packable
     assert not prog.is_packable_mixed
     with pytest.raises(NotImplementedError):
-        prog.build_packed("cpu")
+        prog.build_packed(device="cpu")
     with pytest.raises(NotImplementedError):
-        prog.build_packed_mixed("cpu")
+        prog.build_packed_mixed(device="cpu")
     views = [(V_VAR, 1 + k, k % 3 == 0) for k in range(20)] + [(0, 1, 0), (V_VAR, 21, 0)]
     snap = (1, 22, [RefOp("xor", [21], [1, 2]), RefOp("pack", [22], views)], list(range(1, 21)))
     prog, ref = WitnessProgram(SnapshotTape(SCALAR, snap)), RefProgram(SnapshotTape(SCALAR, snap))
     assert (prog.is_packable, prog.is_packable_mixed) == (ref.is_packable, ref.is_packable_mixed) == (False, True)
     words = RNG.integers(0, 1 << 32, size=(3, 20), dtype=np.uint64).astype(np.uint32)
     want = ref.build_packed_mixed()(jnp.asarray(words))
-    got = prog.build_packed_mixed("cpu")(from_numpy_u32(words))
+    got = prog.build_packed_mixed(device="cpu")(from_numpy_u32(words))
     for g, w in zip(got, want):
         assert (to_numpy_u32(g) == np.asarray(w)).all()
 
 
 def test_evaluator_rejects_wrong_input(sha_port):
-    ev = WitnessProgram(sha_port[1]).build_packed("cpu")
+    ev = WitnessProgram(sha_port[1]).build_packed(device="cpu")
     with pytest.raises(ValueError):
         ev(torch.zeros((2, 511), dtype=torch.int32))
     with pytest.raises(ValueError):

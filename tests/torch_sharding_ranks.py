@@ -19,13 +19,14 @@ from bellpepper_tpu_torch import NativeBuilder, RowShardedSatisfier, WitnessProg
 from bellpepper_tpu_torch.backend.sharding import (
     ShardedSatisfier,
     default_group,
+    default_mesh,
     global_verdict,
     sharded_packed_witness_and_check,
 )
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.compile.tape import corrupted
 from bellpepper_tpu_torch.tools.dryrun_multichip import sha256_template
-from bellpepper_tpu_torch.utils.multihost import global_group, make_global_batch, multihost_verdict_step
+from bellpepper_tpu_torch.utils.multihost import global_group, global_mesh, make_global_batch, multihost_verdict_step
 
 
 def config3():
@@ -83,7 +84,7 @@ def field_z3(rng, batch: int, flips):
     t, tape = field_template()
     prog = WitnessProgram(tape)
     free = from_numpy_u32(rng.integers(0, 2, size=(batch, 32)).astype(np.uint32), "cpu")
-    z3 = to_numpy_u32(prog.z_template_limbs(*prog.build("cpu")(free)))
+    z3 = to_numpy_u32(prog.z_template_limbs(*prog.build(device="cpu")(free)))
     pack = sorted(prog.field_rows, key=prog.field_rows.get)[0]
     out = [z3]
     for inst, limb in flips:
@@ -112,7 +113,7 @@ def foreign_modules() -> list:
 
 
 def _packed(prog, template, batch, free, dev):
-    step, shard = sharded_packed_witness_and_check(prog, template, batch, default_group(), dev)
+    step, shard = sharded_packed_witness_and_check(prog, template, batch, None, group=default_group(), device=dev)
     nb, first, vals = step(shard(free))
     return (int(nb), int(first)), vals.cpu()
 
@@ -142,22 +143,36 @@ def sharding_rank(dev, inp: dict) -> dict:
 
 def multihost_rank(dev, inp: dict) -> dict:
     """tests/test_torch_multihost.py's cases on one rank: the production
-    step through the multihost API on sha256 (its shard of the free bits
-    passed as this process's local data) and on a corrupted config-2
-    program."""
+    step through the multihost API on sha256 (called as the reference is,
+    on ``global_mesh()``) and on a corrupted config-2 program (on the
+    group), each rank passing its shard of the free bits as this process's
+    local data; the meshes ``default_mesh`` builds (every rank, and the
+    first alone); and RowShardedSatisfier on ``default_mesh()``, one row
+    shard a rank, on one replicated witness of config 2."""
     torch.set_num_threads(1)
     group = global_group()
     rank, world = dist.get_rank(group), dist.get_world_size(group)
-    out = {"world": world}
+    mesh = global_mesh()
+    first_only = default_mesh(1)  # collective: every rank builds it; the others are outside it
+    out = {"world": world, "mesh": (mesh.size(), tuple(mesh.mesh_dim_names), mesh.get_group("data") is group,
+                                    first_only.size(), first_only.get_coordinate() is None)}
     t2, tape2 = config2()
     for name, (t, tape), free in (("sha256", sha256_template(), inp["sha_free"]),
                                   ("config2_bad", (t2, corrupted(tape2, "xor")), inp["c2_free"])):
         prog = WitnessProgram(tape)
         B = free.shape[0]
-        step, _shard = multihost_verdict_step(prog, t, B, group, dev)
-        local = make_global_batch(free[rank * B // world : (rank + 1) * B // world], group, dev)
+        share = free[rank * B // world : (rank + 1) * B // world]
+        if name == "sha256":
+            step, _shard = multihost_verdict_step(prog, t, B, mesh, device=dev)
+            local = make_global_batch(share, mesh, device=dev)
+        else:
+            step, _shard = multihost_verdict_step(prog, t, B, None, group=group, device=dev)
+            local = make_global_batch(share, None, group=group, device=dev)
         n_bad, z = step(local)
         out[name] = (int(n_bad), z.cpu())
+    rsat = RowShardedSatisfier(t2, default_mesh(), witness_form="bits", device=dev)
+    zr = from_numpy_u32(inp["c2_row_z"], dev)
+    out["row_mesh"] = (rsat.n_shards, len(rsat._shards), rsat.is_satisfied(zr), rsat.which_is_unsatisfied(zr))
     out["foreign"] = foreign_modules()
     return out
 
@@ -176,12 +191,12 @@ def limbs_rank(dev, inp: dict) -> dict:
     B = inp["ff_bits"].shape[0]
     share = slice(rank * B // world, (rank + 1) * B // world)
     for name, tp in (("free_field", tape), ("free_field_bad", corrupted(tape, "pack", swap=True))):
-        step, _shard = multihost_verdict_step(WitnessProgram(tp), t, B, group, dev)
-        n_bad, z = step(make_global_batch(inp["ff_bits"][share], group, dev),
-                        make_global_batch(inp["ff_limbs"][share], group, dev))
+        step, _shard = multihost_verdict_step(WitnessProgram(tp), t, B, None, group=group, device=dev)
+        n_bad, z = step(make_global_batch(inp["ff_bits"][share], None, group=group, device=dev),
+                        make_global_batch(inp["ff_limbs"][share], None, group=group, device=dev))
         out[name] = (int(n_bad), z.cpu())
     t, _tape = field_template()
-    sat = ShardedSatisfier(t, inp["field_batch"], group, device=dev)
+    sat = ShardedSatisfier(t, inp["field_batch"], group=group, device=dev)
     out["satisfier"] = [(sat.is_satisfied(sat.shard_z(z)), sat.which_is_unsatisfied(sat.shard_z(z)))
                         for z in inp["field_z3"]]
     out["foreign"] = foreign_modules()
