@@ -1,20 +1,32 @@
-"""What the templated checks share: the verdict's sentinel values, and the
+"""What the templated checks share: the verdict's sentinel values, the
+rule between the semi-reduced and the canonical product compare, and the
 limb operands of rows of a few ±1 terms (the reference's _operand_spec),
-assembled in 16-bit limbs and compared through ``mulcmp``. The mixed
-check (``matvec``) and the limbs checks (``limbs``) both use them."""
+assembled in 16-bit limbs and compared through ``mulcmp`` (at least 250
+bits) or canonicalized and compared through ``mul`` (below 250 bits). The
+mixed check (``matvec``) and the limbs checks (``limbs``) both use
+them."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .field_consts import SEMI, _digits
-from .field_kernels import _signed_carry, mulcmp
+from .field_consts import L16, SEMI, _digits
+from .field_kernels import _cond_sub_rows, _signed_carry, mul, mulcmp
 from .layout import FIELD_SRC
 from .words import device_table as _t, to_i32, to_u32
 
 SENTINEL = 0xFFFFFFFF  # "no violation" value of `first`, as in the reference
 NONE = torch.iinfo(torch.int64).max  # int64 stand-in for "no violation yet"
+
+
+def semi_ok(field) -> bool:
+    """Whether products compare semi-reduced through ``mulcmp``: p·2^11
+    must exceed every semi value (< 2^266), so NUM_BITS ≥ 250, as the
+    reference's fused routes choose (``matvec.py:3258``, ``:1407``,
+    ``:1867``); below that the outputs are canonical and ``mul``'s product
+    is compared limb for limb."""
+    return 250 <= field.NUM_BITS <= 256
 
 
 def mask_verdict(bad: torch.Tensor):
@@ -110,12 +122,26 @@ class _Operand:
         return _carry_limbs(acc)
 
 
-def _mulcmp_bad(ops, vals_p, flimbs_p, p17, field) -> torch.Tensor:
+def _canon_operand(x: torch.Tensor, p: int) -> torch.Tensor:
+    """An assembled operand int64[n, 17, B] (a value below 4p) → its
+    canonical limb-major int32[16, n·B]: conditional subtracts of 2p and p
+    (the reference's canon, ``matvec.py:1902-1906``)."""
+    rows = list(x.transpose(0, 1).unbind(0))
+    for k in (1, 0):
+        rows = _cond_sub_rows(rows, _digits(p << k, 16, SEMI))
+    return to_i32(torch.stack(rows[:L16]).reshape(L16, -1)).contiguous()
+
+
+def _product_bad(ops, vals_p, flimbs_p, p17, field) -> torch.Tensor:
     """bool[n, B]: a·b ≢ c (mod p) for the operands (a, b, c) of n trivial
-    rows, assembled and compared by ``mulcmp``."""
+    rows, assembled, then compared by ``mulcmp`` (``semi_ok``) or made
+    canonical and compared with ``mul``'s product (the reference's route
+    without mulcmp, ``matvec.py:1492-1496``, ``:1902-1909``)."""
     n, B = ops[0].n, flimbs_p.shape[-1]
-    a, b, c = (
-        to_i32(o.assemble(vals_p, flimbs_p, p17).transpose(0, 1).reshape(SEMI, n * B)).contiguous()
-        for o in ops
-    )
-    return (mulcmp(a, b, c, field) != 0).reshape(n, B)
+    # one operand's int64 limbs at a time
+    if semi_ok(field):
+        a, b, c = (to_i32(o.assemble(vals_p, flimbs_p, p17).transpose(0, 1).reshape(SEMI, n * B)).contiguous()
+                   for o in ops)
+        return (mulcmp(a, b, c, field) != 0).reshape(n, B)
+    a, b, c = (_canon_operand(o.assemble(vals_p, flimbs_p, p17), field.p) for o in ops)
+    return (mul(a, b, field) != c).any(0).reshape(n, B)

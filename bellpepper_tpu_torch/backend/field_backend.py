@@ -36,8 +36,9 @@ MASK8 = np.uint32(0xFF)
 
 
 class FieldBackend:
-    """Arithmetic of one prime field (at most 255 bits, with the
-    quotient-estimate constant). Get instances via :func:`get_backend`."""
+    """Arithmetic of one odd prime field of at most 255 bits (the
+    reference's range, ``field_jnp.py:59``). Get instances via
+    :func:`get_backend`."""
 
     def __init__(self, field: PrimeField):
         # add/sub keep a + b < 2p below 2^256, the 16-limb range
@@ -45,8 +46,6 @@ class FieldBackend:
             raise ValueError("the backend supports fields up to 255 bits")
         self.field = field
         self.consts = consts_for(field)
-        if self.consts.qe is None:
-            raise ValueError("the backend's multiply needs a 253..255-bit field")
         p = field.p
         self._p17 = _digits(p, 16, 17)
         nbits = (p - 2).bit_length()

@@ -19,7 +19,7 @@ L16 = 16
 L8 = 32
 SEMI = 17  # limbs of the semi-reduced form (< p·2^11 < 2^266)
 _QE_ERR = 6  # cond-subtract coverage: x' < 7p < 8p → sub 4p, 2p, p
-MAX_SHIFTS = 16  # shift-subtract steps the canonical reduction kernels hold (NUM_BITS >= 250)
+QE_BITS = 28  # the word tail's estimate keeps h = S >> (NUM_BITS − 28) below 2^64
 
 
 def _digits(v: int, width: int, count: int) -> List[int]:
@@ -108,60 +108,69 @@ def fold_digit_table(field: PrimeField, coeff_table) -> np.ndarray:
     return out
 
 
+def word_count(p: int) -> int:
+    """W = ceil(NUM_BITS / 32): the 32-bit words of a canonical element."""
+    return -(-p.bit_length() // 32)
+
+
+def chain_shift(p: int) -> int:
+    """The word tail's estimate shift s = max(0, NUM_BITS − 28): a folded
+    S < 2^36·p gives h = S >> s < 2^64, and 2^s/p < 2^-27 (or 1/p at s
+    = 0) keeps q̂ within 2 of q (``bp::canon_words``)."""
+    return max(0, p.bit_length() - QE_BITS)
+
+
 def chain_mu(p: int) -> int:
-    """The quotient-estimate constant of chain's word multiply
-    (``bp::mulmod_words``): floor(2^291 / p), at most 2^39 for p ≥ 2^252."""
-    return (1 << 291) // p
+    """The quotient-estimate constant of the word tail
+    (``bp::canon_words``): floor(2^(64 + s)/p) for s = ``chain_shift(p)``,
+    below 2^37 when s > 0 and below 2^63 when s = 0 (floor(2^291/p) for a
+    255-bit p)."""
+    return (1 << (64 + chain_shift(p))) // p
 
 
 _KERNEL_CONSTS: Dict[int, Dict[str, np.ndarray]] = {}
+
+
+def _chain_block(p: int) -> List[int]:
+    W = word_count(p)
+    return (
+        _digits(p, 32, 8)
+        + [v for i in range(8) for v in _digits(pow(2, 32 * (W + i), p), 32, 8)]
+        + _digits(chain_mu(p), 32, 2)
+        + [W, chain_shift(p) - 32 * max(0, W - 2)]
+    )
 
 
 def kernel_consts(field: PrimeField) -> Dict[str, np.ndarray]:
     """Flat uint32 constant blocks (cached per field) in the layouts the
     CUDA kernels take:
 
-    * ``reduce``     [4·32 + MAX_SHIFTS·17 + 1]: fold rows 0..3 (8-bit
-      digits), the shift-subtract moduli p·2^k (``ps``, k = n − 1 … 0)
-      padded to MAX_SHIFTS rows of 17 limbs, and n = 266 − NUM_BITS, for
-      the fold matvec (the semi output reads the fold rows alone; for a
-      field with more than MAX_SHIFTS steps the moduli are left out, n is
-      0, and the canonical form refuses the field);
+    * ``chain``      [8 + 8·8 + 2 + 2]: p as 8 words, the fold rows
+      2^(32·(W+i)) mod p (i < 8) as 8 words each (W = ``word_count(p)``;
+      words past W are 0), mu = ``chain_mu(p)`` as its low and high words,
+      W, and the estimate's shift within its window, s − 32·max(0, W − 2),
+      for chain, mul, mul_digits and reduce_digits (``bp::ChainConsts``:
+      the word tail of every odd p < 2^256);
+    * ``reduce``     [4·32 + the chain block]: fold rows 0..3 (8-bit
+      digits) and the chain block, for the fold matvec (its semi output
+      reads the fold rows, its canonical output the word tail;
+      ``bp::ReduceConsts``);
     * ``mulcmp``     [9 + 8 + 1]: p·2^11 as 9 32-bit words, p as 8 words,
-      and −p^-1 mod 2^32, for mulcmp (``bp::MulcmpConsts``);
-    * ``chain``      [8 + 8·8 + 2]: p as 8 words, the fold rows
-      2^(32·(8+i)) mod p (i < 8) as 8 words each, and mu = floor(2^291/p)
-      as its low and high words, for chain, mul, mul_digits and
-      reduce_digits (``bp::ChainConsts``; ``None`` for a field without
-      qe, a field outside 253..256 bits)."""
+      and −p^-1 mod 2^32, for mulcmp (``bp::MulcmpConsts``)."""
     out = _KERNEL_CONSTS.get(field.p)
     if out is not None:
         return out
     c = consts_for(field)
     if c.p0inv is None:
-        raise ValueError("mulcmp's zero-test needs an odd modulus")
+        raise ValueError("the field kernels need an odd modulus")
     p = field.p
     if p >= 1 << 256:
         raise ValueError("the word kernels hold p in 8 32-bit words")
     mulcmp = _digits(p << 11, 32, 9) + _digits(p, 32, 8) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
-    chain = None
-    if c.qe is not None:
-        chain = np.asarray(
-            _digits(p, 32, 8)
-            + [v for i in range(8) for v in _digits(pow(2, 32 * (8 + i), p), 32, 8)]
-            + _digits(chain_mu(p), 32, 2),
-            np.uint32,
-        )
-    ps = c.ps if len(c.ps) <= MAX_SHIFTS else []
-    reduce = (
-        [v for row in c.fold[:4] for v in row]
-        + [v for row in ps for v in row]
-        + [0] * (17 * (MAX_SHIFTS - len(ps)))
-        + [len(ps)]
-    )
+    chain = _chain_block(p)
     out = _KERNEL_CONSTS[field.p] = {
-        "reduce": np.asarray(reduce, np.uint32),
+        "reduce": np.asarray([v for row in c.fold[:4] for v in row] + chain, np.uint32),
         "mulcmp": np.asarray(mulcmp, np.uint32),
-        "chain": chain,
+        "chain": np.asarray(chain, np.uint32),
     }
     return out

@@ -9,6 +9,8 @@ the ported paths, each a CUDA kernel in ``csrc/``:
   ``bitplane_eq``               ``make_bitplane_eq_kernel`` (:489)
   ``bits_matvec_semi``          ``make_fold_matvec_bucket`` (:828) via
                                 ``make_bits_matvec_bucket(out_form="semi")``
+  ``bits_matvec_canonical``     the same, ``out_form="canonical"`` (fields
+                                below 250 bits)
   ``mulcmp``                    ``make_mulcmp`` (:1009)
   ``chain``                     ``make_chain_kernel`` (:407)
   ``mul`` (``pow_ladder``: a     ``PallasFieldOps.mul`` → ``_mul_kernel``
@@ -22,11 +24,11 @@ the ported paths, each a CUDA kernel in ``csrc/``:
                                 ``_reduce_kernel`` (:720)
   ============================  ==========================================
 
-``bits_matvec_semi`` and ``limbs_matvec`` launch one CUDA kernel
-(``csrc/fold_matvec.cu``) and count apart, so each form shows on its
-path. They and ``bitplane_eq`` read the witness through a table of slots
-(−1 for an empty entry) and gather inside the kernel; their plain
-versions gather first.
+``bits_matvec_semi``, ``bits_matvec_canonical`` and ``limbs_matvec``
+launch one CUDA kernel (``csrc/fold_matvec.cu``) and count apart, so each
+form shows on its path. They and ``bitplane_eq`` read the witness through
+a table of slots (−1 for an empty entry) and gather inside the kernel;
+their plain versions gather first.
 
 Every wrapper checks device, dtype, shape and contiguity, then runs its
 plain PyTorch version when the inputs lie on the CPU, or launches its CUDA
@@ -52,11 +54,11 @@ import torch
 
 from ..fields import PrimeField
 from .cuda_lib import load_kernels
-from .field_consts import L8, L16, MAX_SHIFTS, SEMI, _digits, consts_for, kernel_consts
+from .field_consts import L8, L16, SEMI, _digits, consts_for, kernel_consts
 from .words import FULL, U32, to_i32, to_u32, unpack_rows
 
 KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
-           "limbs_matvec", "mul_digits", "reduce_digits")
+           "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -280,15 +282,47 @@ def _fold8_rows(d: List[torch.Tensor], consts) -> List[torch.Tensor]:
 def _reduce_rows(digit_rows: List[torch.Tensor], consts) -> List[torch.Tensor]:
     """field_pallas._reduce_rows: 32 digit sums (8-bit basis, < 2^32) →
     16 canonical limbs: carry to 66 positions, fold, carry, fold, carry,
-    join digit pairs, then the shift-subtract chain (_chain_rows: keep
-    x − p·2^k where it does not borrow, k from high to 0)."""
+    join digit pairs (17 limbs, a value below 2^265 for every field),
+    then ``_canon_rows`` where the TPU runs its shift-subtract chain
+    (_chain_rows, 266 − NUM_BITS steps: 202 for Goldilocks); the
+    canonical residue is unique, so the bits are the same."""
     d = _carry_rows(digit_rows, 66, 8)
     f1 = _carry_rows(_fold8_rows(d, consts), 34, 8)
     f2 = _carry_rows(_fold8_rows(f1, consts), 34, 8)
-    x = [f2[2 * i] | (f2[2 * i + 1] << 8) for i in range(17)]
-    for ps in consts.ps:
-        x = _cond_sub_rows(x, ps)
-    return x[:L16]
+    return _canon_rows([f2[2 * i] | (f2[2 * i + 1] << 8) for i in range(17)], consts)
+
+
+def _canon_rows(x: List[torch.Tensor], consts) -> List[torch.Tensor]:
+    """x, int64 rows of 16-bit limbs (17 here; any count below 19 works)
+    → its 16 canonical limbs mod any odd p < 2^256 (those past L zero).
+    The limbs at and above L = ceil(NUM_BITS/16) fold by 2^(16·i) mod p
+    (one float64 matmul, exact: every sum is below 2^37) and carry to L + 2
+    limbs, x' < 2^(16L) + 17·2^16·p ≤ 18·2^16·p (2^(16L) ≤ 2^16·p); the
+    estimate q̂ = floor(h·mu/2^31) of h = x' >> s < 2^30, s = max(0,
+    NUM_BITS − 9), mu = floor(2^(s+31)/p), satisfies q − 1 ≤ q̂ ≤ q (q −
+    q̂ < 2^s/p + h/2^31 + 1 < 1.51); then x' − q̂·p < 2p by one signed
+    carry chain, and one conditional subtract of p."""
+    p = _p_of(consts)
+    n = p.bit_length()
+    L = -(-n // 16)
+    low = list(x[:L]) + [torch.zeros_like(x[0])] * (L - min(L, len(x)))
+    hi = x[L:]
+    if hi:
+        table = _table(p, f"canon_fold_{len(hi)}",
+                       [_digits(pow(2, 16 * (L + i), p), 16, L) for i in range(len(hi))], hi[0].device)
+        h = torch.stack(hi)
+        add = torch.matmul(table.t().to(torch.float64), h.reshape(len(hi), -1).to(torch.float64))
+        add = add.to(torch.int64).reshape((L,) + tuple(h.shape[1:]))
+        low = [low[l] + add[l] for l in range(L)]
+    xs, _ = _signed_carry(torch.stack(low + [torch.zeros_like(low[0])] * 2))
+    s = max(0, n - 9)
+    i0, r = s // 16, s % 16
+    h = (xs[i0] | (xs[i0 + 1] << 16) | (xs[i0 + 2] << 32)) >> r
+    qh = (h * ((1 << (s + 31)) // p)) >> 31
+    pl = _table(p, f"p{L + 2}", _digits(p, 16, L + 2), qh.device).reshape((L + 2,) + (1,) * qh.dim())
+    out, _ = _signed_carry(torch.stack(xs) - qh.unsqueeze(0) * pl)
+    out = _cond_sub_rows(out, _digits(p, 16, L + 2))[:L]
+    return out + [torch.zeros_like(out[0])] * (L16 - L)
 
 
 # ---------------------------------------------------------------------------
@@ -327,12 +361,6 @@ def _check_matvec(w: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, per_entr
         raise ValueError(f"contraction width {C} overflows the digit sums")
 
 
-def _reduce_consts(field: PrimeField, canonical: bool) -> np.ndarray:
-    if canonical and len(consts_for(field).ps) > MAX_SHIFTS:
-        raise ValueError(f"the canonical reduction kernels need NUM_BITS >= 250, got {field.NUM_BITS}")
-    return kernel_consts(field)["reduce"]
-
-
 def _fold_matvec(wrapper, w, cols, F, B: int, row_words: int, field, bits: bool, canonical: bool) -> torch.Tensor:
     """Launch bp_fold_matvec for inputs that lie on the card."""
     n_rows, K = cols.shape
@@ -340,7 +368,7 @@ def _fold_matvec(wrapper, w, cols, F, B: int, row_words: int, field, bits: bool,
         raise ValueError(f"{n_rows} rows × batch {B} exceed the kernel's grid")
     if F.data_ptr() % 16:
         raise ValueError("F must be 16-byte aligned")
-    k = _reduce_consts(field, canonical)
+    k = kernel_consts(field)["reduce"]
     out = torch.empty((L16 if canonical else SEMI, n_rows, B), dtype=torch.int32, device=w.device)
     if n_rows and B:
         _launch("bp_fold_matvec", w.data_ptr(), cols.data_ptr(), F.data_ptr(), out.data_ptr(), n_rows, K,
@@ -415,6 +443,35 @@ def bits_matvec_semi_plain(vals_p: torch.Tensor, cols: torch.Tensor, F: torch.Te
 
 
 bits_matvec_semi.launches = 0
+
+
+def bits_matvec_canonical(vals_p: torch.Tensor, cols: torch.Tensor, F: torch.Tensor,
+                          field: PrimeField) -> torch.Tensor:
+    """``bits_matvec_semi``'s inputs → int32[16, n_rows, 32·Bw] canonical
+    limbs of Σ_e coeff_e·bit_b(vals_p[cols[r, e]]) mod p: the bits form's
+    output below 250 bits, where p·2^11 does not bound the semi values and
+    the check compares ``mul``'s canonical products instead of ``mulcmp``
+    (``make_bits_matvec_bucket(..., out_form="canonical")``)."""
+    if vals_p.dim() != 2:
+        raise ValueError("vals_p must be [S, Bw]")
+    _check_matvec(vals_p, cols, F, 1)
+    if not _on_cuda(vals_p, cols, F):
+        return bits_matvec_canonical_plain(vals_p, cols, F, field)
+    Bw = vals_p.shape[1]
+    return _fold_matvec(bits_matvec_canonical, vals_p, cols, F, 32 * Bw, Bw, field, True, True)
+
+
+def bits_matvec_canonical_plain(vals_p: torch.Tensor, cols: torch.Tensor, F: torch.Tensor,
+                                field: PrimeField) -> torch.Tensor:
+    """Plain version: the gather of the entries' bits, the exact digit
+    sums, then _reduce_rows."""
+    n_rows, B = cols.shape[0], 32 * vals_p.shape[1]
+    if n_rows == 0 or B == 0:
+        return torch.zeros((L16, n_rows, B), dtype=torch.int32, device=vals_p.device)
+    return _reduce_sums(_digit_sums(_gather_bits(vals_p, cols), F), field, True)
+
+
+bits_matvec_canonical.launches = 0
 
 
 def limbs_matvec(zt: torch.Tensor, cols: torch.Tensor, F: torch.Tensor, field: PrimeField,
@@ -635,16 +692,16 @@ def _canon_tail_v2(x: List[torch.Tensor], consts) -> List[torch.Tensor]:
 def _reduce16_rows(digit_rows: List[torch.Tensor], consts) -> List[torch.Tensor]:
     """field_pallas._reduce16_rows: 32 16-bit-basis positions (each
     < 2^21) → 16 canonical limbs: carry, split fold, carry, fold at 8-bit
-    multiplier granularity, carry, quotient-estimate canonicalization.
-    Only fields with the quotient-estimate constant are supported."""
-    if consts.qe is None:
-        raise ValueError("the 16-bit modmul needs a 253..256-bit field (quotient estimate)")
+    multiplier granularity, carry (17 limbs below 2^256 + 3·2^8·p), then
+    the quotient-estimate canonicalization of a 253..256-bit field, or
+    ``_canon_rows`` where the TPU runs its shift-subtract chain."""
     d = _carry16_rows(digit_rows, 2 * L16)
     acc = _fold1_split(d, consts, L16)
     d2 = _carry16_rows(acc, 18)
     table = _table(_p_of(consts), "fold16b", consts.fold16b, d2[0].device)
     out = _fold_rows_const(list(d2[:L16]), [d2[L16] & 0xFF, d2[L16] >> 8, d2[17]], table)
-    return _canon_tail_v2(_carry16_rows(out, 17), consts)
+    x17 = _carry16_rows(out, 17)
+    return _canon_tail_v2(x17, consts) if consts.qe is not None else _canon_rows(x17, consts)
 
 
 def _add_canon_rows(a16: List[torch.Tensor], b16: List[torch.Tensor], consts) -> List[torch.Tensor]:
@@ -658,15 +715,6 @@ def _mul_rows(a16: List[torch.Tensor], b16: List[torch.Tensor], consts) -> List[
     """Canonical a·b mod p of canonical 16-limb rows (the _mul_kernel
     body)."""
     return _reduce16_rows(_conv16_rows(a16, b16), consts)
-
-
-def _chain_consts(field: PrimeField):
-    """The word kernels' constants (``bp::ChainConsts``): chain, mul,
-    mul_digits and reduce_digits take 253..256-bit fields."""
-    k = kernel_consts(field)["chain"]
-    if k is None:
-        raise ValueError(f"no word kernel for {field.NUM_BITS}-bit fields (needs 253..256)")
-    return k
 
 
 # ---------------------------------------------------------------------------
@@ -718,7 +766,7 @@ def chain(x0: torch.Tensor, ext: torch.Tensor, descs, n_reps: int, field: PrimeF
     code = _chain_code(descs, n_ext)
     if not _on_cuda(x0, ext):
         return chain_plain(x0, ext, descs, n_reps, field)
-    k = _chain_consts(field)
+    k = kernel_consts(field)["chain"]
     d = len(descs)
     out = torch.empty((n_reps * d * L16, N), dtype=torch.int32, device=x0.device)
     if N and n_reps:
@@ -755,8 +803,9 @@ chain.launches = 0
 # ladder that the field backend's inversion runs on it
 # ---------------------------------------------------------------------------
 def mul(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
-    """Canonical a, b int32[16, N] (limb-major 16-bit limbs) → int32[16, N]
-    canonical a·b mod p."""
+    """a, b int32[16, N] limb-major 16-bit limbs, a < 2^256 (canonical, or
+    a raw witness value in [p, 2^256)) and b canonical → int32[16, N]
+    canonical a·b mod p, for every odd p < 2^256."""
     if a.dim() != 2:
         raise ValueError("a must be [16, N]")
     N = a.shape[1]
@@ -764,7 +813,7 @@ def mul(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
     _check_words("b", b, (L16, N))
     if not _on_cuda(a, b):
         return mul_plain(a, b, field)
-    k = _chain_consts(field)
+    k = kernel_consts(field)["chain"]
     out = torch.empty((L16, N), dtype=torch.int32, device=a.device)
     if N:
         _launch("bp_mul16", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
@@ -807,7 +856,7 @@ def pow_ladder(x: torch.Tensor, bits: List[int], field: PrimeField) -> torch.Ten
         return r.clone() if r is x else r
     if not N or not by_x:
         return x.clone()
-    k = _chain_consts(field).ctypes.data
+    k = kernel_consts(field)["chain"].ctypes.data
     bufs = (torch.empty_like(x), torch.empty_like(x))
     fn, stream = load_kernels().bp_mul16, _stream(x)
     xp = src = x.data_ptr()
@@ -827,9 +876,8 @@ def pow_ladder(x: torch.Tensor, bits: List[int], field: PrimeField) -> torch.Ten
 def mul_digits(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Tensor:
     """a, b int32[16, N] limb-major, a < 2^256 (canonical, or a raw
     witness value in [p, 2^256)) and b canonical → int32[32, N]: the 8-bit
-    digits of the canonical a·b mod p (digit 2l + h is byte h of limb l).
-    The card takes 253..256-bit fields (``mul``'s range) and raises for
-    others."""
+    digits of the canonical a·b mod p (digit 2l + h is byte h of limb l),
+    for every odd p < 2^256 (``mul``'s range)."""
     if a.dim() != 2:
         raise ValueError("a must be [16, N]")
     N = a.shape[1]
@@ -837,7 +885,7 @@ def mul_digits(a: torch.Tensor, b: torch.Tensor, field: PrimeField) -> torch.Ten
     _check_words("b", b, (L16, N))
     if not _on_cuda(a, b):
         return mul_digits_plain(a, b, field)
-    k = _chain_consts(field)
+    k = kernel_consts(field)["chain"]
     out = torch.empty((L8, N), dtype=torch.int32, device=a.device)
     if N:
         _launch("bp_mul_digits", a.data_ptr(), b.data_ptr(), out.data_ptr(), N, k.ctypes.data,
@@ -868,8 +916,7 @@ def reduce_digits(d: torch.Tensor, field: PrimeField) -> torch.Tensor:
     p. d may be contiguous or the transposed view of a contiguous
     int32[N, 32] (element-major, as the row-chunked evaluator builds its
     sums), which the kernel reads as it lies; any other layout is copied
-    to contiguous once. The card takes 253..256-bit fields (``mul``'s
-    range) and raises for others."""
+    to contiguous once. Every odd p < 2^256 (``mul``'s range)."""
     if d.dim() != 2:
         raise ValueError("d must be [32, N]")
     N = d.shape[1]
@@ -879,7 +926,7 @@ def reduce_digits(d: torch.Tensor, field: PrimeField) -> torch.Tensor:
         raise ValueError(f"d must have shape {(L8, N)}, got {tuple(d.shape)}")
     if not _on_cuda(d):
         return reduce_digits_plain(d, field)
-    k = _chain_consts(field)
+    k = kernel_consts(field)["chain"]
     element_major = N > 1 and _element_major(d)
     if not element_major:
         d = d.contiguous()

@@ -10,13 +10,16 @@ Counterpart of the limbs route of ``bellpepper_tpu/backend/matvec.py``:
         the fold tables under 1.5e9 bytes as the reference counts them):
         one ``limbs_matvec`` an ELL bucket, which reads the witness digits
         through the bucket's column table, against host-built fold planes
-        (bytes), then ``mulcmp`` on the semi-reduced outputs;
+        (bytes), then ``mulcmp`` on the semi-reduced outputs, or, below 250
+        bits, ``mul`` of the canonical outputs and a limb compare
+        (reference ``:3415-3420``);
       - non-fused: ``mul_digits`` of every gathered entry with its
         coefficient, bucket row sums, ``reduce_digits``, ``mul``, compare.
   * ``TrivialLimbsCheck``: ``_build_trivial_limbs_check`` (``:1349-1504``):
     booleanity rows as a limb compare, rows of ≤ 2 terms with coefficients
-    ±1 through operand assembly and ``mulcmp``, the remaining rows through
-    a ``LimbsCheck`` of their sub-template.
+    ±1 through operand assembly and ``mulcmp`` (below 250 bits: the
+    operands made canonical, ``mul`` and a limb compare, ``:1492-1496``),
+    the remaining rows through a ``LimbsCheck`` of their sub-template.
   * ``build_limbs_check``: the reference's ``_partition`` rule between the
     two.
 
@@ -36,7 +39,7 @@ import torch
 from ..device import resolve
 from ..r1cs import R1CS
 from .field_backend import FieldBackend
-from .check_common import _limb_rows, _mulcmp_bad, _Operand, mask_verdict
+from .check_common import _limb_rows, _Operand, _product_bad, mask_verdict, semi_ok
 from .field_consts import L8, L16, _digits, fold_digit_table
 from .field_kernels import limbs_matvec, mul, mul_digits, mulcmp, reduce_digits
 from .layout import FIELD_SRC, MAX_FUSED_LIMBS_K, _build_shared_ell, _classify_trivial_limb_rows, _sub_rows_r1cs
@@ -85,10 +88,7 @@ class LimbsCheck(_LimbsForm):
 
     def __init__(self, template: R1CS, batch: int, device):
         field = self.field = template.field
-        if field.NUM_BITS < 250:
-            # below 250 bits the reference's fold matvec output is canonical
-            # and feeds a modmul, which the port has for 253..256 bits only
-            raise NotImplementedError("the limbs check needs NUM_BITS >= 250")
+        self.semi = semi_ok(field)
         self.R = template.num_constraints
         self.S_t = template.num_inputs + template.num_aux
         self.batch = batch
@@ -122,16 +122,17 @@ class LimbsCheck(_LimbsForm):
                     buckets.append((_t(cols, device, torch.int32), torch.from_numpy(F).to(device)))
                 self.mats[name] = buckets
         else:
-            coeff_limbs = FieldBackend.to_limbs(table)  # [T, 16]
+            coeff_limbs = FieldBackend.to_limbs([int(c) % field.p for c in table])  # [T, 16], canonical
             for name, m in mats.items():
                 coeffs = coeff_limbs[np.asarray(m.coeff_ids)].T.view(np.int32)  # [16, total]
                 self.mats[name] = (_t(m.cols, device), _t(coeffs, device, torch.int32), m.buckets)
 
     def _matvec_fused(self, name: str, zt: torch.Tensor) -> torch.Tensor:
-        """zt int32[S_t, 16, B] → the matrix's rows int32[17, Rtp·B]
-        (each bucket's kernel reads the witness digits through its column
-        table)."""
-        parts = [limbs_matvec(zt, cols, F, self.field) for cols, F in self.mats[name]]
+        """zt int32[S_t, 16, B] → the matrix's rows int32[17, Rtp·B] semi
+        or int32[16, Rtp·B] canonical (each bucket's kernel reads the
+        witness digits through its column table)."""
+        form = "semi" if self.semi else "canonical"
+        parts = [limbs_matvec(zt, cols, F, self.field, form) for cols, F in self.mats[name]]
         return torch.cat(parts, dim=1).reshape(parts[0].shape[0], -1)
 
     def _matvec(self, name: str, zl: torch.Tensor) -> torch.Tensor:
@@ -158,7 +159,10 @@ class LimbsCheck(_LimbsForm):
             return torch.zeros((0, B), dtype=torch.bool, device=zt.device)
         if self.fused:
             az, bz, cz = (self._matvec_fused(n, zt) for n in "abc")
-            bad = mulcmp(az, bz, cz, self.field) != 0
+            if self.semi:
+                bad = mulcmp(az, bz, cz, self.field) != 0
+            else:
+                bad = (mul(az, bz, self.field) != cz).any(0)
             return bad.reshape(self.Rtp, B).index_select(0, self.pos)
         zl = zt.permute(1, 2, 0)
         az, bz, cz = (self._matvec(n, zl) for n in "abc")
@@ -174,8 +178,6 @@ class TrivialLimbsCheck(_LimbsForm):
 
     def __init__(self, template: R1CS, batch: int, device, bit_rows, triv_rows, fold_idx):
         field = self.field = template.field
-        if field.NUM_BITS < 250:
-            raise NotImplementedError("the trivial limbs rows need NUM_BITS >= 250 (mulcmp)")
         self.R = template.num_constraints
         self.S_t = template.num_inputs + template.num_aux
         self.batch = batch
@@ -208,7 +210,7 @@ class TrivialLimbsCheck(_LimbsForm):
             xb = zt.index_select(0, self.bit_cols)  # [n_bit, 16, B]
             parts.append(~((xb[:, 1:] == 0).all(1) & ((xb[:, 0] & -2) == 0)))  # value in {0, 1}
         if self.n_triv:
-            parts.append(_mulcmp_bad(self.ops, None, zt, self.p17, self.field))
+            parts.append(_product_bad(self.ops, None, zt, self.p17, self.field))
         if self.fold is not None:
             parts.append(self.fold.mask_slot_major(zt))
         return torch.cat(parts).index_select(0, self.inv)

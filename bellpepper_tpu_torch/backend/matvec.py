@@ -24,16 +24,18 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
     ``_pow2_eq_bad_words_pallas``, ``:2439-2481``, as a table of slots
     that ``bitplane_eq`` gathers through);
   * ``BitsSemiCheck``: the fused bits path of ``build_templated_check``
-    (``:3252-3320``) in its semi form, for the rows that need field-exact
-    arithmetic: per ELL bucket ``bits_matvec_semi`` on the packed words
-    through the bucket's column table, then ``mulcmp``. It runs over the
-    whole chunk in one call, where the reference maps over 512-instance
-    blocks;
+    (``:3252-3320``), for the rows that need field-exact arithmetic: per
+    ELL bucket ``bits_matvec_semi`` on the packed words through the
+    bucket's column table, then ``mulcmp``; below 250 bits its canonical
+    form, ``bits_matvec_canonical``, then ``mul`` and a limb compare. It
+    runs over the whole chunk in one call, where the reference maps over
+    512-instance blocks;
   * ``build_templated_check(..., "mixed", field_slots=...)`` →
     ``MixedCheck``, the port of ``_build_mixed_check`` (``:1659-2113``)
     for witnesses in the evaluator's (u32 values, canonical field limbs)
     form: booleanity rows as a u32 compare, linear rows by a Montgomery
-    zero-test, product rows through ``mulcmp``, multipack/MultiEq rows as
+    zero-test, product rows through ``mulcmp`` (or, below 250 bits,
+    canonical operands, ``mul`` and a compare), multipack/MultiEq rows as
     exact integer window sums, and the ``rest`` rows through the limbs
     form (``limbs.build_limbs_check``) on their used slots;
   * ``build_templated_check(..., "limbs")`` → ``limbs.build_limbs_check``;
@@ -57,7 +59,15 @@ import torch
 from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
 from .field_consts import _digits
-from .field_kernels import bitplane_eq, bits_matvec_semi, fold_operand, mulcmp, padded_positions
+from .field_kernels import (
+    bitplane_eq,
+    bits_matvec_canonical,
+    bits_matvec_semi,
+    fold_operand,
+    mul,
+    mulcmp,
+    padded_positions,
+)
 from .layout import (
     POW2_M_LIMBS,
     POW2_OFF_BITS,
@@ -69,7 +79,7 @@ from .layout import (
     _sub_rows_r1cs,
     _used_slot_template,
 )
-from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _mulcmp_bad, _neg_const, _Operand
+from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _neg_const, _Operand, _product_bad, semi_ok
 from .limbs import build_limbs_check
 from .words import U32, ctz32, device_table as _t, from_numpy_u32, pack_rows, popcount32, to_i32, to_u32, unpack_rows
 
@@ -199,18 +209,18 @@ def _fold_words(nb, first, words, rows, R: int):
 
 
 class BitsSemiCheck:
-    """Field-exact check of bit-valued witnesses through the semi-reduced
-    kernels: packed slot-major words vals_p int32[S, Bw] → bool[R, 32·Bw]
-    violation mask in the template's row order. `slots` maps the
-    template's slots to rows of vals_p. Needs field.NUM_BITS ≥ 250."""
+    """Field-exact check of bit-valued witnesses through the fold matvec:
+    packed slot-major words vals_p int32[S, Bw] → bool[R, 32·Bw] violation
+    mask in the template's row order. `slots` maps the template's slots to
+    rows of vals_p. Semi-reduced rows and ``mulcmp`` at 250 bits and more;
+    below, as the reference's ``out_form="canonical"`` route
+    (``:3258-3320``), canonical rows (``bits_matvec_canonical``), ``mul``
+    of A·z by B·z and a limb compare with C·z."""
 
     def __init__(self, template: R1CS, slots: np.ndarray, device):
         field = template.field
-        if field.NUM_BITS < 250:
-            raise NotImplementedError(
-                "only the semi-reduced form (NUM_BITS >= 250) is ported"
-            )
         self.field = field
+        self.semi = semi_ok(field)
         table = list(template.coeff_table)
         try:
             zero_id = table.index(0)
@@ -232,14 +242,18 @@ class BitsSemiCheck:
             self.mats[name] = buckets
 
     def _matvec(self, name: str, vals_p: torch.Tensor) -> torch.Tensor:
-        parts = [bits_matvec_semi(vals_p, cols, F, self.field) for cols, F in self.mats[name]]
-        return torch.cat(parts, dim=1).reshape(parts[0].shape[0], -1)  # [17, Rtp·B]
+        kern = bits_matvec_semi if self.semi else bits_matvec_canonical
+        parts = [kern(vals_p, cols, F, self.field) for cols, F in self.mats[name]]
+        return torch.cat(parts, dim=1).reshape(parts[0].shape[0], -1)  # [17 or 16, Rtp·B]
 
     def __call__(self, vals_p: torch.Tensor) -> torch.Tensor:
         B = 32 * vals_p.shape[1]
         az, bz, cz = (self._matvec(name, vals_p) for name in "abc")
-        bad = (mulcmp(az, bz, cz, self.field) != 0).reshape(self.Rtp, B)
-        return bad.index_select(0, self.pos)
+        if self.semi:
+            bad = mulcmp(az, bz, cz, self.field) != 0
+        else:
+            bad = (mul(az, bz, self.field) != cz).any(0)
+        return bad.reshape(self.Rtp, B).index_select(0, self.pos)
 
 
 class PackedBitsCheck:
@@ -455,12 +469,9 @@ class BitsCheck:
     The instances that pad B to a multiple of 32 are all zero, ONE
     included, and the family rows assume ONE = 1 (a ``nor`` row's
     c == ~a & ~b flags an all-zero instance), so the mask is cut back to B
-    and the verdict counts and locates only the real instances. Needs
-    field.NUM_BITS ≥ 250, as ``BitsSemiCheck`` does."""
+    and the verdict counts and locates only the real instances."""
 
     def __init__(self, template: R1CS, batch: int, device=None):
-        if template.field.NUM_BITS < 250:
-            raise NotImplementedError("the bits form needs NUM_BITS >= 250 (the semi-reduced kernels)")
         self.R = template.num_constraints
         self.S_t = template.num_inputs + template.num_aux
         self.batch = batch
@@ -708,7 +719,8 @@ class MixedCheck:
 
     Rows route by class: booleanity of u32 slots (a compare), linear rows
     (a + 8p − c, a one-limb Montgomery zero-test), product rows (``mulcmp``
-    on the semi-reduced operands), multipack/MultiEq rows (exact integer
+    on the semi-reduced operands; below 250 bits the operands made
+    canonical, ``mul`` and a compare), multipack/MultiEq rows (exact integer
     window sums, d = A + p·2^34 − C, a three-limb Montgomery zero-test),
     and the rows of no class (``rest``) through the limbs form on the
     sub-template of the slots they use, field slots read from flimbs and
@@ -718,8 +730,10 @@ class MixedCheck:
         device = resolve(device)
         field = template.field
         p = self.p = field.p
-        if field.NUM_BITS < 250:
-            raise NotImplementedError("the mixed check's product rows need NUM_BITS >= 250 (mulcmp)")
+        if field.NUM_BITS <= 32:
+            # a u32 slot can hold a value ≥ p: the operand bounds (< 4p) and
+            # the borrow-free negations of the row classes do not hold
+            raise NotImplementedError("the mixed check needs p > 2^32 (every u32 value below p)")
         self.field = field
         self.R = template.num_constraints
         self.S_t = template.num_inputs + template.num_aux
@@ -793,7 +807,7 @@ class MixedCheck:
         return _mont_zero_test(d, self.p, 1, [self.p0inv])
 
     def _mul_bad(self, vals_p, flimbs_p):
-        return _mulcmp_bad(self.mul, vals_p, flimbs_p, self.p17, self.field)
+        return _product_bad(self.mul, vals_p, flimbs_p, self.p17, self.field)
 
     def _side_sum(self, tab, vals_p, flimbs_p):
         """Exact integer Σ const + Σ 2^e·u32 + Σ ±field of one side as

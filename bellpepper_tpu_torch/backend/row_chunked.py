@@ -140,7 +140,7 @@ class DeviceR1CS:
 
         return DeviceR1CS(
             a=dm(r.a), b=dm(r.b), c=dm(r.c),
-            coeff_limbs=from_numpy_u32(FieldBackend.to_limbs(r.coeff_table), device),
+            coeff_limbs=from_numpy_u32(FieldBackend.to_limbs([int(c) % r.field.p for c in r.coeff_table]), device),
             num_constraints=r.num_constraints, num_inputs=r.num_inputs, num_aux=r.num_aux,
         )
 
@@ -496,7 +496,8 @@ def build_row_chunked_eval(r: R1CS, n_chunks: int, names=("a", "b", "c"), premul
                 entry["mask"] = device_table(mask_p, device, torch.int32)
         prep[name] = entry
         modes[name] = ("ell", deg, full) if use_ell else ("seg",)
-    prep["coeff_limbs"] = from_numpy_u32(FieldBackend.to_limbs(r.coeff_table), device)
+    # canonical: mul reads its multiplier as the field's ceil(NUM_BITS/32) words
+    prep["coeff_limbs"] = from_numpy_u32(FieldBackend.to_limbs([int(c) % r.field.p for c in r.coeff_table]), device)
     meta = {"premul": premul_table, "span": span, "offset": offset, "modes": modes}
     return RowChunkedEval(r, rpc, n_chunks, names, meta), prep
 

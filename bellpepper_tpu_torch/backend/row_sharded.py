@@ -225,7 +225,8 @@ class RowShardedSatisfier:
         parts, meta = build_row_sharded_parts(r1cs, n_shards, with_coeff_digits=(witness_form == "bits"))
         self._meta = meta
         dev = self.device
-        self._coeff_lm = from_numpy_u32(FieldBackend.to_limbs(meta["coeff_table"]).T, dev)  # [16, K]
+        p = r1cs.field.p  # canonical multipliers: mul reads ceil(NUM_BITS/32) words of them
+        self._coeff_lm = from_numpy_u32(FieldBackend.to_limbs([int(c) % p for c in meta["coeff_table"]]).T, dev)
         self._shard_ids = list(own)
         for d in own:
             local = {}

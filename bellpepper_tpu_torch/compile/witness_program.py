@@ -633,7 +633,10 @@ class Evaluator:
         where = [self._field_rows[s] if k == SRC_ROW else self._free_field_idx[s] if k == SRC_FREE else s
                  for k, s in zip(kinds, slots)]
         cf = cf.reshape(-1)
-        cfl = None if (cf == 1).all() else _dev(FieldBackend.to_limbs(cf), self.device, torch.int32)
+        # mul takes a canonical multiplier (its low ceil(NUM_BITS/32) words)
+        p = self.field.p
+        cfl = None if (cf == 1).all() else _dev(FieldBackend.to_limbs([int(c) % p for c in cf]), self.device,
+                                                torch.int32)
         return _FieldOperand(kinds, where, self.device), cfl, idx.shape
 
     def _lc_field(self, t, vals, flimbs, free_T):

@@ -1,24 +1,29 @@
 // Shared integer helpers of the field kernels. Two families:
 //
-// * 16-bit limbs (fold_matvec): carry passes over digit rows, the
-//   semi-reduction and the canonical reduction of matvec digit sums, with
-//   uint32_t wraparound exactly as the JAX package's kernels
+// * 16-bit limbs (fold_matvec's semi output): carry passes over digit
+//   rows and the semi-reduction of matvec digit sums, with uint32_t
+//   wraparound exactly as the JAX package's kernels
 //   (bellpepper_tpu/backend/field_pallas.py) compute it;
-// * 32-bit words (mulcmp, chain, mul, mul_digits, reduce_digits): a field
-//   element as 8 or 9 little-endian words, every product one 32×32 →
-//   64-bit mul.wide.u32, a multiply-add of rows with carries, the
-//   Montgomery reduction and the zero-test of mulcmp, the canonical
-//   multiply (a fold of the high words by 2^(32·(8+i)) mod p, then the
-//   64-bit quotient-estimate tail canon_words), the canonical reduction
-//   of 8-bit-basis digit sums (the same tail), and chain's add. These give
-//   the same canonical residues and the same verdicts as the 16-bit
-//   pipeline, not its intermediate integers.
+// * 32-bit words (mulcmp, chain, mul, mul_digits, reduce_digits and
+//   fold_matvec's canonical output): a field element as little-endian
+//   words, every product one 32×32 → 64-bit mul.wide.u32, a multiply-add
+//   of rows with carries, the Montgomery reduction and the zero-test of
+//   mulcmp, and one word tail for every odd p < 2^256 with W =
+//   ceil(NUM_BITS/32) words: the canonical multiply (a fold of the words
+//   at and above W by 2^(32·(W+i)) mod p, then the 64-bit
+//   quotient-estimate tail canon_words), the canonical reduction of
+//   8-bit-basis digit sums (the same fold and tail), and chain's add. The
+//   word helpers are templates on W; the launchers pick the instantiation
+//   from the field's constants. These give the same canonical residues
+//   and the same verdicts as the 16-bit pipeline, not its intermediate
+//   integers.
 //
 // Every helper works on one element whose rows live in registers
 // (fixed-size arrays, fully unrolled, every index static).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace bp {
@@ -63,84 +68,6 @@ static __device__ __forceinline__ void semi_reduce(const uint32_t (&acc)[32],
 #pragma unroll
   for (int i = 0; i < 16; ++i) x17[i] = d2[2 * i] | (d2[2 * i + 1] << 8);
   x17[16] = d2[32] | (d2[33] << 8);
-}
-
-// x − ps when the subtraction does not borrow, else x (branch-free).
-template <int N>
-static __device__ __forceinline__ void cond_sub(uint32_t (&x)[N],
-                                                const uint32_t (&ps)[N]) {
-  uint32_t diff[N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t d = x[i] - ps[i] - borrow;
-    borrow = d >> 31;
-    diff[i] = d & 0xFFFFu;
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = borrow ? x[i] : diff[i];
-}
-
-// The canonical digit reduction's constants, in the layout of
-// field_consts.kernel_consts(field)["reduce"]: the semi-reduction's fold
-// rows, then the shift-subtract moduli p·2^k (k = n_ps − 1 … 0, high
-// first) as 17 limbs, padded to kMaxShifts rows, and their count
-// 266 − NUM_BITS.
-constexpr int kMaxShifts = 16;  // NUM_BITS >= 250
-struct ReduceConsts {
-  SemiFold f;
-  uint32_t ps[kMaxShifts][17];
-  uint32_t n_ps;
-};
-
-static inline ReduceConsts load_reduce_consts(const uint32_t* s) {
-  ReduceConsts k;
-  for (int i = 0; i < 4; ++i)
-    for (int l = 0; l < 32; ++l) k.f.fold[i][l] = *s++;
-  for (int r = 0; r < kMaxShifts; ++r)
-    for (int l = 0; l < 17; ++l) k.ps[r][l] = *s++;
-  k.n_ps = *s;
-  return k;
-}
-
-// 32 digit sums (8-bit basis, each < 2^32) → 16 canonical limbs
-// (field_pallas._reduce_rows; fold_matvec's canonical output, while the
-// reduce_digits kernel takes reduce_digit_words): carry → fold → carry →
-// fold → carry → join16 → the shift-subtract chain (_chain_rows). The
-// TPU carries to 66 positions and folds all 34 rows past position 31; for
-// sums below 2^32 every position past 34 is zero after the first carry
-// and past 33 after the second, so folding rows 0..3 and then 0..1 adds
-// the same (nothing else), and the bits are the TPU kernel's.
-static __device__ __forceinline__ void reduce_digits(const uint32_t (&acc)[32],
-                                                     const ReduceConsts& k,
-                                                     uint32_t (&out)[16]) {
-  uint32_t d[36];
-  carry8<32, 36>(acc, d);
-  uint32_t f1[32];
-#pragma unroll
-  for (int l = 0; l < 32; ++l) f1[l] = d[l];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int l = 0; l < 32; ++l) f1[l] += d[32 + i] * k.f.fold[i][l];
-  }
-  uint32_t e[34];
-  carry8<32, 34>(f1, e);
-  uint32_t f2[32];
-#pragma unroll
-  for (int l = 0; l < 32; ++l)
-    f2[l] = e[l] + e[32] * k.f.fold[0][l] + e[33] * k.f.fold[1][l];
-  uint32_t g[34];
-  carry8<32, 34>(f2, g);
-  uint32_t x[17];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = g[2 * i] | (g[2 * i + 1] << 8);
-  x[16] = g[32] | (g[33] << 8);
-#pragma unroll
-  for (int s = 0; s < kMaxShifts; ++s)
-    if (s < static_cast<int>(k.n_ps)) cond_sub<17>(x, k.ps[s]);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = x[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -192,9 +119,10 @@ static __device__ __forceinline__ uint32_t sub_words(const uint32_t (&x)[N], con
   return borrow;
 }
 
-// x − p when that does not borrow, else x (branch-free).
-template <int N>
-static __device__ __forceinline__ void cond_sub_p(uint32_t (&x)[N], const uint32_t (&p)[8]) {
+// x − p when that does not borrow, else x (branch-free; p's words past M
+// are 0).
+template <int N, int M>
+static __device__ __forceinline__ void cond_sub_p(uint32_t (&x)[N], const uint32_t (&p)[M]) {
   uint32_t d[N];
   const uint32_t borrow = sub_words(x, p, d);
 #pragma unroll
@@ -241,13 +169,17 @@ static __device__ __forceinline__ uint32_t mulcmp_words(const uint32_t (&a)[9], 
   return (nz != 0) & (np != 0);
 }
 
-// The word multiply's constants (field_consts.kernel_consts(field)["chain"],
-// for chain and mul): p as 8 words, the fold rows 2^(32·(8+i)) mod p
-// (i < 8), and mu = floor(2^291/p) as its low and high words.
+// The word tail's constants (field_consts.kernel_consts(field)["chain"],
+// for chain, mul, mul_digits, reduce_digits and fold_matvec's canonical
+// output): p as 8 words, the fold rows 2^(32·(W+i)) mod p (i < 8; words
+// past W are 0), mu = floor(2^(64+s)/p) for s = max(0, NUM_BITS − 28) as
+// its low and high words, W = ceil(NUM_BITS/32), and shift = s − 32·b,
+// the estimate's offset in its window of words b = max(0, W − 2)...b + 3.
 struct ChainConsts {
   uint32_t p[8];
   uint32_t fold[8][8];
   uint32_t mu_lo, mu_hi;
+  uint32_t n_words, shift;
 };
 
 static inline ChainConsts load_chain_consts(const uint32_t* s) {
@@ -257,97 +189,235 @@ static inline ChainConsts load_chain_consts(const uint32_t* s) {
     for (int w = 0; w < 8; ++w) k.fold[r][w] = *s++;
   k.mu_lo = s[0];
   k.mu_hi = s[1];
+  k.n_words = s[2];
+  k.shift = s[3];
   return k;
 }
 
-// Canonical S mod p of S < 2^291 (10 words), for 2^252 ≤ p < 2^256:
-// h = floor(S/2^227) < 2^64 and q̂ = floor(h·mu/2^64) satisfy q − 2 ≤ q̂
-// ≤ q for q = floor(S/p) (mu ≥ 2^291/p − 1 and 2^227/p < 2^-25), so
-// S − q̂·p < 3p, computed modulo 2^288, and two conditional subtracts of
-// p finish. 16 word products and one 64-bit high product.
-static __device__ __forceinline__ void canon_words(const uint32_t (&s)[10], const ChainConsts& k,
-                                                   uint32_t (&out)[8]) {
-  const uint64_t h = (static_cast<uint64_t>(s[9]) << 61) | (static_cast<uint64_t>(s[8]) << 29) | (s[7] >> 3);
-  const uint64_t q = __umul64hi(h, (static_cast<uint64_t>(k.mu_hi) << 32) | k.mu_lo);
-  uint32_t qp[9];  // q̂·p modulo 2^288
-#pragma unroll
-  for (int i = 0; i < 9; ++i) qp[i] = 0;
-  qp[8] = mac_row(qp, 0, static_cast<uint32_t>(q), k.p);
-  mac_row(qp, 1, static_cast<uint32_t>(q >> 32), k.p);
-  uint32_t s9[9], x[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) s9[i] = s[i];
-  sub_words(s9, qp, x);
-  cond_sub_p(x, k.p);
-  cond_sub_p(x, k.p);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = x[i];
+// The first W words of an 8-word constant row.
+template <int W>
+static __device__ __forceinline__ const uint32_t (&low_words(const uint32_t (&row)[8]))[W] {
+  return reinterpret_cast<const uint32_t(&)[W]>(row);
 }
 
-// Canonical a·b mod p of 8-word a, b < 2^256 (chain and mul take canonical
-// operands; mul and mul_digits also take a raw witness value a in
-// [p, 2^256)), for 2^252 ≤ p < 2^256. T = a·b (16 words); S = T mod
-// 2^256 + Σ_i T[8+i]·fold[i] < 2^256 + 8·2^32·p < 2^291 (10 words, the top
-// below 8), whatever a and b below 2^256; then canon_words. 64 + 64 + 16
-// word products, against the 136 a Montgomery multiply needs.
-static __device__ __forceinline__ void mulmod_words(const uint32_t (&a)[8], const uint32_t (&b)[8],
-                                                    const ChainConsts& k, uint32_t (&out)[8]) {
-  uint32_t t[16];
+// Word i of an N-word value, 0 past its end.
+template <int I, int N>
+static __device__ __forceinline__ uint32_t word_at(const uint32_t (&s)[N]) {
+  if constexpr (I < N) return s[I];
+  return 0u;
+}
+
+// Canonical S mod p of S < 2^36·p in W + 2 words, for any odd p < 2^256
+// of W words. h = floor(S/2^s) < 2^(NUM_BITS + 36 − s) ≤ 2^64, read from
+// the 128-bit window of words b..b + 3 at bit k.shift < 64; q̂ =
+// floor(h·mu/2^64) satisfies q − 2 ≤ q̂ ≤ q for q = floor(S/p) (q − q̂ <
+// 2^s/p + h/2^64 + 1 and 2^s/p < 2^-27, or 1/p at s = 0), so S − q̂·p <
+// 3p, computed modulo 2^(32·(W+1)), and two conditional subtracts of p
+// finish. 2W word products and one 64-bit high product. (At W = 8 and a
+// 255-bit p: h = S >> 227, mu = floor(2^291/p).)
+template <int W>
+static __device__ __forceinline__ void canon_words(const uint32_t (&s)[W + 2], const ChainConsts& k,
+                                                   uint32_t (&out)[W]) {
+  constexpr int b = W >= 2 ? W - 2 : 0;
+  const uint64_t lo = word_at<b>(s) | (static_cast<uint64_t>(word_at<b + 1>(s)) << 32);
+  const uint64_t hi = word_at<b + 2>(s) | (static_cast<uint64_t>(word_at<b + 3>(s)) << 32);
+  const uint64_t h = (lo >> k.shift) | ((hi << 1) << (63 - k.shift));
+  const uint64_t q = __umul64hi(h, (static_cast<uint64_t>(k.mu_hi) << 32) | k.mu_lo);
+  const uint32_t (&p)[W] = low_words<W>(k.p);
+  uint32_t qp[W + 1];  // q̂·p modulo 2^(32·(W+1))
 #pragma unroll
-  for (int i = 0; i < 16; ++i) t[i] = 0;
-  mad_words(a, b, t);
-  uint32_t s[10];
+  for (int i = 0; i <= W; ++i) qp[i] = 0;
+  qp[W] = mac_row(qp, 0, static_cast<uint32_t>(q), p);
+  mac_row(qp, 1, static_cast<uint32_t>(q >> 32), p);
+  uint32_t sw[W + 1], x[W + 1];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = t[i];
-  s[8] = s[9] = 0;
+  for (int i = 0; i <= W; ++i) sw[i] = s[i];
+  sub_words(sw, qp, x);
+  cond_sub_p(x, p);
+  cond_sub_p(x, p);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t carry = mac_row(s, 0, t[8 + i], k.fold[i]);
-    const uint64_t u = static_cast<uint64_t>(s[8]) + carry;
-    s[8] = static_cast<uint32_t>(u);
-    s[9] += static_cast<uint32_t>(u >> 32);
-  }
-  canon_words(s, k, out);
+  for (int i = 0; i < W; ++i) out[i] = x[i];
+}
+
+// s += v·fold[i] for the W-word fold row i, the carry passed into s[W] and
+// s[W + 1].
+template <int W>
+static __device__ __forceinline__ void fold_word(uint32_t (&s)[W + 2], uint32_t v, const ChainConsts& k,
+                                                 int i) {
+  const uint32_t carry = mac_row(s, 0, v, low_words<W>(k.fold[i]));
+  const uint64_t u = static_cast<uint64_t>(s[W]) + carry;
+  s[W] = static_cast<uint32_t>(u);
+  s[W + 1] += static_cast<uint32_t>(u >> 32);
+}
+
+// Canonical a·b mod p of a WA-word a < 2^(32·WA) and a canonical W-word b
+// (chain takes canonical operands, WA = W; mul and mul_digits also take a
+// raw witness value a in [p, 2^256), WA = 8). T = a·b (WA + W words); S =
+// T mod 2^(32W) + Σ_i T[W+i]·fold[i] < 2^(32W) + WA·2^32·p ≤ 9·2^32·p
+// (2^(32W) ≤ 2^32·p as p ≥ 2^(32(W−1))), in W + 2 words; then
+// canon_words. 2·WA·W + 2W word products (144 at W = WA = 8, against the
+// 136 a Montgomery multiply needs).
+template <int W, int WA>
+static __device__ __forceinline__ void mulmod_words(const uint32_t (&a)[WA], const uint32_t (&b)[W],
+                                                    const ChainConsts& k, uint32_t (&out)[W]) {
+  uint32_t t[WA + W];
+#pragma unroll
+  for (int i = 0; i < WA + W; ++i) t[i] = 0;
+  // operand scanning: row i's carry lands on t[i + W], which no earlier row
+  // has written
+#pragma unroll
+  for (int i = 0; i < WA; ++i) t[i + W] = mac_row(t, i, a[i], b);
+  uint32_t s[W + 2];
+#pragma unroll
+  for (int i = 0; i < W; ++i) s[i] = t[i];
+  s[W] = s[W + 1] = 0;
+#pragma unroll
+  for (int i = 0; i < WA; ++i) fold_word<W>(s, t[W + i], k, i);
+  canon_words<W>(s, k, out);
+}
+
+// Canonical V mod p of a 9-word V < 2^288: words W..8 fold by the fold
+// rows, S < 2^(32W) + (9 − W)·2^32·p < 2^36·p; then canon_words.
+template <int W>
+static __device__ __forceinline__ void reduce_words9(const uint32_t (&v)[9], const ChainConsts& k,
+                                                     uint32_t (&out)[W]) {
+  uint32_t s[W + 2];
+#pragma unroll
+  for (int i = 0; i < W; ++i) s[i] = v[i];
+  s[W] = s[W + 1] = 0;
+#pragma unroll
+  for (int j = W; j < 9; ++j) fold_word<W>(s, v[j], k, j - W);
+  canon_words<W>(s, k, out);
 }
 
 // Canonical V mod p of V = Σ_j d[j]·2^(8j), 32 digit sums d[j] < 2^32
-// (the 8-bit basis of the matvec row sums), for 2^252 ≤ p < 2^256. Four
-// sums make a word: w_i = d[4i] + d[4i+1]·2^8 + d[4i+2]·2^16 +
-// d[4i+3]·2^24 + the carry of w_(i−1), each below 2^57 in 64 bits, its
-// high half the next carry. V < 2^32·2^248·256/255 < 2^281, so its 9
-// words already meet canon_words' S < 2^291 and no fold is needed (V's
-// word 8 is below 2^25).
+// (the 8-bit basis of the matvec row sums). Four sums make a word: v_i =
+// d[4i] + d[4i+1]·2^8 + d[4i+2]·2^16 + d[4i+3]·2^24 + the carry of
+// v_(i−1), each below 2^57 in 64 bits, its high half the next carry; V <
+// 2^32·2^248·256/255 < 2^281, 9 words, v_8 < 2^25; then reduce_words9.
+// kFold8 = false (W = 8 and NUM_BITS ≥ 245, shift ≥ 25, the host checks)
+// skips the fold of v_8: V < 2^281 ≤ 2^(s + 64) already gives h < 2^64,
+// and the canonical residue is the same.
+template <int W, bool kFold8 = true>
 static __device__ __forceinline__ void reduce_digit_words(const uint32_t (&d)[32], const ChainConsts& k,
-                                                          uint32_t (&out)[8]) {
-  uint32_t s[10];
+                                                          uint32_t (&out)[W]) {
+  static_assert(kFold8 || W == 8, "only an 8-word field may skip the fold");
+  uint32_t v[9];
   uint64_t carry = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const uint64_t w = carry + d[4 * i] + (static_cast<uint64_t>(d[4 * i + 1]) << 8) +
                        (static_cast<uint64_t>(d[4 * i + 2]) << 16) + (static_cast<uint64_t>(d[4 * i + 3]) << 24);
-    s[i] = static_cast<uint32_t>(w);
+    v[i] = static_cast<uint32_t>(w);
     carry = w >> 32;
   }
-  s[8] = static_cast<uint32_t>(carry);
-  s[9] = 0;
-  canon_words(s, k, out);
+  v[8] = static_cast<uint32_t>(carry);
+  if constexpr (kFold8) {
+    reduce_words9<W>(v, k, out);
+  } else {
+    uint32_t s[W + 2];  // W = 8: V's 9 words and a zero
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s[i] = v[i];
+    s[9] = 0;
+    canon_words<W>(s, k, out);
+  }
 }
 
-// Canonical a + b mod p: a 9-word sum below 2p, one conditional subtract.
-static __device__ __forceinline__ void addmod_words(const uint32_t (&a)[8], const uint32_t (&b)[8],
-                                                    const ChainConsts& k, uint32_t (&out)[8]) {
-  uint32_t s[9];
+// Canonical a + b mod p: a (W + 1)-word sum below 2p, one conditional
+// subtract.
+template <int W>
+static __device__ __forceinline__ void addmod_words(const uint32_t (&a)[W], const uint32_t (&b)[W],
+                                                    const ChainConsts& k, uint32_t (&out)[W]) {
+  uint32_t s[W + 1];
   uint32_t carry = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < W; ++i) {
     const uint64_t u = static_cast<uint64_t>(a[i]) + b[i] + carry;
     s[i] = static_cast<uint32_t>(u);
     carry = static_cast<uint32_t>(u >> 32);
   }
-  s[8] = carry;
-  cond_sub_p(s, k.p);
+  s[W] = carry;
+  cond_sub_p(s, low_words<W>(k.p));
 #pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = s[i];
+  for (int i = 0; i < W; ++i) out[i] = s[i];
+}
+
+// The fold matvec's constants (field_consts.kernel_consts(field)
+// ["reduce"]): the semi-reduction's fold rows, then the word tail's.
+struct ReduceConsts {
+  SemiFold f;
+  ChainConsts c;
+};
+
+static inline ReduceConsts load_reduce_consts(const uint32_t* s) {
+  ReduceConsts k;
+  for (int i = 0; i < 4; ++i)
+    for (int l = 0; l < 32; ++l) k.f.fold[i][l] = *s++;
+  k.c = load_chain_consts(s);
+  return k;
+}
+
+// W canonical words → 16 limbs (limbs past 2W are 0).
+template <int W>
+static __device__ __forceinline__ void words_to_limbs(const uint32_t (&r)[W], uint32_t (&out)[16]) {
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    const uint32_t x = w < W ? r[w < W ? w : 0] : 0u;
+    out[2 * w] = x & 0xFFFFu;
+    out[2 * w + 1] = x >> 16;
+  }
+}
+
+// The fold matvec's canonical output for W words: the TPU's _reduce_rows
+// first carries the 32 digit sums to 8-bit digits in uint32 (carry8), which
+// wraps where a sum near 2^32 meets a carry (the K = 2,064 bound with
+// every digit 255); its folds and carries after that are exact. So the
+// carried 36 digits' value V < 2^288, as 9 words, mod p (reduce_words9)
+// is its canonical output.
+template <int W>
+static __device__ __forceinline__ void digit_limbs(const uint32_t (&acc)[32], const ChainConsts& k,
+                                                   uint32_t (&out)[16]) {
+  uint32_t d[36];
+  carry8<32, 36>(acc, d);
+  uint32_t v[9], r[W];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) v[i] = d[4 * i] | (d[4 * i + 1] << 8) | (d[4 * i + 2] << 16) | (d[4 * i + 3] << 24);
+  reduce_words9<W>(v, k, r);
+  words_to_limbs(r, out);
+}
+
+// 32 digit sums (8-bit basis, each < 2^32) → 16 canonical limbs, the
+// TPU's _reduce_rows bits: digit_limbs at the field's W (a uniform
+// branch).
+static __device__ __forceinline__ void reduce_digits_canonical(const uint32_t (&d)[32], const ChainConsts& k,
+                                                               uint32_t (&out)[16]) {
+  switch (k.n_words) {
+    case 1: digit_limbs<1>(d, k, out); break;
+    case 2: digit_limbs<2>(d, k, out); break;
+    case 3: digit_limbs<3>(d, k, out); break;
+    case 4: digit_limbs<4>(d, k, out); break;
+    case 5: digit_limbs<5>(d, k, out); break;
+    case 6: digit_limbs<6>(d, k, out); break;
+    case 7: digit_limbs<7>(d, k, out); break;
+    default: digit_limbs<8>(d, k, out); break;
+  }
+}
+
+// Host: f(std::integral_constant<int, W>{}) for the field's word count W
+// (ChainConsts::n_words, 1..8), f's return value, or cudaErrorInvalidValue.
+template <class F>
+static inline int with_words(uint32_t n_words, F&& f) {
+  switch (n_words) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace bp

@@ -3,8 +3,9 @@
 // (x = witness digits), with the semi-reduced or the canonical output.
 //
 // Replaces: bellpepper_tpu/backend/field_pallas.py make_fold_matvec_bucket,
-// as reached through make_bits_matvec_bucket(..., out_form="semi") and
-// make_limbs_matvec_bucket(..., out_form="semi" or "canonical").
+// as reached through make_bits_matvec_bucket(..., out_form="semi" or
+// "canonical") and make_limbs_matvec_bucket(..., out_form="semi" or
+// "canonical"): all four instantiations <kBits, kCanonical>.
 //
 // Function. For ELL row r of a bucket with K entries (column table
 // cols[r, e], −1 for an empty entry) and every instance b, the digit sums
@@ -18,9 +19,11 @@
 // fold planes (a coefficient's digits for bits, digit d of c·2^(8j) mod p
 // for digits), K-major, Cp = C rounded up to 32 and zero padded. The sums
 // are exact in uint32 (the wrapper holds C·255² < 2^32) and reduce to 17
-// semi limbs (field_pallas._semi_reduce_rows) or 16 canonical limbs
-// (_reduce_rows), bit-identical to the TPU kernel. Output u32[17 or 16,
-// n_rows, B].
+// semi limbs (field_pallas._semi_reduce_rows, bit-identical to the TPU
+// kernel) or 16 canonical limbs (the TPU's _reduce_rows; a canonical
+// residue is unique, so its bits too). Output u32[17 or 16, n_rows, B].
+// The canonical output takes every odd p < 2^256 (the fields below 250
+// bits, whose checks go canonical, and the others alike).
 //
 // Design. A block owns one row and 64 instances; its 4 warps each own 16
 // instances × all 32 digits. Per row the product is D[64, 32] = X[64, C]·
@@ -37,7 +40,11 @@
 // partial sums (< 4·32·255² < 2^31) are added into uint32 sums, so
 // exactness does not depend on how the integer mma treats overflow. The
 // epilogue transposes the mma fragments through shared memory and runs
-// bp::semi_reduce or bp::reduce_digits per (row, instance).
+// bp::semi_reduce, or the word tail bp::reduce_digits_canonical (a
+// uniform switch on the field's word count W: a fold of the digit sums'
+// words at and above W, one 64-bit quotient estimate and two conditional
+// subtracts, where the TPU runs 266 − NUM_BITS shift-subtract steps, 202
+// for Goldilocks), per (row, instance).
 //
 // Empty entries are not read: a block first finds its row's extent (last
 // live entry + 1; the ELL layout front-packs real entries), so the rows
@@ -271,7 +278,7 @@ fold_matvec_kernel(const uint32_t* __restrict__ w, const int32_t* __restrict__ c
   for (int d = 0; d < 32; ++d) acc[d] = sacc[tid * kAccStride + d];
   if constexpr (kCanonical) {
     uint32_t x16[16];
-    bp::reduce_digits(acc, k, x16);
+    bp::reduce_digits_canonical(acc, k.c, x16);
 #pragma unroll
     for (int l = 0; l < 16; ++l) out[(static_cast<int64_t>(l) * n_rows + r) * B + b] = x16[l];
   } else {
@@ -304,14 +311,15 @@ int launch(const uint32_t* w, const int32_t* cols, const uint8_t* F, uint32_t* o
 
 // bits = 1: w is vals_p u32[S, B / 32] (row_words = B / 32); bits = 0: w
 // is zt u32[S, 16, B] (row_words = B). canonical = 0: the semi output (17
-// limbs); 1: the canonical output (16; digits only).
+// limbs); 1: the canonical output (16).
 extern "C" int bp_fold_matvec(const uint32_t* w, const int32_t* cols, const uint8_t* F,
                               uint32_t* out, int n_rows, int K, int Cp, int64_t B,
                               int64_t row_words, int bits, int canonical, int vec,
                               const uint32_t* consts_host, void* stream) {
-  if (bits && canonical) return static_cast<int>(cudaErrorInvalidValue);
   const bp::ReduceConsts k = bp::load_reduce_consts(consts_host);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (canonical && (k.c.n_words < 1 || k.c.n_words > 8)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bits && canonical) return launch<true, true>(w, cols, F, out, n_rows, K, Cp, B, row_words, vec, k, s);
   if (bits) return launch<true, false>(w, cols, F, out, n_rows, K, Cp, B, row_words, vec, k, s);
   if (canonical) return launch<false, true>(w, cols, F, out, n_rows, K, Cp, B, row_words, vec, k, s);
   return launch<false, false>(w, cols, F, out, n_rows, K, Cp, B, row_words, vec, k, s);

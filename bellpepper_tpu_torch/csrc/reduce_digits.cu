@@ -10,18 +10,25 @@
 // u32[32, N] (sum j of element i at j·N + i), or element-major u32[N, 32]
 // (at 32·i + j: each element's 128 bytes one contiguous line, the layout
 // the row-chunked evaluator builds its sums in). Output u32[16, N]
-// canonical limbs. A canonical residue is unique, so the bits equal the
-// TPU kernel's, whose steps this kernel does not follow.
+// canonical limbs (limbs past 2W are 0), for every odd p < 2^256. A
+// canonical residue is unique, so the bits equal the TPU kernel's, whose
+// steps this kernel does not follow.
 //
 // Design: the TPU's pipeline (three carry passes over 32-36 byte
 // positions, two folds and 266 − NUM_BITS shift-subtract borrow chains of
-// 17 limbs, about 190 serial limb steps) is gone. One thread an element
-// joins four sums into a word with 64-bit adds (9 words, V < 2^281) and
-// finishes with chain's quotient-estimate tail (bp::reduce_digit_words →
-// bp::canon_words in field.cuh): 16 word products, one 64-bit high
-// product and a 9-word borrow chain with two conditional subtracts of p.
-// The 8 canonical words split into 16 limb rows on store, coalesced along
-// N. All of an element's loads issue before any arithmetic; the field
+// 17 limbs: 16 for a 250-bit field, 202 for Goldilocks) is gone. One
+// thread an element joins four sums into a word with 64-bit adds (9
+// words, V < 2^281), folds the words at and above the field's W =
+// ceil(NUM_BITS/32) by 2^(32·(W+i)) mod p and finishes with chain's
+// quotient-estimate tail (bp::reduce_digit_words → bp::canon_words in
+// field.cuh, a template on W): (9 − W)·W + 2W word products, one 64-bit
+// high product and a (W + 1)-word borrow chain with two conditional
+// subtracts of p. An 8-word field of at least 245 bits (the shipped
+// ones) has its own instantiation without the fold: its V already meets
+// the estimate's bound, and with the sums in L2 the fold's 8 products
+// cost 4-6% (tools/ab_field.py, NVIDIA H100 80GB HBM3 at 700 W). The W
+// canonical words split into 16 limb rows on store, coalesced along N.
+// All of an element's loads issue before any arithmetic; the field
 // constants arrive as one kernel parameter (uniform constant-bank
 // operands).
 //
@@ -47,14 +54,15 @@
 // kernel waits on its loads, not its arithmetic.
 //
 // What bounds it on the card: bytes. 192 bytes an element (128 in, 64
-// out) against 16 word products, which the card does in far less time.
+// out) against at most 30 word products, which the card does in far less
+// time.
 #include "field.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // elements a block, one a thread
 
-template <bool kElementMajor>
+template <bool kElementMajor, int W, bool kFold8>
 __global__ void __launch_bounds__(kThreads)
 reduce_digits_kernel(const uint32_t* __restrict__ d, uint32_t* __restrict__ out, int64_t n,
                      const bp::ChainConsts k) {
@@ -87,13 +95,11 @@ reduce_digits_kernel(const uint32_t* __restrict__ d, uint32_t* __restrict__ out,
 #pragma unroll
     for (int j = 0; j < 32; ++j) acc[j] = __ldg(d + j * n + i);
   }
-  uint32_t r[8];
-  bp::reduce_digit_words(acc, k, r);
+  uint32_t r[W], limbs[16];
+  bp::reduce_digit_words<W, kFold8>(acc, k, r);
+  bp::words_to_limbs(r, limbs);
 #pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    out[(2 * w) * n + i] = r[w] & 0xFFFFu;
-    out[(2 * w + 1) * n + i] = r[w] >> 16;
-  }
+  for (int l = 0; l < 16; ++l) out[l * n + i] = limbs[l];
 }
 
 }  // namespace
@@ -105,9 +111,21 @@ extern "C" int bp_reduce_digits(const uint32_t* d, uint32_t* out, int64_t n, int
   const bp::ChainConsts k = bp::load_chain_consts(consts_host);
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (element_major)
-    reduce_digits_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(d, out, n, k);
-  else
-    reduce_digits_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(d, out, n, k);
-  return static_cast<int>(cudaGetLastError());
+  // an 8-word field of at least 245 bits (shift ≥ 25: s = NUM_BITS − 28 ≥
+  // 217) needs no fold of the sum's top word (bp::reduce_digit_words)
+  if (k.n_words == 8 && k.shift >= 25) {
+    if (element_major)
+      reduce_digits_kernel<true, 8, false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(d, out, n, k);
+    else
+      reduce_digits_kernel<false, 8, false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(d, out, n, k);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return bp::with_words(k.n_words, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    if (element_major)
+      reduce_digits_kernel<true, W, true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(d, out, n, k);
+    else
+      reduce_digits_kernel<false, W, true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(d, out, n, k);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card, and check
-their eight kernels (and the op-rate probe) against their plain versions.
+their nine kernels (and the op-rate probe) against their plain versions.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -168,6 +168,23 @@ Phases (one line each, or a few):
     on config 1 at 8,192 equal to build()'s evaluator; FieldBackend.
     mul_pow2 at [2^20, 16] against Python ints at the corner values; and
     the phase_report of its phases (no profiler session starts here);
+  * fields below 253 bits (fields_path), over Goldilocks (2^64 − 2^32 + 1:
+    every check canonical) and Jubjub's scalar field (252 bits: the semi
+    routes, with no quotient estimate in the TPU's 16-bit pipeline): the
+    flagship packed sha256 step at 4 × 32,768 (its big rows through
+    bits_matvec_canonical and mul over Goldilocks), config 1 and its
+    variant in the mixed and limbs forms at 4 × 8,192, each clean, its
+    launches, time, rate and peak, and a flipped bit found at its instance
+    and at the row the Python-int evaluation of that instance names; over
+    Goldilocks the 16-block sha256 chain's Satisfier by both routes (build
+    and check seconds, peak, the planted fault named at the Python-int
+    row) and config 5's completion and check at 2^20 rows (the canonical
+    route; product at sampled rows against Python ints, z[5, 0] flipped
+    found at the row numpy names); the fold matvec's buckets of each
+    flagship (torch.bmm beside them), mul, chain, mul_digits (raw a) and
+    reduce_digits (both layouts, corner sums) at the paths' shapes at
+    both fields, limbs_matvec at config 1's a-bucket, each bit-exact
+    against its plain version and, where noted, Python ints;
   * last, device_times: torch.profiler's device time a launch of every
     mul_digits and reduce_digits table above, with L2 flushed and warm,
     beside its event time (after every timed step: a profiler session
@@ -203,6 +220,7 @@ import torch.distributed as dist
 from bellpepper_tpu_torch import (
     SCALAR,
     NativeBuilder,
+    PrimeField,
     PipelinedSatisfier,
     RowShardedSatisfier,
     Satisfier,
@@ -224,7 +242,7 @@ from bellpepper_tpu_torch import (
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import get_backend
-from bellpepper_tpu_torch.backend.field_consts import SEMI
+from bellpepper_tpu_torch.backend.field_consts import SEMI, word_count
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
 from bellpepper_tpu_torch.backend.limbs import LimbsCheck
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES
@@ -312,6 +330,15 @@ PROBE_R, PROBE_K, PROBE_N = 8, 256, 1 << 20
 SHARD_PACKED_B, SHARD_BITS_B, SHARD_LIMBS_B = 4 * 32768, 4096, 1024
 SHARD_RUNS = ((1, "nccl"), (2, "gloo"))
 SHARD_LIMBS_FLIP = (700, 9000, 0)  # (instance, slot, limb) of the flipped limb
+# fields below 253 bits (fields_path): public primes, defined here and in
+# the tests only (the package ships the reference's three fields).
+# Goldilocks, Plonky2's and Polygon zkEVM's field (64 bits: every check
+# canonical); Jubjub's scalar field, the order of the Sapling embedded
+# curve's subgroup (252 bits: the semi routes, no 16-bit quotient estimate)
+GOLDILOCKS = PrimeField("goldilocks", 2**64 - 2**32 + 1)
+JUBJUB_FR = PrimeField("jubjub_fr", 0x0E7DB4EA6533AFA906673B0101343B00A6682093CCC81082D0970E5ED6F72CB7)
+SMALL_FIELDS = (GOLDILOCKS, JUBJUB_FR)
+FIELDS_C5_LOG2_R = 20  # config 5 over Goldilocks (the 2^24 run stays on BLS12-381)
 SEED = 0x5962BE3D
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
@@ -333,6 +360,8 @@ KERNEL_INFO = {
                    "bellpepper_tpu/backend/field_pallas.py:711"),
     "reduce_digits": ("bellpepper_tpu_torch/csrc/reduce_digits.cu",
                       "bellpepper_tpu/backend/field_pallas.py:720"),
+    "bits_matvec_canonical": ("bellpepper_tpu_torch/csrc/fold_matvec.cu",
+                              "bellpepper_tpu/backend/field_pallas.py:828"),
 }
 
 
@@ -369,6 +398,19 @@ SEMI_REDUCE_MULS = 4 * 32
 ENTRY_MULS = 2 * 8 * 8
 ROW_REDUCE_MULS = reduction_products(17)
 REDUCE_MULS = reduction_products(10)
+
+
+def digit_reduce_products(field) -> int:
+    """REDUCE_MULS at the field's word count: a sum of 32 digit sums below
+    2^32 (10 words) reduced mod a W-word p."""
+    return reduction_products(10, word_count(field.p))
+
+
+def mul_bytes(field, n: int, out_rows: int = 16) -> int:
+    """The bytes mul (out_rows 16) or mul_digits (32) must move for n
+    elements: a's 16 limbs (a raw a may fill them), b's 2W (a canonical b
+    is zero above them) and the output rows."""
+    return (16 + 2 * word_count(field.p) + out_rows) * 4 * n
 
 
 def kernel_ptxas(log: str, kernel: str, targs: str = "") -> str:
@@ -557,8 +599,8 @@ def col_int(t: torch.Tensor, i: int) -> int:
     return limb_int(to_u32(t[:, i]).tolist())
 
 
-def config1(nonzero: bool):
-    nb = NativeBuilder()
+def config1(nonzero: bool, field=SCALAR):
+    nb = NativeBuilder(field)
     bits = [nb.alloc_bit() for _ in range(128)]
     a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
     x = a
@@ -570,13 +612,14 @@ def config1(nonzero: bool):
     return template, WitnessProgram(tape)
 
 
-def chain_steps(bits):
+def chain_steps(bits, field=SCALAR):
     """Config 1's chain over Python ints for one instance's 128 free
-    bits (a, then b): [m, s, x] of each of the 30 repetitions of
-    x <- ((x·b + a) mod p)² mod p."""
-    p = SCALAR.p
-    a = sum(int(bits[k]) << k for k in range(64))
-    b = sum(int(bits[64 + k]) << k for k in range(64))
+    bits (a, then b; pack_bits keeps the field's CAPACITY of each 64):
+    [m, s, x] of each of the 30 repetitions of x <- ((x·b + a) mod p)² mod
+    p."""
+    p, cap = field.p, min(64, field.CAPACITY)
+    a = sum(int(bits[k]) << k for k in range(cap))
+    b = sum(int(bits[64 + k]) << k for k in range(cap))
     x, out = a, []
     for _ in range(30):
         m = x * b % p
@@ -660,20 +703,20 @@ def mulcmp_at(name: str, N: int, dev, bound):
     return mulcmp_on(name, a, b, c, bound)
 
 
-def mulcmp_on(name: str, a, b, c, bound):
+def mulcmp_on(name: str, a, b, c, bound, field=SCALAR):
     """mulcmp on operands int32[17, N] in which both verdicts occur: its
     0/1 mask bit-exact against the plain version (run over slices of 2^20
     columns, which bounds its int64 temporaries), whose mask holds both
     verdicts; its time beside its bound."""
     N = a.shape[1]
-    out = fk.mulcmp(a, b, c, SCALAR)
+    out = fk.mulcmp(a, b, c, field)
     step = 1 << 20
-    plain = torch.cat([fk.mulcmp_plain(*(o[:, s : s + step].contiguous() for o in (a, b, c)), SCALAR)
+    plain = torch.cat([fk.mulcmp_plain(*(o[:, s : s + step].contiguous() for o in (a, b, c)), field)
                        for s in range(0, N, step)])
     both_verdicts(f"mulcmp {name}", plain)
     err = max_abs_err(out, plain)
     del plain
-    ms = cuda_ms(lambda: fk.mulcmp(a, b, c, SCALAR), 5)
+    ms = cuda_ms(lambda: fk.mulcmp(a, b, c, field), 5)
     b_ms, b_by = mulcmp_bound(bound, N)
     print(f"[kernel] mulcmp {name} N={N}: max_abs_err {err} kernel {ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
     assert err == 0, f"mulcmp disagrees with its plain version at N={N}"
@@ -692,12 +735,21 @@ def gathered_bytes(cols: torch.Tensor, slot_bytes: int) -> int:
 
 def semi_buckets(label, vals_p, semi_check, bound, library: bool, slice_words=None):
     """bits_matvec_semi at every ELL bucket of a BitsSemiCheck, on packed
-    words vals_p int32[S, Bw]: each bucket against its plain version (run
+    words vals_p int32[S, Bw] (bits_matvec_canonical where the check's
+    field is below 250 bits): each bucket against its plain version (run
     over slices of slice_words words where the full batch's float64
     digit planes would not fit) and, with `library`, torch.bmm in float32
     over the gathered bits' 32 digit sums only (no reduction); the sums
     over the buckets of the kernel's, the plain version's and the
     library's times and of the bounds' bytes and products."""
+    field = semi_check.field
+    if semi_check.semi:
+        kname, kern, plain, out_rows, row_ops = (
+            "bits_matvec_semi", fk.bits_matvec_semi, fk.bits_matvec_semi_plain, SEMI, SEMI_REDUCE_MULS)
+    else:
+        kname, kern, plain, out_rows, row_ops = (
+            "bits_matvec_canonical", fk.bits_matvec_canonical, fk.bits_matvec_canonical_plain, 16,
+            digit_reduce_products(field))
     Bw = vals_p.shape[1]
     B_ = 32 * Bw
     step_w = slice_words or Bw
@@ -706,17 +758,17 @@ def semi_buckets(label, vals_p, semi_check, bound, library: bool, slice_words=No
         for cols, F in semi_check.mats[name]:
             n_rows, K = cols.shape
             n_live = int((cols >= 0).any(1).sum())
-            n_bytes = gathered_bytes(cols, Bw * 4) + F.numel() + 17 * n_rows * B_ * 4
-            n_ops = n_live * B_ * SEMI_REDUCE_MULS
+            n_bytes = gathered_bytes(cols, Bw * 4) + F.numel() + out_rows * n_rows * B_ * 4
+            n_ops = n_live * B_ * row_ops
             lib = None
             if library:
                 xf = fk._gather_bits(vals_p, cols).float()
                 Ff = F[:, :, :K].float()
                 lib = lambda: torch.bmm(Ff, xf)  # noqa: E731
             r = compare(
-                f"bits_matvec_semi {label} {name} K={K} rows={n_rows} ({n_live} live)",
-                lambda: fk.bits_matvec_semi(vals_p, cols, F, SCALAR),
-                lambda: torch.cat([fk.bits_matvec_semi_plain(vals_p[:, s : s + step_w].contiguous(), cols, F, SCALAR)
+                f"{kname} {label} {name} K={K} rows={n_rows} ({n_live} live)",
+                lambda: kern(vals_p, cols, F, field),
+                lambda: torch.cat([plain(vals_p[:, s : s + step_w].contiguous(), cols, F, field)
                                    for s in range(0, Bw, step_w)], dim=2),
                 bound(n_bytes, n_ops), library=lib)
             for k in ("ms", "plain_ms") + (("library_ms",) if library else ()):
@@ -783,20 +835,20 @@ def sha256_kernels(dev, bound, template, prog):
     return results
 
 
-def field_kernels(dev, bound):
-    """chain and mul at the config-1 path's shapes, against their plain
-    versions and Python ints."""
-    p = SCALAR.p
-    results = {}
+def chain_at(label, dev, bound, field=SCALAR, N=None):
+    """chain at the config-1 path's shape (x0 [16, N], B_FIELD by default,
+    config 1's pattern, 30 repetitions) against its plain version and, at
+    five instances (operands 0, 1 and p − 1 among them), Python ints."""
+    p = field.p
+    N = N or B_FIELD
     rnd = random.Random(SEED)
-    N = B_FIELD
     x0v = [rnd.randrange(p) for _ in range(N)]
     av = [0, 1, p - 1] + [rnd.randrange(p) for _ in range(N - 3)]
     bv = [p - 1, 0, 1] + [rnd.randrange(p) for _ in range(N - 3)]
     x0, a, b = (canonical_lm(v, dev) for v in (x0v, av, bv))
     ext = torch.cat([b, a])  # the config-1 pattern's ext 0 = b, ext 1 = a
     descs = (("fmul", "prev", 0), ("fadd", "prev", 1), ("fmul", "prev", "prev"))
-    out = fk.chain(x0, ext, descs, 30, SCALAR)
+    out = fk.chain(x0, ext, descs, 30, field)
     for i in (0, 1, 2, 3, N - 1):
         x = x0v[i]
         for r in range(30):
@@ -805,12 +857,19 @@ def field_kernels(dev, bound):
             x = s * s % p
             got = [col_int(out[(3 * r + j) * 16 : (3 * r + j + 1) * 16], i) for j in range(3)]
             assert got == [m, s, x], ("chain", i, r)
-    n_bytes = (16 + 32 + 90 * 16) * 4 * N
-    results["chain"] = compare(
-        "chain", lambda: fk.chain(x0, ext, descs, 30, SCALAR),
-        lambda: fk.chain_plain(x0, ext, descs, 30, SCALAR),
-        bound(n_bytes, N * 60 * MODMUL_MULS), plain_reps=2)
-    del out
+    W = word_count(p)
+    n_bytes = (2 * W + 2 * 2 * W + 90 * 16) * 4 * N  # x0's and ext's 2W limbs, every step's 16
+    return compare(
+        label, lambda: fk.chain(x0, ext, descs, 30, field),
+        lambda: fk.chain_plain(x0, ext, descs, 30, field),
+        bound(n_bytes, N * 60 * modmul_products(W, W, W)), plain_reps=2)
+
+
+def field_kernels(dev, bound):
+    """chain and mul at the config-1 path's shapes, against their plain
+    versions and Python ints."""
+    results = {"chain": chain_at("chain", dev, bound)}
+    N = B_FIELD
     rng = np.random.default_rng(SEED)
     for n in (MUL_FLOOR_N, N, MUL_WIDE_N, CHAIN_ROWS_N):
         r = mul_at(f"mul N={n}", n, dev, bound, rng)
@@ -820,28 +879,38 @@ def field_kernels(dev, bound):
     return results
 
 
-def mul_at(name, n, dev, bound, rng):
+def canonical_limbs_np(p: int, n: int, rng) -> np.ndarray:
+    """uint32[16, n] random limbs of canonical values: p's top limb's
+    position below p's top limb, zero above it."""
+    t = (p.bit_length() - 1) // 16
+    x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    x[t] = rng.integers(0, p >> (16 * t), size=n, dtype=np.uint32)
+    x[t + 1 :] = 0
+    return x
+
+
+def mul_at(name, n, dev, bound, rng, field=SCALAR):
     """mul on [16, n]: random canonical operands (top limb below p's), the
     corner pairs of 0, 1, p − 1, p − 2 and the values whose limbs below
     the top one are all 0xFFFF in the first 36 columns; columns against
     Python ints, then the whole against the plain version."""
-    p = SCALAR.p
-    top = p >> 240
-    corners = [0, 1, p - 1, p - 2, (1 << 240) - 1, ((top - 1) << 240) | ((1 << 240) - 1)]
+    p = field.p
+    t = 16 * ((p.bit_length() - 1) // 16)
+    top = p >> t
+    corners = [0, 1, p - 1, p - 2, (1 << t) - 1, ((top - 1) << t) | ((1 << t) - 1)]
     nc = len(corners)
     ops = []
     for k in range(2):
-        x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
-        x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
+        x = canonical_limbs_np(p, n, rng)
         for i in range(min(n, nc * nc)):
             x[:, i] = limbs(corners[i // nc if k else i % nc], 16)
         ops.append(from_numpy_u32(x, dev))
     ma, mb = ops
-    got = fk.mul(ma, mb, SCALAR)
+    got = fk.mul(ma, mb, field)
     for i in list(range(min(n, nc * nc))) + [n // 2, n - 1]:
         assert col_int(got, i) == col_int(ma, i) * col_int(mb, i) % p, ("mul", n, i)
-    return compare(name, lambda: fk.mul(ma, mb, SCALAR), lambda: fk.mul_plain(ma, mb, SCALAR),
-                   bound(3 * 16 * 4 * n, n * MODMUL_MULS), plain_reps=2)
+    return compare(name, lambda: fk.mul(ma, mb, field), lambda: fk.mul_plain(ma, mb, field),
+                   bound(mul_bytes(field, n), n * modmul_products(*(3 * [word_count(p)]))), plain_reps=2)
 
 
 def sha256_path(dev, card):
@@ -1023,14 +1092,14 @@ def field_steps(dev, card, built):
     return launches
 
 
-def limbs_matvec_at(name, zt, cols, F, forms, bound, exact_ints=True):
+def limbs_matvec_at(name, zt, cols, F, forms, bound, exact_ints=True, field=SCALAR):
     """limbs_matvec on one bucket, each output form against its plain
     version, and (exact_ints) two live (row, instance) columns against
     Python ints; the library yardstick is torch.matmul in float64 over the
     gathered digits' 32 sums only (exact: every sum is below 2^53). At the
     K = 2,064 bound the reduction's carries wrap 32 bits as the TPU's do,
     so there the plain version alone is the reference."""
-    p = SCALAR.p
+    p = field.p
     n_rows, K = cols.shape
     Bm = zt.shape[2]
     xf = fk._gather_digits(zt, cols).double()
@@ -1038,7 +1107,7 @@ def limbs_matvec_at(name, zt, cols, F, forms, bound, exact_ints=True):
     live = torch.nonzero((cols >= 0).any(1)).flatten().tolist()
     out = None
     for form in forms:
-        got = fk.limbs_matvec(zt, cols, F, SCALAR, form)
+        got = fk.limbs_matvec(zt, cols, F, field, form)
         for r, b in ((live[0], 0), (live[-1], Bm - 1)) if exact_ints else ():
             sums = torch.matmul(Ff[r], xf[r, :, b]).to(torch.int64).tolist()
             exact = sum(int(v) << (8 * d) for d, v in enumerate(sums))
@@ -1048,8 +1117,8 @@ def limbs_matvec_at(name, zt, cols, F, forms, bound, exact_ints=True):
         n_bytes = gathered_bytes(cols, 16 * Bm * 4) + F.numel() + out_rows * n_rows * Bm * 4
         n_ops = Bm * (int((cols >= 0).sum()) * ENTRY_MULS + len(live) * ROW_REDUCE_MULS)
         r = compare(f"limbs_matvec {form} {name} rows={n_rows} ({len(live)} live) K={K} B={Bm}",
-                    lambda: fk.limbs_matvec(zt, cols, F, SCALAR, form),
-                    lambda: fk.limbs_matvec_plain(zt, cols, F, SCALAR, form), bound(n_bytes, n_ops),
+                    lambda: fk.limbs_matvec(zt, cols, F, field, form),
+                    lambda: fk.limbs_matvec_plain(zt, cols, F, field, form), bound(n_bytes, n_ops),
                     reps=10, plain_reps=2, library=lambda: torch.matmul(Ff, xf))
         out = out or r
         del got
@@ -1088,6 +1157,49 @@ def limbs_buckets(label, zt, lcheck, bound, slice_b):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def mul_digits_at(label, n, dev, bound, rng, field=SCALAR, device_timed=True):
+    """mul_digits on [16, n]: random canonical operands, the corner pairs
+    of 0, 1 and p − 1 in the first 9 columns, then raw a in {p, p + 1,
+    2^256 − 1} (config 5's and the limbs checks' gathered z) by b in {0,
+    1, p − 1}; those columns against Python ints, the whole against the
+    plain version."""
+    p = field.p
+    rnd = random.Random(SEED + 3)
+    av = [0, 1, p - 1] * 3 + [p, p + 1, (1 << 256) - 1] * 3 + [rnd.randrange(p) for _ in range(64)]
+    bv = [v for v in (0, 1, p - 1) for _ in range(3)] * 2 + [rnd.randrange(p) for _ in range(64)]
+    ops = []
+    for vs in (av, bv):
+        x = canonical_limbs_np(p, n, rng)
+        x[:, : len(vs)] = np.asarray([limbs(v, 16) for v in vs], np.uint32).T
+        ops.append(from_numpy_u32(x, dev))
+    ma, mb = ops
+    got = fk.mul_digits(ma, mb, field)
+    for i in range(len(av)):
+        assert sum(int(d) << (8 * j) for j, d in enumerate(to_u32(got[:, i]).tolist())) == av[i] * bv[i] % p
+    W = word_count(p)
+    return compare(
+        label, lambda: fk.mul_digits(ma, mb, field), lambda: fk.mul_digits_plain(ma, mb, field),
+        bound(mul_bytes(field, n, 32), n * modmul_products(8, W, W)), plain_reps=2,
+        device=("mul_digits", n, "limb-major") if device_timed else None)
+
+
+def reduce_digits_at(label, n, layout, dev, bound, field=SCALAR, device_timed=True):
+    """reduce_digits on [32, n] digit sums (digit_sums_at: the corner sums
+    first, then random sums below 2^24) in one layout, the corners and
+    the last column against Python ints, the whole against the plain
+    version."""
+    p = field.p
+    sums = digit_sums_at(n, p, SEED + n)
+    em = from_numpy_u32(sums, dev)
+    d = em.t().contiguous() if layout == "limb-major" else em.t()
+    got = fk.reduce_digits(d, field)
+    check_reduced(got, sums, p, layout)
+    return compare(
+        f"{label} {layout} N={n}", lambda: fk.reduce_digits(d, field),
+        lambda: fk.reduce_digits_plain(d, field), bound((32 + 16) * 4 * n, n * digit_reduce_products(field)),
+        plain_reps=2, device=("reduce_digits", n, layout) if device_timed else None)
+
+
 def limbs_kernels(dev, bound, sha_limbs, config1_fold, tables):
     """limbs_matvec at its paths' real buckets (config 1's a-bucket, semi
     and canonical; the sha256 limbs check's widest a-bucket, semi) on
@@ -1095,7 +1207,6 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold, tables):
     entry 255 (both forms); mul_digits and reduce_digits at the
     Satisfier's shapes, corner columns first, against their plain
     versions and Python ints; then mulcmp at the limbs paths' shapes."""
-    p = SCALAR.p
     rng = np.random.default_rng(SEED + 2)
     results = {}
     gen = torch.Generator(device=dev)
@@ -1114,46 +1225,12 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold, tables):
     F = torch.full((n_rows, 32, 32 * K), 255, dtype=torch.uint8, device=dev)
     limbs_matvec_at("all 255", zt, cols, F, ("semi", "canonical"), bound, exact_ints=False)
     del zt, cols, F
-    # mul_digits: random canonical operands, the corner pairs of 0, 1 and
-    # p − 1 in the first 9 columns, then raw a in {p, p + 1, 2^256 − 1}
-    # (config 5's and the limbs checks' gathered z) by b in {0, 1, p − 1}
-    n = MUL_DIGITS_N
-    rnd = random.Random(SEED + 3)
-    av = [0, 1, p - 1] * 3 + [p, p + 1, (1 << 256) - 1] * 3 + [rnd.randrange(p) for _ in range(64)]
-    bv = [v for v in (0, 1, p - 1) for _ in range(3)] * 2 + [rnd.randrange(p) for _ in range(64)]
-    top = p >> 240
-    ops = []
-    for vs in (av, bv):
-        x = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
-        x[15] = rng.integers(0, top, size=n, dtype=np.uint32)
-        x[:, : len(vs)] = np.asarray([limbs(v, 16) for v in vs], np.uint32).T
-        ops.append(from_numpy_u32(x, dev))
-    ma, mb = ops
-    got = fk.mul_digits(ma, mb, SCALAR)
-    for i in range(len(av)):
-        assert sum(int(d) << (8 * j) for j, d in enumerate(to_u32(got[:, i]).tolist())) == av[i] * bv[i] % p
-    results["mul_digits"] = compare(
-        f"mul_digits N={n}", lambda: fk.mul_digits(ma, mb, SCALAR), lambda: fk.mul_digits_plain(ma, mb, SCALAR),
-        bound((2 * 16 + 32) * 4 * n, n * MODMUL_MULS), plain_reps=2, device=("mul_digits", n, "limb-major"))
-    del ma, mb, got, ops
-    # reduce_digits: the corner sums first, then random sums below 2^24;
-    # limb-major at the Satisfier's N (its layout), element-major (the
-    # transposed view the row-chunked evaluator passes) at 2^20
-    for n, layout in ((CHAIN_ROWS_N, "limb-major"), (MUL_WIDE_N, "element-major")):
-        sums = digit_sums_at(n, p, SEED + n)
-        em = from_numpy_u32(sums, dev)
-        d = em.t().contiguous() if layout == "limb-major" else em.t()
-        got = fk.reduce_digits(d, SCALAR)
-        check_reduced(got, sums, p, layout)
-        table = compare(
-            f"reduce_digits {layout} N={n}", lambda: fk.reduce_digits(d, SCALAR),
-            lambda: fk.reduce_digits_plain(d, SCALAR), bound((32 + 16) * 4 * n, n * REDUCE_MULS), plain_reps=2,
-            device=("reduce_digits", n, layout))
-        if layout == "limb-major":  # the line's numbers: the Satisfier's N
-            results["reduce_digits"] = table
-        else:
-            tables["reduce_digits"].append(table)
-        del em, d, got
+    results["mul_digits"] = mul_digits_at(f"mul_digits N={MUL_DIGITS_N}", MUL_DIGITS_N, dev, bound, rng)
+    # reduce_digits: limb-major at the Satisfier's N (its layout),
+    # element-major (the transposed view the row-chunked evaluator passes)
+    # at 2^20
+    results["reduce_digits"] = reduce_digits_at("reduce_digits", CHAIN_ROWS_N, "limb-major", dev, bound)
+    tables["reduce_digits"].append(reduce_digits_at("reduce_digits", MUL_WIDE_N, "element-major", dev, bound))
     torch.cuda.empty_cache()
     for name, rows, batch in (("config1 mixed", CONFIG1_MUL_ROWS, B_FIELD),
                               ("variant mixed", VARIANT_MUL_ROWS, B_FIELD),
@@ -1333,10 +1410,10 @@ def python_int_first_bad(template, z_limbs, slot):
 
 
 @functools.cache
-def satisfier_chain_synth():
+def satisfier_chain_synth(field=SCALAR):
     """The 16-block sha256 chain's template and program (NativeBuilder),
-    built once."""
-    nb = NativeBuilder()
+    built once a field."""
+    nb = NativeBuilder(field)
     state = nb.sha256_iv()
     for _ in range(CHAIN_BLOCKS):
         state = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
@@ -1355,7 +1432,7 @@ def satisfier_chain_witness(template, prog, dev):
     block = min(9, CHAIN_BLOCKS - 1)
     slot = prog.free_slots[512 * block + int(np.random.default_rng(SEED).integers(0, 512))]
     bad = z.clone()
-    bad[slot] = canonical_lm([random.Random(SEED + 2).randrange(SCALAR.p)], dev)[:, 0]
+    bad[slot] = canonical_lm([random.Random(SEED + 2).randrange(template.field.p)], dev)[:, 0]
     row, n_ref = python_int_first_bad(template, to_u32(bad).cpu().numpy(), slot)
     assert row is not None
     return z, bad, slot, block, row, n_ref
@@ -2952,6 +3029,319 @@ def api_path(dev, card, bound, tables, built, sha_template, sha_prog):
     return run.counts
 
 
+# ---------------------------------------------------------------------------
+# fields below 253 bits
+# ---------------------------------------------------------------------------
+def fields_flagship(dev, card, bound, tables, results, field):
+    """The packed sha256 step over `field` at N_CHUNKS × B: its clean
+    verdict and launches (below 250 bits the big rows go through
+    bits_matvec_canonical and mul, from 250 bits through bits_matvec_semi
+    and mulcmp), a flipped bit found at its instance and at the row the
+    Python-int evaluation of that instance names, its time, rate and peak;
+    then the fold matvec at every bucket of its big rows and the product
+    compare at the step's shape, on a chunk whose odd words are random.
+    Returns the step's launches."""
+    t0 = time.time()
+    nb = NativeBuilder(field)
+    nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    R, S = template.num_constraints, prog.num_slots
+    print(f"[fields] sha256 over {field.name} ({field.NUM_BITS} bits, CAPACITY {field.CAPACITY}): {R} rows, "
+          f"{S} slots, synthesized in {time.time() - t0:.2f} s")
+    free_np, free = sha256_free(dev)
+    step = build_packed_production_step(prog, template, B, device=dev)
+    step(free)  # warm-up
+    verdict, counts = path_run(step, free)
+    semi = field.NUM_BITS >= 250
+    fold, prod = ("bits_matvec_semi", "mulcmp") if semi else ("bits_matvec_canonical", "mul")
+    other = {"bits_matvec_semi", "mulcmp", "bits_matvec_canonical", "mul"} - {fold, prod}
+    print(f"[fields] sha256 {field.name} verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert counts["bitplane_eq"] == counts[prod] == N_CHUNKS and counts[fold] > 0, counts
+    assert not any(counts[k] for k in other), counts
+    Bw = B // 32
+    vals0 = build_packed_chunked_witness(prog, device=dev)(free)[0]
+    check = build_templated_check(template, B, None, "bits_packed", device=dev)
+    assert check.big is not None and check.big.semi == semi
+    assert tuple(int(v) for v in check.verdict(vals0)) == (0, 0xFFFFFFFF)
+    w, slot, bit = Bw // 2, 600, 7
+    vbad = vals0.clone()
+    vbad[w, slot] ^= 1 << bit
+    nbad, first = (int(v) for v in check.verdict(vbad))
+    zi = np.zeros((S, 16), np.int64)
+    zi[:, 0] = (to_u32(vbad[w]).cpu().numpy() >> bit) & 1
+    row, n_ref = python_int_first_bad(template, zi, slot)
+    assert row is not None and nbad > 0 and first == (32 * w + bit) * R + row, (nbad, first, row)
+    print(f"[probe] sha256 {field.name}: bit {bit} of word {w} of slot {slot} flipped: n_bad {nbad}, first "
+          f"instance {first // R} row {first % R}, the least of the {n_ref} rows on the slot that fails over the "
+          f"Python ints")
+    del vals0, vbad
+    peak = perf_step(f"sha256 {field.name}", step, free, B, R, card, 3)
+    del step
+
+    rng = np.random.default_rng(SEED + 31)
+    vals_p = prog.build_packed(device=dev)(free[0]).t().contiguous()  # [S_t, Bw]
+    vals_p[:, 1::2] = from_numpy_u32(rng.integers(0, 1 << 32, size=(vals_p.shape[0], Bw // 2),
+                                                  dtype=np.uint64).astype(np.uint32), dev)
+    table = semi_buckets(f"sha256 {field.name}", vals_p, check.big, bound, library=True)
+    if fold in results:
+        tables[fold].append(table)
+    else:
+        results[fold] = table
+    az, bz, cz = (check.big._matvec(name, vals_p) for name in "abc")
+    N = az.shape[1]
+    if semi:
+        tables["mulcmp"].append(mulcmp_on(f"sha256 {field.name} big rows", az, bz, cz, bound, field))
+    else:
+        both_verdicts("mul's product compare", (fk.mul(az, bz, field) != cz).any(0))
+        W = word_count(field.p)
+        tables["mul"].append(compare(
+            f"mul sha256 {field.name} big rows N={N}", lambda: fk.mul(az, bz, field),
+            lambda: fk.mul_plain(az, bz, field), bound(mul_bytes(field, N), N * modmul_products(W, W, W)),
+            plain_reps=2))
+    print(f"[fields] sha256 {field.name}: peak {peak:.2f} GiB")
+    del vals_p, az, bz, cz, check
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fields_config1(dev, card, bound, tables, field):
+    """Config 1 and its num_assert_nonzero variant over `field` at
+    N_CHUNKS × B_FIELD in the mixed and the limbs forms: clean verdicts,
+    launches, time, rate and peak; on chunk 0 the chain held to Python
+    ints at two instances, the variant's finv to pow(x, p − 2, p), a
+    flipped bit of a chain row's limbs (mixed) and of a pack output's
+    (limbs) found at the instance and at the row the Python-int
+    evaluation of that instance names; and, for config 1, limbs_matvec at
+    its limbs check's a-bucket in the form the field takes. Returns the
+    launches of each (variant, form)."""
+    p = field.p
+    semi = field.NUM_BITS >= 250
+    free_np = np.random.default_rng(5).integers(0, 2, size=(N_CHUNKS, B_FIELD, 128)).astype(np.uint32)
+    free = from_numpy_u32(free_np, dev)
+    launches = {}
+    for name, nonzero in (("config1", False), ("variant", True)):
+        template, prog = config1(nonzero, field)
+        R = template.num_constraints
+        for form in ("mixed", "limbs"):
+            key = f"{name} {form} {field.name}"
+            step = build_production_step(prog, template, B_FIELD, None, form, device=dev)
+            step(free)  # warm-up
+            verdict, counts = path_run(step, free)
+            print(f"[fields] {key} verdict {verdict} launches {counts}")
+            assert verdict == (0, 0xFFFFFFFF), verdict
+            # config 1's field steps run as the chain kernel, the variant's
+            # as 60 fmul launches a chunk and its finv's ladder of mul
+            assert (counts["mul"] >= 60 * N_CHUNKS) if nonzero else (counts["chain"] == N_CHUNKS), counts
+            assert (counts["mulcmp"] > 0) == semi and (semi or counts["mul"] > 0), counts
+            launches[key] = counts
+            perf_step(key, step, free, B_FIELD, R, card, 3)
+            del step
+        ev = prog.build(device=dev)
+        vals0, fl0 = ev(free[0])
+        if nonzero:  # the variant: its last x and its finv
+            fin = next(st for st in prog.stages if st.opcode == "finv")
+            x_row, inv_row = int(fin.arrs["a_idx"][0]), int(fin.outs[0])
+            for i in (0, B_FIELD - 1):
+                x = chain_steps(free_np[0, i], field)[-1][2]
+                got = [col_int(fl0[i, row].reshape(16, 1), 0) for row in (x_row, inv_row)]
+                assert got == [x, pow(x, p - 2, p)], ("finv probe", field.name, i)
+        else:  # config 1: every step of the chain kernel's output
+            rows = _detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])["out_rows"]
+            for i in (0, B_FIELD - 1):
+                for r, want in enumerate(chain_steps(free_np[0, i], field)):
+                    got = [col_int(fl0[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)]
+                    assert got == want, ("chain probe", field.name, i, r)
+        mixed = build_templated_check(template, B_FIELD, None, "mixed", field_slots=prog.field_slots, device=dev)
+        i, mid = B_FIELD // 2, sorted(prog.field_rows.values())[45]
+        fbad = fl0.clone()
+        fbad[i, mid, 0] ^= 1
+        nbad, first = (int(v) for v in mixed.verdict(vals0, fbad))
+        row, _ = python_int_first_bad(template, to_u32(prog.z_template_limbs(vals0, fbad)[i]).cpu().numpy(),
+                                      prog.field_slots[mid])
+        assert row is not None and nbad > 0 and first == i * R + row, (nbad, first, row)
+        z = prog.z_template_limbs(vals0, fl0)
+        limbs_check = build_templated_check(template, B_FIELD, None, "limbs", device=dev)
+        i2, pack = B_FIELD // 4, sorted(prog.field_rows, key=prog.field_rows.get)[0]
+        z[i2, pack, 2] ^= 1
+        nbad2, first2 = (int(v) for v in limbs_check.verdict(z))
+        row2, _ = python_int_first_bad(template, to_u32(z[i2]).cpu().numpy(), pack)
+        assert row2 is not None and nbad2 > 0 and first2 == i2 * R + row2, (nbad2, first2, row2)
+        held = ("the finv of 2 instances equals pow(x, p - 2, p) of the chain" if nonzero
+                else "the chain of 2 instances equals x <- ((x*b + a) mod p)^2 mod p")
+        print(f"[probe] {name} {field.name}: {held}; a flipped bit of field row {mid} at instance "
+              f"{i} found by the mixed check at row {first % R}, of pack slot {pack} at instance {i2} by the limbs "
+              f"check at row {first2 % R}, the rows the Python ints name")
+        if not nonzero:
+            cols, F = max(limbs_check.fold.mats["a"], key=lambda t: t[0].shape[1])
+            zt = z.permute(1, 2, 0).contiguous()
+            tables["limbs_matvec"].append(limbs_matvec_at(
+                f"config1 {field.name} a-bucket", zt, cols, F, ("semi" if semi else "canonical",), bound,
+                field=field))
+            del zt
+        del vals0, fl0, fbad, z, mixed, limbs_check
+        torch.cuda.empty_cache()
+    return launches
+
+
+def fields_satisfier(dev, card, field):
+    """The Satisfier of the 16-block sha256 chain over `field` by both
+    routes (the templated limbs route, then DeviceR1CS): build seconds,
+    the clean witness satisfied, a bit slot of block 9 set to a random
+    field element named at the row the Python-int evaluation names, check
+    seconds, peak and launches. Returns the launches of each route's
+    clean check."""
+    t0 = time.time()
+    template, prog = satisfier_chain_synth(field)
+    R = template.num_constraints
+    z, bad, slot, block, row, n_ref = satisfier_chain_witness(template, prog, dev)
+    print(f"[fields] sha256 chain of {CHAIN_BLOCKS} over {field.name}: {R} rows; synthesized and evaluated in "
+          f"{time.time() - t0:.2f} s")
+    launches = {}
+    for use_pallas, label in ((None, "templated"), (False, "DeviceR1CS")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        sat = Satisfier(template, use_pallas, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        fk.reset_launch_counts()
+        ok = sat.is_satisfied(z)
+        counts = fk.launch_counts()
+        name = sat.which_is_unsatisfied(bad)
+        assert ok and name == f"constraint #{row}", (label, ok, name, row)
+        assert counts["mul"] > 0 and counts["reduce_digits"] > 0 and not counts["mulcmp"], counts
+        if use_pallas is False:
+            assert (counts["mul"], counts["reduce_digits"]) == (4, 3), counts
+        t_chk = wall_s(lambda: sat.is_satisfied(z), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[fields] satisfier {label} {field.name}: built in {t_build:.4f} s, check {t_chk:.4f} s, peak "
+              f"{peak:.3f} GiB, launches {counts}; bit slot {slot} of block {block} set to a random field element "
+              f"named {name!r}, the least of the {n_ref} rows on the slot that fails over the Python ints, on {card}")
+        launches[f"satisfier {label} {field.name}"] = counts
+        del sat
+        torch.cuda.empty_cache()
+    return launches
+
+
+def fields_config5(dev, card, bound, tables, field):
+    """Config 5's generator at 2^FIELDS_C5_LOG2_R rows over `field` (below
+    250 bits its check takes the canonical route): the completion and the
+    check at the benchmark's rows a chunk, clean, their launches and
+    seconds, the completed product at sampled rows against Python ints,
+    z[5, 0] flipped found at the row numpy names; mul on a premul slice
+    of the raw z and on a product chunk, reduce_digits on that chunk's A
+    digit sums in both layouts. Returns the launches of one completion
+    and one check."""
+    p = field.p
+    r1cs, zfree, N0, t_build = c5.config5_r1cs(FIELDS_C5_LOG2_R, field=field)
+    R = r1cs.num_constraints
+    n_chk, n_wit = max(1, R >> c5.LOG2_RPC_CHECK), max(1, R >> c5.LOG2_RPC_WIT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    check_fn, prep = build_row_chunked_check(r1cs, n_chk, device=dev)
+    meta = check_fn._layout_meta
+    prod_fn, prep_ab = build_row_chunked_product(r1cs, n_wit, reuse=(meta, prep), device=dev)
+    torch.cuda.synchronize()
+    t_layout = time.time() - t0
+    assert check_fn._route == ("semi" if field.NUM_BITS >= 250 else "canonical"), check_fn._route
+    z = c5.config5_z(zfree, R, dev)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    z[N0 + 1 :] = prod_fn(z, prep_ab)
+    verdict = tuple(int(x) for x in check_fn(z, prep))
+    counts = fk.launch_counts()
+    print(f"[fields] config5 {field.name} R={R} ({check_fn._route} route): verdict {verdict} launches {counts}")
+    assert verdict == (0, 0xFFFFFFFF), verdict
+    assert counts["mul"] >= n_wit and counts["reduce_digits"] >= 2 * n_wit and not counts["mulcmp"], counts
+    t_wit = wall_s(lambda: prod_fn(z, prep_ab), 3)
+    t_chk = wall_s(lambda: check_fn(z, prep), 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = np.sort(np.random.default_rng(SEED + 33).choice(R, 1024, replace=False))
+    slots = np.concatenate([r1cs.a.cols[2 * rows], r1cs.a.cols[2 * rows + 1], r1cs.b.cols[rows], N0 + 1 + rows])
+    sums = row_sums_int(r1cs, z_ints(z, slots), rows)
+    assert all(sa * sb % p == sc for sa, sb, sc in zip(sums["a"], sums["b"], sums["c"])), "config5 product"
+    zb = z.clone()
+    zb[c5.FLIP_SLOT, 0] ^= 1
+    bad = tuple(int(x) for x in check_fn(zb, prep))
+    row = c5.flipped_first_row(r1cs, c5.FLIP_SLOT)
+    assert bad[0] > 0 and bad[1] == row, (bad, row)
+    print(f"[fields] config5 {field.name} R={R}: host build {t_build:.3f} s, layouts {t_layout:.3f} s, completion "
+          f"{t_wit:.4f} s, check {t_chk:.4f} s = {R / t_chk:.4e} constraint-evals/s, peak {peak:.2f} GiB; the "
+          f"product at 1,024 sampled rows equals A·z · B·z over the Python ints; z[{c5.FLIP_SLOT}, 0] ^= 1 gives "
+          f"{bad}, row {row} as numpy names it; on {card}")
+    del zb
+    W = word_count(p)
+    cl = prep["coeff_limbs"]
+    ew, _ = build_row_chunked_eval(r1cs, n_wit, names=("a", "b"), reuse=(meta, prep), device=dev)
+    zsrc = ew._zsrc(z, cl)
+    if meta["premul"] and ew.span:
+        k = max(ew.span)
+        n = ew.span[k]
+        zk = z[:n].t().contiguous()
+        ck = cl[k][:, None].expand(16, n).contiguous()
+        vals = [col_int(zk, i) for i in range(64)]
+        assert any(v >= p for v in vals), "config 5's raw z holds values in [p, 2^256)"
+        got = fk.mul(zk, ck, field)
+        cv = limb_int(to_u32(cl[k]).tolist())
+        assert all(col_int(got, i) == v * cv % p for i, v in enumerate(vals)), "mul on raw z"
+        tables["mul"].append(compare(f"mul config5 {field.name} premul raw z N={n}", lambda: fk.mul(zk, ck, field),
+                                     lambda: fk.mul_plain(zk, ck, field),
+                                     bound(mul_bytes(field, n), n * modmul_products(8, W, W)), plain_reps=2))
+        del zk, ck, got
+    x0 = _chunk(ew._xs(prep, ("a", "b")), 0)
+    az, bz = ew._blocks(zsrc, cl, x0, ("a", "b"))
+    n = az.shape[1]
+    tables["mul"].append(compare(f"mul config5 {field.name} product chunk N={n}", lambda: fk.mul(az, bz, field),
+                                 lambda: fk.mul_plain(az, bz, field),
+                                 bound(mul_bytes(field, n), n * modmul_products(W, W, W)), plain_reps=2))
+    em = _ell_digit_sums(ew._gathered(zsrc, cl, x0[0], "a"), 2)
+    for layout, d in (("element-major", em.t()), ("limb-major", em.t().contiguous())):
+        tables["reduce_digits"].append(compare(
+            f"reduce_digits config5 {field.name} product chunk A digit sums {layout} N={n}",
+            lambda: fk.reduce_digits(d, field), lambda: fk.reduce_digits_plain(d, field),
+            bound((32 + 16) * 4 * n, n * digit_reduce_products(field)), plain_reps=2))
+    del z, zsrc, az, bz, em, d, prep, prep_ab, check_fn, prod_fn, ew
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fields_path(dev, card, bound, tables, results):
+    """The port over two fields below 253 bits (fields_flagship,
+    fields_config1, fields_satisfier, fields_config5): Goldilocks, where
+    every check goes canonical, and Jubjub's scalar field, in the
+    250-252-bit window where the semi routes apply but the TPU's
+    quotient estimate does not; then mul, chain, mul_digits and
+    reduce_digits at the paths' shapes at both fields, against their
+    plain versions and Python ints. Returns {path: launches}."""
+    t_phase = time.time()
+    launches = {}
+    for field in SMALL_FIELDS:
+        launches[f"sha256 {field.name}"] = fields_flagship(dev, card, bound, tables, results, field)
+        launches.update(fields_config1(dev, card, bound, tables, field))
+    launches.update(fields_satisfier(dev, card, GOLDILOCKS))
+    launches[f"config5 {GOLDILOCKS.name}"] = fields_config5(dev, card, bound, tables, GOLDILOCKS)
+    for field in SMALL_FIELDS:
+        rng = np.random.default_rng(SEED + field.p % 1009)
+        # a step's four chunks in one launch: at 8,192 instances a small
+        # field's chain writes 47 MB, which the 50 MB L2 can hold across
+        # back-to-back launches, under the bytes bound's HBM rate
+        tables["chain"].append(chain_at(f"chain {field.name} N={N_CHUNKS * B_FIELD}", dev, bound, field,
+                                        N_CHUNKS * B_FIELD))
+        for n in (B_FIELD, CHAIN_ROWS_N):
+            tables["mul"].append(mul_at(f"mul {field.name} N={n}", n, dev, bound, rng, field))
+        tables["mul_digits"].append(mul_digits_at(f"mul_digits {field.name} N={MUL_DIGITS_N}", MUL_DIGITS_N, dev,
+                                                  bound, rng, field, device_timed=False))
+        for n, layout in ((CHAIN_ROWS_N, "limb-major"), (MUL_WIDE_N, "element-major")):
+            tables["reduce_digits"].append(reduce_digits_at(f"reduce_digits {field.name}", n, layout, dev, bound,
+                                                            field, device_timed=False))
+        torch.cuda.empty_cache()
+    print(f"[fields] phase {time.time() - t_phase:.1f} s, on {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: nothing runs on the CPU", file=sys.stderr)
@@ -3025,6 +3415,8 @@ def main() -> int:
     launches.update(sharding_path(dev, card, tables, max_mhz))
     torch.cuda.empty_cache()
     launches["api"] = api_path(dev, card, bound, tables, built, template, prog)
+    torch.cuda.empty_cache()
+    launches.update(fields_path(dev, card, bound, tables, results))
     torch.cuda.empty_cache()
     device_times(dev)
 

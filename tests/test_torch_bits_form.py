@@ -246,10 +246,21 @@ def test_templated_satisfier_bits_on_pasta(field):
 
 
 def test_bits_form_refuses_small_fields(templates):
-    """The semi-reduced kernels need NUM_BITS ≥ 250; the canonical route
-    for smaller fields is not ported."""
-    t, _ = templates["config2"]
-    small = R1CS(PrimeField("m127", (1 << 127) - 1), t.num_inputs, t.num_aux, t.num_constraints,
-                 t.a, t.b, t.c, t.coeff_table)
-    with pytest.raises(NotImplementedError):
-        mv.build_templated_check(small, 64, None, "bits", device="cpu")
+    """Config 2's template over a 127-bit field, which the bits form
+    refused until its canonical route was ported (bits_matvec_canonical,
+    then mul and a compare, where p·2^11 does not bound the semi values):
+    the mask and verdict equal the reference's, clean and with one bit
+    flipped."""
+    small, tape = config2(NativeBuilder, PrimeField("m127", (1 << 127) - 1))
+    prog = WitnessProgram(tape)
+    B = 64
+    check = mv.build_templated_check(small, B, None, "bits", device="cpu")
+    ref = jax.jit(ref_mv.build_templated_check(small, B, False, "bits"))
+    z = _bits_witness(prog, B)
+    bad = z.copy()
+    bad[9, prog.num_slots - 7] ^= 1
+    for k, zz in enumerate((z, bad)):
+        want = np.asarray(ref(jnp.asarray(zz)))
+        assert (check(from_numpy_u32(zz)).numpy() == want).all()
+        assert tuple(int(v) for v in check.verdict(from_numpy_u32(zz))) == _ref_verdict(want)
+        assert want.any() == (k == 1)

@@ -22,7 +22,13 @@ rows gives the CPU's verdicts on both routes and in RowShardedSatisfier.
 The dry run of the sharded steps and checkers passes on one rank of an
 NCCL group. Circuits of the Python frontend (ShapeCS, TapeCS,
 TestConstraintSystem) give the CPU's verdicts on the card, and the card's
-Satisfier names what TestConstraintSystem names."""
+Satisfier names what TestConstraintSystem names. Below 253 bits
+(tests/torch_small_fields.py: Goldilocks, 2^127 − 1, P-192's prime,
+Jubjub's scalar field): the canonical bits form of the fold matvec, mul,
+mul_digits (raw a), reduce_digits, chain and the canonical limbs_matvec
+equal their plain versions and Python ints, and the flagship packed step,
+config 1 in the mixed and limbs forms, both Satisfier routes and config
+5's check give the CPU's verdicts on the card."""
 
 import random
 
@@ -56,6 +62,7 @@ from bellpepper_tpu_torch.gadgets.uint32 import UInt32
 from bellpepper_tpu_torch.r1cs import ShapeCS
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 from chip_smoke import digit_sum_corners, fe_config2, fe_sha256  # the card script's circuits and corners
+from torch_small_fields import GOLDILOCKS, JUBJUB_FR, SMALL_FIELDS
 
 RNG = np.random.default_rng(0x5EED_0006)
 
@@ -851,3 +858,168 @@ def test_device_r1cs_satisfier_route_on_card(cuda):
         assert got == (cpu.is_satisfied(zz), cpu.which_is_unsatisfied(zz))
         assert got == (templated.is_satisfied(zz.to(cuda)), templated.which_is_unsatisfied(zz.to(cuda)))
     assert got[0] is False and got[1] is not None
+
+
+# --- fields below 253 bits -----------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", SMALL_FIELDS + [SCALAR], ids=lambda f: f.name)
+@pytest.mark.parametrize("n_rows,K,Bw", [(8, 512, 1024), (8, 1, 1024), (5, 37, 31), (4, 1, 1)])
+def test_bits_matvec_canonical_on_card(cuda, field, n_rows, K, Bw):
+    """The bits form's canonical output (fold_matvec<true, true>) at the
+    sha256 big row's bucket shapes and ragged ones, at every word count of
+    the tail: against its plain version and, at a few live columns, the
+    Python-int sum mod p."""
+    S = 700
+    vals = _u32((S, Bw), cuda)
+    cols, F = _cols(n_rows, K, S, cuda), _fold(n_rows, K, cuda)
+    before = fk.bits_matvec_canonical.launches
+    got = fk.bits_matvec_canonical(vals, cols, F, field)
+    torch.cuda.synchronize()
+    assert fk.bits_matvec_canonical.launches == before + 1
+    assert tuple(got.shape) == (16, n_rows, 32 * Bw)
+    assert torch.equal(got, fk.bits_matvec_canonical_plain(vals, cols, F, field))
+    assert not got[:, n_rows - 3 :].any()
+    v, c, f = to_numpy_u32(vals).astype(object), cols.cpu().numpy(), F.cpu().numpy().astype(object)
+    g = to_numpy_u32(got).astype(object)
+    for r, b in ((0, 0), (0, 32 * Bw - 1), (1, 32 * Bw // 2)):
+        want = sum(int(f[r, d, e]) << (8 * d) for e in range(K) if c[r, e] >= 0
+                   if (v[c[r, e], b // 32] >> (b % 32)) & 1 for d in range(32)) % field.p
+        assert sum(int(g[l, r, b]) << (16 * l) for l in range(16)) == want, (r, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", SMALL_FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("N", [1, 33, 8192])
+def test_word_kernels_below_253_bits_on_card(cuda, field, N):
+    """mul and mul_digits (a canonical, and raw in [p, 2^256) as config
+    5's z is), reduce_digits at its corner sums in both layouts, chain on
+    config 1's pattern and limbs_matvec's canonical output: against their
+    plain versions and Python ints."""
+    p = field.p
+    rnd = random.Random(N + p % 1000)
+    raws = [p, p + 1, (1 << 256) - 1, 2 * p]
+    av = ([0, 1, p - 1] + raws + [rnd.randrange(1 << 256) if i % 2 else rnd.randrange(p) for i in range(N)])[:N]
+    bv = ([p - 1, 1, 0, p - 1, 1, p - 2, p - 1] + [rnd.randrange(p) for _ in range(N)])[:N]
+    a = from_numpy_u32(FieldBackend.to_limbs(av).T.copy(), cuda)
+    b = from_numpy_u32(FieldBackend.to_limbs(bv).T.copy(), cuda)
+    got, dig = fk.mul(a, b, field), fk.mul_digits(a, b, field)
+    torch.cuda.synchronize()
+    want = [x * y % p for x, y in zip(av, bv)]
+    assert torch.equal(got, fk.mul_plain(a, b, field)) and _lm_ints(got) == want
+    assert torch.equal(dig, fk.mul_digits_plain(a, b, field))
+    d = to_numpy_u32(dig).astype(object)
+    assert [sum(int(d[j, i]) << (8 * j) for j in range(32)) for i in range(N)] == want
+    corners = digit_sum_corners(p, N)
+    em = from_numpy_u32(corners, cuda)
+    want = [sum(int(x) << (8 * j) for j, x in enumerate(col)) % p for col in corners]
+    for sums in (em.t(), em.t().contiguous()):
+        red = fk.reduce_digits(sums, field)
+        assert _lm_ints(red) == want and torch.equal(red, fk.reduce_digits_plain(sums, field))
+    descs = (("fmul", "prev", 0), ("fadd", "prev", 1), ("fmul", "prev", "prev"))
+    x0, e0, e1 = (_canonical(field, max(N, 3), seed, cuda)[:, :N].contiguous() for seed in (7, 8, 9))
+    ext = torch.cat([e0, e1])
+    out = fk.chain(x0, ext, descs, 30, field)
+    assert torch.equal(out, fk.chain_plain(x0, ext, descs, 30, field))
+    x, e0i, e1i = _lm_ints(x0[:, -1:]), _lm_ints(e0[:, -1:]), _lm_ints(e1[:, -1:])
+    xv = x[0]
+    for _ in range(30):
+        xv = (xv * e0i[0] % p + e1i[0]) % p
+        xv = xv * xv % p
+    assert _lm_ints(out[-16:, -1:]) == [xv]
+    zt = _u32((300, 16, min(N, 1000)), cuda, 1 << 16)
+    cols, F = _cols(8, 64, 300, cuda), _fold(8, 32 * 64, cuda)
+    lm = fk.limbs_matvec(zt, cols, F, field, "canonical")
+    assert torch.equal(lm, fk.limbs_matvec_plain(zt, cols, F, field, "canonical"))
+    assert (lm >= 0).all() and not lm[:, 5:].any()
+
+
+def _small_field_sha256(field):
+    nb = NativeBuilder(field)
+    bits = [nb.alloc_bit() for _ in range(512)]
+    nb.sha256_compression(bits, nb.sha256_iv())
+    return nb.finish()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [GOLDILOCKS, JUBJUB_FR], ids=lambda f: f.name)
+def test_small_field_flagship_on_card_matches_cpu(cuda, field):
+    """The packed sha256 step at 2 × 1,024 over Goldilocks (its big rows
+    through bits_matvec_canonical and mul) and Jubjub's scalar field (semi
+    rows and mulcmp): the CPU's verdicts, clean and with one xor of the
+    tape computing `and`."""
+    template, tape = _small_field_sha256(field)
+    words = _u32((2, 32, len(WitnessProgram(tape).free_slots)), "cpu")
+    semi = field.NUM_BITS >= 250
+    for p in (WitnessProgram(tape), WitnessProgram(corrupted(tape, "xor", pick="first"))):
+        want = build_packed_production_step(p, template, 1024, device="cpu")(words)
+        fk.reset_launch_counts()
+        got = build_packed_production_step(p, template, 1024, device=cuda)(words.to(cuda))
+        counts = fk.launch_counts()
+        assert tuple(int(v) for v in got) == tuple(int(v) for v in want)
+        assert (counts["bits_matvec_semi"] > 0, counts["mulcmp"] > 0) == (semi, semi), counts
+        assert (counts["bits_matvec_canonical"] > 0, counts["mul"] > 0) == (not semi, not semi), counts
+    assert int(want[0]) > 0
+
+
+def _config1_over(field, nonzero):
+    nb = NativeBuilder(field)
+    bits = [nb.alloc_bit() for _ in range(128)]
+    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
+    x = a
+    for _ in range(30):
+        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
+    if nonzero:
+        nb.num_assert_nonzero(x)
+    return nb.finish()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonzero", [False, True], ids=["config1", "variant"])
+@pytest.mark.parametrize("field", [GOLDILOCKS, JUBJUB_FR], ids=lambda f: f.name)
+def test_small_field_config1_on_card_matches_cpu(cuda, field, nonzero):
+    """Config 1 (and its num_assert_nonzero variant) at 2 × 128 in the
+    mixed and limbs forms: the CPU's verdicts, clean and with the last
+    fadd of the tape computing a product."""
+    template, tape = _config1_over(field, nonzero)
+    free = _u32((2, 128, 128), "cpu", 2)
+    for t in (tape, corrupted(tape, "fadd", pick="last", into="fmul")):
+        prog = WitnessProgram(t)
+        for form in ("mixed", "limbs"):
+            want = build_production_step(prog, template, 128, None, form, device="cpu")(free)
+            got = build_production_step(prog, template, 128, None, form, device=cuda)(free.to(cuda))
+            assert tuple(int(v) for v in got) == tuple(int(v) for v in want), form
+    assert int(want[0]) > 0
+
+
+@pytest.mark.cuda
+def test_goldilocks_satisfier_and_config5_on_card(cuda):
+    """Over Goldilocks: both Satisfier routes on config 1's template at
+    batch 1 give the CPU's verdicts and names, clean and with a flipped
+    limb; config 5's generator at 2^14 rows completes and checks on the
+    canonical route, and a flip of z[5, 0] is found at the row numpy
+    names, as on the CPU and by RowShardedSatisfier."""
+    template, tape = _config1_over(GOLDILOCKS, False)
+    prog = WitnessProgram(tape)
+    z = prog.z_template_limbs(*prog.build(device="cpu")(_u32((1, 128), "cpu", 2)))[0]
+    bad = z.clone()
+    bad[sorted(prog.field_rows, key=prog.field_rows.get)[3], 1] ^= 1
+    for route in (None, False):
+        card, cpu = Satisfier(template, route, device=cuda), Satisfier(template, route, device="cpu")
+        for zz in (z, bad):
+            got = (card.is_satisfied(zz.to(cuda)), card.which_is_unsatisfied(zz.to(cuda)))
+            assert got == (cpu.is_satisfied(zz), cpu.which_is_unsatisfied(zz))
+        assert got[0] is False
+    r1cs, zfree, N0, _ = config5_r1cs(14, field=GOLDILOCKS)
+    R = r1cs.num_constraints
+    check, prep = build_row_chunked_check(r1cs, 4, device=cuda)
+    assert check._route == "canonical"
+    prod, prep_ab = build_row_chunked_product(r1cs, 16, reuse=(check._layout_meta, prep), device=cuda)
+    zc = config5_z(zfree, R, cuda)
+    zc[N0 + 1 :] = prod(zc, prep_ab)
+    cpu_prod, cpu_pp = build_row_chunked_product(r1cs, 16, device="cpu")
+    assert torch.equal(zc[N0 + 1 :].cpu(), cpu_prod(config5_z(zfree, R, "cpu"), cpu_pp))
+    assert tuple(int(v) for v in check(zc, prep)) == (0, 0xFFFFFFFF)
+    zc[5, 0] ^= 1
+    got = tuple(int(v) for v in check(zc, prep))
+    assert got[0] > 0 and got[1] == flipped_first_row(r1cs, 5)
+    assert got == tuple(int(v) for v in RowShardedSatisfier(r1cs, device=cuda)._check(zc))

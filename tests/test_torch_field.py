@@ -183,12 +183,25 @@ def test_pow_ladder_checks_its_inputs():
 
 
 def test_backend_refuses_unsupported_fields():
+    """A field above 255 bits is refused (add and sub keep a + b < 2p below
+    2^256). A 127-bit field, refused until the word tail took every
+    field, multiplies, squares and inverts as the reference's backend and
+    Python ints do."""
+    from bellpepper_tpu.fields import PrimeField as RefPrimeField
     from bellpepper_tpu_torch.fields import PrimeField
 
     with pytest.raises(ValueError):
         FieldBackend(PrimeField("p256", (1 << 256) - 189))
-    with pytest.raises(ValueError):
-        FieldBackend(PrimeField("small", 2**127 - 1))
+    p = 2**127 - 1
+    be, ref = FieldBackend(PrimeField("small", p)), ref_backend(RefPrimeField("small", p))
+    rnd = random.Random(6)
+    a = [0, 1, 2, p - 1, p - 2, 1 << 126, (p - 1) // 2] + [rnd.randrange(p) for _ in range(25)]
+    b = a[::-1]
+    A, B = _limbs(None, a), _limbs(None, b)
+    rA, rB = jnp.asarray(ref.to_limbs(a)), jnp.asarray(ref.to_limbs(b))
+    assert _ints(be.mul(A, B)) == [x * y % p for x, y in zip(a, b)] == ref.from_limbs(np.asarray(ref.mul(rA, rB)))
+    assert _ints(be.square(A)) == [x * x % p for x in a]
+    assert _ints(be.inv(A)) == [pow(x, p - 2, p) for x in a] == ref.from_limbs(np.asarray(ref.inv(rA)))
 
 
 # --- the row helpers ---------------------------------------------------------

@@ -260,6 +260,8 @@ def test_wrappers_use_plain_version_on_cpu():
     cols = torch.from_numpy(_cols_with_padding(8, 4, 64))
     F = torch.from_numpy(fk.fold_operand(RNG.integers(0, 256, size=(32, 8, 4)).astype(np.uint32)))
     assert torch.equal(fk.bits_matvec_semi(vals, cols, F, SCALAR), fk.bits_matvec_semi_plain(vals, cols, F, SCALAR))
+    assert torch.equal(fk.bits_matvec_canonical(vals, cols, F, SCALAR),
+                       fk.bits_matvec_canonical_plain(vals, cols, F, SCALAR))
     a, b, c, _w = (from_numpy_u32(v) if i < 3 else v
                    for i, v in enumerate(_mulcmp_operands(SCALAR, 100)))
     assert torch.equal(fk.mulcmp(a, b, c, SCALAR), fk.mulcmp_plain(a, b, c, SCALAR))
@@ -281,7 +283,7 @@ def test_wrappers_use_plain_version_on_cpu():
     assert torch.equal(op_rate.op_rate(x, "u32_mul", 3), op_rate.op_rate_plain(x, "u32_mul", 3))
     assert fk.launch_counts() == {k: 0 for k in fk.KERNELS} and op_rate.op_rate.launches == 0
     assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
-                          "limbs_matvec", "mul_digits", "reduce_digits")
+                          "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical")
 
 
 def test_wrappers_check_their_inputs():

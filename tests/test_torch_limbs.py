@@ -214,17 +214,33 @@ def test_limbs_check_matches_reference(name, B, partition, want_type, fused):
 
 
 def test_limbs_checks_refuse_a_field_below_250_bits():
-    """z1·z1 = z2 over a 127-bit field: both limbs checks refuse it (their
-    semi-reduced route needs p ≥ 2^250, and the port has no modmul for the
-    reference's canonical route below that)."""
+    """z1·z1 = z2 over a 127-bit field, which both limbs checks refused
+    until the canonical route was ported: the partitioned check (its
+    trivial row canonicalized and multiplied by mul) and the fold check
+    (the fused route's canonical limbs_matvec, then mul and a compare) give
+    the reference's masks, clean and with z2 off by one."""
+    from bellpepper_tpu.fields import PrimeField as RefPrimeField
+    from bellpepper_tpu.r1cs import COOMatrix as RefCOO
+
+    p = (1 << 127) - 1
     one = np.ones(1, np.int32)
 
-    def m(col):
-        return COOMatrix(rows=np.zeros(1, np.int32), cols=one * col, coeff_ids=np.zeros(1, np.int32))
+    def m(col, coo=COOMatrix):
+        return coo(rows=np.zeros(1, np.int32), cols=one * col, coeff_ids=np.zeros(1, np.int32))
 
-    t = R1CS(field=PrimeField("m127", (1 << 127) - 1), num_inputs=1, num_aux=2, num_constraints=1,
+    t = R1CS(field=PrimeField("m127", p), num_inputs=1, num_aux=2, num_constraints=1,
              a=m(1), b=m(1), c=m(2), coeff_table=[1])
-    with pytest.raises(NotImplementedError):
-        build_templated_check(t, 128, None, "limbs", device="cpu")
-    with pytest.raises(NotImplementedError):
-        LimbsCheck(t, 128, torch.device("cpu"))
+    tr = RefR1CS(field=RefPrimeField("m127", p), num_inputs=1, num_aux=2, num_constraints=1,
+                 a=m(1, RefCOO), b=m(1, RefCOO), c=m(2, RefCOO), coeff_table=[1])
+    B = 128
+    rnd = random.Random(7)
+    x = [rnd.randrange(p) for _ in range(B)]
+    vals = np.asarray([[1, v, v * v % p] for v in x], object)
+    vals[B // 2, 2] = (vals[B // 2, 2] + 1) % p
+    z = np.asarray([[[(int(v) >> (16 * l)) & 0xFFFF for l in range(16)] for v in row] for row in vals], np.uint32)
+    for partition, check in ((True, build_templated_check(t, B, None, "limbs", device="cpu")),
+                             (False, LimbsCheck(t, B, torch.device("cpu")))):
+        want = np.asarray(jax.jit(ref_mv.build_templated_check(tr, B, False, "limbs", _partition=partition))(
+            jnp.asarray(z)))
+        got = check(from_numpy_u32(z)).numpy()
+        assert (got == want).all() and np.nonzero(got)[0].tolist() == [B // 2]

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from bellpepper_tpu.backend import matvec as ref_mv
-from bellpepper_tpu_torch import R1CS, NativeBuilder, PrimeField, WitnessProgram
+from bellpepper_tpu_torch import NativeBuilder, PrimeField, WitnessProgram
 from bellpepper_tpu_torch.backend import layout
 from bellpepper_tpu_torch.backend import matvec as mv
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32, unpack_bits
@@ -195,20 +195,21 @@ def test_check_matches_reference_fixtures(name, monkeypatch):
 def test_check_rejects_wrong_shape(sha256):
     """A wrong witness shape raises. The bits form is ported: at B = 32 its
     verdict equals the reference's on a packed check's witness with one
-    bit flipped; below 250 bits it is refused (the semi-reduced kernels)."""
+    bit flipped, over the shipped field and, through the canonical route,
+    over a 127-bit one."""
     template, prog = sha256
     chk = mv.build_templated_check(template, B, None, "bits_packed", device="cpu")
     with pytest.raises(ValueError):
         chk.verdict(torch.zeros((B // 32, 10), dtype=torch.int32))
-    small = R1CS(PrimeField("m127", (1 << 127) - 1), template.num_inputs, template.num_aux,
-                 template.num_constraints, template.a, template.b, template.c, template.coeff_table)
-    with pytest.raises(NotImplementedError):
-        mv.build_templated_check(small, 32, None, "bits", device="cpu")
-    bits = mv.build_templated_check(template, 32, None, "bits", device="cpu")
+    nb = NativeBuilder(PrimeField("m127", (1 << 127) - 1))
+    nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    small, small_tape = nb.finish()
     free = RNG.integers(0, 1 << 32, size=(1, len(prog.free_slots)), dtype=np.uint64).astype(np.uint32)
-    z = unpack_bits(prog.build_packed(device="cpu")(from_numpy_u32(free)))
-    z[17, 9000] ^= 1
-    want = np.asarray(jax.jit(ref_mv.build_templated_check(template, 32, False, "bits"))(
-        jnp.asarray(to_numpy_u32(z))))
-    got = tuple(int(v) for v in bits.verdict(z))
-    assert got == (int(want.sum()), int(np.argmax(want))) and got[1] // template.num_constraints == 17
+    for t, p in ((template, prog), (small, WitnessProgram(small_tape))):
+        z = unpack_bits(p.build_packed(device="cpu")(from_numpy_u32(free)))
+        z[17, 9000] ^= 1
+        bits = mv.build_templated_check(t, 32, None, "bits", device="cpu")
+        want = np.asarray(jax.jit(ref_mv.build_templated_check(t, 32, False, "bits"))(
+            jnp.asarray(to_numpy_u32(z))))
+        got = tuple(int(v) for v in bits.verdict(z))
+        assert got == (int(want.sum()), int(np.argmax(want))) and got[1] // t.num_constraints == 17
