@@ -1,0 +1,7 @@
+"""check_ms: the mean host-clock span of one verdict
+(``check.verdict_slot_major`` up to the verdict's read on the host)."""
+
+
+def read(ctx):
+    spans = ctx["spans"].get("check")
+    return 1e3 * sum(spans) / len(spans) if spans else None
