@@ -58,6 +58,7 @@ import torch
 
 from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
+from ..utils import profiling
 from .field_consts import _digits
 from .field_kernels import (
     bitplane_eq,
@@ -294,7 +295,7 @@ class PackedBitsCheck:
         bool_rows = families.pop("bool", (None, np.zeros(0, np.int64)))[1]
         self.n_bool = len(bool_rows)
         self.fam = [
-            (kind, _t(families[kind][0].T, device), _t(families[kind][1], device))
+            (kind, _t(families[kind][0].T, device), _t(families[kind][1], device), "check.family." + kind)
             for kind in sorted(families)
         ]
         self.n_left = len(leftover_pos)
@@ -340,31 +341,36 @@ class PackedBitsCheck:
     def _fam_bad_words(self, vals_p):
         """[(bad_words int32[n_f, Bw], rows_orig)] per structured family."""
         out = []
-        for kind, opcols, rows in self.fam:
-            X = [vals_p.index_select(0, opcols[i]) for i in range(opcols.shape[0])]
-            out.append((_family_bad(kind, X), rows))
+        with profiling.span("check.families"):
+            for kind, opcols, rows, span_name in self.fam:
+                with profiling.span(span_name):
+                    X = [vals_p.index_select(0, opcols[i]) for i in range(opcols.shape[0])]
+                    out.append((_family_bad(kind, X), rows))
         return out
 
     def _left_bad(self, vals_p):
         """Leftover small rows: bool[n_left, batch], exact over ℤ."""
-        evs = []
-        for name in ("a", "b", "c"):
-            colp, scop = self.left[name]  # [K, n_left] each
-            ev = None
-            for k in range(colp.shape[0]):
-                term = unpack_rows(vals_p.index_select(0, colp[k])).to(
-                    torch.int64
-                ) * scop[k][:, None]
-                ev = term if ev is None else ev + term
-            evs.append(ev)
-        return (evs[0] * evs[1]) != evs[2]
+        with profiling.span("check.leftover"):
+            evs = []
+            for name in ("a", "b", "c"):
+                colp, scop = self.left[name]  # [K, n_left] each
+                ev = None
+                for k in range(colp.shape[0]):
+                    term = unpack_rows(vals_p.index_select(0, colp[k])).to(
+                        torch.int64
+                    ) * scop[k][:, None]
+                    ev = term if ev is None else ev + term
+                evs.append(ev)
+            return (evs[0] * evs[1]) != evs[2]
 
     def _pow2_bad_words(self, vals_p):
-        return _pow2_eq_bad_words_kernel(vals_p, self.pow2_spec, self.plane_idx)
+        with profiling.span("check.pow2"):
+            return _pow2_eq_bad_words_kernel(vals_p, self.pow2_spec, self.plane_idx)
 
     def _big_bad(self, vals_p):
         """Remaining big rows: bool[n_rest_big, batch]."""
-        return self.big(vals_p)
+        with profiling.span("check.big"):
+            return self.big(vals_p)
 
     def _slot_major(self, vals_bm):
         if tuple(vals_bm.shape) != (self.Bw, self.S_t) or vals_bm.dtype != torch.int32:
@@ -417,6 +423,10 @@ class PackedBitsCheck:
         instances below it count (the others are padding)."""
         if flimbs_p is not None:
             raise ValueError("a pure-bit packed check takes no field sidecar")
+        with profiling.span("check"):
+            return self._verdict(vals_p, n_inst)
+
+    def _verdict(self, vals_p, n_inst):
         dev = vals_p.device
         R = self.Rt0
         nb = torch.zeros((), dtype=torch.int64, device=dev)
@@ -430,17 +440,21 @@ class PackedBitsCheck:
         live = to_i32((U32 >> (32 - (n_inst - winst).clamp(0, 32))) & U32)
 
         def fold_words(nb, first, words, rows):
-            return _fold_words(nb, first, words & live, rows, R)
+            with profiling.span("check.fold"):
+                return _fold_words(nb, first, words & live, rows, R)
 
         def fold_mask(nb, first, bad, rows):  # bad: bool[n, batch]
-            bad = bad[:, :n_inst]
-            binst = torch.arange(bad.shape[1], dtype=torch.int64, device=dev)
-            nb = nb + bad.sum()
-            cand = torch.where(bad, binst[None, :] * R + rows[:, None], NONE)
-            return nb, torch.minimum(first, cand.min())
+            with profiling.span("check.fold"):
+                bad = bad[:, :n_inst]
+                binst = torch.arange(bad.shape[1], dtype=torch.int64, device=dev)
+                nb = nb + bad.sum()
+                cand = torch.where(bad, binst[None, :] * R + rows[:, None], NONE)
+                return nb, torch.minimum(first, cand.min())
 
         if self.fallback is not None:
-            nb, first = fold_mask(nb, first, self.fallback(vals_p), self.all_rows)
+            with profiling.span("check.fallback"):
+                bad = self.fallback(vals_p)
+            nb, first = fold_mask(nb, first, bad, self.all_rows)
             return nb, torch.where(first == NONE, SENTINEL, first)
         for words, rows in self._fam_bad_words(vals_p):
             nb, first = fold_words(nb, first, words, rows)

@@ -38,6 +38,7 @@ from ..backend.satisfier import which_from_flat
 from ..backend.words import device_table
 from ..device import check_use_pallas, resolve
 from ..r1cs import R1CS
+from ..utils import profiling
 from .tape import V_CONST, V_VAR
 
 
@@ -177,12 +178,14 @@ def build_packed_production_step(prog, template: R1CS, batch: int, use_pallas: O
                 f"free_packed must be [n_chunks, {batch // 32}, n_free], "
                 f"got {tuple(free_packed.shape)}"
             )
-        nbs, firsts = [], []
-        for fp in free_packed:
-            nb, first = check.verdict_slot_major(*evaluator.slot_major(fp))
-            nbs.append(nb)
-            firsts.append(torch.where(nb > 0, first, 0))
-        return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
+        with profiling.span("step"):
+            nbs, firsts = [], []
+            for fp in free_packed:
+                nb, first = check.verdict_slot_major(*evaluator.slot_major(fp))
+                nbs.append(nb)
+                firsts.append(torch.where(nb > 0, first, 0))
+            with profiling.span("step.aggregate"):
+                return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
 
     return step
 

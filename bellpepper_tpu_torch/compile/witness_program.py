@@ -50,6 +50,7 @@ from ..backend.words import FULL, U32, as_words, device_table as _dev, to_i32, t
 from ..backend.words import pack_bits, unpack_bits  # noqa: F401  (the reference module's names)
 from ..device import check_use_pallas, resolve
 from ..fields import PrimeField  # noqa: F401  (the reference module's name)
+from ..utils import profiling
 from .tape import V_CONST, V_VAR, Op, TapeCS  # noqa: F401  (TapeCS: the reference module's name)
 
 BIT_OUT_OPS = {"xor", "and", "and_not", "nor", "ch", "maj", "addmany",
@@ -855,43 +856,54 @@ class PackedEvaluator:
                 f"{free_packed.dtype}{tuple(free_packed.shape)}"
             )
         Bw = free_packed.shape[0]
-        vals = torch.zeros(
-            (self.num_slots, Bw), dtype=torch.int32, device=free_packed.device
-        )
-        vals[0] = FULL  # ONE
-        if self.n_free:
-            vals.index_copy_(0, self.free_slots, free_packed.t())
-        flimbs = None
-        if self.mixed:
-            flimbs = torch.zeros((self.F, 16, 32 * Bw), dtype=torch.int32, device=vals.device)
-        for oc, meta, t in self._stages:
-            if oc == "pack":  # field-valued: to the sidecar; its vals slots stay 0
-                bv = self._views(vals, t["v"])  # [W, n_bits, Bw] packed bit planes
-                bits = unpack_rows(bv.reshape(-1, Bw)).reshape(bv.shape[0], meta, -1)
-                flimbs.index_copy_(0, t["outs"], _pack_limbs(bits, meta))
-                continue
-            if oc in ("xor", "and", "and_not", "nor"):
-                a = vals.index_select(0, t["a"])
-                b = vals.index_select(0, t["b"])
-                if oc == "xor":
-                    r = a ^ b
-                elif oc == "and":
-                    r = a & b
-                elif oc == "and_not":
-                    r = a & ~b
-                else:
-                    r = ~a & ~b
-            elif oc in ("ch", "maj"):
-                a = self._views(vals, t["a"])
-                b = self._views(vals, t["b"])
-                c = self._views(vals, t["c"])
-                r = (a & b) ^ (~a & c) if oc == "ch" else (a & b) ^ (a & c) ^ (b & c)
-            elif oc == "addmany":
-                r = _addmany(self._views(vals, t["v"]), meta[1])
-            else:  # num_iszero
-                r = _num_iszero(vals, t["idx"], t["cf"])
-            vals.index_copy_(0, t["outs"], r.reshape(-1, Bw))
+        with profiling.span("witness"):
+            with profiling.span("witness.init"):
+                vals = torch.zeros((self.num_slots, Bw), dtype=torch.int32, device=free_packed.device)
+                vals[0] = FULL  # ONE
+                if self.n_free:
+                    vals.index_copy_(0, self.free_slots, free_packed.t())
+                flimbs = None
+                if self.mixed:
+                    flimbs = torch.zeros((self.F, 16, 32 * Bw), dtype=torch.int32, device=vals.device)
+            if profiling.is_tracing():
+                for oc, meta, t in self._stages:
+                    with profiling.span("witness." + oc):
+                        self._stage(vals, flimbs, oc, meta, t)
+            else:
+                for oc, meta, t in self._stages:
+                    self._stage(vals, flimbs, oc, meta, t)
         return vals, flimbs
+
+    def _stage(self, vals, flimbs, oc, meta, t):
+        """Run one stage: its outputs into `vals`, a ``pack`` stage's into
+        the sidecar `flimbs`."""
+        Bw = vals.shape[1]
+        if oc == "pack":  # field-valued: to the sidecar; its vals slots stay 0
+            bv = self._views(vals, t["v"])  # [W, n_bits, Bw] packed bit planes
+            bits = unpack_rows(bv.reshape(-1, Bw)).reshape(bv.shape[0], meta, -1)
+            flimbs.index_copy_(0, t["outs"], _pack_limbs(bits, meta))
+            return
+        if oc in ("xor", "and", "and_not", "nor"):
+            a = vals.index_select(0, t["a"])
+            b = vals.index_select(0, t["b"])
+            if oc == "xor":
+                r = a ^ b
+            elif oc == "and":
+                r = a & b
+            elif oc == "and_not":
+                r = a & ~b
+            else:
+                r = ~a & ~b
+        elif oc in ("ch", "maj"):
+            a = self._views(vals, t["a"])
+            b = self._views(vals, t["b"])
+            c = self._views(vals, t["c"])
+            r = (a & b) ^ (~a & c) if oc == "ch" else (a & b) ^ (a & c) ^ (b & c)
+        elif oc == "addmany":
+            r = _addmany(self._views(vals, t["v"]), meta[1])
+        else:  # num_iszero
+            r = _num_iszero(vals, t["idx"], t["cf"])
+        vals.index_copy_(0, t["outs"], r.reshape(-1, Bw))
 
     def __call__(self, free_packed: torch.Tensor):
         """free_packed int32[Bw, n_free] → vals int32[Bw, S]; with `mixed`

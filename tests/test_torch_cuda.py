@@ -12,7 +12,8 @@ the limbs forms, the bits form at a ragged batch, config 3's mixed packed
 step, a step with free field inputs and the Satisfier on the card give
 the CPU's verdicts, clean and corrupted (the Satisfier on both of its
 routes: the templated limbs check and, given use_pallas=False, the
-DeviceR1CS route). The chained witness replays one
+DeviceR1CS route); the tracer's `check` span reads the verdict's device
+time, and a phase a device time. The chained witness replays one
 CUDA graph a block, equal to an eager loop of the same evaluator, cached
 for each batch; the Merkle step and the num family's mixed block equal
 the CPU. mul and mul_digits hold on operands in [p, 2^256) (config 5's
@@ -31,6 +32,8 @@ config 1 in the mixed and limbs forms, both Satisfier routes and config
 5's check give the CPU's verdicts on the card."""
 
 import random
+import statistics
+import time
 
 import numpy as np
 import pytest
@@ -51,6 +54,7 @@ from bellpepper_tpu_torch import (
 )
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
+from bellpepper_tpu_torch.backend.matvec import build_packed_parts
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.compile.tape import SnapshotTape, TapeCS, corrupted
 from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
@@ -60,6 +64,7 @@ from bellpepper_tpu_torch import R1CS, TestConstraintSystem
 from bellpepper_tpu_torch.gadgets.multieq import MultiEq
 from bellpepper_tpu_torch.gadgets.uint32 import UInt32
 from bellpepper_tpu_torch.r1cs import ShapeCS
+from bellpepper_tpu_torch.utils import profiling
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 from chip_smoke import digit_sum_corners, fe_config2, fe_sha256  # the card script's circuits and corners
 from torch_small_fields import GOLDILOCKS, JUBJUB_FR, SMALL_FIELDS
@@ -285,6 +290,36 @@ def test_step_on_card_matches_cpu(cuda):
             from_numpy_u32(words, cuda)
         )
         assert tuple(int(v) for v in got) == tuple(int(v) for v in want)
+
+
+@pytest.mark.cuda
+def test_traced_check_device_time_on_card(cuda):
+    """The tracer's `check` span on the sha256 verdict at 2^18 instances:
+    its CUDA-event time lies within 5% of a host clock from the call to a
+    synchronize (medians of 3), and a phase around the same call reports a
+    device time."""
+    template, prog = _sha256_prog()
+    B = 1 << 18
+    evaluator, check = build_packed_parts(prog, template, B, cuda)
+    vals, _ = evaluator.slot_major(_u32((B // 32, len(prog.free_slots)), cuda))
+    check.verdict_slot_major(vals)  # warm
+    host, device = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profiling.tracing():
+            t0 = time.perf_counter()
+            nb, first = check.verdict_slot_major(vals)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        device.append(profiling.trace_report(reset=True)["check"]["device_total_s"])
+    assert (int(nb), int(first)) == (0, 0xFFFFFFFF)
+    h, d = statistics.median(host), statistics.median(device)
+    assert abs(d - h) <= 0.05 * h, (host, device)
+    profiling.phase_report(reset=True)
+    with profiling.phase("verdict"):
+        check.verdict_slot_major(vals)
+    rep = profiling.phase_report(reset=True)["verdict"]
+    assert rep["device_total_s"] > 0 and rep["device_mean_s"] > 0
 
 
 def _canonical(field, n, seed, dev):
