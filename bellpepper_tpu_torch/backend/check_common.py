@@ -12,12 +12,11 @@ import numpy as np
 import torch
 
 from .field_consts import L16, SEMI, _digits
-from .field_kernels import _cond_sub_rows, _signed_carry, mul, mulcmp
+from .field_kernels import NONE, _cond_sub_rows, _signed_carry, mul, mulcmp
 from .layout import FIELD_SRC
 from .words import device_table as _t, to_i32, to_u32
 
 SENTINEL = 0xFFFFFFFF  # "no violation" value of `first`, as in the reference
-NONE = torch.iinfo(torch.int64).max  # int64 stand-in for "no violation yet"
 
 
 def semi_ok(field) -> bool:

@@ -40,6 +40,7 @@ ENTRY_POINTS = {
     "bp_mul_digits": [_vp, _vp, _vp, _i64, _vp, _vp],
     "bp_reduce_digits": [_vp, _vp, _i64, _i32, _vp, _vp],
     "bp_op_rate": [_vp, _vp, _i32, _i64, _i32, _i32, _vp],
+    "bp_verdict_fold": [_vp, _i64, _i64, _i64, _i32, _i64, _vp, _i64, _vp, _i32, _vp],
 }
 
 _lib = None

@@ -22,6 +22,9 @@ the ported paths, each a CUDA kernel in ``csrc/``:
                                 ``_mul_digits_kernel`` (:711)
   ``reduce_digits``             ``PallasFieldOps.reduce_digits`` →
                                 ``_reduce_kernel`` (:720)
+  ``verdict_fold``              no Pallas kernel: the jnp fold of
+                                ``matvec.py`` ``verdict_packed`` (:3002),
+                                which XLA fuses into one reduction
   ============================  ==========================================
 
 ``bits_matvec_semi``, ``bits_matvec_canonical`` and ``limbs_matvec``
@@ -55,10 +58,10 @@ import torch
 from ..fields import PrimeField
 from .cuda_lib import load_kernels
 from .field_consts import L8, L16, SEMI, _digits, consts_for, kernel_consts
-from .words import FULL, U32, to_i32, to_u32, unpack_rows
+from .words import FULL, U32, ctz32, popcount32, to_i32, to_u32, unpack_rows
 
 KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
-           "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical")
+           "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -576,6 +579,84 @@ def mulcmp_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, field: Prime
 
 
 mulcmp.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The packed check's verdict fold (no Pallas counterpart: the reference's
+# jnp fold in verdict_packed, which XLA fuses)
+# ---------------------------------------------------------------------------
+NONE = torch.iinfo(torch.int64).max  # a running verdict's "no violation yet"
+
+
+def verdict_acc(device) -> torch.Tensor:
+    """A running verdict int64[2] = (n_bad, first) = (0, NONE) on
+    `device`, made by fills (no host copy, no sync)."""
+    acc = torch.full((2,), NONE, dtype=torch.int64, device=device)
+    acc[0] = 0
+    return acc
+
+
+def verdict_fold(acc: torch.Tensor, bad: torch.Tensor, rows: torch.Tensor, R: int, n_inst=None) -> torch.Tensor:
+    """Fold the violations of template rows `rows` int64[n] into the
+    running verdict acc int64[2] = (n_bad, first), in place: n_bad gains
+    their count, first falls to the least instance-major index b·R + row
+    of one (NONE while there is none). `bad` is either packed words
+    int32[n, Bw] (bit j of word w: instance 32·w + j; only instances below
+    n_inst count, 32·Bw by default) or a mask bool[n, W] (column b:
+    instance b; only the first n_inst columns, W by default). Its rows may
+    be strided (a column slice needs no copy); its columns must be
+    contiguous. Returns acc."""
+    if acc.dtype != torch.int64 or tuple(acc.shape) != (2,) or not acc.is_contiguous():
+        raise TypeError("acc must be a contiguous int64[2] running verdict")
+    if bad.dtype not in (torch.int32, torch.bool) or bad.dim() != 2:
+        raise TypeError(f"bad must be int32 words or a bool mask of shape [n, width], got {bad.dtype}"
+                        f"{tuple(bad.shape)}")
+    n, width = bad.shape
+    if width > 1 and bad.stride(1) != 1:
+        raise ValueError("bad's columns must be contiguous")
+    if rows.dtype != torch.int64 or tuple(rows.shape) != (n,) or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous int64[{n}]")
+    mask = bad.dtype == torch.bool
+    cap = width if mask else 32 * width
+    n_inst = cap if n_inst is None else n_inst
+    if not 0 <= n_inst <= cap:
+        raise ValueError(f"n_inst {n_inst} outside [0, {cap}]")
+    if not _on_cuda(acc, bad, rows):
+        return verdict_fold_plain(acc, bad, rows, R, n_inst)
+    read = n_inst if mask else -(-n_inst // 32)  # the columns that hold live instances
+    if n and read:
+        size = bad.element_size()
+        ld = bad.stride(0)
+        vec = int(bad.data_ptr() % 16 == 0 and (n == 1 or ld * size % 16 == 0) and read * size % 16 == 0)
+        _launch("bp_verdict_fold", bad.data_ptr(), ld, n, read, int(mask), n_inst, rows.data_ptr(), R,
+                acc.data_ptr(), vec, stream=_stream(bad))
+        verdict_fold.launches += 1
+    return acc
+
+
+def verdict_fold_plain(acc: torch.Tensor, bad: torch.Tensor, rows: torch.Tensor, R: int, n_inst: int) -> torch.Tensor:
+    """Plain version: the eager fold. Words: the live bits, a SWAR
+    popcount and ctz (``words``) and the int64 candidate index of every
+    nonzero word; a mask: its sum and the candidate of every set entry;
+    then the candidates' minimum."""
+    n, width = bad.shape
+    if bad.dtype == torch.bool:
+        bad = bad[:, :n_inst]
+        inst = torch.arange(n_inst, dtype=torch.int64, device=bad.device)
+        nb = bad.sum()
+        cand = torch.where(bad, inst[None, :] * R + rows[:, None], NONE)
+    else:
+        winst = torch.arange(width, dtype=torch.int64, device=bad.device) * 32
+        words = bad & to_i32((U32 >> (32 - (n_inst - winst).clamp(0, 32))) & U32)
+        nb = popcount32(words).sum()
+        cand = torch.where(words != 0, (winst[None, :] + ctz32(words)) * R + rows[:, None], NONE)
+    if cand.numel():
+        acc[0] += nb
+        acc[1] = torch.minimum(acc[1], cand.min())
+    return acc
+
+
+verdict_fold.launches = 0
 
 
 # ---------------------------------------------------------------------------

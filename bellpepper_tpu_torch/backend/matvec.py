@@ -5,8 +5,10 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
   * ``build_templated_check(..., "bits_packed")`` → ``PackedBitsCheck``,
     the port of ``_build_packed_bits_check`` (reference ``:2760-3063``):
     ``__call__`` is ``violations_packed``, ``verdict`` is
-    ``verdict_packed``; without a small-row majority it runs every row
-    through ``BitsSemiCheck`` (``violations_packed_fb``, ``:2798-2811``);
+    ``verdict_packed``, each part's violations folded into one running
+    verdict on the device by ``verdict_fold``; without a small-row
+    majority it runs every row through ``BitsSemiCheck``
+    (``violations_packed_fb``, ``:2798-2811``);
   * ``build_templated_check(..., "bits_packed", field_slots=...)`` →
     ``PackedFieldCheck``, the port of ``_build_packed_field_check``
     (``:2515-2720``): the mixed packed layout's multipack rows as
@@ -68,6 +70,8 @@ from .field_kernels import (
     mul,
     mulcmp,
     padded_positions,
+    verdict_acc,
+    verdict_fold,
 )
 from .layout import (
     POW2_M_LIMBS,
@@ -82,7 +86,7 @@ from .layout import (
 )
 from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _neg_const, _Operand, _product_bad, semi_ok
 from .limbs import build_limbs_check
-from .words import U32, ctz32, device_table as _t, from_numpy_u32, pack_rows, popcount32, to_i32, to_u32, unpack_rows
+from .words import U32, device_table as _t, from_numpy_u32, pack_rows, to_u32, unpack_rows
 
 ROW_CLASSES = ("bool_u32", "lin", "mul", "pow2", "rest")  # MixedCheck's row classes, in its row order
 
@@ -197,16 +201,6 @@ def _pow2_eq_bad_words_kernel(vals_p: torch.Tensor, spec, plane_idx=None) -> tor
     if plane_idx is None:
         plane_idx = _t(_pow2_plane_index(spec), vals_p.device, torch.int32)
     return bitplane_eq(vals_p, plane_idx, n, padded_positions(spec["n_pos"]), m_a, m_c)
-
-
-def _fold_words(nb, first, words, rows, R: int):
-    """Fold bad words int32[n, Bw] of template rows `rows` into a running
-    verdict (n_bad, first): the count of set bits, and the least
-    instance-major index b·R + row of one (NONE while there is none)."""
-    winst = torch.arange(words.shape[1], dtype=torch.int64, device=words.device) * 32
-    nb = nb + popcount32(words).sum()
-    cand = torch.where(words != 0, (winst[None, :] + ctz32(words)) * R + rows[:, None], NONE)
-    return nb, torch.minimum(first, cand.min())
 
 
 class BitsSemiCheck:
@@ -429,41 +423,29 @@ class PackedBitsCheck:
     def _verdict(self, vals_p, n_inst):
         dev = vals_p.device
         R = self.Rt0
-        nb = torch.zeros((), dtype=torch.int64, device=dev)
-        first = torch.full((), NONE, dtype=torch.int64, device=dev)
         if not R:
-            return nb, torch.full((), SENTINEL, dtype=torch.int64, device=dev)
-        Bw = vals_p.shape[1]
-        n_inst = 32 * Bw if n_inst is None else n_inst
-        winst = torch.arange(Bw, dtype=torch.int64, device=dev) * 32
-        # the bits of real instances in each word
-        live = to_i32((U32 >> (32 - (n_inst - winst).clamp(0, 32))) & U32)
+            return (torch.zeros((), dtype=torch.int64, device=dev),
+                    torch.full((), SENTINEL, dtype=torch.int64, device=dev))
+        acc = verdict_acc(dev)
 
-        def fold_words(nb, first, words, rows):
+        def fold(bad, rows):  # bad: int32 words [n, Bw] or bool [n, batch]
             with profiling.span("check.fold"):
-                return _fold_words(nb, first, words & live, rows, R)
-
-        def fold_mask(nb, first, bad, rows):  # bad: bool[n, batch]
-            with profiling.span("check.fold"):
-                bad = bad[:, :n_inst]
-                binst = torch.arange(bad.shape[1], dtype=torch.int64, device=dev)
-                nb = nb + bad.sum()
-                cand = torch.where(bad, binst[None, :] * R + rows[:, None], NONE)
-                return nb, torch.minimum(first, cand.min())
+                verdict_fold(acc, bad, rows, R, n_inst)
 
         if self.fallback is not None:
             with profiling.span("check.fallback"):
                 bad = self.fallback(vals_p)
-            nb, first = fold_mask(nb, first, bad, self.all_rows)
-            return nb, torch.where(first == NONE, SENTINEL, first)
-        for words, rows in self._fam_bad_words(vals_p):
-            nb, first = fold_words(nb, first, words, rows)
-        if self.n_left:
-            nb, first = fold_mask(nb, first, self._left_bad(vals_p), self.rows_left)
-        if self.pow2_spec is not None:
-            nb, first = fold_words(nb, first, self._pow2_bad_words(vals_p), self.pow2_rows)
-        if self.big is not None:
-            nb, first = fold_mask(nb, first, self._big_bad(vals_p), self.rest_big_idx)
+            fold(bad, self.all_rows)
+        else:
+            for words, rows in self._fam_bad_words(vals_p):
+                fold(words, rows)
+            if self.n_left:
+                fold(self._left_bad(vals_p), self.rows_left)
+            if self.pow2_spec is not None:
+                fold(self._pow2_bad_words(vals_p), self.pow2_rows)
+            if self.big is not None:
+                fold(self._big_bad(vals_p), self.rest_big_idx)
+        nb, first = acc
         return nb, torch.where(first == NONE, SENTINEL, first)
 
 
@@ -675,7 +657,8 @@ class PackedFieldCheck:
             row = self.remaining[(sub % self.Rt_sub).clamp(max=self.Rt_sub - 1)]
             first = torch.where(nb > 0, sub // self.Rt_sub * self.R + row, NONE)
         if self.n_pf:
-            nb, first = _fold_words(nb, first, self._pf_bad_words(vals_p, flimbs_p), self.pf_rows, self.R)
+            nb, first = verdict_fold(torch.stack([nb, first]), self._pf_bad_words(vals_p, flimbs_p), self.pf_rows,
+                                     self.R)
         return nb, torch.where(first == NONE, SENTINEL, first)
 
 

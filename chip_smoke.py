@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card, and check
-their nine kernels (and the op-rate probe) against their plain versions.
+their ten kernels (and the op-rate probe) against their plain versions.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -17,8 +17,9 @@ Phases (one line each, or a few):
     slots), with the mixed row classes of both;
   * each kernel against its plain PyTorch version at its path's shapes and
     real tables (bit-exact): bitplane_eq through the sha256 pow2 plane
-    table and bits_matvec_semi through the big row's ELL buckets, on one
-    packed chunk whose odd words are random; limbs_matvec on config 1's
+    table, bits_matvec_semi through the big row's ELL buckets and
+    verdict_fold through the verdict's eight folds, on one packed chunk
+    whose odd words are random; limbs_matvec on config 1's
     a-bucket and the sha256 limbs check's widest a-bucket (random limbs),
     and at the K = 2,064 bound with every digit and fold entry 255; mulcmp
     (its 0/1 mask) at every N a path launches it at, the sha256 limbs
@@ -362,6 +363,8 @@ KERNEL_INFO = {
                       "bellpepper_tpu/backend/field_pallas.py:720"),
     "bits_matvec_canonical": ("bellpepper_tpu_torch/csrc/fold_matvec.cu",
                               "bellpepper_tpu/backend/field_pallas.py:828"),
+    "verdict_fold": ("bellpepper_tpu_torch/csrc/verdict_fold.cu",
+                     "no Pallas kernel: the XLA fusion of bellpepper_tpu/backend/matvec.py:3002 verdict_packed"),
 }
 
 
@@ -797,11 +800,35 @@ def bitplane_at(label, vals_p, spec, planes, bound):
         bound(gathered_bytes(planes, Bw * 4) + n * Bw * 4, 0))
 
 
+def verdict_fold_at(label, vals_p, check, bound):
+    """verdict_fold over every fold of a packed check's verdict on vals_p
+    (its families' and pow2 rows' bad words, its big rows' mask), into one
+    running verdict, against the plain version: the two int64 words
+    compared as four 32-bit halves."""
+    R, B = check.Rt0, check.batch
+    ins = [(words, rows) for words, rows in check._fam_bad_words(vals_p)]
+    ins.append((check._pow2_bad_words(vals_p), check.pow2_rows))
+    ins.append((check._big_bad(vals_p), check.rest_big_idx))
+    acc0 = fk.verdict_acc(vals_p.device)
+
+    def run(fold):
+        acc = acc0.clone()
+        for bad, rows in ins:
+            fold(acc, bad, rows, R, B)
+        return acc.view(torch.int32)
+
+    out = run(fk.verdict_fold)
+    assert out.view(torch.int64)[0] > 0, "verdict_fold: the random odd words violate rows"
+    n_bytes = sum(bad.numel() * bad.element_size() for bad, _rows in ins)
+    return compare(f"verdict_fold {label} {len(ins)} folds at B={B}", lambda: run(fk.verdict_fold),
+                   lambda: run(fk.verdict_fold_plain), bound(n_bytes, 0), plain_reps=2)
+
+
 def sha256_kernels(dev, bound, template, prog):
-    """bitplane_eq, bits_matvec_semi and mulcmp at the sha256 step's shapes
-    and tables: the packed check's pow2 plane table and its big row's ELL
-    buckets, read from one chunk's packed witness whose odd words are
-    random (so both verdicts occur)."""
+    """bitplane_eq, bits_matvec_semi, verdict_fold and mulcmp at the sha256
+    step's shapes and tables: the packed check's pow2 plane table, its big
+    row's ELL buckets and its verdict's eight folds, read from one chunk's
+    packed witness whose odd words are random (so both verdicts occur)."""
     rng = np.random.default_rng(SEED)
     Bw = B // 32
     results = {}
@@ -822,6 +849,7 @@ def sha256_kernels(dev, bound, template, prog):
     # bits_matvec_semi: the big row's ELL buckets, one a matrix, (K, rows) =
     # (512, 8), (1, 8), (256, 8), 7 rows of each padding
     results["bits_matvec_semi"] = semi_buckets("sha256", vals_p, check.big, bound, library=True)
+    results["verdict_fold"] = verdict_fold_at("sha256", vals_p, check, bound)
     del vals_p, check
     # mulcmp: N = 8 padded rows × B
     N = 8 * B
@@ -952,7 +980,7 @@ def sha256_step(dev, card, template, prog, name="sha256", same_as=None):
     verdict, launches = path_run(step, free)
     print(f"[step] {name} verdict {verdict} launches {launches}")
     assert verdict == (0, 0xFFFFFFFF), verdict
-    assert all(launches[k] > 0 for k in ("bitplane_eq", "bits_matvec_semi", "mulcmp")), launches
+    assert all(launches[k] > 0 for k in ("bitplane_eq", "bits_matvec_semi", "mulcmp", "verdict_fold")), launches
 
     gen = build_packed_chunked_witness(prog, device=dev)
     vals0 = gen(free)[0]
@@ -2561,8 +2589,8 @@ def sharding_path(dev, card, tables, max_mhz: float):
               f"its flips located as on one rank: {dry['which']}")
         for path in ("packed", "bits"):
             assert [res["digest"][path] for res in results] == slices[path][W], (where, path)
-        expect = {"packed": {"bitplane_eq": 1, "bits_matvec_semi": 3, "mulcmp": 1},
-                  "bits": {"bitplane_eq": 1, "bits_matvec_semi": 3, "mulcmp": 1},
+        expect = {"packed": {"bitplane_eq": 1, "bits_matvec_semi": 3, "mulcmp": 1, "verdict_fold": 8},
+                  "bits": {"bitplane_eq": 1, "bits_matvec_semi": 3, "mulcmp": 1, "verdict_fold": 8},
                   "limbs": {"limbs_matvec": 17, "mulcmp": 1},
                   "row": {"mul_digits": 3, "reduce_digits": 3, "mul": 1}}
         for path, counts in expect.items():

@@ -29,7 +29,10 @@ Jubjub's scalar field): the canonical bits form of the fold matvec, mul,
 mul_digits (raw a), reduce_digits, chain and the canonical limbs_matvec
 equal their plain versions and Python ints, and the flagship packed step,
 config 1 in the mixed and limbs forms, both Satisfier routes and config
-5's check give the CPU's verdicts on the card."""
+5's check give the CPU's verdicts on the card. The packed check's verdict
+fold equals its plain version and a Python loop over bits on every case
+of tests/torch_verdict_cases.py, on column slices (vector and scalar
+loads), at the benchmark's fold shapes and past 2^31 words."""
 
 import random
 import statistics
@@ -68,6 +71,7 @@ from bellpepper_tpu_torch.utils import profiling
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 from chip_smoke import digit_sum_corners, fe_config2, fe_sha256  # the card script's circuits and corners
 from torch_small_fields import GOLDILOCKS, JUBJUB_FR, SMALL_FIELDS
+from torch_verdict_cases import CASES, folds, python_verdict
 
 RNG = np.random.default_rng(0x5EED_0006)
 
@@ -1058,3 +1062,108 @@ def test_goldilocks_satisfier_and_config5_on_card(cuda):
     got = tuple(int(v) for v in check(zc, prep))
     assert got[0] > 0 and got[1] == flipped_first_row(r1cs, 5)
     assert got == tuple(int(v) for v in RowShardedSatisfier(r1cs, device=cuda)._check(zc))
+
+
+# --- the verdict fold ------------------------------------------------------------
+def _fold_card_and_plain(case_folds):
+    """The folds run through the kernel on the card and through the plain
+    version on CPU copies: both running verdicts as (n_bad, first), and
+    the kernel's launches."""
+    before = fk.verdict_fold.launches
+    acc, ref = fk.verdict_acc(case_folds[0][0].device), fk.verdict_acc("cpu")
+    for bad, rows, R, n_inst in case_folds:
+        fk.verdict_fold(acc, bad, rows, R, n_inst)
+        fk.verdict_fold(ref, bad.cpu(), rows.cpu(), R, n_inst)
+    torch.cuda.synchronize()
+    return tuple(acc.tolist()), tuple(ref.tolist()), fk.verdict_fold.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["words", "mask"])
+@pytest.mark.parametrize("case", CASES)
+def test_verdict_fold_on_card(cuda, case, form):
+    case_folds = folds(case, form, cuda)
+    got, ref, launches = _fold_card_and_plain(case_folds)
+    assert got == ref == python_verdict(case_folds)
+    assert launches == len(case_folds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["words", "mask"])
+@pytest.mark.parametrize("offset", [0, 1, 4, 16])
+def test_verdict_fold_column_slices_on_card(cuda, form, offset):
+    """Strided rows and misaligned pointers (a column slice): the vector
+    loads where base, row stride and width are 16-byte multiples, the
+    scalar ones otherwise, both equal to the plain version."""
+    rng = np.random.default_rng(0x5EED_0F02 + offset)
+    words = rng.integers(0, 1 << 32, size=(37, 1024 + 32), dtype=np.uint64).astype(np.uint32)
+    words &= rng.integers(0, 1 << 32, size=words.shape, dtype=np.uint64).astype(np.uint32)
+    words[rng.random(words.shape) < 0.9] = 0
+    full = torch.from_numpy(words.view(np.int32)).to(cuda)
+    if form == "mask":
+        full = full.ne(0)
+    bad = full[:, offset:offset + 1024]
+    rows = torch.from_numpy(np.sort(rng.choice(50_000, 37, replace=False))).to(cuda)
+    n_inst = 32 * 1024 - 9 if form == "words" else 1024
+    got, ref, launches = _fold_card_and_plain([(bad, rows, 50_000, n_inst)])
+    assert got == ref and got[0] > 0 and launches == 1
+
+
+def _planted_verdict(bad, sites, rows_h, R):
+    """Words or mask `bad` on the card with violations set at (row,
+    instance) sites, and their exact verdict."""
+    for r, b in sites:
+        if bad.dtype == torch.bool:
+            bad[r, b] = True
+        else:
+            bit = 1 << (b % 32)
+            bad[r, b // 32] |= bit - (1 << 32) if bit >> 31 else bit
+    return len(sites), min(b * R + rows_h[r] for r, b in sites)
+
+
+@pytest.mark.cuda
+def test_verdict_fold_at_the_check_shapes_on_card(cuda):
+    """Sparse faults at the benchmark's fold shapes: sha256's xor family
+    [13,584, 65,536] words and blake2s's big rows' [46, 2^21] mask, held to
+    the planted verdict and to the plain version (on the rows with a
+    fault: the others add nothing)."""
+    rng = np.random.default_rng(0x5EED_0F03)
+    R = 26_352
+    for shape, dtype in (((13_584, 65_536), torch.int32), ((46, 1 << 21), torch.bool)):
+        n = shape[0]
+        n_inst = shape[1] * (32 if dtype == torch.int32 else 1)
+        rows_h = sorted(rng.choice(R, n, replace=False).tolist())
+        rows = torch.tensor(rows_h, dtype=torch.int64, device=cuda)
+        sites = {(int(rng.integers(n)), int(rng.integers(n_inst))) for _ in range(64)}
+        bad = torch.zeros(shape, dtype=dtype, device=cuda)
+        want = _planted_verdict(bad, sites, rows_h, R)
+        got = tuple(fk.verdict_fold(fk.verdict_acc(cuda), bad, rows, R).tolist())
+        hit = torch.tensor(sorted({r for r, _b in sites}), device=cuda)
+        plain = fk.verdict_fold_plain(fk.verdict_acc(cuda), bad[hit], rows[hit], R, n_inst)
+        assert got == tuple(plain.tolist()) == want
+        del bad
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_verdict_fold_64bit_indexing_on_card(cuda):
+    """n·Bw ≥ 2^31 words, faults only past word 2^31: the vector path (the
+    whole rows) and the scalar path (a column slice, n·(Bw − 1) ≥ 2^31
+    words too)."""
+    n, Bw, R = 32_770, 65_536, 40_000
+    rows_h = list(range(n))
+    rows = torch.arange(n, dtype=torch.int64, device=cuda)
+    words = torch.zeros((n, Bw), dtype=torch.int32, device=cuda)
+    sites = {(n - 1, 32 * Bw - 1), (n - 1, 32 * 5 + 31), (n - 2, 32 * 40_000 + 3)}
+    want = _planted_verdict(words, sites, rows_h, R)
+    assert (n - 2) * Bw >= 1 << 31
+    got = tuple(fk.verdict_fold(fk.verdict_acc(cuda), words, rows, R).tolist())
+    hit = torch.tensor([n - 2, n - 1], device=cuda)
+    plain = fk.verdict_fold_plain(fk.verdict_acc(cuda), words[hit], rows[hit], R, 32 * Bw)
+    assert got == tuple(plain.tolist()) == want
+    sl = words[:, 1:]  # scalar loads: the pointer is 4 bytes past a 16-byte boundary
+    want_sl = (3, min((b - 32) * R + r for r, b in sites))
+    got_sl = tuple(fk.verdict_fold(fk.verdict_acc(cuda), sl, rows, R).tolist())
+    assert got_sl == want_sl
+    del words, sl
+    torch.cuda.empty_cache()

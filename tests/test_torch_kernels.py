@@ -281,9 +281,12 @@ def test_wrappers_use_plain_version_on_cpu():
     assert torch.equal(fk.reduce_digits(d, SCALAR), fk.reduce_digits_plain(d, SCALAR))
     x = from_numpy_u32(RNG.integers(1, 100, size=(8, 50)).astype(np.uint32))
     assert torch.equal(op_rate.op_rate(x, "u32_mul", 3), op_rate.op_rate_plain(x, "u32_mul", 3))
+    w, rows = from_numpy_u32(_u32((6, 5))), torch.arange(6) * 3
+    acc = fk.verdict_fold(fk.verdict_acc("cpu"), w, rows, 20, 150)
+    assert torch.equal(acc, fk.verdict_fold_plain(fk.verdict_acc("cpu"), w, rows, 20, 150))
     assert fk.launch_counts() == {k: 0 for k in fk.KERNELS} and op_rate.op_rate.launches == 0
     assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
-                          "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical")
+                          "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold")
 
 
 def test_wrappers_check_their_inputs():
