@@ -908,15 +908,21 @@ class MixedCheck:
         """verdict on vals int32[S_t, B], flimbs int32[F, 16, B]; no host
         sync."""
         self._check_args(vals_p, flimbs_p, True)
-        dev = vals_p.device
-        nb = torch.zeros((), dtype=torch.int64, device=dev)
-        first = torch.full((), NONE, dtype=torch.int64, device=dev)
-        binst = torch.arange(vals_p.shape[1], dtype=torch.int64, device=dev) * self.R
-        if self.R:
-            for bad, rows in zip(self._class_bads(vals_p, flimbs_p), [r for r in self.rows if r.numel()]):
-                nb = nb + bad.sum()
-                first = torch.minimum(first, torch.where(bad, binst[None, :] + rows[:, None], NONE).min())
-        return nb, torch.where(first == NONE, SENTINEL, first)
+        with profiling.span("check"):
+            bads = []
+            for name, n in zip(ROW_CLASSES, self.counts):
+                if n:
+                    with profiling.span("check." + name):
+                        bads.append(self.class_bad(name, vals_p, flimbs_p))
+            with profiling.span("check.verdict"):
+                dev = vals_p.device
+                nb = torch.zeros((), dtype=torch.int64, device=dev)
+                first = torch.full((), NONE, dtype=torch.int64, device=dev)
+                binst = torch.arange(vals_p.shape[1], dtype=torch.int64, device=dev) * self.R
+                for bad, rows in zip(bads, [r for r in self.rows if r.numel()]):
+                    nb = nb + bad.sum()
+                    first = torch.minimum(first, torch.where(bad, binst[None, :] + rows[:, None], NONE).min())
+                return nb, torch.where(first == NONE, SENTINEL, first)
 
 
 def build_templated_check(template: R1CS, batch: int, use_pallas: bool, witness_form: str = "limbs",

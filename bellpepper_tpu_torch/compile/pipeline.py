@@ -86,30 +86,30 @@ def build_production_step(prog, template: R1CS, batch: int, use_pallas: Optional
         check = build_templated_check(template, batch, use_pallas, witness_form, device=device)
     evaluator = prog.build(use_pallas, device=device)
     span = batch * template.num_constraints
-    n_fr, n_ff = prog.n_field_rows, len(prog.free_field_slots)
+    n_ff = len(prog.free_field_slots)
 
     def chunk_verdict(fb, ff):
+        if witness_form == "mixed":  # flimbs in field_slots order: the rows, then the free inputs
+            return check.verdict_slot_major(*evaluator.slot_major(fb, ff, free_rows=True))
         vals, flimbs = evaluator.slot_major(fb, ff)
-        free_T = ff.permute(1, 2, 0) if n_ff else None
         if witness_form == "bits":
             return check.verdict_slot_major(vals)
-        if witness_form == "limbs":
-            return check.verdict_slot_major(prog.z_template_limbs_slot_major(vals, flimbs, free_T))
-        if n_ff:
-            flimbs = torch.cat([flimbs[:n_fr], free_T])
-        return check.verdict_slot_major(vals, flimbs)
+        free_T = ff.permute(1, 2, 0) if n_ff else None
+        return check.verdict_slot_major(prog.z_template_limbs_slot_major(vals, flimbs, free_T))
 
     def step(free_bits: torch.Tensor, free_field=None):
         if free_bits.dim() != 3 or free_bits.shape[1] != batch:
             raise ValueError(
                 f"free_bits must be [n_chunks, {batch}, n_free], got {tuple(free_bits.shape)}"
             )
-        nbs, firsts = [], []
-        for k, fb in enumerate(free_bits):
-            nb, first = chunk_verdict(fb, None if free_field is None else free_field[k])
-            nbs.append(nb)
-            firsts.append(torch.where(nb > 0, first, 0))
-        return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
+        with profiling.span("step"):
+            nbs, firsts = [], []
+            for k, fb in enumerate(free_bits):
+                nb, first = chunk_verdict(fb, None if free_field is None else free_field[k])
+                nbs.append(nb)
+                firsts.append(torch.where(nb > 0, first, 0))
+            with profiling.span("step.aggregate"):
+                return _aggregate(torch.stack(nbs), torch.stack(firsts), span)
 
     return step
 

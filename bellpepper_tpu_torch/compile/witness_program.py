@@ -227,22 +227,30 @@ class WitnessProgram:
     """A compiled witness tape: any object with ``.field`` and
     ``.snapshot()`` → (num_inputs, num_aux, ops, free_slots), such as a
     ``tape.TapeCS`` that recorded a circuit of the port's gadgets, or the
-    native builder's tape."""
+    native builder's tape.
 
-    def __init__(self, tape):
+    A free slot is a free field input when a field op reads it, else a u32
+    slot. `field_inputs` names free slots that hold field values though only
+    rows read them, such as a step circuit's z_in (Nova's MinRoot reads x_0
+    and y_0 in its first rows alone): they become free field inputs too."""
+
+    def __init__(self, tape, *, field_inputs=()):
         self.field = tape.field
         self.num_inputs, self.num_aux, ops, self.free_slots = tape.snapshot()
         self.num_slots = self.num_inputs + self.num_aux
         self._evals = {}  # run()'s evaluators, one a device, built at their first call
-        self._compile(ops)
+        self._compile(ops, field_inputs)
 
-    def _compile(self, op_list: List[Op]) -> None:
+    def _compile(self, op_list: List[Op], field_inputs=()) -> None:
         free_set = set(self.free_slots)
+        not_free = sorted(set(field_inputs) - free_set)
+        if not_free:
+            raise ValueError(f"field_inputs must be free slots; {not_free[:8]} are not")
         field_out = {o for op in op_list if op.opcode in FIELD_OUT_OPS for o in op.outs}
         self._field_out = field_out
         self.field_rows: Dict[int, int] = {s: i for i, s in enumerate(sorted(field_out))}
         field_rows = self.field_rows
-        field_consumed = set()
+        field_consumed = set(field_inputs)
 
         # Levels: free slots (and ONE) are level 0; resolved
         # topologically (Kahn), since recording order may put a
@@ -563,6 +571,7 @@ class Evaluator:
         self.F = max(prog.n_field_rows, 1)
         self.n_free = len(prog.free_slots)
         self.n_free_field = len(prog.free_field_slots)
+        self.n_field_rows = prog.n_field_rows
         self.free_slots = _dev(prog.free_slots, device)
         field_lcs = any(st.opcode in ("num_iszero", "num_inv_or_one") for st in prog.stages)
         self.be = get_backend(self.field) if prog.n_field_rows or prog.free_field_slots or field_lcs else None
@@ -676,92 +685,119 @@ class Evaluator:
         lm = lambda x: x.transpose(0, 1).reshape(16, W * B)  # noqa: E731
         return fk.mul(lm(a), lm(b), self.field).reshape(16, W, B).transpose(0, 1)
 
-    def slot_major(self, free_bits: torch.Tensor, free_field=None):
+    def slot_major(self, free_bits: torch.Tensor, free_field=None, *, free_rows: bool = False):
         """free_bits int32[B, n_free], free_field int32[B, nf, 16] or None
-        → (vals int32[S, B], flimbs int32[F, 16, B])."""
+        → (vals int32[S, B], flimbs int32[F, 16, B]). With `free_rows`,
+        flimbs holds the field rows and then the free field inputs, n_field_rows
+        + nf rows in the mixed check's ``field_slots`` order, the inputs
+        written there once instead of copied beside the rows."""
         if free_bits.dim() != 2 or free_bits.dtype != torch.int32 or free_bits.shape[1] != self.n_free:
             raise ValueError(
                 f"free_bits must be int32[B, {self.n_free}], got "
                 f"{free_bits.dtype}{tuple(free_bits.shape)}"
             )
+        if self.n_free_field and (free_field is None or tuple(free_field.shape) != (free_bits.shape[0],
+                                                                                     self.n_free_field, 16)):
+            raise ValueError(f"free_field must be int32[B, {self.n_free_field}, 16]")
+        with profiling.span("witness"):
+            with profiling.span("witness.init"):
+                vals, flimbs, free_T = self._init(free_bits, free_field, free_rows)
+            if profiling.is_tracing():
+                for oc, meta, t in self.plan:
+                    with profiling.span("witness." + oc):
+                        self._stage(vals, flimbs, free_T, oc, meta, t)
+            else:
+                for oc, meta, t in self.plan:
+                    self._stage(vals, flimbs, free_T, oc, meta, t)
+        return vals, flimbs
+
+    def _init(self, free_bits, free_field, free_rows: bool):
+        """The value buffer with ONE and the free slots, the limb buffer,
+        and the free field inputs slot-major (a view of the limb buffer's
+        tail with `free_rows`)."""
         B = free_bits.shape[0]
         dev = free_bits.device
         vals = torch.zeros((self.num_slots, B), dtype=torch.int32, device=dev)
         vals[0] = 1  # ONE
         if self.n_free:
             vals.index_copy_(0, self.free_slots, free_bits.t())
-        flimbs = torch.zeros((self.F, 16, B), dtype=torch.int32, device=dev)
+        n_fr, n_ff = self.n_field_rows, self.n_free_field
+        flimbs = torch.zeros((n_fr + n_ff if free_rows else self.F, 16, B), dtype=torch.int32, device=dev)
         free_T = None
-        if self.n_free_field:
-            if free_field is None or tuple(free_field.shape) != (B, self.n_free_field, 16):
-                raise ValueError(f"free_field must be int32[B, {self.n_free_field}, 16]")
-            free_T = free_field.permute(1, 2, 0).contiguous()
+        if n_ff:
+            free_T = flimbs[n_fr:] if free_rows else torch.empty((n_ff, 16, B), dtype=torch.int32, device=dev)
+            free_T.copy_(free_field.permute(1, 2, 0))
+        return vals, flimbs, free_T
+
+    def _stage(self, vals, flimbs, free_T, oc, meta, t):
+        """Run one stage of the plan: its outputs into `vals` and, for a
+        field op, into `flimbs`."""
+        B = vals.shape[1]
+        dev = vals.device
 
         def write_field(t, r):
             flimbs.index_copy_(0, t["outs"], r)
             vals.index_copy_(0, t["out_slots"], _low32(r))
 
-        for oc, meta, t in self.plan:
-            if oc == "chain":
-                x0 = flimbs[t["init"]]
-                ext = (flimbs.index_select(0, t["ext"]).reshape(-1, B) if t["ext"] is not None
-                       else torch.zeros_like(x0))
-                out = fk.chain(x0, ext, meta["descs"], meta["n_reps"], self.field)
-                write_field(t, out.reshape(-1, 16, B))
-            elif oc in ("xor", "and", "and_not", "nor"):
-                a = vals.index_select(0, t["a"])
-                b = vals.index_select(0, t["b"])
-                r = (a ^ b if oc == "xor" else a & b if oc == "and"
-                     else a & (b ^ 1) if oc == "and_not" else (a ^ 1) & (b ^ 1))
-                vals.index_copy_(0, t["outs"], r)
-            elif oc in ("ch", "maj"):
-                a, b, c = (self._bviews(vals, t[p]) for p in ("a", "b", "c"))
-                r = (a & b) ^ ((a ^ 1) & c) if oc == "ch" else (a & b) ^ (a & c) ^ (b & c)
-                vals.index_copy_(0, t["outs"], r)
-            elif oc == "addmany":
-                r = _addmany_u32(self._bviews(vals, t["v"]), meta[1])
-                vals.index_copy_(0, t["outs"], r.reshape(-1, B))
-            elif oc in ("fadd", "fmul"):
-                a = t["fa"](vals, flimbs, free_T)
-                b = t["fb"](vals, flimbs, free_T)
-                write_field(t, self.be.add(a, b, dim=1) if oc == "fadd" else self._fmul(a, b))
-            elif oc == "finv":
-                write_field(t, self.be.inv(t["fa"](vals, flimbs, free_T), dim=1))
-            elif oc == "copy":
-                write_field(t, t["fa"](vals, flimbs, free_T))
-            elif oc == "select":
-                cond = self._bviews(vals, t["c"])  # [W, B]
-                x = t["x"](vals, flimbs, free_T)
-                y = t["y"](vals, flimbs, free_T)
-                write_field(t, torch.where((cond == 1)[:, None, :], x, y))
-            elif oc == "pack":
-                write_field(t, _pack_limbs(self._bviews(vals, t["v"]), meta))
-            elif oc == "lookup":
-                bv = to_u32(self._bviews(vals, t["v"]))  # [W, nb, B]
-                w = 1 << torch.arange(meta, dtype=torch.int64, device=dev)
-                sel = ((bv * w[None, :, None]).sum(1) & U32).clamp(max=(1 << meta) - 1)
-                base = torch.arange(bv.shape[0], device=dev)[:, None] << meta
-                r = t["table"].index_select(0, (base + sel).reshape(-1))
-                write_field(t, to_i32(r.reshape(bv.shape[0], B, 16).transpose(1, 2)))
-            elif oc == "fbits_le":
-                a = t["fa"](vals, flimbs, free_T)
-                bits = [(a[:, k // 16] >> (k % 16)) & 1 for k in range(meta)]
-                vals.index_copy_(0, t["outs"], torch.stack(bits, dim=1).reshape(-1, B))
-            elif oc in ("num_iszero", "num_inv_or_one"):
-                # the sum in the field (the reference sums the slots' low 32
-                # bits in uint32, which gives a witness its rows reject once
-                # a term is field-valued or the sum wraps)
-                s = self._lc_field(t, vals, flimbs, free_T)
-                zero = (s == 0).all(dim=1)  # [W, B]
-                if oc == "num_iszero":
-                    vals.index_copy_(0, t["outs"], zero.to(torch.int32))
-                else:
-                    inv = self.be.inv(s, dim=1)
-                    inv[:, 0] |= zero.to(torch.int32)  # the inverse of 0 is 0: one instead
-                    write_field(t, inv)
-            else:  # pragma: no cover
-                raise AssertionError(oc)
-        return vals, flimbs
+        if oc == "chain":
+            x0 = flimbs[t["init"]]
+            ext = (flimbs.index_select(0, t["ext"]).reshape(-1, B) if t["ext"] is not None
+                   else torch.zeros_like(x0))
+            out = fk.chain(x0, ext, meta["descs"], meta["n_reps"], self.field)
+            write_field(t, out.reshape(-1, 16, B))
+        elif oc in ("xor", "and", "and_not", "nor"):
+            a = vals.index_select(0, t["a"])
+            b = vals.index_select(0, t["b"])
+            r = (a ^ b if oc == "xor" else a & b if oc == "and"
+                 else a & (b ^ 1) if oc == "and_not" else (a ^ 1) & (b ^ 1))
+            vals.index_copy_(0, t["outs"], r)
+        elif oc in ("ch", "maj"):
+            a, b, c = (self._bviews(vals, t[p]) for p in ("a", "b", "c"))
+            r = (a & b) ^ ((a ^ 1) & c) if oc == "ch" else (a & b) ^ (a & c) ^ (b & c)
+            vals.index_copy_(0, t["outs"], r)
+        elif oc == "addmany":
+            r = _addmany_u32(self._bviews(vals, t["v"]), meta[1])
+            vals.index_copy_(0, t["outs"], r.reshape(-1, B))
+        elif oc in ("fadd", "fmul"):
+            a = t["fa"](vals, flimbs, free_T)
+            b = t["fb"](vals, flimbs, free_T)
+            write_field(t, self.be.add(a, b, dim=1) if oc == "fadd" else self._fmul(a, b))
+        elif oc == "finv":
+            write_field(t, self.be.inv(t["fa"](vals, flimbs, free_T), dim=1))
+        elif oc == "copy":
+            write_field(t, t["fa"](vals, flimbs, free_T))
+        elif oc == "select":
+            cond = self._bviews(vals, t["c"])  # [W, B]
+            x = t["x"](vals, flimbs, free_T)
+            y = t["y"](vals, flimbs, free_T)
+            write_field(t, torch.where((cond == 1)[:, None, :], x, y))
+        elif oc == "pack":
+            write_field(t, _pack_limbs(self._bviews(vals, t["v"]), meta))
+        elif oc == "lookup":
+            bv = to_u32(self._bviews(vals, t["v"]))  # [W, nb, B]
+            w = 1 << torch.arange(meta, dtype=torch.int64, device=dev)
+            sel = ((bv * w[None, :, None]).sum(1) & U32).clamp(max=(1 << meta) - 1)
+            base = torch.arange(bv.shape[0], device=dev)[:, None] << meta
+            r = t["table"].index_select(0, (base + sel).reshape(-1))
+            write_field(t, to_i32(r.reshape(bv.shape[0], B, 16).transpose(1, 2)))
+        elif oc == "fbits_le":
+            a = t["fa"](vals, flimbs, free_T)
+            bits = [(a[:, k // 16] >> (k % 16)) & 1 for k in range(meta)]
+            vals.index_copy_(0, t["outs"], torch.stack(bits, dim=1).reshape(-1, B))
+        elif oc in ("num_iszero", "num_inv_or_one"):
+            # the sum in the field (the reference sums the slots' low 32
+            # bits in uint32, which gives a witness its rows reject once
+            # a term is field-valued or the sum wraps)
+            s = self._lc_field(t, vals, flimbs, free_T)
+            zero = (s == 0).all(dim=1)  # [W, B]
+            if oc == "num_iszero":
+                vals.index_copy_(0, t["outs"], zero.to(torch.int32))
+            else:
+                inv = self.be.inv(s, dim=1)
+                inv[:, 0] |= zero.to(torch.int32)  # the inverse of 0 is 0: one instead
+                write_field(t, inv)
+        else:  # pragma: no cover
+            raise AssertionError(oc)
 
     def __call__(self, free_bits: torch.Tensor, free_field=None):
         """The reference's batch-major layout: (vals int32[B, S], flimbs

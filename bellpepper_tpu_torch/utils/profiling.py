@@ -16,7 +16,12 @@ The tracer records spans at the layer boundaries of the packed step:
 (``PackedEvaluator.slot_major``), ``check``, ``check.families`` with one
 ``check.family.<kind>`` a family, ``check.leftover``, ``check.pow2``,
 ``check.big``, ``check.fallback`` and ``check.fold``
-(``PackedBitsCheck.verdict_slot_major``). It is off unless a block runs
+(``PackedBitsCheck.verdict_slot_major``); and under the same names at
+those of the field path's step (``build_production_step``): ``witness``,
+``witness.init`` and ``witness.<opcode>`` (``Evaluator.slot_major``),
+``check``, one ``check.<class>`` a non-empty row class (``bool_u32``,
+``lin``, ``mul``, ``pow2``, ``rest``) and ``check.verdict``
+(``MixedCheck.verdict_slot_major``). It is off unless a block runs
 under ``tracing()``; off, a span site costs one flag test and records,
 allocates and synchronizes nothing. On, each span keeps its name, its
 parent, the id of its root span (one a step, or one a verdict when the
