@@ -1,10 +1,10 @@
 """What the templated checks share: the verdict's sentinel values, the
 rule between the semi-reduced and the canonical product compare, and the
-limb operands of rows of a few ±1 terms (the reference's _operand_spec),
-assembled in 16-bit limbs and compared through ``mulcmp`` (at least 250
-bits) or canonicalized and compared through ``mul`` (below 250 bits). The
-mixed check (``matvec``) and the limbs checks (``limbs``) both use
-them."""
+limb operands of rows of a few ±1 terms (the reference's _operand_spec):
+product rows go through ``operand_mulcmp``, which assembles and compares
+them in one kernel (at least 250 bits), or are assembled in 16-bit limbs,
+canonicalized and compared through ``mul`` (below 250 bits). The mixed
+check (``matvec``) and the limbs checks (``limbs``) both use them."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .field_consts import L16, SEMI, _digits
-from .field_kernels import NONE, _cond_sub_rows, _signed_carry, mul, mulcmp
+from .field_kernels import NONE, OperandTable, _cond_sub_rows, assemble_operand, mul, operand_mulcmp
 from .layout import FIELD_SRC
 from .words import device_table as _t, to_i32, to_u32
 
@@ -44,19 +44,6 @@ def _limb_rows(const_limbs, device) -> torch.Tensor:
     return _t(const_limbs, device).reshape(1, -1, 1)
 
 
-def _neg_const(x: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
-    """const − x in 16-bit limbs along dim 1, the last borrow dropped (x ≤
-    const; int64 [n, L, B] and [1, L, 1])."""
-    return torch.stack(_signed_carry((const - x).transpose(0, 1))[0], dim=1)
-
-
-def _carry_limbs(x: torch.Tensor) -> torch.Tensor:
-    """Carry to 16-bit limbs along dim 1, the last carry dropped (limbs of
-    the assembled operands stay far below 2^31, where the reference's
-    uint32 sums never wrap)."""
-    return torch.stack(_signed_carry(x.transpose(0, 1))[0], dim=1)
-
-
 class _Operand:
     """Static tables of one operand of a list of trivial rows (the
     reference's _operand_spec): const limbs, up to two field-source terms
@@ -82,6 +69,7 @@ class _Operand:
                 else:
                     u_col[w, nu], u_on[w, nu], u_neg[w, nu] = idx, True, ng
                     nu += 1
+        self.host = dict(const=const, f_idx=f_idx, f_on=f_on, f_neg=f_neg, u_col=u_col, u_on=u_on, u_neg=u_neg)
         self.max_f = int(f_on.any(axis=0).sum()) if n else 0
         self.max_u = int(u_on.any(axis=0).sum()) if n else 0
         # every row one positive field term and no constant: the gathered
@@ -105,20 +93,9 @@ class _Operand:
         if self.fast_single_field:
             x = to_u32(flimbs_p.index_select(0, self.f_idx[0]))
             return torch.nn.functional.pad(x, (0, 0, 0, 1))
-        B = flimbs_p.shape[-1]
-        acc = self.const.expand(-1, -1, B)
-        for t in range(self.max_f):
-            x = torch.nn.functional.pad(to_u32(flimbs_p.index_select(0, self.f_idx[t])), (0, 0, 0, 1))
-            term = torch.where(self.f_neg[t], _neg_const(x, p17), x)
-            acc = acc + torch.where(self.f_on[t], term, 0)
-        for t in range(self.max_u):
-            v = to_u32(vals_p.index_select(0, self.u_col[t]))  # [n, B]
-            x = torch.zeros_like(acc)
-            x[:, 0] = v & 0xFFFF
-            x[:, 1] = v >> 16
-            term = torch.where(self.u_neg[t], _neg_const(x, p17), x)
-            acc = acc + torch.where(self.u_on[t], term, 0)
-        return _carry_limbs(acc)
+        f_terms = list(zip(self.f_idx, self.f_on, self.f_neg))[: self.max_f]
+        u_terms = list(zip(self.u_col, self.u_on, self.u_neg))[: self.max_u]
+        return assemble_operand(self.const, f_terms, u_terms, vals_p, flimbs_p, p17)
 
 
 def _canon_operand(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -131,16 +108,25 @@ def _canon_operand(x: torch.Tensor, p: int) -> torch.Tensor:
     return to_i32(torch.stack(rows[:L16]).reshape(L16, -1)).contiguous()
 
 
-def _product_bad(ops, vals_p, flimbs_p, p17, field) -> torch.Tensor:
+class Products:
+    """The operands (a, b, c) of a list of trivial product rows: their
+    ``_Operand`` tables and, where products compare semi-reduced
+    (``semi_ok``), the same tables packed for ``operand_mulcmp``."""
+
+    def __init__(self, rows_specs, field, device):
+        self.ops = [_Operand(rows_specs, oi, device) for oi in range(3)]
+        self.n = self.ops[0].n
+        self.table = OperandTable([o.host for o in self.ops], device) if semi_ok(field) else None
+
+
+def _product_bad(prods: Products, vals_p, flimbs_p, p17, field) -> torch.Tensor:
     """bool[n, B]: a·b ≢ c (mod p) for the operands (a, b, c) of n trivial
-    rows, assembled, then compared by ``mulcmp`` (``semi_ok``) or made
-    canonical and compared with ``mul``'s product (the reference's route
-    without mulcmp, ``matvec.py:1492-1496``, ``:1902-1909``)."""
-    n, B = ops[0].n, flimbs_p.shape[-1]
-    # one operand's int64 limbs at a time
-    if semi_ok(field):
-        a, b, c = (to_i32(o.assemble(vals_p, flimbs_p, p17).transpose(0, 1).reshape(SEMI, n * B)).contiguous()
-                   for o in ops)
-        return (mulcmp(a, b, c, field) != 0).reshape(n, B)
-    a, b, c = (_canon_operand(o.assemble(vals_p, flimbs_p, p17), field.p) for o in ops)
+    rows: assembled and compared by ``operand_mulcmp`` (``semi_ok``), or
+    assembled, made canonical and compared with ``mul``'s product (the
+    reference's route without mulcmp, ``matvec.py:1492-1496``,
+    ``:1902-1909``)."""
+    if prods.table is not None:
+        return operand_mulcmp(prods.table, flimbs_p.contiguous(), vals_p, field)
+    n, B = prods.n, flimbs_p.shape[-1]
+    a, b, c = (_canon_operand(o.assemble(vals_p, flimbs_p, p17), field.p) for o in prods.ops)
     return (mul(a, b, field) != c).any(0).reshape(n, B)

@@ -25,6 +25,10 @@ the ported paths, each a CUDA kernel in ``csrc/``:
   ``verdict_fold``              no Pallas kernel: the jnp fold of
                                 ``matvec.py`` ``verdict_packed`` (:3002),
                                 which XLA fuses into one reduction
+  ``operand_mulcmp``            no Pallas kernel: the jnp operand assembly
+                                of the trivial product rows (``matvec.py``
+                                ``_operand_spec``, :1686), which XLA fuses,
+                                feeding ``make_mulcmp``
   ============================  ==========================================
 
 ``bits_matvec_semi``, ``bits_matvec_canonical`` and ``limbs_matvec``
@@ -61,7 +65,8 @@ from .field_consts import L8, L16, SEMI, _digits, consts_for, kernel_consts
 from .words import FULL, U32, ctz32, popcount32, to_i32, to_u32, unpack_rows
 
 KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
-           "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold")
+           "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold",
+           "operand_mulcmp")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -582,6 +587,112 @@ mulcmp.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The product rows' operands and mul-compare in one pass (no Pallas
+# counterpart: the reference's jnp operand assembly, fused by XLA, feeding
+# make_mulcmp)
+# ---------------------------------------------------------------------------
+DESC_WORDS = 18  # csrc/operand_mulcmp.cu kDescWords: 3 operands × 6 words
+
+
+class OperandTable:
+    """The operands (a, b, c) of n product rows packed for
+    ``operand_mulcmp``. Each operand is a constant plus up to two field
+    terms and up to two u32 terms, each with a sign (the tables of
+    ``check_common._Operand``, given as numpy arrays: ``const`` int64[n,
+    17] 16-bit limbs, ``f_idx``, ``u_col`` int64[n, 2], ``f_on``,
+    ``f_neg``, ``u_on``, ``u_neg`` bool[n, 2]).
+
+    ``desc`` int32[n, 18]: per row and operand six words, flags (bit t
+    on, bit 4 + t negated, for the field terms t = 0, 1 and the u32 terms
+    t = 2, 3), the constant's id in ``consts``, the two field terms'
+    limb-buffer rows and the two u32 terms' value rows (0 where off).
+    ``consts`` int32[K, 9]: the distinct constants as 32-bit words (word 8
+    holds limb 16), the zero constant first. ``f_max`` and ``u_max``: the
+    largest row each kind of term reads (−1 for none)."""
+
+    def __init__(self, operands, device):
+        n = self.n = len(operands[0]["const"])
+        const = np.concatenate([np.zeros((1, SEMI), np.int64)] + [o["const"] for o in operands])
+        uniq, cid = np.unique(const, axis=0, return_inverse=True)  # the zero row sorts first
+        cid = cid.reshape(-1)[1:].reshape(3, n)
+        desc = np.zeros((n, 3, 6), np.int64)
+        self.f_max = self.u_max = -1
+        for o, op in enumerate(operands):
+            on = np.concatenate([op["f_on"], op["u_on"]], axis=1).astype(np.int64)
+            neg = np.concatenate([op["f_neg"], op["u_neg"]], axis=1) & (on != 0)
+            idx = np.where(on != 0, np.concatenate([op["f_idx"], op["u_col"]], axis=1), -1)
+            desc[:, o, 0] = (on << np.arange(4)).sum(1) | (neg << np.arange(4, 8)).sum(1)
+            desc[:, o, 1] = cid[o]
+            desc[:, o, 2:] = np.maximum(idx, 0)
+            self.f_max = max(self.f_max, int(idx[:, :2].max(initial=-1)))
+            self.u_max = max(self.u_max, int(idx[:, 2:].max(initial=-1)))
+        if desc.max(initial=0) > 0x7FFFFFFF:
+            raise ValueError("operand tables index at most 2^31 rows")
+        words = uniq[:, 0:16:2] | (uniq[:, 1:16:2] << 16)
+        consts = np.concatenate([words, uniq[:, 16:]], axis=1).astype(np.uint32)
+        self.desc = torch.from_numpy(desc.reshape(n, DESC_WORDS).astype(np.int32)).to(device)
+        self.consts = torch.from_numpy(consts.view(np.int32)).to(device)
+
+
+def operand_mulcmp(table: OperandTable, flimbs_p: torch.Tensor, vals_p, field: PrimeField) -> torch.Tensor:
+    """bool[n, B]: a·b ≢ c (mod p) for the operands of `table`'s n rows,
+    each assembled from canonical limbs flimbs_p int32[F, 16, B] and u32
+    values vals_p int32[S, B] (None where the table has no u32 term).
+    Needs 250 ≤ field.NUM_BITS ≤ 256, as ``mulcmp``."""
+    if not 250 <= field.NUM_BITS <= 256:
+        raise ValueError("operand_mulcmp needs 2^249 ≤ p < 2^256")
+    if flimbs_p.dim() != 3 or flimbs_p.shape[1] != L16:
+        raise ValueError(f"flimbs_p must be [F, 16, B], got {tuple(flimbs_p.shape)}")
+    _check_words("flimbs_p", flimbs_p)
+    F, _, B = flimbs_p.shape
+    if table.f_max >= F:
+        raise ValueError(f"the table reads limb row {table.f_max}, flimbs_p has {F}")
+    ts = [table.desc, table.consts, flimbs_p]
+    if vals_p is not None:
+        if vals_p.dim() != 2 or vals_p.shape[1] != B:
+            raise ValueError(f"vals_p must be [S, {B}], got {tuple(vals_p.shape)}")
+        _check_words("vals_p", vals_p)
+        ts.append(vals_p)
+    if table.u_max >= (0 if vals_p is None else vals_p.shape[0]):
+        raise ValueError(f"the table reads u32 row {table.u_max}: vals_p is missing or short")
+    if not _on_cuda(*ts):
+        return operand_mulcmp_plain(table, flimbs_p, vals_p, field)
+    out = torch.empty((table.n, B), dtype=torch.bool, device=flimbs_p.device)
+    if table.n and B:
+        k = kernel_consts(field)["mulcmp"]
+        _launch("bp_operand_mulcmp", table.desc.data_ptr(), table.consts.data_ptr(), flimbs_p.data_ptr(),
+                None if vals_p is None else vals_p.data_ptr(), out.data_ptr(), table.n, B, k.ctypes.data,
+                stream=_stream(flimbs_p))
+        operand_mulcmp.launches += 1
+    return out
+
+
+def operand_mulcmp_plain(table: OperandTable, flimbs_p: torch.Tensor, vals_p, field: PrimeField) -> torch.Tensor:
+    """Plain version: the eager route. The table's terms read back as
+    tensors, each operand assembled by ``assemble_operand`` in int64
+    [n, 17, B], copied limb-major, then ``mulcmp_plain``."""
+    n, B = table.n, flimbs_p.shape[-1]
+    if not (n and B):
+        return torch.zeros((n, B), dtype=torch.bool, device=flimbs_p.device)
+    d = table.desc.to(torch.int64).reshape(n, 3, 6)
+    w = to_u32(table.consts)
+    const = torch.stack([w & 0xFFFF, w >> 16], 2).reshape(-1, 18)[:, :SEMI, None]  # [K, 17, 1] limbs
+    p17 = _table(field.p, "p17", _digits(field.p, 16, SEMI), d.device).reshape(1, SEMI, 1)
+    operands = []
+    for o in range(3):
+        flags = d[:, o, 0]
+        terms = [(d[:, o, 2 + t], ((flags >> t) & 1 != 0)[:, None, None],
+                  ((flags >> (4 + t)) & 1 != 0)[:, None, None]) for t in range(4)]
+        x = assemble_operand(const.index_select(0, d[:, o, 1]), terms[:2], terms[2:] if vals_p is not None else [],
+                             vals_p, flimbs_p, p17)
+        operands.append(to_i32(x.transpose(0, 1).reshape(SEMI, n * B)).contiguous())
+    return (mulcmp_plain(*operands, field) != 0).reshape(n, B)
+
+
+operand_mulcmp.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The packed check's verdict fold (no Pallas counterpart: the reference's
 # jnp fold in verdict_packed, which XLA fuses)
 # ---------------------------------------------------------------------------
@@ -740,6 +851,39 @@ def _signed_carry(d: torch.Tensor) -> tuple:
         out.append(tot & 0xFFFF)
         carry = tot >> 16
     return out, carry
+
+
+def _neg_const(x: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
+    """const − x in 16-bit limbs along dim 1, the last borrow dropped (x ≤
+    const; int64 [n, L, B] and [1, L, 1])."""
+    return torch.stack(_signed_carry((const - x).transpose(0, 1))[0], dim=1)
+
+
+def _carry_limbs(x: torch.Tensor) -> torch.Tensor:
+    """Carry to 16-bit limbs along dim 1, the last carry dropped (limbs of
+    the assembled operands stay far below 2^31, where the reference's
+    uint32 sums never wrap)."""
+    return torch.stack(_signed_carry(x.transpose(0, 1))[0], dim=1)
+
+
+def assemble_operand(const, f_terms, u_terms, vals_p, flimbs_p, p17) -> torch.Tensor:
+    """int64[n, 17, B]: an operand of n rows (a value below 4p) in 16-bit
+    limbs, const int64[n, 17, 1] plus each term (idx int64[n], on and neg
+    bool[n, 1, 1]) where on: a field term's canonical limbs flimbs_p[idx]
+    ([F, 16, B]), a u32 term's value vals_p[idx] ([S, B]) as two limbs,
+    p17 − x where negated; the sum carried, its last carry dropped."""
+    B = flimbs_p.shape[-1]
+    acc = const.expand(-1, -1, B)
+    for idx, on, neg in f_terms:
+        x = torch.nn.functional.pad(to_u32(flimbs_p.index_select(0, idx)), (0, 0, 0, 1))
+        acc = acc + torch.where(on, torch.where(neg, _neg_const(x, p17), x), 0)
+    for idx, on, neg in u_terms:
+        v = to_u32(vals_p.index_select(0, idx))  # [n, B]
+        x = torch.zeros_like(acc)
+        x[:, 0] = v & 0xFFFF
+        x[:, 1] = v >> 16
+        acc = acc + torch.where(on, torch.where(neg, _neg_const(x, p17), x), 0)
+    return _carry_limbs(acc)
 
 
 def _cond_sub_rows(x: List[torch.Tensor], ps: List[int]) -> List[torch.Tensor]:

@@ -17,7 +17,7 @@ Counterpart of the limbs route of ``bellpepper_tpu/backend/matvec.py``:
         coefficient, bucket row sums, ``reduce_digits``, ``mul``, compare.
   * ``TrivialLimbsCheck``: ``_build_trivial_limbs_check`` (``:1349-1504``):
     booleanity rows as a limb compare, rows of ≤ 2 terms with coefficients
-    ±1 through operand assembly and ``mulcmp`` (below 250 bits: the
+    ±1 through ``operand_mulcmp`` (below 250 bits: the
     operands made canonical, ``mul`` and a limb compare, ``:1492-1496``),
     the remaining rows through a ``LimbsCheck`` of their sub-template.
   * ``build_limbs_check``: the reference's ``_partition`` rule between the
@@ -39,7 +39,7 @@ import torch
 from ..device import resolve
 from ..r1cs import R1CS
 from .field_backend import FieldBackend
-from .check_common import _limb_rows, _Operand, _product_bad, mask_verdict, semi_ok
+from .check_common import Products, _limb_rows, _product_bad, mask_verdict, semi_ok
 from .field_consts import L8, L16, _digits, fold_digit_table
 from .field_kernels import limbs_matvec, mul, mul_digits, mulcmp, reduce_digits
 from .layout import FIELD_SRC, MAX_FUSED_LIMBS_K, _build_shared_ell, _classify_trivial_limb_rows, _sub_rows_r1cs
@@ -173,7 +173,7 @@ class LimbsCheck(_LimbsForm):
 class TrivialLimbsCheck(_LimbsForm):
     """The partitioned limbs check (the reference's
     _build_trivial_limbs_check): booleanity rows by a limb compare, trivial
-    rows by operand assembly and ``mulcmp``, the other rows through a
+    rows by ``operand_mulcmp``, the other rows through a
     ``LimbsCheck`` of their sub-template."""
 
     def __init__(self, template: R1CS, batch: int, device, bit_rows, triv_rows, fold_idx):
@@ -190,7 +190,7 @@ class TrivialLimbsCheck(_LimbsForm):
             (r, *((cv, [(FIELD_SRC, col, ng) for col, ng in vars_]) for cv, vars_ in sides))
             for r, *sides in triv_rows
         ]
-        self.ops = [_Operand(specs, oi, device) for oi in range(3)]
+        self.ops = Products(specs, field, device)
         self.fold = LimbsCheck(_sub_rows_r1cs(template, fold_idx), batch, device) if len(fold_idx) else None
         order = np.concatenate([
             np.asarray([r for r, _c in bit_rows], np.int64),

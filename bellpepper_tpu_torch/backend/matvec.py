@@ -36,8 +36,8 @@ Counterpart of ``bellpepper_tpu/backend/matvec.py``:
     ``MixedCheck``, the port of ``_build_mixed_check`` (``:1659-2113``)
     for witnesses in the evaluator's (u32 values, canonical field limbs)
     form: booleanity rows as a u32 compare, linear rows by a Montgomery
-    zero-test, product rows through ``mulcmp`` (or, below 250 bits,
-    canonical operands, ``mul`` and a compare), multipack/MultiEq rows as
+    zero-test, product rows through ``operand_mulcmp`` (or, below 250
+    bits, canonical operands, ``mul`` and a compare), multipack/MultiEq rows as
     exact integer window sums, and the ``rest`` rows through the limbs
     form (``limbs.build_limbs_check``) on their used slots;
   * ``build_templated_check(..., "limbs")`` → ``limbs.build_limbs_check``;
@@ -63,6 +63,8 @@ from ..r1cs import R1CS
 from ..utils import profiling
 from .field_consts import _digits
 from .field_kernels import (
+    _carry_limbs,
+    _neg_const,
     bitplane_eq,
     bits_matvec_canonical,
     bits_matvec_semi,
@@ -84,7 +86,7 @@ from .layout import (
     _sub_rows_r1cs,
     _used_slot_template,
 )
-from .check_common import NONE, SENTINEL, _carry_limbs, _limb_rows, _neg_const, _Operand, _product_bad, semi_ok
+from .check_common import NONE, SENTINEL, Products, _limb_rows, _Operand, _product_bad, semi_ok
 from .limbs import build_limbs_check
 from .words import U32, device_table as _t, from_numpy_u32, pack_rows, to_u32, unpack_rows
 
@@ -715,9 +717,10 @@ class MixedCheck:
     canonical field limbs), flimbs row i holding slot field_slots[i].
 
     Rows route by class: booleanity of u32 slots (a compare), linear rows
-    (a + 8p − c, a one-limb Montgomery zero-test), product rows (``mulcmp``
-    on the semi-reduced operands; below 250 bits the operands made
-    canonical, ``mul`` and a compare), multipack/MultiEq rows (exact integer
+    (a + 8p − c, a one-limb Montgomery zero-test), product rows
+    (``operand_mulcmp``: operands assembled and compared in one kernel;
+    below 250 bits the operands made canonical, ``mul`` and a compare),
+    multipack/MultiEq rows (exact integer
     window sums, d = A + p·2^34 − C, a three-limb Montgomery zero-test),
     and the rows of no class (``rest``) through the limbs form on the
     sub-template of the slots they use, field slots read from flimbs and
@@ -744,7 +747,7 @@ class MixedCheck:
         self.p0inv = pow(p, -1, 1 << 16)
         self.bool_cols = _t([c for _r, c in cls["bool_u32"]], device)
         self.lin = [_Operand(cls["lin"], oi, device) for oi in range(2)]
-        self.mul = [_Operand(cls["mul"], oi, device) for oi in range(3)]
+        self.mul = Products(cls["mul"], field, device)
         if self.n_pow2:
             self._pow2_tables(cls["pow2"], device)
         if n_rest:

@@ -42,7 +42,7 @@ class Satisfier:
       * None or True: the templated limbs check of the whole system as one
         instance (``build_templated_check(r1cs, 1, True, "limbs")``: row
         classes, ELL buckets, ``limbs_matvec``, ``mul_digits``,
-        ``reduce_digits``, ``mul`` and ``mulcmp``);
+        ``reduce_digits``, ``mul``, ``mulcmp`` and ``operand_mulcmp``);
       * False: ``DeviceR1CS.from_r1cs`` and ``violation_mask``, the
         reference's jnp route: every entry's z gathered and multiplied by
         its coefficient (``mul`` at [16, E] a matrix), the 8-bit digits of

@@ -13,11 +13,11 @@ around a loop of calls (which includes the host's time to launch them),
 and the kernels' own device time as torch.profiler reads it. The shapes:
 
   * ``mulcmp`` at every N the paths launch it at: the packed sha256 check
-    (8 padded rows × 32,768), config 1's and the variant's mixed checks
-    (60 and 61 product rows × 8,192), config 1's limbs check (90 trivial
-    rows and 8 padded fold rows × 8,192), and the sha256 limbs check
-    (26,360 padded rows × 1,024, 2,048 and 4,096), on random semi values
-    below 2^265;
+    (8 padded rows × 32,768), config 1's limbs check (8 padded fold rows ×
+    8,192), and the sha256 limbs check (26,360 padded rows × 1,024, 2,048
+    and 4,096), on random semi values below 2^265 (the mixed checks'
+    product rows and the limbs checks' trivial rows take
+    ``operand_mulcmp``);
   * ``chain`` at config 1's shape (x0 [16, 8,192], two external operands,
     (fmul, fadd, fmul) × 30), and, to show what bounds it, at 4,096 and
     16,384 instances;
@@ -63,9 +63,6 @@ from ab_gather import cuda_ms, device_ms, fmt, run_sides, write_report
 SEED = 0x5962BE3D
 MULCMP_N = {
     "sha256 packed": 8 * 32768,
-    "config1 mixed": 60 * 8192,
-    "variant mixed": 61 * 8192,
-    "config1 limbs trivial": 90 * 8192,
     "config1 limbs fold": 8 * 8192,
     "sha256 limbs 1024": 26360 * 1024,
     "sha256 limbs 2048": 26360 * 2048,

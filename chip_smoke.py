@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one CUDA card, and check
-their ten kernels (and the op-rate probe) against their plain versions.
+their eleven kernels (and the op-rate probe) against their plain versions.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -23,7 +23,10 @@ Phases (one line each, or a few):
     a-bucket and the sha256 limbs check's widest a-bucket (random limbs),
     and at the K = 2,064 bound with every digit and fold entry 255; mulcmp
     (its 0/1 mask) at every N a path launches it at, the sha256 limbs
-    step's larger batches right after each one runs; mul at one block
+    step's larger batches right after each one runs; operand_mulcmp (the
+    product rows' operands assembled and compared in one pass) at the
+    product-row tables of config 1's and the variant's mixed checks and of
+    config 1's limbs check, on their chunk's witness; mul at one block
     (N = 32, its launch floor), the variant's 8,192, 2^20 and the
     Satisfier's 426,920, bit-exact also against Python ints at the corner
     pairs; mul_digits (raw operands in [p, 2^256) among its corners) and
@@ -43,6 +46,13 @@ Phases (one line each, or a few):
     CPU evaluator's, planted corruptions found at their instance, a
     Python-int recurrence for the chain, and the variant's finv equal to
     Python's pow(x, p − 2, p);
+  * MinRoot's product rows at the benchmark's chunk (Nova's MinRoot step
+    circuit at 65,536 iterations, perfbench/configs/minroot-65536.py:
+    196,608 rows × 256 instances, random advice, so every iteration's last
+    row fails): MixedCheck's verdict and its launches (one operand_mulcmp,
+    no mulcmp), operand_mulcmp against its plain version over slices of
+    rows, its time beside its bound, the eager route's (operands assembled
+    by _Operand.assemble, then mulcmp) and the check's a chunk;
   * each step's time, rate and peak memory; the config-1 witness and
     check seconds per chunk and the check's split by row class; the
     variant's witness seconds per chunk, its finv's alone, and its check's;
@@ -113,8 +123,9 @@ Phases (one line each, or a few):
     launches (mul in the inversions), chunk 0 equal to the CPU evaluator,
     two planted faults found at their instance; at each batch
     limbs_matvec at every bucket of the mixed check's rest rows on chunk
-    0's witness, mulcmp at the N of its product rows and of its rest rows,
-    and mul at [16, B] (the inversion ladder's shape);
+    0's witness, operand_mulcmp at its product rows' table on that
+    witness, mulcmp at the N of its rest rows, and mul at [16, B] (the
+    inversion ladder's shape);
   * config 5 (benchmarks/config5_synthetic_r1cs.py) at 2^24 rows, none
     cut: the row-chunked check's layout (32 chunks), the witness
     completion's product reusing it (128 chunks), the completion twice
@@ -204,8 +215,10 @@ kernel's numbers at its first table and, under ``other_tables``, those at
 the later paths' tables. Any failed phase raises and the script exits
 non-zero. Without a CUDA device it exits 1 at once."""
 
+import copy
 import functools
 import hashlib
+import importlib.util
 import json
 import os
 import random
@@ -219,6 +232,7 @@ import torch
 import torch.distributed as dist
 
 from bellpepper_tpu_torch import (
+    PALLAS_SCALAR,
     SCALAR,
     NativeBuilder,
     PrimeField,
@@ -242,6 +256,7 @@ from bellpepper_tpu_torch import (
     which_from_flat,
 )
 from bellpepper_tpu_torch.backend import cuda_lib, field_kernels as fk, op_rate
+from bellpepper_tpu_torch.backend.check_common import Products
 from bellpepper_tpu_torch.backend.field_backend import get_backend
 from bellpepper_tpu_torch.backend.field_consts import SEMI, word_count
 from bellpepper_tpu_torch.backend.layout import MAX_FUSED_LIMBS_K, _classify_mixed_rows
@@ -254,7 +269,7 @@ from bellpepper_tpu_torch.backend.sharding import (
     sharded_packed_witness_and_check,
     sharded_witness_and_check,
 )
-from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_numpy_u32, to_u32
+from bellpepper_tpu_torch.backend.words import from_numpy_u32, pack_rows, to_i32, to_numpy_u32, to_u32
 from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, _carry_extractor
 from bellpepper_tpu_torch.compile.tape import TapeCS, corrupted
 from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
@@ -365,6 +380,9 @@ KERNEL_INFO = {
                               "bellpepper_tpu/backend/field_pallas.py:828"),
     "verdict_fold": ("bellpepper_tpu_torch/csrc/verdict_fold.cu",
                      "no Pallas kernel: the XLA fusion of bellpepper_tpu/backend/matvec.py:3002 verdict_packed"),
+    "operand_mulcmp": ("bellpepper_tpu_torch/csrc/operand_mulcmp.cu",
+                       "no Pallas kernel: the XLA fusion of the operand assembly of bellpepper_tpu/backend/"
+                       "matvec.py:1686 _operand_spec feeding bellpepper_tpu/backend/field_pallas.py:1009"),
 }
 
 
@@ -729,6 +747,76 @@ def mulcmp_on(name: str, a, b, c, bound, field=SCALAR):
     return {"table": f"{name} N={N}", "max_abs_err": err, "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def eager_product_bad(prods: Products, vals_p, flimbs_p, field):
+    """The product rows' route before operand_mulcmp: each operand
+    assembled by _Operand.assemble in int64 [n, 17, B], copied limb-major,
+    then mulcmp; bool[n, B]."""
+    n, B = prods.n, flimbs_p.shape[-1]
+    p17 = torch.tensor(limbs(field.p), dtype=torch.int64, device=flimbs_p.device).reshape(1, SEMI, 1)
+    a, b, c = (to_i32(o.assemble(vals_p, flimbs_p, p17).transpose(0, 1).reshape(SEMI, n * B)).contiguous()
+               for o in prods.ops)
+    return (fk.mulcmp(a, b, c, field) != 0).reshape(n, B)
+
+
+def table_rows(table, lo: int, hi: int):
+    """Rows lo..hi of an OperandTable (its descriptors sliced)."""
+    part = copy.copy(table)
+    part.desc = table.desc[lo:hi]
+    part.n = part.desc.shape[0]
+    return part
+
+
+def operand_mulcmp_bound(bound, table, B: int):
+    """Bytes: each distinct field row's 16 limb words and u32 row's word
+    of every instance read once, the mask written, the tables read;
+    operations: mulcmp's word products a column."""
+    d = table.desc.cpu().numpy().reshape(-1, 3, 6)
+    on = (d[:, :, :1] >> np.arange(4)) & 1
+    n_f = len(np.unique(d[:, :, 2:4][on[:, :, :2] == 1]))
+    n_u = len(np.unique(d[:, :, 4:6][on[:, :, 2:] == 1]))
+    n_bytes = (64 * n_f + 4 * n_u + table.n) * B + 4 * (table.desc.numel() + table.consts.numel())
+    return bound(n_bytes, table.n * B * MULCMP_MULS)
+
+
+def every_fifth_flipped(fl_p: torch.Tensor) -> torch.Tensor:
+    """A copy of limbs int32[F, 16, B] with bit 16 of each value (bit 0
+    of limb 1) cleared at every fifth instance: the values stay below p,
+    and the rows that read a value that had the bit set fail there."""
+    out = fl_p.clone(memory_format=torch.contiguous_format)
+    out[:, 1, ::5] &= ~1
+    return out
+
+
+def operand_mulcmp_on(name: str, table, vals_p, flimbs_p, bound, field=SCALAR, plain_reps=3) -> dict:
+    """operand_mulcmp at a path's product-row table on its witness: the
+    mask bit-exact against the plain version (over slices of rows, which
+    bounds its int64 temporaries), both verdicts in it; its time beside
+    its bound and the plain version's (all slices, timed plain_reps
+    times)."""
+    B = flimbs_p.shape[-1]
+    step = max(1, (1 << 20) // B)
+    out = fk.operand_mulcmp(table, flimbs_p, vals_p, field)
+
+    def plain():
+        return torch.cat([fk.operand_mulcmp_plain(table_rows(table, s, s + step), flimbs_p, vals_p, field)
+                          for s in range(0, table.n, step)])
+
+    ref = plain()
+    both_verdicts(f"operand_mulcmp {name}", ref)
+    err = max_abs_err(out, ref)
+    del out, ref
+    ms = cuda_ms(lambda: fk.operand_mulcmp(table, flimbs_p, vals_p, field), 10)
+    plain_ms = cuda_ms(plain, plain_reps)
+    b_ms, b_by = operand_mulcmp_bound(bound, table, B)
+    print(f"[kernel] operand_mulcmp {name} [{table.n}, {B}]: max_abs_err {err} kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    assert err == 0, f"operand_mulcmp disagrees with its plain version at {name}"
+    assert ms >= b_ms, f"operand_mulcmp {name} beat its bound: the bound counts work these inputs do not need"
+    torch.cuda.empty_cache()
+    return {"table": f"{name} [{table.n}, {B}]", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def gathered_bytes(cols: torch.Tensor, slot_bytes: int) -> int:
     """The bytes of the distinct witness slots a column or plane table
     reads (each read once)."""
@@ -1024,7 +1112,7 @@ def field_synth():
     return built
 
 
-def field_steps(dev, card, built):
+def field_steps(dev, card, built, bound, tables):
     p = SCALAR.p
     free_np = np.random.default_rng(5).integers(0, 2, size=(N_CHUNKS, B_FIELD, 128)).astype(np.uint32)
     free = from_numpy_u32(free_np, dev)
@@ -1038,10 +1126,11 @@ def field_steps(dev, card, built):
         launches[name] = counts
         print(f"[step] {name} verdict {verdict} launches {counts}")
         assert verdict == (0, 0xFFFFFFFF), verdict
+        assert counts["operand_mulcmp"] == N_CHUNKS and not counts["mulcmp"], counts
         if name == "config1":
-            assert counts["chain"] == N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
+            assert counts["chain"] == N_CHUNKS, counts
         else:
-            assert counts["mul"] == VARIANT_MUL_LAUNCHES * N_CHUNKS and counts["mulcmp"] == N_CHUNKS, counts
+            assert counts["mul"] == VARIANT_MUL_LAUNCHES * N_CHUNKS, counts
 
     # probes on config 1's chunk 0
     template, prog = built["config1"]
@@ -1058,7 +1147,7 @@ def field_steps(dev, card, built):
             got = [col_int(fl0[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)]
             assert got == want, ("chain probe", i, r)
     check = build_templated_check(template, B_FIELD, None, "mixed", field_slots=prog.field_slots, device=dev)
-    assert check.n_mul == CONFIG1_MUL_ROWS  # mulcmp's N on this path, compared above
+    assert check.n_mul == CONFIG1_MUL_ROWS  # operand_mulcmp's rows on this path, compared below
     assert tuple(int(v) for v in check.verdict(vals0, fl0)) == (0, 0xFFFFFFFF)
     fbad = fl0.clone()
     mid = int(rows[45])
@@ -1094,6 +1183,8 @@ def field_steps(dev, card, built):
     reps = 5
     vals_p, fl_p = ev.slot_major(free[0])
     assert int(check.verdict_slot_major(vals_p, fl_p)[0]) == 0
+    tables["operand_mulcmp"].append(operand_mulcmp_on("config1 mixed", check.mul.table, vals_p,
+                                                      every_fifth_flipped(fl_p), bound))
     t_wit = wall_s(lambda: ev.slot_major(free[0]), reps)
     t_chk = wall_s(lambda: check.verdict_slot_major(vals_p, fl_p), reps)
     split = ", ".join(f"{c} rows {wall_s(lambda: check.class_bad(c, vals_p, fl_p), reps):.5f} s"
@@ -1106,6 +1197,9 @@ def field_steps(dev, card, built):
                                     device=dev)
     vals_p, fl_p = ev_v.slot_major(free[0])
     assert int(check_v.verdict_slot_major(vals_p, fl_p)[0]) == 0
+    assert check_v.n_mul == VARIANT_MUL_ROWS
+    tables["operand_mulcmp"].append(operand_mulcmp_on("variant mixed", check_v.mul.table, vals_p,
+                                                      every_fifth_flipped(fl_p), bound))
     x = fl_p[x_row : x_row + 1]  # [1, 16, B], as the evaluator hands it to inv
     be = get_backend(SCALAR)
     assert torch.equal(be.inv(x, 1), fl_p[inv_row : inv_row + 1])
@@ -1234,7 +1328,9 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold, tables):
     random limbs, and at the K = 2,064 bound with every digit and fold
     entry 255 (both forms); mul_digits and reduce_digits at the
     Satisfier's shapes, corner columns first, against their plain
-    versions and Python ints; then mulcmp at the limbs paths' shapes."""
+    versions and Python ints; then mulcmp at the limbs paths' shapes
+    (config 1's fold rows and the sha256 limbs check; the trivial rows
+    take operand_mulcmp, compared in config1_limbs_step)."""
     rng = np.random.default_rng(SEED + 2)
     results = {}
     gen = torch.Generator(device=dev)
@@ -1260,16 +1356,79 @@ def limbs_kernels(dev, bound, sha_limbs, config1_fold, tables):
     results["reduce_digits"] = reduce_digits_at("reduce_digits", CHAIN_ROWS_N, "limb-major", dev, bound)
     tables["reduce_digits"].append(reduce_digits_at("reduce_digits", MUL_WIDE_N, "element-major", dev, bound))
     torch.cuda.empty_cache()
-    for name, rows, batch in (("config1 mixed", CONFIG1_MUL_ROWS, B_FIELD),
-                              ("variant mixed", VARIANT_MUL_ROWS, B_FIELD),
-                              ("config1 limbs trivial", CONFIG1_TRIVIAL_ROWS, B_FIELD),
-                              ("config1 limbs fold", CONFIG1_FOLD_ROWS, B_FIELD),
+    for name, rows, batch in (("config1 limbs fold", CONFIG1_FOLD_ROWS, B_FIELD),
                               (f"sha256 limbs {B_SHA_LIMBS}", SHA256_LIMBS_ROWS, B_SHA_LIMBS)):
         mulcmp_at(name, rows * batch, dev, bound)
     return results
 
 
-def config1_limbs_step(dev, card, built):
+MINROOT_B = 256  # the benchmark's chunk (perfbench/traffic/field_step_1k.json)
+
+
+def minroot_synth():
+    """Nova's MinRoot step circuit at 65,536 iterations over Pallas, as the
+    benchmark's configuration builds it (perfbench/configs/minroot-65536.py)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "perfbench", "configs", "minroot-65536.py")
+    spec = importlib.util.spec_from_file_location("minroot_config", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build()
+
+
+def minroot_path(dev, card, bound):
+    """MinRoot's product rows at the benchmark's chunk: the evaluator on
+    random advice (the squarings hold; each iteration's last row, x^4 ·
+    x_{i+1} = x_i + y_i, fails), MixedCheck's verdict and its launches,
+    operand_mulcmp against its plain version and its bound, and the eager
+    route's time (operands assembled by _Operand.assemble, then mulcmp:
+    the check before operand_mulcmp) beside the check's. Returns the
+    check's launches and the kernel's table."""
+    p = PALLAS_SCALAR.p
+    t0 = time.time()
+    template, prog = minroot_synth()
+    R = template.num_constraints
+    check = build_templated_check(template, MINROOT_B, None, "mixed", field_slots=prog.field_slots, device=dev)
+    ev = prog.build(device=dev)
+    print(f"[synth] minroot: {R} rows, {prog.num_slots} slots, {check.n_mul} product rows; template, program "
+          f"and check built in {time.time() - t0:.2f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    ff = torch.randint(0, 1 << 16, (MINROOT_B, len(prog.free_field_slots), 16), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ff[..., 15] %= p >> 240  # canonical: below p's top limb
+    ff_index = {s: i for i, s in enumerate(prog.free_field_slots)}
+    low = ff[:, [ff_index[s] for s in prog.free_slots]]
+    fb = (low[..., 0] | (low[..., 1] << 16)).contiguous()
+    del low
+    vals_p, fl_p = ev.slot_major(fb, ff, free_rows=True)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    verdict = tuple(int(v) for v in check.verdict_slot_major(vals_p, fl_p))
+    counts = fk.launch_counts()
+    print(f"[step] minroot chunk of {MINROOT_B} verdict {verdict} launches {counts}")
+    assert verdict == (R // 3 * MINROOT_B, 2), verdict
+    assert counts["operand_mulcmp"] == 1 and not counts["mulcmp"], counts
+    result = operand_mulcmp_on("minroot", check.mul.table, vals_p, fl_p, bound, PALLAS_SCALAR, plain_reps=1)
+    torch.cuda.reset_peak_memory_stats()
+    t_chk = cuda_ms(lambda: check.verdict_slot_major(vals_p, fl_p), 5)
+    peak_chk = torch.cuda.max_memory_allocated() / 2**30
+    eager = eager_product_bad(check.mul, vals_p, fl_p, PALLAS_SCALAR)
+    assert torch.equal(eager, fk.operand_mulcmp(check.mul.table, fl_p, vals_p, PALLAS_SCALAR)), "eager route"
+    del eager
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_eager = cuda_ms(lambda: eager_product_bad(check.mul, vals_p, fl_p, PALLAS_SCALAR), 2)
+    peak_eager = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[perf] minroot chunk of {MINROOT_B}: check {t_chk:.4f} ms (peak {peak_chk:.2f} GiB), operand_mulcmp "
+          f"{result['ms']:.4f} ms, bound {result['bound_ms']:.4f} ms ({result['bound_by']}); the eager route "
+          f"{t_eager:.4f} ms (peak {peak_eager:.2f} GiB), on {card}")
+    result["eager_ms"] = t_eager
+    del vals_p, fl_p, check, ev
+    torch.cuda.empty_cache()
+    return counts, result
+
+
+def config1_limbs_step(dev, card, built, bound, tables):
     """Config 1 in the limbs form on the mixed step's free bits, then the
     TemplatedSatisfier probes: a non-bit field element in a bit slot (the
     mutation the mixed form cannot represent) and a flipped limb of a pack
@@ -1284,14 +1443,17 @@ def config1_limbs_step(dev, card, built):
     verdict, counts = path_run(step, free)
     print(f"[step] config1 limbs verdict {verdict} launches {counts}")
     assert verdict == (0, 0xFFFFFFFF), verdict
-    assert (counts["limbs_matvec"], counts["mulcmp"], counts["chain"]) == (
-        3 * N_CHUNKS, 2 * N_CHUNKS, N_CHUNKS), counts
+    assert (counts["limbs_matvec"], counts["mulcmp"], counts["operand_mulcmp"], counts["chain"]) == (
+        3 * N_CHUNKS, N_CHUNKS, N_CHUNKS, N_CHUNKS), counts
 
     sat = TemplatedSatisfier(template, B_FIELD, device=dev)
-    # the limbs check's mulcmp launches run at the shapes compared above
+    # the fold rows' mulcmp launches run at the shape compared above; the
+    # trivial rows' operand_mulcmp at this chunk's table
     assert (sat.check.n_triv, sat.check.fold.Rtp) == (CONFIG1_TRIVIAL_ROWS, CONFIG1_FOLD_ROWS)
     z = prog.z_template_limbs(*prog.build(device=dev)(free[0]))
     assert sat.is_satisfied(z)
+    tables["operand_mulcmp"].append(operand_mulcmp_on("config1 limbs trivial", sat.check.ops.table, None,
+                                                      every_fifth_flipped(z.permute(1, 2, 0)), bound))
     slot = prog.free_slots[int(np.random.default_rng(SEED).integers(0, 128))]
     bad = z.clone()
     bad[B_FIELD // 2, slot] = canonical_lm([random.Random(SEED).randrange(p)], dev)[:, 0]
@@ -1992,21 +2154,25 @@ def num_family_synth():
 
 
 def num_kernels_at(label, template, prog, free0, ff0, dev, bound, tables):
-    """limbs_matvec, mulcmp and mul at the tables the num block's step
-    launches them at, batch B = len(free0): limbs_matvec at every bucket
-    of the mixed check's rest rows on chunk 0's witness (the rest's z as
-    the check assembles it), mulcmp at the N of the product rows and of
-    the rest rows, mul at [16, B] (one step of the inverse's ladder)."""
+    """limbs_matvec, operand_mulcmp, mulcmp and mul at the tables the num
+    block's step launches them at, batch B = len(free0): limbs_matvec at
+    every bucket of the mixed check's rest rows on chunk 0's witness (the
+    rest's z as the check assembles it), operand_mulcmp at the product
+    rows' table on that witness, mulcmp at the N of the rest rows, mul at
+    [16, B] (one step of the inverse's ladder)."""
     Bn = free0.shape[0]
     check = build_templated_check(template, Bn, None, "mixed", field_slots=prog.field_slots, device=dev)
     vals, fl = prog.build(device=dev)(free0, ff0)
-    zt = check.rest_z(vals.t().contiguous(), torch.cat([fl, ff0], dim=1).permute(1, 2, 0).contiguous())
+    vals_p, fl_p = vals.t().contiguous(), torch.cat([fl, ff0], dim=1).permute(1, 2, 0).contiguous()
     del vals, fl
+    zt = check.rest_z(vals_p, fl_p)
     assert check.rest.fused, "the num block's rest rows take the fused limbs check"
     tables["limbs_matvec"].append(limbs_buckets(label, zt, check.rest, bound, 512))
     del zt
     torch.cuda.empty_cache()
-    tables["mulcmp"].append(mulcmp_at(f"{label} product rows", check.n_mul * Bn, dev, bound))
+    tables["operand_mulcmp"].append(operand_mulcmp_on(f"{label} product rows", check.mul.table, vals_p,
+                                                      every_fifth_flipped(fl_p), bound, plain_reps=1))
+    del vals_p, fl_p
     tables["mulcmp"].append(mulcmp_at(f"{label} rest rows", check.rest.Rtp * Bn, dev, bound))
     tables["mul"].append(mul_at(f"mul {label} inverse N={Bn}", Bn, dev, bound, np.random.default_rng(SEED + Bn)))
     del check
@@ -2037,7 +2203,8 @@ def num_family_step(dev, card, bound, tables):
         verdict = tuple(int(x) for x in step(free, ff))
         path_counts = fk.launch_counts()
         print(f"[step] num family at {N_CHUNKS}x{Bn} verdict {verdict} launches {path_counts}")
-        assert verdict == (0, 0xFFFFFFFF) and path_counts["mul"] > 0 and path_counts["mulcmp"] > 0, path_counts
+        assert verdict == (0, 0xFFFFFFFF) and path_counts["mul"] > 0, path_counts
+        assert path_counts["operand_mulcmp"] == path_counts["mulcmp"] == N_CHUNKS, path_counts
         counts = counts or path_counts
         if Bn == NUM_B:
             vals, fl = prog.build(device=dev)(free[0], ff[0])
@@ -2724,7 +2891,7 @@ def frontend_synth():
 
 def frontend_config1_step(dev, card, template, prog, native):
     """Config 1 from the frontend on build_production_step at N_CHUNKS ×
-    B_FIELD (the mixed form): the clean verdict, chain and mulcmp launched,
+    B_FIELD (the mixed form): the clean verdict, chain and operand_mulcmp launched,
     chunk 0 equal to NativeBuilder's program's on the card, a flipped bit
     of a chain row found at its instance; the step's time, rate and peak."""
     R = template.num_constraints
@@ -2734,7 +2901,7 @@ def frontend_config1_step(dev, card, template, prog, native):
     step(free)  # warm-up
     verdict, counts = path_run(step, free)
     print(f"[step] frontend config1 verdict {verdict} launches {counts}")
-    assert verdict == (0, 0xFFFFFFFF) and counts["chain"] == counts["mulcmp"] == N_CHUNKS, (verdict, counts)
+    assert verdict == (0, 0xFFFFFFFF) and counts["chain"] == counts["operand_mulcmp"] == N_CHUNKS, (verdict, counts)
     vals0, fl0 = prog.build(device=dev)(free[0])
     n_vals, n_fl = native.build(device=dev)(free[0])
     assert torch.equal(vals0, n_vals) and torch.equal(fl0, n_fl), "frontend config1 chunk 0 differs from NativeBuilder's"
@@ -3162,7 +3329,7 @@ def fields_config1(dev, card, bound, tables, field):
             # config 1's field steps run as the chain kernel, the variant's
             # as 60 fmul launches a chunk and its finv's ladder of mul
             assert (counts["mul"] >= 60 * N_CHUNKS) if nonzero else (counts["chain"] == N_CHUNKS), counts
-            assert (counts["mulcmp"] > 0) == semi and (semi or counts["mul"] > 0), counts
+            assert (counts["mulcmp"] + counts["operand_mulcmp"] > 0) == semi and (semi or counts["mul"] > 0), counts
             launches[key] = counts
             perf_step(key, step, free, B_FIELD, R, card, 3)
             del step
@@ -3412,9 +3579,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = {"sha256": sha256_step(dev, card, template, prog)}
     torch.cuda.empty_cache()
-    launches.update(field_steps(dev, card, built))
+    launches.update(field_steps(dev, card, built, bound, tables))
     torch.cuda.empty_cache()
-    launches["config1_limbs"] = config1_limbs_step(dev, card, built)
+    launches["minroot"], results["operand_mulcmp"] = minroot_path(dev, card, bound)
+    torch.cuda.empty_cache()
+    launches["config1_limbs"] = config1_limbs_step(dev, card, built, bound, tables)
     torch.cuda.empty_cache()
     launches["sha256_limbs"] = sha256_limbs_step(dev, card, bound, template, prog)
     torch.cuda.empty_cache()

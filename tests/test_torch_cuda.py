@@ -32,7 +32,11 @@ config 1 in the mixed and limbs forms, both Satisfier routes and config
 5's check give the CPU's verdicts on the card. The packed check's verdict
 fold equals its plain version and a Python loop over bits on every case
 of tests/torch_verdict_cases.py, on column slices (vector and scalar
-loads), at the benchmark's fold shapes and past 2^31 words."""
+loads), at the benchmark's fold shapes and past 2^31 words. The product
+rows' operand_mulcmp equals its plain version and Python ints on rows of
+every operand shape (tests/torch_operand_cases.py) over Pallas, Vesta and
+BLS12-381, with and without u32 values, past 2^31 limb words, and gives
+a faulted MinRoot chunk the verdict of the eager route it replaces."""
 
 import random
 import statistics
@@ -56,8 +60,9 @@ from bellpepper_tpu_torch import (
     build_templated_check,
 )
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
+from bellpepper_tpu_torch.backend.check_common import Products
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
-from bellpepper_tpu_torch.backend.matvec import build_packed_parts
+from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES, build_packed_parts
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.compile.tape import SnapshotTape, TapeCS, corrupted
 from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
@@ -70,6 +75,10 @@ from bellpepper_tpu_torch.r1cs import ShapeCS
 from bellpepper_tpu_torch.utils import profiling
 from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
 from chip_smoke import digit_sum_corners, fe_config2, fe_sha256  # the card script's circuits and corners
+from chip_smoke import eager_product_bad  # the card script's eager route, as before operand_mulcmp
+from perfbench.kinds.field_step import add_mod_p
+from perfbench.lib import bench
+from torch_operand_cases import operand_rows, shift_field_rows
 from torch_small_fields import GOLDILOCKS, JUBJUB_FR, SMALL_FIELDS
 from torch_verdict_cases import CASES, folds, python_verdict
 
@@ -447,9 +456,9 @@ def _config1(nonzero):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nonzero", [False, True], ids=["config1", "nonzero"])
 def test_field_step_on_card_matches_cpu(cuda, nonzero):
-    """Config 1 (through chain and mulcmp) and its variant (through mul)
-    at B = 512 × 2 chunks, clean and with one fadd of the tape computing a
-    product."""
+    """Config 1 (through chain and operand_mulcmp) and its variant (through
+    mul) at B = 512 × 2 chunks, clean and with one fadd of the tape
+    computing a product."""
     template, tape = _config1(nonzero)
     ni, na, ops, free = tape.snapshot()
     i = max(k for k, op in enumerate(ops) if op.opcode == "fadd")
@@ -465,7 +474,7 @@ def test_field_step_on_card_matches_cpu(cuda, nonzero):
         assert got == tuple(int(v) for v in want)
         assert (got[0] > 0) == corrupt
         counts = fk.launch_counts()
-        assert counts["mulcmp"] == 2
+        assert counts["operand_mulcmp"] == 2 and counts["mulcmp"] == 0
         if nonzero:  # the corrupted tape has one fmul more; finv is the ladder's launches
             e = SCALAR.p - 2
             ladder = e.bit_length() - 1 + bin(e).count("1") - 1
@@ -580,8 +589,8 @@ def test_limbs_step_on_card_matches_cpu(cuda):
         got = build_production_step(prog, template, 256, device=cuda, witness_form="limbs")(from_numpy_u32(bits, cuda))
         got = tuple(int(v) for v in got)
         assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
-        counts = fk.launch_counts()
-        assert counts["limbs_matvec"] == 6 and counts["mulcmp"] == 4
+        counts = fk.launch_counts()  # the fold rows through mulcmp, the trivial rows through operand_mulcmp
+        assert counts["limbs_matvec"] == 6 and counts["mulcmp"] == counts["operand_mulcmp"] == 2
     prog = WitnessProgram(tape)
     z = prog.z_template_limbs(*prog.build(device="cpu")(from_numpy_u32(bits[0, :1])))[0]
     z[prog.free_slots[7]] = z[prog.free_slots[7]].flip(0) + 3  # a non-bit canonical value
@@ -1167,3 +1176,97 @@ def test_verdict_fold_64bit_indexing_on_card(cuda):
     assert got_sl == want_sl
     del words, sl
     torch.cuda.empty_cache()
+
+
+# --- the product rows: operand_mulcmp ----------------------------------------
+def _operand_card_and_plain(specs, flimbs, vals, field, cuda):
+    """operand_mulcmp on the card (and its launches) and its plain version
+    on the CPU, over the same rows and values."""
+    prods = Products(specs, field, cuda)
+    before = fk.operand_mulcmp.launches
+    got = fk.operand_mulcmp(prods.table, flimbs.to(cuda), None if vals is None else vals.to(cuda), field)
+    torch.cuda.synchronize()
+    plain = fk.operand_mulcmp(Products(specs, field, "cpu").table, flimbs, vals, field)
+    return got.cpu(), plain, fk.operand_mulcmp.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,B", [(90, 37), (300, 256), (7, 1)])
+@pytest.mark.parametrize("u32", [True, False], ids=["mixed", "limbs"])
+@pytest.mark.parametrize("field", [PALLAS_SCALAR, VESTA_SCALAR, SCALAR], ids=lambda f: f.name)
+def test_operand_mulcmp_on_card(cuda, field, u32, n_rows, B):
+    """Every operand shape, values 0, 1, p − 1 and random, planted faults;
+    without u32 values as the limbs checks call it; B not a multiple of a
+    warp."""
+    specs, flimbs, vals, want = operand_rows(field, n_rows, B, n_rows * 7 + B + u32, u32=u32)
+    got, plain, launches = _operand_card_and_plain(specs, flimbs, vals, field, cuda)
+    assert torch.equal(got, torch.from_numpy(want)) and torch.equal(got, plain)
+    assert launches == 1 and want.any() and (B == 1 or not want.all())
+
+
+@pytest.mark.cuda
+def test_operand_mulcmp_64bit_offsets_on_card(cuda):
+    """Field rows read at f·16·B past 2^31 words (the rows lie at the top
+    of an 8.6 GB limb buffer)."""
+    B, k = 64, (1 << 21) + 3
+    specs, flimbs, vals, want = operand_rows(PALLAS_SCALAR, 40, B, 21)
+    assert k * 16 * B >= 1 << 31
+    big = torch.zeros((k + flimbs.shape[0], 16, B), dtype=torch.int32, device=cuda)
+    big[k:] = flimbs.to(cuda)
+    table = Products(shift_field_rows(specs, k), PALLAS_SCALAR, cuda).table
+    got = fk.operand_mulcmp(table, big, vals.to(cuda), PALLAS_SCALAR)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
+    del big
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_operand_mulcmp_refuses_rather_than_fall_back(cuda):
+    specs, flimbs, vals, _want = operand_rows(PALLAS_SCALAR, 20, 40, 22)
+    table = Products(specs, PALLAS_SCALAR, cuda).table
+    fl, v = flimbs.to(cuda), vals.to(cuda)
+    with pytest.raises(TypeError):
+        fk.operand_mulcmp(table, fl.to(torch.int64), v, PALLAS_SCALAR)
+    with pytest.raises(ValueError):  # strided instances
+        fk.operand_mulcmp(table, fl[:, :, ::2], v[:, ::2].contiguous(), PALLAS_SCALAR)
+    with pytest.raises(ValueError):  # the values lie on the CPU
+        fk.operand_mulcmp(table, fl, vals, PALLAS_SCALAR)
+    with pytest.raises(ValueError):  # the table lies on the CPU
+        fk.operand_mulcmp(Products(specs, PALLAS_SCALAR, "cpu").table, fl, v, PALLAS_SCALAR)
+    with pytest.raises(ValueError):  # u32 terms and no values
+        fk.operand_mulcmp(table, fl, None, PALLAS_SCALAR)
+
+
+@pytest.mark.cuda
+def test_minroot_chunk_verdict_on_card_matches_eager_route(cuda):
+    """MixedCheck.verdict_slot_major on a MinRoot chunk (1,024 iterations,
+    256 instances of random advice: every iteration's last row fails) with
+    additive faults planted in its field values: (n_bad, first) equal to
+    the eager route's (operands assembled by _Operand, mulcmp), through
+    one operand_mulcmp launch and no mulcmp."""
+    cfg = bench.load_module(f"{bench.HERE}/configs/minroot-65536.py", "minroot_config")
+    template, prog = cfg.build(1024)
+    B, p, R = 256, PALLAS_SCALAR.p, template.num_constraints
+    check = build_templated_check(template, B, None, "mixed", field_slots=prog.field_slots, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(23)
+    n_ff = len(prog.free_field_slots)
+    ff = torch.randint(0, 1 << 16, (B, n_ff, 16), generator=gen, device=cuda, dtype=torch.int32)
+    ff[..., 15] %= p >> 240
+    ff_index = {s: i for i, s in enumerate(prog.free_field_slots)}
+    low = ff[:, [ff_index[s] for s in prog.free_slots]]
+    vals_p, flimbs_p = prog.build(device=cuda).slot_major((low[..., 0] | (low[..., 1] << 16)).contiguous(), ff,
+                                                          free_rows=True)
+    rng = np.random.default_rng(24)
+    sites = rng.choice(prog.n_field_rows * B, 64, replace=False)
+    add_mod_p(flimbs_p, (sites % B).tolist(), (sites // B).tolist(), rng.integers(1, 1 << 62, 64).tolist(), p)
+    fk.reset_launch_counts()
+    got = tuple(int(v) for v in check.verdict_slot_major(vals_p, flimbs_p))
+    counts = fk.launch_counts()
+    mask = eager_product_bad(check.mul, vals_p, flimbs_p, PALLAS_SCALAR)
+    rows = check.rows[ROW_CLASSES.index("mul")]
+    inst = torch.arange(B, device=cuda)[None, :] * R
+    want = (int(mask.sum()), int(torch.where(mask, inst + rows[:, None], 1 << 62).min()))
+    assert got == want and got[0] > 1024 * B, (got, want)
+    assert counts["operand_mulcmp"] == 1 and counts["mulcmp"] == 0, counts

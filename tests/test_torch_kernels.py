@@ -17,8 +17,10 @@ from bellpepper_tpu.fields import FIELDS, PALLAS_SCALAR, SCALAR, VESTA_SCALAR
 from bellpepper_tpu_torch import NativeBuilder, WitnessProgram
 from bellpepper_tpu_torch.backend import field_consts, field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend import matvec as mv
+from bellpepper_tpu_torch.backend.check_common import Products
 from bellpepper_tpu_torch.backend.layout import _classify_pow2_eq_rows, _classify_small_rows
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
+from torch_operand_cases import operand_rows
 
 RNG = np.random.default_rng(0x5EED_0003)
 
@@ -284,9 +286,13 @@ def test_wrappers_use_plain_version_on_cpu():
     w, rows = from_numpy_u32(_u32((6, 5))), torch.arange(6) * 3
     acc = fk.verdict_fold(fk.verdict_acc("cpu"), w, rows, 20, 150)
     assert torch.equal(acc, fk.verdict_fold_plain(fk.verdict_acc("cpu"), w, rows, 20, 150))
+    specs, fl, vl, _want = operand_rows(SCALAR, 6, 5, 1)
+    table = Products(specs, SCALAR, "cpu").table
+    assert torch.equal(fk.operand_mulcmp(table, fl, vl, SCALAR), fk.operand_mulcmp_plain(table, fl, vl, SCALAR))
     assert fk.launch_counts() == {k: 0 for k in fk.KERNELS} and op_rate.op_rate.launches == 0
     assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
-                          "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold")
+                          "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold",
+                          "operand_mulcmp")
 
 
 def test_wrappers_check_their_inputs():
