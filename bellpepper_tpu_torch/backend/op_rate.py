@@ -7,7 +7,7 @@ kernel (``csrc/op_rate.cu``) keeps an element's R rows in registers, so
 the rounds of one row depend on each other and the R rows do not (R-way
 ILP): the time of a launch gives the card's issue rate of the op class,
 R·K·N rounds over the time. It lies on no path of the system; it measures
-the integer rate that ``chip_smoke.py``'s ``bound`` assumes.
+the card's integer issue rate.
 
 The op classes and their round bodies are the probe's (u32 words are
 int32 tensors holding the bit pattern, as in ``words``):

@@ -68,7 +68,7 @@ def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     it ran several times faster than torch's row gathers (index_select,
     indexing, gather, embedding) at config 5's chunk of 2^20 rows; with it
     the check's device work fell from 54.1 to 31.1 ms (NVIDIA H100 80GB
-    HBM3, 700 W; tools/profile_config5.py)."""
+    HBM3, 700 W; torch.profiler)."""
     dt = torch.int32 if src.shape[0] * L16 < (1 << 31) else torch.int64
     words = idx.to(dt)[:, None] * L16 + torch.arange(L16, dtype=dt, device=idx.device)
     return src.reshape(-1, 1).index_select(0, words.reshape(-1)).view(-1, L16)

@@ -26,7 +26,7 @@
 // subtracts of p. An 8-word field of at least 245 bits (the shipped
 // ones) has its own instantiation without the fold: its V already meets
 // the estimate's bound, and with the sums in L2 the fold's 8 products
-// cost 4-6% (tools/ab_field.py, NVIDIA H100 80GB HBM3 at 700 W). The W
+// cost 4-6% (NVIDIA H100 80GB HBM3 at 700 W). The W
 // canonical words split into 16 limb rows on store, coalesced along N.
 // All of an element's loads issue before any arithmetic; the field
 // constants arrive as one kernel parameter (uniform constant-bank

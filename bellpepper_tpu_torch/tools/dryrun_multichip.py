@@ -20,7 +20,7 @@ its own device, so every shard is word-equal to single-rank execution.
     python3 -m bellpepper_tpu_torch.tools.dryrun_multichip 2 --backend gloo  # two ranks sharing one card
     python3 -m bellpepper_tpu_torch.tools.dryrun_multichip 2 --device cpu    # two ranks on the CPU (gloo)
 
-``RankJob`` is the launcher the tests and ``chip_smoke.py`` use too: W
+``RankJob`` is the launcher the tests use too: W
 spawned processes, a free local TCP port for the group's store, each
 rank's result in a file, and any rank's failure raised in the caller."""
 

@@ -36,8 +36,23 @@ loads), at the benchmark's fold shapes and past 2^31 words. The product
 rows' operand_mulcmp equals its plain version and Python ints on rows of
 every operand shape (tests/torch_operand_cases.py) over Pallas, Vesta and
 BLS12-381, with and without u32 values, past 2^31 limb words, and gives
-a faulted MinRoot chunk the verdict of the eager route it replaces."""
+a faulted MinRoot chunk the verdict of the eager route it replaces.
 
+At each path's own tables the kernels equal their plain versions (the
+packed checks of sha256, blake2s and configs 2 and 3, the sha256 and
+config-1 limbs checks, the num block's rest and product rows, config 5's
+chunks and row shard), also at the paths' own sizes: the benchmark's
+sha256 and blake2s chunks of 2^21 instances (with the launches of their
+steps), mul and reduce_digits at 2^20, mul_digits up to 2^21 raw
+operands, config 4's chain of 1,024 blocks and tree of 1,024 leaves, and
+the sha256 limbs step at 4,096 a chunk under a 40 GiB peak. Each path's
+probes hold: planted faults found at their instance and row, the field
+evaluator against Python ints, the chained and Merkle steps against the
+sha256 oracle of tests/torch_circuits.py, the sharded paths on two gloo
+ranks sharing the card against one device, and the reference's API
+called with no device launching what the calls with a device launch."""
+
+import hashlib
 import random
 import statistics
 import time
@@ -46,38 +61,73 @@ import numpy as np
 import pytest
 import torch
 
+import torch_sharding_ranks as ranks
 from bellpepper_tpu_torch import (
     PALLAS_SCALAR,
     SCALAR,
     VESTA_SCALAR,
     NativeBuilder,
+    PipelinedSatisfier,
     Satisfier,
+    TemplatedSatisfier,
     WitnessProgram,
+    build_chained_production_step,
     build_chained_witness,
+    build_chunked_check,
     build_merkle_tree_step,
+    build_packed_chunked_witness,
     build_packed_production_step,
     build_production_step,
+    build_row_chunked_eval,
     build_templated_check,
+    pack_bits,
+    which_from_flat,
 )
 from bellpepper_tpu_torch.backend import field_kernels as fk, op_rate
 from bellpepper_tpu_torch.backend.check_common import Products
 from bellpepper_tpu_torch.backend.field_backend import FieldBackend, get_backend
+from bellpepper_tpu_torch.backend.limbs import LimbsCheck
 from bellpepper_tpu_torch.backend.matvec import ROW_CLASSES, build_packed_parts
+from bellpepper_tpu_torch.backend.row_chunked import _chunk, _ell_digit_sums, _gather_rows
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.compile.tape import SnapshotTape, TapeCS, corrupted
+from bellpepper_tpu_torch.compile.witness_program import SCAN_OPS, SRC_ROW, _detect_linear_chain
+from bellpepper_tpu_torch.config import Config, default_config, set_default_config
 from bellpepper_tpu_torch import RowShardedSatisfier, build_row_chunked_check, build_row_chunked_product
 from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z, flipped_first_row
-from bellpepper_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+from bellpepper_tpu_torch.tools.dryrun_multichip import RankJob, dryrun_multichip
 from bellpepper_tpu_torch import R1CS, TestConstraintSystem
 from bellpepper_tpu_torch.gadgets.multieq import MultiEq
 from bellpepper_tpu_torch.gadgets.uint32 import UInt32
 from bellpepper_tpu_torch.r1cs import ShapeCS
-from bellpepper_tpu_torch.utils import profiling
-from chip_smoke import eager_chain  # the card script's eager block loop, its graph-phase reference
-from chip_smoke import digit_sum_corners, fe_config2, fe_sha256  # the card script's circuits and corners
-from chip_smoke import eager_product_bad  # the card script's eager route, as before operand_mulcmp
+from bellpepper_tpu_torch.utils import load_r1cs, load_witness, profiling, save_r1cs, save_witness
 from perfbench.kinds.field_step import add_mod_p
 from perfbench.lib import bench
+from torch_circuits import (
+    FRONTEND,
+    SHA256_IV,
+    blake2s_circuit,
+    chain_steps,
+    col_int,
+    config1,
+    config1_tape,
+    config2_circuit,
+    config3_circuit,
+    counted,
+    digit_sum_corners,
+    eager_chain,
+    eager_product_bad,
+    fe_config2,
+    fe_sha256,
+    native_prog,
+    native_sha256,
+    oracle_chain,
+    python_int_first_bad,
+    row_sums_int,
+    sha256_compress,
+    state_words,
+    z_ints,
+)
 from torch_operand_cases import operand_rows, shift_field_rows
 from torch_small_fields import GOLDILOCKS, JUBJUB_FR, SMALL_FIELDS
 from torch_verdict_cases import CASES, folds, python_verdict
@@ -311,7 +361,7 @@ def test_traced_check_device_time_on_card(cuda):
     its CUDA-event time lies within 5% of a host clock from the call to a
     synchronize (medians of 3), and a phase around the same call reports a
     device time."""
-    template, prog = _sha256_prog()
+    template, prog = native_sha256()
     B = 1 << 18
     evaluator, check = build_packed_parts(prog, template, B, cuda)
     vals, _ = evaluator.slot_major(_u32((B // 32, len(prog.free_slots)), cuda))
@@ -364,13 +414,13 @@ FIELDS3 = [SCALAR, PALLAS_SCALAR, VESTA_SCALAR]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("field", FIELDS3, ids=lambda f: f.name)
-@pytest.mark.parametrize("N", [1, 3, 31, 32, 33, 1000, 8192, 426920])
+@pytest.mark.parametrize("N", [1, 3, 31, 32, 33, 1000, 8192, 426920, 1 << 20])
 def test_mul_on_card(cuda, field, N):
     """Every corner pair first (as far as N reaches), the rest random;
     bit-exact against mul_plain and, at every column up to 8,192 and at
     the corners and 2,000 random columns above, against Python ints. N
-    around one block of 32 threads, the variant's 8,192 and the
-    Satisfier's 426,920."""
+    around one block of 32 threads, the variant's 8,192, the Satisfier's
+    426,920 and the row-sharded check's and config 5's 2^20."""
     p = field.p
     c = _mul_corners(field)
     pairs = [(x, y) for x in c for y in c][:N]
@@ -441,25 +491,13 @@ def test_chain_on_card(cuda, descs, n_ext):
     assert torch.equal(got, fk.chain_plain(x0, ext, descs, 5, SCALAR))
 
 
-def _config1(nonzero):
-    nb = NativeBuilder()
-    bits = [nb.alloc_bit() for _ in range(128)]
-    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
-    x = a
-    for _ in range(30):
-        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
-    if nonzero:
-        nb.num_assert_nonzero(x)
-    return nb.finish()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("nonzero", [False, True], ids=["config1", "nonzero"])
 def test_field_step_on_card_matches_cpu(cuda, nonzero):
     """Config 1 (through chain and operand_mulcmp) and its variant (through
     mul) at B = 512 × 2 chunks, clean and with one fadd of the tape
     computing a product."""
-    template, tape = _config1(nonzero)
+    template, tape = config1_tape(nonzero)
     ni, na, ops, free = tape.snapshot()
     i = max(k for k, op in enumerate(ops) if op.opcode == "fadd")
     bad_ops = list(ops)
@@ -538,13 +576,17 @@ def test_op_rate_on_card(cuda, op):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("field", [SCALAR, PALLAS_SCALAR], ids=lambda f: f.name)
-@pytest.mark.parametrize("N", [1000, 1])
+@pytest.mark.parametrize("N", [1000, 1, 426920, 1 << 20, 1258176])
 def test_mul_digits_and_reduce_digits_on_card(cuda, field, N):
     """Both kernels against their plain versions; reduce_digits on
     limb-major sums, on the transposed view of element-major ones (read
     as it lies), on such a view 4 bytes off 16-byte alignment (copied
     first), and at the corner sums of test_torch_digit_kernels against
-    Python ints in both layouts."""
+    Python ints in both layouts. N ragged, one, and the paths' own: the
+    rows of a 16-block sha256 chain's Satisfier, 426,920 (its
+    reduce_digits, limb-major), config 5's 2^20 rows (the row-chunked
+    sums, element-major) and that Satisfier's widest mul_digits launch
+    (matrix c's entries), 1,258,176."""
     a = _canonical(field, max(N, 3), 5, cuda)[:, :N].contiguous()
     b = _canonical(field, max(N, 3), 6, cuda).flip(1)[:, :N].contiguous()
     before = (fk.mul_digits.launches, fk.reduce_digits.launches)
@@ -576,7 +618,7 @@ def test_limbs_step_on_card_matches_cpu(cuda):
     B = 256 × 2 chunks, clean and with one fadd of the tape computing a
     product, against the CPU; then the Satisfier of the template at
     batch 1 (the non-fused route) with a non-bit value in a bit slot."""
-    template, tape = _config1(False)
+    template, tape = config1_tape(False)
     ni, na, ops, free = tape.snapshot()
     i = max(k for k, op in enumerate(ops) if op.opcode == "fadd")
     bad_ops = list(ops)
@@ -602,20 +644,12 @@ def test_limbs_step_on_card_matches_cpu(cuda):
 
 
 # --- the bits form, the mixed packed step, free field inputs ---------------------
-def _sha256_prog():
-    nb = NativeBuilder()
-    bits = [nb.alloc_bit() for _ in range(512)]
-    nb.sha256_compression(bits, nb.sha256_iv())
-    template, tape = nb.finish()
-    return template, WitnessProgram(tape)
-
-
 @pytest.mark.cuda
 def test_bits_check_on_card_matches_cpu(cuda):
     """The bits form at B = 33 (one word of 32 instances and one of 1: the
     padding instances cut away) on the sha256 template, clean and with
     one bit flipped, against the CPU's mask and verdict."""
-    template, prog = _sha256_prog()
+    template, prog = native_sha256()
     B = 33
     free = from_numpy_u32(RNG.integers(0, 2, size=(B, 512)).astype(np.uint32))
     vals, _ = prog.build(device="cpu")(free)
@@ -775,11 +809,14 @@ def test_num_mixed_block_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 33, 4096])
+@pytest.mark.parametrize("N", [1, 33, 4096, 1 << 21])
 def test_mul_and_mul_digits_on_non_canonical_operands_on_card(cuda, N):
     """Operands in [p, 2^256), as config 5's raw witness rows are (the
     corners p, 2p, 2^256 − 1 and p + 1 first): mul and mul_digits equal
-    their plain versions and a·b mod p over the Python ints."""
+    their plain versions and, at every column up to 4,096 and at the
+    corners and 2,000 random columns above, a·b mod p over the Python
+    ints. N up to 2^21, the entries of A that RowShardedSatisfier gathers
+    from raw z at config 5's 2^20 rows."""
     p = SCALAR.p
     rnd = random.Random(0x5EED_0009 + N)
     corners = [p, 2 * p, (1 << 256) - 1, p + 1]
@@ -791,10 +828,11 @@ def test_mul_and_mul_digits_on_non_canonical_operands_on_card(cuda, N):
     torch.cuda.synchronize()
     assert torch.equal(got, fk.mul_plain(a, b, SCALAR))
     assert torch.equal(dig, fk.mul_digits_plain(a, b, SCALAR))
-    want = [x * y % p for x, y in zip(av, bv)]
-    assert _lm_ints(got) == want
-    d = to_numpy_u32(dig).astype(object)
-    assert [sum(int(d[j, i]) << (8 * j) for j in range(32)) for i in range(N)] == want
+    cols = list(range(N)) if N <= 4096 else list(range(len(corners))) + rnd.sample(range(N), 2000)
+    want = [av[i] * bv[i] % p for i in cols]
+    assert _lm_ints(got[:, cols]) == want
+    d = to_numpy_u32(dig[:, cols]).astype(object)
+    assert [sum(int(d[j, i]) << (8 * j) for j in range(32)) for i in range(len(cols))] == want
     # raw a by the canonical corners b, as the limbs checks' coefficients are
     pairs = [(x, y) for x in (p, p + 1, (1 << 256) - 1) for y in (0, 1, p - 1)]
     a, b = (from_numpy_u32(FieldBackend.to_limbs([t[k] for t in pairs]).T.copy(), cuda) for k in (0, 1))
@@ -842,7 +880,7 @@ def test_sharded_paths_one_rank_on_nccl(cuda):
 @pytest.mark.parametrize("name", ["sha256", "config2"])
 def test_frontend_circuits_on_card_match_cpu(cuda, name):
     """The sha256 compression and config 2 through the port's ShapeCS and
-    TapeCS (chip_smoke.py's circuits): the packed step at 2 × 512 on the
+    TapeCS (tests/torch_circuits.py): the packed step at 2 × 512 on the
     card gives the CPU's verdicts, clean and with one xor of the tape
     computing `and`, and its kernels are launched; config 2 with values in
     TestConstraintSystem → R1CS.from_test_cs → Satisfier on the card names
@@ -1009,18 +1047,6 @@ def test_small_field_flagship_on_card_matches_cpu(cuda, field):
     assert int(want[0]) > 0
 
 
-def _config1_over(field, nonzero):
-    nb = NativeBuilder(field)
-    bits = [nb.alloc_bit() for _ in range(128)]
-    a, b = nb.pack_bits(bits[:64]), nb.pack_bits(bits[64:])
-    x = a
-    for _ in range(30):
-        x = nb.num_square(nb.num_add(nb.num_mul(x, b), a))
-    if nonzero:
-        nb.num_assert_nonzero(x)
-    return nb.finish()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("nonzero", [False, True], ids=["config1", "variant"])
 @pytest.mark.parametrize("field", [GOLDILOCKS, JUBJUB_FR], ids=lambda f: f.name)
@@ -1028,7 +1054,7 @@ def test_small_field_config1_on_card_matches_cpu(cuda, field, nonzero):
     """Config 1 (and its num_assert_nonzero variant) at 2 × 128 in the
     mixed and limbs forms: the CPU's verdicts, clean and with the last
     fadd of the tape computing a product."""
-    template, tape = _config1_over(field, nonzero)
+    template, tape = config1_tape(nonzero, field)
     free = _u32((2, 128, 128), "cpu", 2)
     for t in (tape, corrupted(tape, "fadd", pick="last", into="fmul")):
         prog = WitnessProgram(t)
@@ -1046,7 +1072,7 @@ def test_goldilocks_satisfier_and_config5_on_card(cuda):
     limb; config 5's generator at 2^14 rows completes and checks on the
     canonical route, and a flip of z[5, 0] is found at the row numpy
     names, as on the CPU and by RowShardedSatisfier."""
-    template, tape = _config1_over(GOLDILOCKS, False)
+    template, tape = config1_tape(False, GOLDILOCKS)
     prog = WitnessProgram(tape)
     z = prog.z_template_limbs(*prog.build(device="cpu")(_u32((1, 128), "cpu", 2)))[0]
     bad = z.clone()
@@ -1270,3 +1296,728 @@ def test_minroot_chunk_verdict_on_card_matches_eager_route(cuda):
     want = (int(mask.sum()), int(torch.where(mask, inst + rows[:, None], 1 << 62).min()))
     assert got == want and got[0] > 1024 * B, (got, want)
     assert counts["operand_mulcmp"] == 1 and counts["mulcmp"] == 0, counts
+
+
+# --- the paths' own tables, probes and oracles ----------------------------------
+CLEAN = (0, 0xFFFFFFFF)
+
+
+def _verdict(v):
+    return tuple(int(x) for x in v)
+
+
+def _both_verdicts(mask):
+    """A plain version's 0/1 mask that holds both verdicts, so that the
+    kernel's agreeing with it shows it flags violations and passes the
+    rest."""
+    n_bad = int((mask != 0).sum())
+    assert 0 < n_bad < mask.numel(), (n_bad, mask.numel())
+
+
+def _mulcmp_plain(a, b, c, field):
+    """mulcmp's plain version over slices of 2^18 columns, which bounds its
+    int64 temporaries."""
+    step = 1 << 18
+    return torch.cat([fk.mulcmp_plain(*(o[:, s : s + step].contiguous() for o in (a, b, c)), field)
+                      for s in range(0, a.shape[1], step)])
+
+
+def _every_fifth_flipped(fl_p):
+    """A copy of limbs int32[F, 16, B] with bit 16 of each value (bit 0 of
+    limb 1) cleared at every fifth instance: the values stay below p, and
+    the rows that read a value that had the bit set fail there."""
+    out = fl_p.clone(memory_format=torch.contiguous_format)
+    out[:, 1, ::5] &= ~1
+    return out
+
+
+def _packed_circuit(name):
+    """(template, program) of one of the packed step's circuits."""
+    if name == "sha256":
+        return native_sha256()
+    return native_prog({"blake2s": blake2s_circuit, "config2": config2_circuit, "config3": config3_circuit}[name]())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sha256", "blake2s", "config2", "config3"])
+def test_packed_step_probes_and_kernels_at_its_tables_on_card(cuda, name):
+    """The packed step at 2 × 1,024 (config 3 in the mixed packed layout):
+    a clean verdict and the path's launches; chunk 0's words (and limbs)
+    equal to the CPU evaluator's; a flipped bit found at its instance and
+    at the row the CPU check of its word names (config 3 also a flipped
+    pack-output limb bit, at the multipack row, and a flipped addend bit).
+    Then the kernels at the check's own tables, on chunk 0's words with
+    the odd words random: bitplane_eq at the plane table, bits_matvec_semi
+    at every bucket of the big rows and mulcmp on their A·z, B·z and C·z,
+    each equal to its plain version (the masks holding both verdicts), and
+    verdict_fold over the check's folds equal to its plain version."""
+    template, prog = _packed_circuit(name)
+    field, R, B = template.field, template.num_constraints, 1024
+    Bw = B // 32
+    mixed = not prog.is_packable
+    free = _u32((2, Bw, len(prog.free_slots)), "cpu")
+    fk.reset_launch_counts()
+    assert _verdict(build_packed_production_step(prog, template, B, device=cuda)(free.to(cuda))) == CLEAN
+    counts = fk.launch_counts()
+    assert counts["bitplane_eq"] == (0 if name == "blake2s" else 2) and counts["verdict_fold"] > 0, counts
+    if name == "sha256":
+        assert counts["bits_matvec_semi"] > 0 and counts["mulcmp"] == 2, counts
+    if name == "blake2s":
+        assert (counts["bits_matvec_semi"], counts["mulcmp"]) == (8, 2), counts
+
+    field_slots = sorted(prog.field_rows, key=prog.field_rows.get) if mixed else None
+    check = build_templated_check(template, B, None, "bits_packed", field_slots=field_slots, device=cuda)
+    cpu_check = build_templated_check(template, 32, None, "bits_packed", field_slots=field_slots, device="cpu")
+    if mixed:
+        vals0, fl0 = prog.build_packed_mixed(device=cuda)(free[0].to(cuda))
+        cpu_vals, cpu_fl = prog.build_packed_mixed(device="cpu")(free[0])
+        assert torch.equal(fl0.cpu(), cpu_fl)
+    else:
+        vals0, fl0 = prog.build_packed(device=cuda)(free[0].to(cuda)), None
+        cpu_vals = prog.build_packed(device="cpu")(free[0])
+    assert torch.equal(vals0.cpu(), cpu_vals)
+    assert _verdict(check.verdict(vals0, fl0)) == CLEAN
+
+    def probe(word, bit, slot=None, limb=None):
+        """Flip bit `bit` of packed word (word, slot), or bit limb[1] of
+        limb limb[0] of instance 32·word + bit's first field row: found at
+        that instance and at the row the CPU check of the word names."""
+        v, f = vals0.clone(), None if fl0 is None else fl0.clone()
+        inst = 32 * word + bit
+        if limb is None:
+            v[word, slot] ^= 1 << bit
+        else:
+            f[inst, 0, limb[0]] ^= 1 << limb[1]
+        nbad, first = _verdict(check.verdict(v, f))
+        _cnb, cfirst = _verdict(cpu_check.verdict(
+            v[word : word + 1].cpu(), None if f is None else f[32 * word : 32 * word + 32].cpu()))
+        assert nbad > 0 and first // R == inst and cfirst // R == bit and first % R == cfirst % R, (nbad, first, cfirst)
+        return first % R
+
+    probe(Bw // 2, 7, slot=prog.num_slots // 2)
+    if mixed:
+        assert probe(Bw // 3, 11, limb=(1, 4)) == int(check.pf_rows[0])  # the multipack row
+        probe(5, 30, slot=prog.free_slots[40])
+
+    vals_p = vals0.t().contiguous()
+    vals_p[:, 1::2] = _u32((vals_p.shape[0], Bw // 2), cuda)
+    _packed_kernels_hold(check, vals_p, mixed, field)
+
+
+def _by_words(plain, vals_p, words, *args):
+    """A plain version run over slices of `words` packed words (the
+    instances of its output along its last dimension), which bounds its
+    temporaries."""
+    return torch.cat([plain(vals_p[:, s : s + words].contiguous(), *args)
+                      for s in range(0, vals_p.shape[1], words)], dim=-1)
+
+
+def _packed_kernels_hold(check, vals_p, mixed, field, words=1024):
+    """The packed check's kernels at its own tables, on slot-major words
+    vals_p int32[S, Bw] whose odd words are random, each equal to its
+    plain version (run over slices of `words` words, the fold's over
+    slices of as many rows): bitplane_eq at the plane table,
+    bits_matvec_semi at every bucket of the big rows and mulcmp on their
+    A·z, B·z and C·z (the masks holding both verdicts); for a pure-bit
+    check, verdict_fold over the check's folds, one launch a fold, into a
+    verdict that counts violations."""
+    inner = check.inner if mixed else check
+    if inner.pow2_spec is not None:
+        spec = inner.pow2_spec
+        n, m_a, m_c = spec["a_cols"].shape[0], spec["a_cols"].shape[2], spec["c_cols"].shape[2]
+        P = fk.padded_positions(spec["n_pos"])
+        want = _by_words(fk.bitplane_eq_plain, vals_p, words, inner.plane_idx, n, P, m_a, m_c)
+        _both_verdicts(want)
+        assert torch.equal(fk.bitplane_eq(vals_p, inner.plane_idx, n, P, m_a, m_c), want)
+        del want
+    if inner.big is not None:
+        for m in "abc":
+            for cols, F in inner.big.mats[m]:
+                assert torch.equal(fk.bits_matvec_semi(vals_p, cols, F, field),
+                                   _by_words(fk.bits_matvec_semi_plain, vals_p, words, cols, F, field)), \
+                    (m, tuple(cols.shape))
+        a, b, c = (inner.big._matvec(m, vals_p) for m in "abc")
+        want = _mulcmp_plain(a, b, c, field)
+        _both_verdicts(want)
+        assert torch.equal(fk.mulcmp(a, b, c, field), want)
+        del a, b, c, want
+    if mixed:
+        return
+    R, B = check.Rt0, check.batch
+    ins = list(check._fam_bad_words(vals_p))
+    if check.n_left:
+        ins.append((check._left_bad(vals_p), check.rows_left))
+    if check.pow2_spec is not None:
+        ins.append((check._pow2_bad_words(vals_p), check.pow2_rows))
+    if check.big is not None:
+        ins.append((check._big_bad(vals_p), check.rest_big_idx))
+    acc, plain = fk.verdict_acc(vals_p.device), fk.verdict_acc(vals_p.device)
+    before = fk.verdict_fold.launches
+    for bad, rows in ins:
+        fk.verdict_fold(acc, bad, rows, R, B)
+        for s in range(0, bad.shape[0], words):
+            fk.verdict_fold_plain(plain, bad[s : s + words], rows[s : s + words], R, B)
+    assert fk.verdict_fold.launches == before + len(ins)
+    assert acc[0] > 0 and torch.equal(acc, plain), (acc, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sha256", "blake2s"])
+def test_packed_step_and_kernels_at_the_cells_batch_on_card(cuda, name):
+    """The packed step at the step_2m cells' chunk, 2^21 instances
+    (perfbench/traffic/step_2m.json): clean, launching per kernel what the
+    same step launches at 1,024 instances; then the check's kernels at
+    its own tables on that chunk's words with the odd words random, each
+    equal to its plain version (_packed_kernels_hold)."""
+    template, prog = _packed_circuit(name)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0x5EED_0022)
+    launched = {}
+    for B in (1024, 1 << 21):
+        free = torch.randint(-(1 << 31), 1 << 31, (1, B // 32, len(prog.free_slots)), generator=gen,
+                             dtype=torch.int32, device=cuda)
+        step = build_packed_production_step(prog, template, B, device=cuda)
+        verdict, launched[B] = counted(lambda: _verdict(step(free)))
+        del step
+        assert verdict == CLEAN, (B, verdict)
+    assert launched[1 << 21] == launched[1024], launched
+    assert launched[1024]["mulcmp"] == 1 and launched[1024].get("bitplane_eq", 0) == (name == "sha256"), launched
+    evaluator, check = build_packed_parts(prog, template, 1 << 21, cuda)
+    vals_p, _ = evaluator.slot_major(free[0])
+    del evaluator, free
+    vals_p[:, 1::2] = torch.randint(-(1 << 31), 1 << 31, (vals_p.shape[0], vals_p.shape[1] // 2), generator=gen,
+                                    dtype=torch.int32, device=cuda)
+    _packed_kernels_hold(check, vals_p, False, template.field)
+    del vals_p, check
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonzero", [False, True], ids=["config1", "variant"])
+def test_field_evaluator_on_card_matches_cpu_and_python_ints(cuda, nonzero):
+    """Config 1 and its num_assert_nonzero variant at B = 256: the card's
+    vals and limbs equal the CPU evaluator's; config 1's chain rows at
+    four instances equal x <- ((x·b + a) mod p)² mod p over the Python
+    ints, the variant's finv pow(x, p − 2, p) of the chain's last x (and
+    the field backend's inv on the card); the mixed check is clean, and a
+    flipped bit of a field row is found at its instance and at the row
+    the Python ints name; operand_mulcmp at the check's product-row table,
+    on the limbs with bit 16 cleared at every fifth instance, equals its
+    plain version, whose mask holds both verdicts."""
+    template, prog = config1(nonzero)
+    R, B, p = template.num_constraints, 256, SCALAR.p
+    free_np = RNG.integers(0, 2, size=(B, 128)).astype(np.uint32)
+    free = from_numpy_u32(free_np, cuda)
+    ev = prog.build(device=cuda)
+    vals, fl = ev(free)
+    cpu_vals, cpu_fl = prog.build(device="cpu")(from_numpy_u32(free_np))
+    assert torch.equal(vals.cpu(), cpu_vals) and torch.equal(fl.cpu(), cpu_fl)
+    insts = (0, 1, B // 2, B - 1)
+    if nonzero:
+        fin = next(st for st in prog.stages if st.opcode == "finv")
+        assert int(fin.arrs["a_kind"][0]) == SRC_ROW
+        x_row, inv_row = int(fin.arrs["a_idx"][0]), int(fin.outs[0])
+        for i in insts:
+            x = chain_steps(free_np[i])[-1][2]
+            assert [col_int(fl[i, row].reshape(16, 1), 0) for row in (x_row, inv_row)] == [x, pow(x, p - 2, p)], i
+    else:
+        rows = _detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])["out_rows"]
+        for i in insts:
+            for r, want in enumerate(chain_steps(free_np[i])):
+                assert [col_int(fl[i, int(rows[3 * r + j])].reshape(16, 1), 0) for j in range(3)] == want, (i, r)
+    check = build_templated_check(template, B, None, "mixed", field_slots=prog.field_slots, device=cuda)
+    assert check.n_mul == 60 + nonzero
+    assert _verdict(check.verdict(vals, fl)) == CLEAN
+    i, mid = B // 2, sorted(prog.field_rows.values())[45]
+    fbad = fl.clone()
+    fbad[i, mid, 0] ^= 1
+    nbad, first = _verdict(check.verdict(vals, fbad))
+    row, _n = python_int_first_bad(template, to_numpy_u32(prog.z_template_limbs(vals, fbad)[i]), prog.field_slots[mid])
+    assert row is not None and nbad > 0 and first == i * R + row, (nbad, first, row)
+    vals_p, fl_p = ev.slot_major(free)
+    assert int(check.verdict_slot_major(vals_p, fl_p)[0]) == 0
+    if nonzero:
+        x = fl_p[x_row : x_row + 1]  # [1, 16, B], as the evaluator hands it to inv
+        assert torch.equal(get_backend(SCALAR).inv(x, 1), fl_p[inv_row : inv_row + 1])
+    fl5 = _every_fifth_flipped(fl_p)
+    want = fk.operand_mulcmp_plain(check.mul.table, fl5, vals_p, SCALAR)
+    _both_verdicts(want)
+    assert torch.equal(fk.operand_mulcmp(check.mul.table, fl5, vals_p, SCALAR), want)
+
+
+@pytest.mark.cuda
+def test_sha256_limbs_step_on_card_matches_the_packed_check(cuda):
+    """The sha256 compression in the limbs form (the fused route, 17 ELL
+    buckets) at 2 × 128: a clean verdict through 17 limbs_matvec launches
+    and one mulcmp a chunk; chunk 0's verdict equal to the packed check's
+    on the same instances, clean and with an intermediate bit flipped
+    (found at its instance); a random field element in a message-bit slot
+    found at its instance. Then the kernels at the check's own tables on
+    that witness: limbs_matvec at every bucket, and mulcmp on its A·z, B·z
+    and C·z with C's odd columns zeroed, each equal to its plain version
+    (the mask holding both verdicts)."""
+    template, prog = native_sha256()
+    R, B = template.num_constraints, 128
+    free = from_numpy_u32(RNG.integers(0, 2, size=(2, B, 512)).astype(np.uint32), cuda)
+    fk.reset_launch_counts()
+    step = build_production_step(prog, template, B, device=cuda, witness_form="limbs")
+    assert _verdict(step(free)) == CLEAN
+    counts = fk.launch_counts()
+    assert counts["limbs_matvec"] == 2 * 17 and counts["mulcmp"] == 2, counts
+    check = build_templated_check(template, B, None, "limbs", device=cuda)
+    packed = build_templated_check(template, B, None, "bits_packed", device=cuda)
+    assert check.fused and check.Rtp == 26360
+    z = prog.z_template_limbs(*prog.build(device=cuda)(free[0]))
+    words = prog.build_packed(device=cuda)(pack_bits(free[0]))
+    slot, inst = 9000, B // 3  # an intermediate slot: its bit flipped in both forms
+    zf, wf = z.clone(), words.clone()
+    zf[inst, slot, 0] ^= 1
+    wf[inst // 32, slot] ^= 1 << (inst % 32)
+    for zz, ww in ((z, words), (zf, wf)):
+        got = _verdict(check.verdict(zz))
+        assert got == _verdict(packed.verdict(ww))
+    assert got[0] > 0 and got[1] // R == inst, got
+    bad = z.clone()
+    bad[B // 2, prog.free_slots[100]] = _canonical(SCALAR, 4, 12, cuda)[:, 3]
+    nb, first = _verdict(check.verdict(bad))
+    assert nb > 0 and first // R == B // 2, (nb, first)
+    zt = z.permute(1, 2, 0).contiguous()
+    for m in "abc":
+        for cols, F in check.mats[m]:
+            assert torch.equal(fk.limbs_matvec(zt, cols, F, SCALAR), fk.limbs_matvec_plain(zt, cols, F, SCALAR)), m
+    a, b, c = (check._matvec_fused(m, zt) for m in "abc")
+    c[:, 1::2] = 0
+    want = _mulcmp_plain(a, b, c, SCALAR)
+    _both_verdicts(want)
+    assert torch.equal(fk.mulcmp(a, b, c, SCALAR), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2048, 4096])
+def test_sha256_limbs_step_at_larger_batches_on_card(cuda, B):
+    """The sha256 limbs step at larger chunks, 2 × B: a clean verdict
+    through 17 limbs_matvec launches and one mulcmp a chunk, the card's
+    peak allocation over the run under 40 GiB (at 8,192 it peaks at
+    68.6 GiB on an 80 GB H100: its A·z, B·z and C·z are int32
+    [17, 26,360 × 8,192], 14.7 GB each)."""
+    template, prog = native_sha256()
+    free = from_numpy_u32(RNG.integers(0, 2, size=(2, B, 512)).astype(np.uint32), cuda)
+    step = build_production_step(prog, template, B, device=cuda, witness_form="limbs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    verdict, counts = counted(lambda: _verdict(step(free)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del step, free
+    torch.cuda.empty_cache()
+    assert verdict == CLEAN and (counts["limbs_matvec"], counts["mulcmp"]) == (2 * 17, 2), (verdict, counts)
+    assert peak < 40, f"peak {peak:.2f} GiB"
+
+
+@pytest.mark.cuda
+def test_config1_limbs_satisfiers_and_their_tables_on_card(cuda):
+    """Config 1's TemplatedSatisfier at B = 128 (90 trivial rows through
+    operand_mulcmp, 8 fold rows): clean; a random field element in a bit
+    slot and a flipped limb of a pack output each named at its instance;
+    operand_mulcmp at the trivial rows' table, on z with bit 16 cleared at
+    every fifth instance, equal to its plain version (the mask holding
+    both verdicts). Then the Satisfier at batch 1 (its fold rows on the
+    non-fused limbs route) at its own tables: mul_digits on each matrix's
+    gathered z and coefficients, reduce_digits on the bucket row sums and
+    mul on A·z and B·z, each equal to its plain version."""
+    template, prog = config1(False)
+    B = 128
+    free = from_numpy_u32(RNG.integers(0, 2, size=(B, 128)).astype(np.uint32), cuda)
+    z = prog.z_template_limbs(*prog.build(device=cuda)(free))
+    sat = TemplatedSatisfier(template, B, device=cuda)
+    assert (sat.check.n_triv, sat.check.fold.Rtp) == (90, 8)
+    assert sat.is_satisfied(z)
+    bad = z.clone()
+    bad[B // 2, prog.free_slots[77]] = _canonical(SCALAR, 4, 13, cuda)[:, 3]
+    assert sat.which_is_unsatisfied(bad).startswith(f"instance {B // 2}: ")
+    pack = sorted(prog.field_rows, key=prog.field_rows.get)[0]  # the first pack output
+    flip = z.clone()
+    flip[B // 4, pack, 2] ^= 1
+    assert sat.which_is_unsatisfied(flip).startswith(f"instance {B // 4}: ")
+    z5 = _every_fifth_flipped(z.permute(1, 2, 0))
+    want = fk.operand_mulcmp_plain(sat.check.ops.table, z5, None, SCALAR)
+    _both_verdicts(want)
+    assert torch.equal(fk.operand_mulcmp(sat.check.ops.table, z5, None, SCALAR), want)
+
+    lc = Satisfier(template, device=cuda)._check.fold  # the rows outside the booleanity and trivial ones
+    assert isinstance(lc, LimbsCheck) and not lc.fused
+    zl = z[0][:, :, None].permute(1, 2, 0)  # [16, 1, S_t], the check's limb-major view
+    for m in "abc":
+        cols, coeffs, buckets = lc.mats[m]
+        zv = zl.index_select(2, cols).reshape(16, cols.shape[0]).contiguous()
+        cv = coeffs.contiguous()
+        dig = fk.mul_digits(zv, cv, SCALAR)
+        assert torch.equal(dig, fk.mul_digits_plain(zv, cv, SCALAR)), m
+        sums = torch.cat([dig[:, s : s + nr * k].reshape(32, nr, k).sum(-1, dtype=torch.int32)
+                          for k, s, nr in buckets], dim=1).contiguous()
+        assert sums.shape[1] == lc.Rtp
+        assert torch.equal(fk.reduce_digits(sums, SCALAR), fk.reduce_digits_plain(sums, SCALAR)), m
+    az, bz = (lc._matvec(m, zl) for m in "ab")
+    assert torch.equal(fk.mul(az, bz, SCALAR), fk.mul_plain(az, bz, SCALAR))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,CB,blk,leaves", [(8, 4, 5, 16), (1024, 512, 700, 1024)], ids=["small", "config4"])
+def test_chained_and_merkle_steps_on_card_match_the_oracle(cuda, T, CB, blk, leaves):
+    """The chained and Merkle pipelines against the Python sha256 oracle
+    of tests/torch_circuits.py, small and at config 4's own size
+    (benchmarks/config4_merkle_1024.py: chains of 1,024 blocks, check
+    batch 512, a tree of 1,024 leaves): a 64-byte message as two chained
+    blocks gives hashlib's digest; one chain of T blocks (check batch CB)
+    is clean through one bitplane_eq launch a check batch and ends in the
+    oracle's state; a flipped witness bit of block `blk` is named by
+    which_from_flat at the row the CPU check of that instance names, and
+    PipelinedSatisfier on the same witness is satisfied clean and names
+    the flip in its chunk; 3 chains of T blocks end in the oracle's
+    states; the Merkle root of `leaves` leaves is the oracle's tree's."""
+    template, prog, views = _chain_prog()
+    S = prog.num_slots
+    nb = NativeBuilder()
+    iv = torch.tensor([nb.view(v)[1] for v in nb.sha256_iv()], dtype=torch.int32, device=cuda)
+    assert state_words(iv.tolist()) == SHA256_IV
+
+    m = bytes(range(64))
+    padded = m + b"\x80" + b"\x00" * 61 + (512).to_bytes(2, "big")
+    blocks = [[[(byte >> (7 - i)) & 1 for byte in padded[k : k + 64] for i in range(8)]] for k in (0, 64)]
+    step = build_chained_production_step(prog, template, views, check_batch=2, device=cuda)
+    total, first, final = step(iv[None], torch.tensor(blocks, dtype=torch.int32, device=cuda))
+    digest = b"".join(w.to_bytes(4, "big") for w in state_words(final[0].tolist()))
+    assert (int(total), int(first)) == CLEAN and digest == hashlib.sha256(m).digest()
+
+    msgs_np = RNG.integers(0, 2, size=(T, 1, 512)).astype(np.uint32)
+    msgs = from_numpy_u32(msgs_np, cuda)
+    step = build_chained_production_step(prog, template, views, check_batch=CB, device=cuda)
+    fk.reset_launch_counts()
+    assert _verdict(step(iv[None], msgs)[:2]) == CLEAN
+    assert fk.launch_counts()["bitplane_eq"] == T // CB
+    vals, final = step.gen(iv[None], msgs)
+    assert _verdict(step.verdict(vals)) == CLEAN
+    assert state_words(final[0].tolist()) == oracle_chain(msgs_np, 0)
+    bad = vals.clone()
+    bad[blk, 0, S - 5] ^= 1
+    z4 = bad.reshape(T // CB, CB, S)
+    nbad, fbad = _verdict(build_chunked_check(template, CB, T // CB, device=cuda, witness_form="bits")(z4))
+    cpu_first = _verdict(build_templated_check(template, 1, None, "bits", device="cpu").verdict(bad[blk].cpu()))[1]
+    assert nbad > 0 and which_from_flat(template, fbad) == f"instance {blk}: constraint #{cpu_first}"
+    sat = PipelinedSatisfier(template, CB, T // CB, device=cuda, witness_form="bits")
+    assert sat.is_satisfied(vals.reshape(z4.shape))
+    assert sat.which_is_unsatisfied(z4) == f"chunk {blk // CB}: instance {blk % CB}: constraint #{cpu_first}"
+
+    msgs_np = RNG.integers(0, 2, size=(T, 3, 512)).astype(np.uint32)
+    vals, final = step.gen(iv[None].expand(3, 256).contiguous(), from_numpy_u32(msgs_np, cuda))
+    assert _verdict(step.verdict(vals)) == CLEAN
+    assert [state_words(final[b].tolist()) for b in range(3)] == [oracle_chain(msgs_np, b) for b in range(3)]
+
+    nb = NativeBuilder()
+    out = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], nb.sha256_iv())
+    template, tape = nb.finish()
+    leaves_np = RNG.integers(0, 2, size=(leaves, 256)).astype(np.uint32)
+    root, total = build_merkle_tree_step(WitnessProgram(tape), template, [nb.view(v) for v in out], leaves,
+                                         device=cuda)(from_numpy_u32(leaves_np, cuda))
+    level = [state_words(row) for row in leaves_np]
+    while len(level) > 1:
+        level = [sha256_compress(SHA256_IV, level[i] + level[i + 1]) for i in range(0, len(level), 2)]
+    assert int(total) == 0 and state_words(root.tolist()) == level[0]
+
+
+@pytest.mark.cuda
+def test_num_mixed_block_step_faults_and_tables_on_card(cuda):
+    """The num family's mixed block through build_production_step at 2 ×
+    128: clean, through mul (the inversions) and one operand_mulcmp and
+    one mulcmp launch a chunk; a flipped bit of the sha256 part and a
+    flipped limb of the inverse found at their instance. Then the kernels
+    at its tables on chunk 0's witness: limbs_matvec at every bucket of
+    the mixed check's rest rows (the fused limbs check), operand_mulcmp at
+    its product rows' table on the limbs with bit 16 cleared at every
+    fifth instance, and mulcmp on the rest rows' A·z, B·z and C·z with C's
+    odd columns zeroed, each equal to its plain version (the masks holding
+    both verdicts)."""
+    template, prog = _num_mixed_block()
+    R, B = template.num_constraints, 128
+    free = from_numpy_u32(RNG.integers(0, 2, size=(2, B, len(prog.free_slots))).astype(np.uint32), cuda)
+    ff = torch.stack([_canonical(SCALAR, B, 21 + k, cuda).t().reshape(B, 1, 16) for k in range(2)]).contiguous()
+    fk.reset_launch_counts()
+    assert _verdict(build_production_step(prog, template, B, device=cuda)(free, ff)) == CLEAN
+    counts = fk.launch_counts()
+    assert counts["mul"] > 0 and counts["operand_mulcmp"] == counts["mulcmp"] == 2, counts
+    vals, fl = prog.build(device=cuda)(free[0], ff[0])
+    check = build_templated_check(template, B, None, "mixed", field_slots=prog.field_slots, device=cuda)
+    fl_check = torch.cat([fl, ff[0]], dim=1)
+    assert _verdict(check.verdict(vals, fl_check)) == CLEAN
+    inv_row = int(next(st.outs[0] for st in prog.stages if st.opcode == "num_inv_or_one"))
+    for inst, edit in ((B // 3, lambda v, f, i: v[i, 9000].bitwise_xor_(1)),
+                       (5, lambda v, f, i: f[i, inv_row, 3].bitwise_xor_(1))):
+        v, f = vals.clone(), fl_check.clone()
+        edit(v, f, inst)
+        nbad, first = _verdict(check.verdict(v, f))
+        assert nbad > 0 and first // R == inst, (inst, nbad, first)
+    vals_p, fl_p = vals.t().contiguous(), fl_check.permute(1, 2, 0).contiguous()
+    zt = check.rest_z(vals_p, fl_p)
+    assert check.rest.fused
+    for m in "abc":
+        for cols, F in check.rest.mats[m]:
+            assert torch.equal(fk.limbs_matvec(zt, cols, F, SCALAR), fk.limbs_matvec_plain(zt, cols, F, SCALAR)), m
+    fl5 = _every_fifth_flipped(fl_p)
+    want = fk.operand_mulcmp_plain(check.mul.table, fl5, vals_p, SCALAR)
+    _both_verdicts(want)
+    assert torch.equal(fk.operand_mulcmp(check.mul.table, fl5, vals_p, SCALAR), want)
+    a, b, c = (check.rest._matvec_fused(m, zt) for m in "abc")
+    c[:, 1::2] = 0
+    want = _mulcmp_plain(a, b, c, SCALAR)
+    _both_verdicts(want)
+    assert torch.equal(fk.mulcmp(a, b, c, SCALAR), want)
+
+
+@pytest.mark.cuda
+def test_config5_launches_product_and_kernels_on_card(cuda):
+    """Config 5's generator at 2^16 rows: one completion and one check
+    launch exactly mul (one a product chunk, two a premul slice),
+    reduce_digits (two a product chunk) and mulcmp (one a check chunk); a
+    second completion gives the same z; the product at 512 sampled rows
+    equals A·z · B·z over the Python ints; RowShardedSatisfier checks
+    through 3 mul_digits, 3 reduce_digits and 1 mul launches and gives the
+    semi and canonical routes' verdicts, clean and with z[5, 0] flipped.
+    Then the kernels at its shapes and operands, each equal to its plain
+    version: mulcmp on the check's chunk 0 semi blocks with C's odd
+    columns zeroed (the mask holding both verdicts), mul on a premul slice
+    of the raw z (values in [p, 2^256)) and on the product's chunk 0 (held
+    to Python ints too), reduce_digits on that chunk's A digit sums in
+    both layouts, and the row shard's mul_digits on A's gathered raw z,
+    reduce_digits on its digit sums and mul on its A·z and B·z."""
+    r1cs, zfree, N0, _ = config5_r1cs(16)
+    R, p, n_chk, n_wit = r1cs.num_constraints, SCALAR.p, 4, 16
+    check, prep = build_row_chunked_check(r1cs, n_chk, device=cuda)
+    meta = check._layout_meta
+    prod, prep_ab = build_row_chunked_product(r1cs, n_wit, reuse=(meta, prep), device=cuda)
+    z = config5_z(zfree, R, cuda)
+    fk.reset_launch_counts()
+    z[N0 + 1 :] = prod(z, prep_ab)
+    assert _verdict(check(z, prep)) == CLEAN
+    n_pm = len(meta["span"])
+    assert fk.launch_counts() == {**dict.fromkeys(fk.KERNELS, 0), "mul": n_wit + 2 * n_pm,
+                                  "reduce_digits": 2 * n_wit, "mulcmp": n_chk}
+    z2 = z.clone()
+    z2[N0 + 1 :] = prod(z2, prep_ab)
+    assert torch.equal(z2, z)
+    rows = np.sort(np.random.default_rng(0x5EED_0016).choice(R, 512, replace=False))
+    slots = np.concatenate([r1cs.a.cols[2 * rows], r1cs.a.cols[2 * rows + 1], r1cs.b.cols[rows], N0 + 1 + rows])
+    sums = row_sums_int(r1cs, z_ints(z, slots), rows)
+    assert all(sa * sb % p == sc for sa, sb, sc in zip(sums["a"], sums["b"], sums["c"]))
+
+    rsat = RowShardedSatisfier(r1cs, device=cuda)
+    canon, _ = build_row_chunked_check(r1cs, n_chk, use_pallas=False, reuse=(meta, prep), device=cuda)
+    fk.reset_launch_counts()
+    got = _verdict(rsat._check(z))
+    assert fk.launch_counts() == {**dict.fromkeys(fk.KERNELS, 0), "mul_digits": 3, "reduce_digits": 3, "mul": 1}
+    zb = z.clone()
+    zb[5, 0] ^= 1
+    for zz, want in ((z, CLEAN), (zb, None)):
+        got = [_verdict(f(zz)) for f in (rsat._check, lambda t: check(t, prep), lambda t: canon(t, prep))]
+        assert got[0] == got[1] == got[2] and (want is None or got[0] == want), got
+    assert got[0][0] > 0 and got[0][1] == flipped_first_row(r1cs, 5)
+
+    ev, _ = build_row_chunked_eval(r1cs, n_chk, reuse=(meta, prep), device=cuda)
+    cl = prep["coeff_limbs"]
+    zsrc = ev._zsrc(z, cl)
+    a, b, c = ev._blocks_semi(zsrc, cl, _chunk(ev._xs(prep, ("a", "b", "c")), 0), ("a", "b", "c"))
+    c[:, 1::2] = 0
+    want = _mulcmp_plain(a, b, c, SCALAR)
+    _both_verdicts(want)
+    assert torch.equal(fk.mulcmp(a, b, c, SCALAR), want)
+    k = max(ev.span)  # the last premul slice
+    n = ev.span[k]
+    zk = z[:n].t().contiguous()
+    ck = cl[k][:, None].expand(16, n).contiguous()
+    vals = [col_int(zk, i) for i in range(64)]
+    assert any(v >= p for v in vals)
+    got = fk.mul(zk, ck, SCALAR)
+    cv = col_int(cl[k][:, None], 0)
+    assert [col_int(got, i) for i in range(64)] == [v * cv % p for v in vals]
+    assert torch.equal(got, fk.mul_plain(zk, ck, SCALAR))
+    ew, _ = build_row_chunked_eval(r1cs, n_wit, names=("a", "b"), reuse=(meta, prep), device=cuda)
+    x0 = _chunk(ew._xs(prep, ("a", "b")), 0)
+    az, bz = ew._blocks(zsrc, cl, x0, ("a", "b"))
+    assert torch.equal(fk.mul(az, bz, SCALAR), fk.mul_plain(az, bz, SCALAR))
+    em = _ell_digit_sums(ew._gathered(zsrc, cl, x0[0], "a"), 2)  # [n, 32], as _block passes it
+    for d in (em.t(), em.t().contiguous()):
+        assert torch.equal(fk.reduce_digits(d, SCALAR), fk.reduce_digits_plain(d, SCALAR))
+
+    local, _origin = rsat._shards[0]
+    e = local["a"]
+    zv = _gather_rows(z, e["cols"]).t().contiguous()
+    cv = rsat._coeff_lm.index_select(1, e["cids"]).contiguous()
+    dig = fk.mul_digits(zv, cv, SCALAR)
+    assert torch.equal(dig, fk.mul_digits_plain(zv, cv, SCALAR))
+    d = to_numpy_u32(dig).astype(object)
+    for i in (0, 1, 2, zv.shape[1] - 1):
+        assert sum(int(d[j, i]) << (8 * j) for j in range(32)) == col_int(zv, i) * col_int(cv, i) % p
+    dsum = dig.reshape(32, -1, 2).sum(2, dtype=torch.int32)
+    assert torch.equal(fk.reduce_digits(dsum, SCALAR), fk.reduce_digits_plain(dsum, SCALAR))
+    az, bz = (rsat._matvec_local(m, z, local) for m in "ab")
+    assert torch.equal(fk.mul(az, bz, SCALAR), fk.mul_plain(az, bz, SCALAR))
+
+
+@pytest.mark.cuda
+def test_sharded_paths_two_gloo_ranks_on_one_card(cuda):
+    """Two gloo ranks sharing the one card (the rank logic, not scaling):
+    each runs the dry run's checks, then the packed step at 4,096 and the
+    bits step at 256 instances (clean, and with one xor of two free bits
+    computing `and`, those bits zeroed in the first half of the batch so
+    that the first failure lies on the last rank), the limbs
+    ShardedSatisfier at 256 (clean and with a flipped limb) and
+    RowShardedSatisfier on config 5 at 2^16 rows (clean, z[5, 0] flipped
+    and a product slot of the last quarter flipped). Every verdict and
+    name equals single-rank execution on the card in this process, the
+    witness shards in rank order equal its witness, and each path
+    launches its kernels on each rank as one rank does."""
+    inp = ranks.card_inputs()
+    want = ranks.card_paths(cuda, inp, None)
+    results = RankJob(ranks.card_rank, 2, inp, backend="gloo", device=cuda.type).join(timeout=600)
+    for r, res in enumerate(results):
+        assert res["rank"] == r and res["device"].split(":")[0] == cuda.type, res["device"]
+        assert res["verdict"] == want["verdict"], (r, res["verdict"], want["verdict"])
+        assert res["launches"] == want["launches"], (r, res["launches"], want["launches"])
+        d = res["dryrun"]
+        assert (d["world"], d["backend"], d["packed"]) == (2, "gloo", CLEAN), d
+        assert d["which"] == ["constraint #699", "constraint #53403"], d["which"]
+    for path in ("packed", "bits"):
+        assert torch.equal(torch.cat([res["shard"][path] for res in results]), want["shard"][path]), path
+    v = want["verdict"]
+    assert v["packed"] == v["limbs"] == v["row"][0] == CLEAN and v["bits"] == 0, v
+    assert v["packed_bad"][0] > 0 and v["packed_bad"][1] // 26352 >= 2048 and v["bits_bad"] > 0, v
+    assert v["limbs_bad"][0][0] > 0 and v["limbs_bad"][0][1] // 26352 == 200, v
+    r1cs = config5_r1cs(ranks.CARD_ROW_LOG2_R)[0]
+    R = r1cs.num_constraints
+    assert [flip[0][1] for flip in v["row"][1:]] == [flipped_first_row(r1cs, 5), 3 * R // 4 + 1], v["row"]
+
+
+@pytest.mark.cuda
+def test_reference_style_calls_on_card_launch_what_their_paths_launch(cuda, tmp_path):
+    """The reference's device-layer API called as a program written against
+    bellpepper_tpu calls it, with no device argument (the card), launching
+    what the call with device= launches and giving its verdicts: both
+    Satisfier routes on a two-block sha256 chain (clean, and a bit slot set
+    to a random field element named at the row the Python ints name;
+    Satisfier(r, False) 4 mul and 3 reduce_digits launches a check, the
+    templated route 3 mul_digits, 3 reduce_digits and 1 mul); the chain
+    through save_r1cs, save_witness, load_r1cs and load_witness (z
+    bit-equal, the loaded Satisfier's verdicts the same); the flagship
+    packed step at 1,024 under set_default_config(Config(use_pallas=True)),
+    clean and corrupted; PipelinedSatisfier(config 1, 128, 2,
+    config=Config(use_pallas=True)) in the limbs form, clean and a flipped
+    limb named at its chunk, instance and Python-int row;
+    WitnessProgram.run equal to build()'s evaluator; FieldBackend.mul_pow2
+    at the corner values against Python ints."""
+    p = SCALAR.p
+    nb = NativeBuilder()
+    state = nb.sha256_iv()
+    for _ in range(2):
+        state = nb.sha256_compression([nb.alloc_bit() for _ in range(512)], state)
+    template, tape = nb.finish()
+    prog = WitnessProgram(tape)
+    z = prog.z_template_limbs(*prog.build(device=cuda)(_u32((1, 1024), cuda, 2)))[0]
+    slot = prog.free_slots[512 + 77]
+    bad = z.clone()
+    bad[slot] = _canonical(SCALAR, 4, 14, cuda)[:, 3]
+    row, _n = python_int_first_bad(template, to_numpy_u32(bad), slot)
+    assert row is not None
+    for use_pallas, launches in ((False, {"mul": 4, "reduce_digits": 3}),
+                                 (True, {"mul_digits": 3, "reduce_digits": 3, "mul": 1})):
+        ref, dev = Satisfier(template, use_pallas), Satisfier(template, use_pallas, device=cuda)
+        for sat in (ref, dev):
+            ok, counts = counted(lambda: sat.is_satisfied(z))
+            assert ok and counts == launches, (use_pallas, counts)
+            assert sat.which_is_unsatisfied(bad) == f"constraint #{row}"
+    fp = save_r1cs(str(tmp_path / "chain_r1cs.npz"), template)
+    save_witness(str(tmp_path / "chain_z.npz"), z, fp)
+    loaded = load_r1cs(str(tmp_path / "chain_r1cs.npz"), expect_fingerprint=fp)
+    zl_np, meta = load_witness(str(tmp_path / "chain_z.npz"), expect_fingerprint=fp)
+    zl = from_numpy_u32(zl_np, cuda)
+    assert torch.equal(zl, z) and meta["r1cs_fingerprint"] == fp
+    sat = Satisfier(loaded, False)
+    assert (sat.is_satisfied(zl), sat.which_is_unsatisfied(zl), sat.is_satisfied(bad),
+            sat.which_is_unsatisfied(bad)) == (True, None, False, f"constraint #{row}")
+
+    sha_template, sha_prog = native_sha256()
+    free = _u32((2, 32, 512), cuda)
+    before = default_config()
+    set_default_config(Config(use_pallas=True))
+    try:
+        cfg = default_config()
+        step = build_packed_production_step(sha_prog, sha_template, 1024, cfg.use_pallas)
+        check = build_templated_check(sha_template, 1024, cfg.use_pallas, "bits_packed")
+        vals0 = build_packed_chunked_witness(sha_prog)(free)[0]
+    finally:
+        set_default_config(before)
+    vbad = vals0.clone()
+    vbad[16, 600] ^= 1 << 7
+    dev_step = build_packed_production_step(sha_prog, sha_template, 1024, device=cuda)
+    dev_check = build_templated_check(sha_template, 1024, None, "bits_packed", device=cuda)
+    got, want = counted(lambda: _verdict(step(free))), counted(lambda: _verdict(dev_step(free)))
+    assert got == want and got[0] == CLEAN, (got, want)
+    got, want = counted(lambda: _verdict(check.verdict(vbad))), counted(lambda: _verdict(dev_check.verdict(vbad)))
+    assert got == want and got[0][0] > 0 and got[0][1] // sha_template.num_constraints == 32 * 16 + 7, got
+
+    template, prog = config1(False)
+    free_np = RNG.integers(0, 2, size=(2, 128, 128)).astype(np.uint32)
+    ev = prog.build(True)
+    z4 = torch.stack([prog.z_template_limbs(*ev(f)) for f in from_numpy_u32(free_np, cuda)])
+    psat = PipelinedSatisfier(template, 128, 2, config=Config(use_pallas=True))
+    dev_psat = PipelinedSatisfier(template, 128, 2, True, device=cuda)
+    got, want = counted(lambda: psat.is_satisfied(z4)), counted(lambda: dev_psat.is_satisfied(z4))
+    assert psat.witness_form == "limbs" and got == want and got[0], (got, want)
+    pack = sorted(prog.field_rows, key=prog.field_rows.get)[0]
+    z4[1, 42, pack, 2] ^= 1
+    row, _n = python_int_first_bad(template, to_numpy_u32(z4[1, 42]), pack)
+    assert psat.which_is_unsatisfied(z4) == f"chunk 1: instance 42: constraint #{row}"
+    (vals, flimbs), got = counted(lambda: prog.run(free_np[0]))
+    want_v, want_f = ev(from_numpy_u32(free_np[0], cuda))
+    assert torch.equal(vals, want_v) and torch.equal(flimbs, want_f) and got.get("chain") == 1, got
+
+    be = get_backend(SCALAR)
+    corners = [0, 1, 2, p - 1, p - 2, (p + 1) // 2, (1 << 240) - 1, (((p >> 240) - 1) << 240) | ((1 << 240) - 1)]
+    vals_a = corners + [random.Random(15).randrange(p) for _ in range(4096 - len(corners))]
+    a = torch.from_numpy(FieldBackend.to_limbs(vals_a).view(np.int32)).to(cuda)  # [4096, 16]
+    for k in (0, 1, 16, 255, 256, 511):
+        assert be.from_limbs(be.mul_pow2(a, k)) == [v * pow(2, k, p) % p for v in vals_a], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["config1", "config3"])
+def test_frontend_programs_on_card_equal_native(cuda, name):
+    """Config 1 (the mixed step at 2 × 256) and config 3 (the mixed
+    packed step at 2 × 512) through the port's ShapeCS and TapeCS: a clean
+    verdict through the path's kernels (config 1's chain and
+    operand_mulcmp, config 3's bitplane_eq), chunk 0's evaluator output on
+    the card equal to NativeBuilder's program's; config 1's mixed check
+    finds a flipped bit of a chain row at its instance."""
+    _name, circuit, native, _want = next(c for c in FRONTEND if c[0] == name)
+    shape, tape = ShapeCS(), TapeCS()
+    circuit(shape)
+    circuit(tape)
+    template, prog = shape.finish(), WitnessProgram(tape)
+    n_prog = native()[1]
+    fk.reset_launch_counts()
+    if name == "config1":
+        B = 256
+        free = from_numpy_u32(RNG.integers(0, 2, size=(2, B, 128)).astype(np.uint32), cuda)
+        assert _verdict(build_production_step(prog, template, B, device=cuda)(free)) == CLEAN
+        counts = fk.launch_counts()
+        assert counts["chain"] == counts["operand_mulcmp"] == 2, counts
+        got, want = prog.build(device=cuda)(free[0]), n_prog.build(device=cuda)(free[0])
+        check = build_templated_check(template, B, None, "mixed", field_slots=prog.field_slots, device=cuda)
+        row = int(_detect_linear_chain([st for st in prog.stages if st.opcode in SCAN_OPS])["out_rows"][45])
+        fbad = got[1].clone()
+        fbad[B // 3, row, 0] ^= 1
+        nbad, first = _verdict(check.verdict(got[0], fbad))
+        assert nbad > 0 and first // template.num_constraints == B // 3, (nbad, first)
+    else:
+        free = _u32((2, 16, len(prog.free_slots)), cuda)
+        assert _verdict(build_packed_production_step(prog, template, 512, device=cuda)(free)) == CLEAN
+        assert fk.launch_counts()["bitplane_eq"] == 2
+        got, want = prog.build_packed_mixed(device=cuda)(free[0]), n_prog.build_packed_mixed(device=cuda)(free[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -2,7 +2,7 @@
 through the wrappers) against Python ints, for every shipped field: the
 digit sums' two layouts (limb-major ``[32, N]`` and the transposed view of
 an element-major ``[N, 32]``, which the card's kernel reads as it lies),
-the sums at their corners (``chip_smoke.digit_sum_corners``: 0, 1 and
+the sums at their corners (``torch_circuits.digit_sum_corners``: 0, 1 and
 2^24 − 1 in every position; values that are multiples of p or one below
 one), and ``mul_digits`` on raw witness values in [p, 2^256) by
 canonical coefficients. The kernels themselves run on the card
@@ -14,7 +14,7 @@ import pytest
 from bellpepper_tpu_torch.backend import field_kernels as fk
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.fields import FIELDS
-from chip_smoke import digit_sum_corners  # the corners the card's compares use too
+from torch_circuits import digit_sum_corners  # the corners the card's compares use too
 
 
 def _value(col) -> int:

@@ -23,7 +23,7 @@ import pytest
 from bellpepper_tpu_torch import R1CS, Satisfier, WitnessProgram, build_packed_production_step
 from bellpepper_tpu_torch.backend.matvec import build_templated_check
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
-from chip_smoke import FRONTEND, assert_r1cs_equal  # NativeBuilder's builds of these circuits, the card script's compare
+from torch_circuits import FRONTEND, assert_r1cs_equal  # NativeBuilder's builds of these circuits
 
 REF, PORT = "bellpepper_tpu", "bellpepper_tpu_torch"
 B = 64  # instances of config 2's packed step on the CPU
@@ -82,7 +82,7 @@ def config3(m, cs, words=None):
 
 
 # name → (the circuit above, its rows); NativeBuilder's build of the same
-# circuit is chip_smoke.py's (FRONTEND)
+# circuit is tests/torch_circuits.py's (FRONTEND)
 CIRCUITS = {"sha256_compression": (sha256_compression, 26352), "config1": (config1, 220),
             "config2": (config2, 712), "config3": (config3, 229)}
 NATIVE = dict(zip(CIRCUITS, (native for _name, _circuit, native, _want in FRONTEND)))

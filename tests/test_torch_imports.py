@@ -1,5 +1,5 @@
 """The port must load where JAX is not installed: importing the package
-and its modules (and chip_smoke.py), building and running the sha256 and
+and its modules (and tests/torch_circuits.py), building and running the sha256 and
 config-1 templates on the CPU (the packed, mixed and limbs steps, the
 chunked check and both satisfiers), configs 2 and 3 and blake2s (the
 bits form, the mixed packed step and the packed step), and the chained
@@ -79,7 +79,8 @@ def test_port_never_imports_jax():
             build_packed_production_step, build_production_step,
         )
         from bellpepper_tpu_torch.native import SOURCE
-        import chip_smoke  # the card script: its imports, not its run
+        sys.path.insert(0, "tests")
+        import torch_circuits  # the tests' circuits and oracles, which the card's tests import
 
         nb = NativeBuilder()
         bits = [nb.alloc_bit() for _ in range(512)]

@@ -3,7 +3,7 @@ build_merkle_tree_step at 2 leaves on the CPU: the root bits and the
 violation total, exactly (tolerance 0), on seeded random leaf digests
 (the reference runs op by op, about 40 s a level on the CPU, so one
 level); then the port's root of 8 leaves (three levels) against
-chip_smoke.py's pure-Python sha256 compression oracle (FIPS 180-4), and
+tests/torch_circuits.py's pure-Python sha256 compression oracle (FIPS 180-4), and
 the step's refusals."""
 
 import jax
@@ -17,7 +17,7 @@ from bellpepper_tpu.compile.witness_program import WitnessProgram as RefProgram
 from bellpepper_tpu.native import NativeBuilder as RefBuilder
 from bellpepper_tpu_torch import NativeBuilder, WitnessProgram
 from bellpepper_tpu_torch.compile.pipeline import _STATE_TO_MSG_PERM, build_merkle_tree_step
-from chip_smoke import SHA256_IV, sha256_compress, state_words
+from torch_circuits import SHA256_IV, sha256_compress, state_words
 
 N_REF_LEAVES = 2
 N_LEAVES = 8

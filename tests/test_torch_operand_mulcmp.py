@@ -20,7 +20,7 @@ from bellpepper_tpu_torch import PALLAS_SCALAR, SCALAR, VESTA_SCALAR
 from bellpepper_tpu_torch.backend import field_kernels as fk
 from bellpepper_tpu_torch.backend.check_common import Products, _limb_rows, _product_bad
 from bellpepper_tpu_torch.backend.field_consts import _digits
-from chip_smoke import eager_product_bad  # the card script's eager route, as before operand_mulcmp
+from torch_circuits import eager_product_bad  # the eager route, as before operand_mulcmp
 from torch_operand_cases import decode_table, operand_rows
 from torch_small_fields import GOLDILOCKS
 

@@ -61,7 +61,7 @@ from bellpepper_tpu_torch.backend.row_sharded import RowShardedSatisfier
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z, flipped_first_row
 
-from chip_smoke import digit_sum_corners
+from torch_circuits import digit_sum_corners
 from test_torch_mixed import _one_torch_thread  # noqa: F401  (autouse)
 from torch_small_fields import GOLDILOCKS, JUBJUB_FR, SMALL_FIELDS
 

@@ -1,9 +1,12 @@
 """The rank side of tests/test_torch_sharding.py, tests/test_torch_multihost.py
 and tests/test_torch_sharded_limbs.py (not collected by pytest): functions that the port's rank launcher
 (bellpepper_tpu_torch.tools.dryrun_multichip.RankJob) runs on each
-rank of a gloo group on the CPU. This module imports no JAX and nothing
-of the JAX package, so neither does a rank; the test files hold what the
-ranks return against the JAX reference in the parent process.
+rank of a gloo group on the CPU; and those of the sharded card test of
+tests/test_torch_cuda.py (``card_rank``: two gloo ranks sharing the card,
+held to ``card_paths`` run whole on the card). This module imports no JAX
+and nothing of the JAX package, so neither does a rank; the CPU test files
+hold what the ranks return against the JAX reference in the parent
+process.
 
 The ranks synthesize their templates through the port's NativeBuilder
 (the parent builds the same ones), take their inputs as numpy arrays and
@@ -15,18 +18,30 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from bellpepper_tpu_torch import NativeBuilder, RowShardedSatisfier, WitnessProgram
+from bellpepper_tpu_torch import (
+    NativeBuilder,
+    RowShardedSatisfier,
+    TemplatedSatisfier,
+    WitnessProgram,
+    build_packed_production_step,
+    build_production_step,
+    build_row_chunked_check,
+    build_row_chunked_product,
+)
 from bellpepper_tpu_torch.backend.sharding import (
     ShardedSatisfier,
     default_group,
     default_mesh,
     global_verdict,
     sharded_packed_witness_and_check,
+    sharded_witness_and_check,
 )
 from bellpepper_tpu_torch.backend.words import from_numpy_u32, to_numpy_u32
 from bellpepper_tpu_torch.compile.tape import corrupted
-from bellpepper_tpu_torch.tools.dryrun_multichip import sha256_template
+from bellpepper_tpu_torch.tools.config5 import config5_r1cs, config5_z
+from bellpepper_tpu_torch.tools.dryrun_multichip import dryrun_rank, sha256_template
 from bellpepper_tpu_torch.utils.multihost import global_group, global_mesh, make_global_batch, multihost_verdict_step
+from torch_circuits import corrupt_free_xor, counted as launches
 
 
 def config3():
@@ -200,4 +215,114 @@ def limbs_rank(dev, inp: dict) -> dict:
     out["satisfier"] = [(sat.is_satisfied(sat.shard_z(z)), sat.which_is_unsatisfied(sat.shard_z(z)))
                         for z in inp["field_z3"]]
     out["foreign"] = foreign_modules()
+    return out
+
+
+# --- the sharded card test ---------------------------------------------------------
+CARD_LIMBS_FLIP = (200, 9000, 0)  # (instance, slot, limb) of the limbs path's flipped limb
+CARD_ROW_LOG2_R = 16  # config 5's rows in the row-sharded path
+
+
+def card_inputs() -> dict:
+    """The sharded card test's global inputs, from a seed: the packed
+    step's free words [128, 512] (4,096 instances) and the bits step's free
+    bits [256, 512], each clean and with the corrupted xor's two free bits
+    zeroed in the first half of the batch (so that its first failing
+    instance lies in the second half, the last rank's), and the limbs
+    path's free bits [256, 512]."""
+    rng = np.random.default_rng(0x5EED_0C4D)
+    _t, tape = sha256_template()
+    _bad, (i, j) = corrupt_free_xor(tape)
+    inp = {"packed": rng.integers(0, 1 << 32, size=(128, 512), dtype=np.uint64).astype(np.uint32),
+           "bits": rng.integers(0, 2, size=(256, 512)).astype(np.uint32),
+           "limbs": rng.integers(0, 2, size=(256, 512)).astype(np.uint32)}
+    for key in ("packed", "bits"):
+        bad = inp[key].copy()
+        bad[: bad.shape[0] // 2, [i, j]] = 0
+        inp[key + "_bad"] = bad
+    return inp
+
+
+def _ints(v) -> tuple:
+    return tuple(int(x) for x in v)
+
+
+def card_paths(dev, inp: dict, group) -> dict:
+    """The sharded card test's paths on `dev`: over the ranks of `group`
+    (this rank's shard), or with group None whole on one device. Returns
+    the verdicts (and names) of each path, clean and corrupted, the packed
+    and bits witness (this rank's rows) and the launches of each path's
+    calls."""
+    template, tape = sha256_template()
+    tape_bad, _ = corrupt_free_xor(tape)
+    progs = {"": WitnessProgram(tape), "_bad": WitnessProgram(tape_bad)}
+    out = {"verdict": {}, "shard": {}, "launches": {}}
+
+    def counted(path, fn):
+        res, out["launches"][path] = launches(fn)
+        return res
+
+    Bp, Bb = 32 * inp["packed"].shape[0], inp["bits"].shape[0]
+    for sfx, prog in progs.items():
+        if group is None:
+            step = build_packed_production_step(prog, template, Bp, device=dev)
+            f = from_numpy_u32(inp["packed" + sfx], dev)
+            out["verdict"]["packed" + sfx] = _ints(counted("packed" + sfx, lambda: step(f[None])))
+            vals = prog.build_packed(device=dev)(f)
+            step = build_production_step(prog, template, Bb, device=dev)
+            f = from_numpy_u32(inp["bits" + sfx], dev)
+            out["verdict"]["bits" + sfx] = int(counted("bits" + sfx, lambda: step(f[None]))[0])
+            z = prog.build(device=dev)(f)[0]
+        else:
+            step, shard = sharded_packed_witness_and_check(prog, template, Bp, None, group=group, device=dev)
+            fp = shard(inp["packed" + sfx])
+            nb, first, vals = counted("packed" + sfx, lambda: step(fp))
+            out["verdict"]["packed" + sfx] = (int(nb), int(first))
+            step, shard = sharded_witness_and_check(prog, template, Bb, None, group=group, device=dev)
+            fb = shard(inp["bits" + sfx])
+            nb, z = counted("bits" + sfx, lambda: step(fb))
+            out["verdict"]["bits" + sfx] = int(nb)
+        if not sfx:
+            out["shard"]["packed"], out["shard"]["bits"] = vals.cpu(), z.cpu()
+
+    prog = progs[""]
+    Bl = inp["limbs"].shape[0]
+    z3 = prog.z_template_limbs(*prog.build(device=dev)(from_numpy_u32(inp["limbs"], dev)))
+    inst, slot, limb = CARD_LIMBS_FLIP
+    z3b = z3.clone()
+    z3b[inst, slot, limb] ^= 1
+    if group is None:
+        sat = TemplatedSatisfier(template, Bl, device=dev)
+        out["verdict"]["limbs"] = _ints(counted("limbs", lambda: sat.check.verdict(z3)))
+        out["verdict"]["limbs_bad"] = (_ints(sat.check.verdict(z3b)), sat.which_is_unsatisfied(z3b))
+    else:
+        sat = ShardedSatisfier(template, Bl, group=group, witness_form="limbs", device=dev)
+        zl, zlb = sat.shard_z(z3.cpu()), sat.shard_z(z3b.cpu())
+        out["verdict"]["limbs"] = _ints(counted("limbs", lambda: sat._verdict(zl)))
+        out["verdict"]["limbs_bad"] = (_ints(sat._verdict(zlb)), sat.which_is_unsatisfied(zlb))
+
+    r1cs, zfree, N0, _ = config5_r1cs(CARD_ROW_LOG2_R)
+    R = r1cs.num_constraints
+    check, prep = build_row_chunked_check(r1cs, 4, device=dev)
+    prod, prep_ab = build_row_chunked_product(r1cs, 16, reuse=(check._layout_meta, prep), device=dev)
+    z = config5_z(zfree, R, dev)
+    z[N0 + 1 :] = prod(z, prep_ab)
+    rsat = RowShardedSatisfier(r1cs, device=dev, group=group)
+    if group is not None:
+        assert len(rsat._shards) == 1, "a rank holds its own shard only"
+    row = [_ints(counted("row", lambda: rsat._check(z)))]
+    for s in (5, N0 + 1 + 3 * R // 4 + 1):  # z[5, 0], first read in the first half; a product slot of the last quarter
+        zb = z.clone()
+        zb[s, 0] ^= 1
+        row.append((_ints(rsat._check(zb)), rsat.which_is_unsatisfied(zb)))
+    out["verdict"]["row"] = row
+    return out
+
+
+def card_rank(dev, inp: dict) -> dict:
+    """One rank of the sharded card test (the group is the world): the
+    dry run's checks, then ``card_paths`` over the group."""
+    group = default_group()
+    out = card_paths(dev, inp, group)
+    out.update(rank=dist.get_rank(group), device=str(dev), dryrun=dryrun_rank(dev))
     return out
