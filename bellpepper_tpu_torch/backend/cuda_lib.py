@@ -42,6 +42,7 @@ ENTRY_POINTS = {
     "bp_op_rate": [_vp, _vp, _i32, _i64, _i32, _i32, _vp],
     "bp_verdict_fold": [_vp, _i64, _i64, _i64, _i32, _i64, _vp, _i64, _vp, _i32, _vp],
     "bp_operand_mulcmp": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp, _vp],
+    "bp_addmany_packed": [_vp, _i64, _vp, _vp, _i64, _i32, _i32, _i32, _vp],
 }
 
 _lib = None

@@ -29,6 +29,11 @@ the ported paths, each a CUDA kernel in ``csrc/``:
                                 of the trivial product rows (``matvec.py``
                                 ``_operand_spec``, :1686), which XLA fuses,
                                 feeding ``make_mulcmp``
+  ``addmany``                   no Pallas kernel: the jnp CSA layers and
+                                prefix add of the packed evaluator's
+                                addmany stage (``witness_program.py``
+                                ``_build_packed_impl``, :1245), which XLA
+                                fuses
   ============================  ==========================================
 
 ``bits_matvec_semi``, ``bits_matvec_canonical`` and ``limbs_matvec``
@@ -66,7 +71,7 @@ from .words import FULL, U32, ctz32, popcount32, to_i32, to_u32, unpack_rows
 
 KERNELS = ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
            "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold",
-           "operand_mulcmp")
+           "operand_mulcmp", "addmany")
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -768,6 +773,114 @@ def verdict_fold_plain(acc: torch.Tensor, bad: torch.Tensor, rows: torch.Tensor,
 
 
 verdict_fold.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The packed evaluator's addmany stage (no Pallas counterpart: the
+# reference's jnp adder in _build_packed_impl, which XLA fuses)
+# ---------------------------------------------------------------------------
+def addmany_tables(arrs, outs, device) -> tuple:
+    """One addmany stage's views packed for ``addmany``: (desc int32[W,
+    n_words, 32], outs int32[W, n_out]). ``arrs`` holds the stage's view
+    arrays as ``WitnessProgram`` compiles them (``idx``, ``neg``, ``isc``,
+    ``cv``, each [W, n_words, 32]); a plane's descriptor is (slot << 1) |
+    neg for a variable view, −1 − value for a constant one."""
+    idx = np.asarray(arrs["idx"], np.int64)
+    if idx.size and idx.max() >= 1 << 30:
+        raise ValueError("addmany descriptors hold slots below 2^30")
+    desc = np.where(np.asarray(arrs["isc"]) != 0, -1 - np.asarray(arrs["cv"], np.int64),
+                    (idx << 1) | np.asarray(arrs["neg"], np.int64))
+    return (torch.from_numpy(desc.astype(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(outs, np.int32)).to(device))
+
+
+def _addmany_vec(vals: torch.Tensor) -> int:
+    """The words a thread of the addmany kernel takes: the widest access,
+    4, 2 or 1 words, that the buffer's base and row length allow (the
+    widest was the fastest at every stage shape of the step_2m cells on
+    the H100, W = 1 included)."""
+    for v in (4, 2):
+        if vals.data_ptr() % (4 * v) == 0 and vals.shape[1] % v == 0:
+            return v
+    return 1
+
+
+def addmany(vals: torch.Tensor, tables: tuple, n_words: int, n_out: int) -> torch.Tensor:
+    """One addmany stage in place: for each of the W sums, the n_words
+    addend words that desc names (``addmany_tables``), added mod 2^n_out
+    for every instance, and sum bit k written into slot outs[w, k] of the
+    slot-major packed buffer vals int32[S, Bw]. The output slots must be
+    distinct and no addend's. Returns vals."""
+    desc, outs = tables
+    if vals.dim() != 2:
+        raise ValueError(f"vals must be [S, Bw], got {tuple(vals.shape)}")
+    _check_words("vals", vals)
+    W = desc.shape[0] if desc.dim() == 3 else -1
+    _check_words("desc", desc, (W, n_words, 32))
+    _check_words("outs", outs, (W, n_out))
+    if not (0 < n_words < 1 << 15 and n_out >= 32):
+        raise ValueError(f"addmany takes 1 to 2^15 − 1 words and n_out ≥ 32, got {n_words}, {n_out}")
+    if not _on_cuda(vals, desc, outs):
+        return addmany_plain(vals, tables, n_words, n_out)
+    Bw = vals.shape[1]
+    if W and Bw:
+        _launch("bp_addmany_packed", vals.data_ptr(), Bw, desc.data_ptr(), outs.data_ptr(), W, n_words, n_out,
+                _addmany_vec(vals), stream=_stream(vals))
+        addmany.launches += 1
+    return vals
+
+
+def addmany_plain(vals: torch.Tensor, tables: tuple, n_words: int, n_out: int) -> torch.Tensor:
+    """Plain version: the views decoded from desc and gathered whole
+    ([W, n_words, 32, Bw]), then ``_addmany``'s CSA layers and prefix add,
+    then the sum planes copied into their slots."""
+    desc, outs = tables
+    W, Bw = desc.shape[0], vals.shape[1]
+    d = desc[..., None]
+    v = vals.index_select(0, (desc.clamp(min=0) >> 1).reshape(-1).to(torch.int64)).reshape(W, n_words, 32, Bw)
+    bv = torch.where(d < 0, -(d == -2).to(torch.int32), v ^ -(d & 1))
+    vals.index_copy_(0, outs.reshape(-1).to(torch.int64), _addmany(bv, n_out).reshape(-1, Bw))
+    return vals
+
+
+addmany.launches = 0
+
+
+def _sh(x: torch.Tensor, d: int, n_out: int) -> torch.Tensor:
+    """Shift toward the MSB along the position axis (dim 1)."""
+    z = torch.zeros_like(x[:, :d])
+    return torch.cat([z, x[:, : n_out - d]], dim=1)
+
+
+def _addmany(bv: torch.Tensor, n_out: int) -> torch.Tensor:
+    """bv int32[W, n_words, 32, Bw] addend bit planes → int32[W, n_out, Bw]
+    sum bit planes (mod 2^n_out)."""
+    if n_out > 32:
+        bv = torch.nn.functional.pad(bv, (0, 0, 0, n_out - 32))
+    addends = [bv[:, w] for w in range(bv.shape[1])]
+    # CSA 3:2 layers reduce the addends to two, then one Kogge-Stone
+    # prefix add resolves the carries in log2(n_out) levels.
+    while len(addends) > 2:
+        nxt = []
+        for i in range(0, len(addends) - 2, 3):
+            a1, b1, c1 = addends[i : i + 3]
+            nxt.append(a1 ^ b1 ^ c1)
+            nxt.append(_sh((a1 & b1) | (c1 & (a1 ^ b1)), 1, n_out))
+        rem = len(addends) % 3
+        if rem:
+            nxt.extend(addends[-rem:])
+        addends = nxt
+    if len(addends) == 1:
+        return addends[0]
+    a1, b1 = addends
+    g = a1 & b1
+    p = a1 ^ b1
+    gk, pk, d = g, p, 1
+    while d < n_out:
+        gk = gk | (pk & _sh(gk, d, n_out))
+        pk = pk & _sh(pk, d, n_out)
+        d *= 2
+    return p ^ _sh(gk, 1, n_out)
 
 
 # ---------------------------------------------------------------------------

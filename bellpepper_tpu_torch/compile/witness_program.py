@@ -20,11 +20,12 @@ Counterpart of ``bellpepper_tpu/compile/witness_program.py``:
     are the same.
   * ``WitnessProgram.build_packed`` (reference ``_build_packed_impl`` with
     ``mixed=False``, ``:1116-1362``): the packed evaluator of pure-bit
-    programs, 32 instances per word, as torch ops on int32 words. Addmany
-    is a carry-save adder tree plus a Kogge-Stone prefix add over bit
-    planes. Stage outputs are written straight to their slots; the
-    reference's scatter-free slot permutation only worked around an XLA:TPU
-    miscompile.
+    programs, 32 instances per word, as torch ops on int32 words. An
+    addmany stage is one launch of ``field_kernels.addmany``, a bit-serial
+    adder over bit planes (its plain version, on the CPU: a carry-save
+    adder tree plus a Kogge-Stone prefix add). Stage outputs are written
+    straight to their slots; the reference's scatter-free slot permutation
+    only worked around an XLA:TPU miscompile.
   * ``WitnessProgram.build_packed_mixed`` (``_build_packed_impl`` with
     ``mixed=True``, the ``pack`` stage at ``:1311``): the packed evaluator
     with a limb sidecar of the ``pack`` outputs, for the programs that
@@ -59,8 +60,8 @@ FIELD_OUT_OPS = {"fadd", "fmul", "finv", "copy", "pack", "num_inv_or_one",
                  "select", "lookup"}
 # Opcodes the bit-sliced evaluator supports: each is a pure boolean
 # function per bit, so packing 32 instances per word turns it into
-# full-word ops (negation = ^0xFFFFFFFF); addmany becomes a carry-save
-# adder tree over bit planes.
+# full-word ops (negation = ^0xFFFFFFFF); addmany becomes an adder over
+# bit planes (field_kernels.addmany).
 PACKED_OPS = {"xor", "and", "and_not", "nor", "ch", "maj", "addmany",
               "num_iszero"}
 # Opcodes the mixed packed evaluator adds: a field-valued `pack` output
@@ -852,6 +853,9 @@ class PackedEvaluator:
         self._stages = []
         for st in prog.stages:
             a = st.arrs
+            if st.opcode == "addmany":  # one kernel launch: its own tables, outputs included
+                self._stages.append((st.opcode, st.meta, fk.addmany_tables(a, st.outs, device)))
+                continue
             t = {"outs": _dev(st.outs.reshape(-1), device)}
             if st.opcode in ("xor", "and", "and_not", "nor"):
                 t["a"] = _dev(a["a"], device)
@@ -859,7 +863,7 @@ class PackedEvaluator:
             elif st.opcode in ("ch", "maj"):
                 for p in ("a", "b", "c"):
                     t[p] = self._view_tables(a, p + "_", (-1, 1))
-            elif st.opcode in ("addmany", "pack"):
+            elif st.opcode == "pack":
                 t["v"] = self._view_tables(a, "", a["idx"].shape + (1,))
             else:  # num_iszero
                 t["idx"] = _dev(a["idx"], device)
@@ -914,6 +918,9 @@ class PackedEvaluator:
         """Run one stage: its outputs into `vals`, a ``pack`` stage's into
         the sidecar `flimbs`."""
         Bw = vals.shape[1]
+        if oc == "addmany":  # the sum planes straight into their slots
+            fk.addmany(vals, t, *meta)
+            return
         if oc == "pack":  # field-valued: to the sidecar; its vals slots stay 0
             bv = self._views(vals, t["v"])  # [W, n_bits, Bw] packed bit planes
             bits = unpack_rows(bv.reshape(-1, Bw)).reshape(bv.shape[0], meta, -1)
@@ -935,8 +942,6 @@ class PackedEvaluator:
             b = self._views(vals, t["b"])
             c = self._views(vals, t["c"])
             r = (a & b) ^ (~a & c) if oc == "ch" else (a & b) ^ (a & c) ^ (b & c)
-        elif oc == "addmany":
-            r = _addmany(self._views(vals, t["v"]), meta[1])
         else:  # num_iszero
             r = _num_iszero(vals, t["idx"], t["cf"])
         vals.index_copy_(0, t["outs"], r.reshape(-1, Bw))
@@ -948,43 +953,6 @@ class PackedEvaluator:
         if self.mixed:
             return vals.t().contiguous(), flimbs.permute(2, 0, 1).contiguous()
         return vals.t().contiguous()
-
-
-def _sh(x: torch.Tensor, d: int, n_out: int) -> torch.Tensor:
-    """Shift toward the MSB along the position axis (dim 1)."""
-    z = torch.zeros_like(x[:, :d])
-    return torch.cat([z, x[:, : n_out - d]], dim=1)
-
-
-def _addmany(bv: torch.Tensor, n_out: int) -> torch.Tensor:
-    """bv int32[W, n_words, 32, Bw] addend bit planes → int32[W, n_out, Bw]
-    sum bit planes (mod 2^n_out)."""
-    if n_out > 32:
-        bv = torch.nn.functional.pad(bv, (0, 0, 0, n_out - 32))
-    addends = [bv[:, w] for w in range(bv.shape[1])]
-    # CSA 3:2 layers reduce the addends to two, then one Kogge-Stone
-    # prefix add resolves the carries in log2(n_out) levels.
-    while len(addends) > 2:
-        nxt = []
-        for i in range(0, len(addends) - 2, 3):
-            a1, b1, c1 = addends[i : i + 3]
-            nxt.append(a1 ^ b1 ^ c1)
-            nxt.append(_sh((a1 & b1) | (c1 & (a1 ^ b1)), 1, n_out))
-        rem = len(addends) % 3
-        if rem:
-            nxt.extend(addends[-rem:])
-        addends = nxt
-    if len(addends) == 1:
-        return addends[0]
-    a1, b1 = addends
-    g = a1 & b1
-    p = a1 ^ b1
-    gk, pk, d = g, p, 1
-    while d < n_out:
-        gk = gk | (pk & _sh(gk, d, n_out))
-        pk = pk & _sh(pk, d, n_out)
-        d *= 2
-    return p ^ _sh(gk, 1, n_out)
 
 
 def _num_iszero(vals, idx, cf):

@@ -36,7 +36,12 @@ loads), at the benchmark's fold shapes and past 2^31 words. The product
 rows' operand_mulcmp equals its plain version and Python ints on rows of
 every operand shape (tests/torch_operand_cases.py) over Pallas, Vesta and
 BLS12-381, with and without u32 values, past 2^31 limb words, and gives
-a faulted MinRoot chunk the verdict of the eager route it replaces.
+a faulted MinRoot chunk the verdict of the eager route it replaces. The
+packed evaluator's addmany kernel equals its plain version at every
+addmany stage of the sha256, blake2s, config 2 and config 3 templates (on
+random words, all-ones words and with negated and constant views) from
+Bw 1 to the cells' 65,536, and at shapes no template emits, one launch a
+stage in every packed step.
 
 At each path's own tables the kernels equal their plain versions (the
 packed checks of sha256, blake2s and configs 2 and 3, the sha256 and
@@ -695,6 +700,7 @@ def test_packed_mixed_step_on_card_matches_cpu(cuda):
         got = tuple(int(v) for v in got)
         assert got == tuple(int(v) for v in want) and (got[0] > 0) == corrupt
         assert fk.launch_counts()["bitplane_eq"] == 2
+        assert fk.launch_counts()["addmany"] == 2 * 3  # the mixed evaluator's 3 addmany stages, 2 chunks
 
 
 def _free_field_program():
@@ -777,6 +783,7 @@ def test_merkle_step_on_card_matches_cpu(cuda):
     counts = fk.launch_counts()
     assert torch.equal(root.cpu(), want[0]) and int(total) == int(want[1]) == 0
     assert counts["bitplane_eq"] == 4 and counts["mulcmp"] == 4
+    assert counts["addmany"] == 0  # the levels run the unpacked evaluator
 
 
 def _num_mixed_block():
@@ -1360,6 +1367,7 @@ def test_packed_step_probes_and_kernels_at_its_tables_on_card(cuda, name):
     assert _verdict(build_packed_production_step(prog, template, B, device=cuda)(free.to(cuda))) == CLEAN
     counts = fk.launch_counts()
     assert counts["bitplane_eq"] == (0 if name == "blake2s" else 2) and counts["verdict_fold"] > 0, counts
+    assert counts["addmany"] == 2 * sum(st.opcode == "addmany" for st in prog.stages), counts  # one a stage a chunk
     if name == "sha256":
         assert counts["bits_matvec_semi"] > 0 and counts["mulcmp"] == 2, counts
     if name == "blake2s":
@@ -1466,9 +1474,10 @@ def _packed_kernels_hold(check, vals_p, mixed, field, words=1024):
 def test_packed_step_and_kernels_at_the_cells_batch_on_card(cuda, name):
     """The packed step at the step_2m cells' chunk, 2^21 instances
     (perfbench/traffic/step_2m.json): clean, launching per kernel what the
-    same step launches at 1,024 instances; then the check's kernels at
-    its own tables on that chunk's words with the odd words random, each
-    equal to its plain version (_packed_kernels_hold)."""
+    same step launches at 1,024 instances, one addmany launch a stage (155
+    sha256, 80 blake2s); then the check's kernels at its own tables on
+    that chunk's words with the odd words random, each equal to its plain
+    version (_packed_kernels_hold)."""
     template, prog = _packed_circuit(name)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0x5EED_0022)
@@ -1482,6 +1491,7 @@ def test_packed_step_and_kernels_at_the_cells_batch_on_card(cuda, name):
         assert verdict == CLEAN, (B, verdict)
     assert launched[1 << 21] == launched[1024], launched
     assert launched[1024]["mulcmp"] == 1 and launched[1024].get("bitplane_eq", 0) == (name == "sha256"), launched
+    assert launched[1024]["addmany"] == {"sha256": 155, "blake2s": 80}[name], launched
     evaluator, check = build_packed_parts(prog, template, 1 << 21, cuda)
     vals_p, _ = evaluator.slot_major(free[0])
     del evaluator, free
@@ -1490,6 +1500,82 @@ def test_packed_step_and_kernels_at_the_cells_batch_on_card(cuda, name):
     _packed_kernels_hold(check, vals_p, False, template.field)
     del vals_p, check
     torch.cuda.empty_cache()
+
+
+# --- the packed evaluator's addmany stage ----------------------------------------
+def _varied_views(arrs, rng):
+    """A copy of a stage's view arrays with about a quarter of the views
+    negated and a sixth made constant (0 or 1)."""
+    a = {k: np.array(v) for k, v in arrs.items()}
+    shape = a["idx"].shape
+    isc = (a["isc"] != 0) | (rng.random(shape) < 1 / 6)
+    a["cv"] = np.where(isc & (a["isc"] == 0), rng.integers(0, 2, shape), a["cv"]).astype(np.uint32)
+    a["neg"] = np.where(isc, 0, a["neg"] ^ (rng.random(shape) < 0.25)).astype(np.uint32)
+    a["isc"] = isc.astype(np.uint32)
+    return a
+
+
+def _addmany_card_and_plain(vals, tables, n_words, n_out, ones):
+    """One stage through the kernel on `vals` and through the plain
+    version on a copy (both refilled with all-ones words first where
+    `ones`): the two buffers after it."""
+    if ones:
+        vals.fill_(-1)
+    plain = fk.addmany_plain(vals.clone(), tables, n_words, n_out)
+    return fk.addmany(vals, tables, n_words, n_out), plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bw", [1, 3, 1024, 65536])
+@pytest.mark.parametrize("name", ["sha256", "blake2s", "config2", "config3"])
+def test_addmany_on_card_at_each_template_stage(cuda, name, Bw):
+    """Every addmany stage of the template, in plan order, on the card
+    against the plain version, bit for bit, at Bw 1, 3 (no 8- or 16-byte
+    accesses), 1,024 and the step_2m cells' 65,536: on random words (each
+    stage reading the sums before it), with every stage's addends all
+    ones (the longest carry chains), and on copies of the stages' views
+    with negated and constant views; one launch a stage."""
+    template, prog = _packed_circuit(name)
+    stages = [st for st in prog.stages if st.opcode == "addmany"]
+    rng = np.random.default_rng(0x5EED_0023)
+    for mode in ("random", "ones", "views"):
+        vals = torch.randint(-(1 << 31), 1 << 31, (prog.num_slots, Bw), dtype=torch.int32,
+                             generator=torch.Generator(device=cuda).manual_seed(23), device=cuda)
+        before = fk.addmany.launches
+        for st in stages:
+            arrs = _varied_views(st.arrs, rng) if mode == "views" else st.arrs
+            tables = fk.addmany_tables(arrs, st.outs, cuda)
+            got, want = _addmany_card_and_plain(vals, tables, *st.meta, mode == "ones")
+            assert torch.equal(got, want), (name, Bw, mode, st.meta)
+        assert fk.addmany.launches == before + len(stages)
+        del vals, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n_words,n_out,Bw,skip,vec", [
+    (1, 1, 32, 5, 0, 1), (3, 2, 40, 7, 0, 1), (2, 9, 36, 1024, 0, 4), (1, 17, 37, 33, 0, 1),
+    (3, 5, 35, 65538, 0, 2), (2, 4, 34, 1028, 1, 4), (2, 4, 34, 1026, 1, 2), (8, 3, 34, 1 << 16, 0, 4),
+    (1, 40, 38, 1 << 18, 0, 4)])
+def test_addmany_any_shape_on_card(cuda, W, n_words, n_out, Bw, skip, vec):
+    """Shapes no template of the benchmark emits: one word, sums of 9, 17
+    and 40 words (the chunked kernel), n_out past the sum's width (planes
+    that read zero), ragged Bw, a buffer that starts `skip` rows into its
+    allocation, and each width of access (1, 2 and 4 words a thread, the
+    widest that base and row length allow); random and all-ones words,
+    with negated and constant views, against the plain version."""
+    rng = np.random.default_rng(W * 1000 + n_words)
+    S = 8 + W * (n_words * 32 + n_out)
+    shape = (W, n_words, 32)
+    arrs = {"idx": rng.integers(0, S - W * n_out, shape), "neg": rng.integers(0, 2, shape),
+            "isc": rng.random(shape) < 0.1, "cv": rng.integers(0, 2, shape)}
+    outs = S - W * n_out + np.arange(W * n_out).reshape(W, n_out)
+    tables = fk.addmany_tables(arrs, outs, cuda)
+    vals = torch.randint(-(1 << 31), 1 << 31, (skip + S, Bw), dtype=torch.int32, device=cuda)[skip:]
+    assert fk._addmany_vec(vals) == vec
+    for ones in (False, True):
+        got, want = _addmany_card_and_plain(vals, tables, n_words, n_out, ones)
+        assert torch.equal(got, want), ones
 
 
 @pytest.mark.cuda

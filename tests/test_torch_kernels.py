@@ -3,6 +3,7 @@ package's Pallas kernels run in interpret mode, at the packed sha256
 path's shapes (small batch), bit-exact; the CPU wrappers' dispatch; and
 the per-field kernel constants against the reference's."""
 
+import os
 import random
 
 import jax
@@ -289,10 +290,38 @@ def test_wrappers_use_plain_version_on_cpu():
     specs, fl, vl, _want = operand_rows(SCALAR, 6, 5, 1)
     table = Products(specs, SCALAR, "cpu").table
     assert torch.equal(fk.operand_mulcmp(table, fl, vl, SCALAR), fk.operand_mulcmp_plain(table, fl, vl, SCALAR))
+    tables = _addmany_tables(3, 35, 40)
+    v = from_numpy_u32(_u32((128, 5)))
+    assert torch.equal(fk.addmany(v.clone(), tables, 3, 35), fk.addmany_plain(v.clone(), tables, 3, 35))
     assert fk.launch_counts() == {k: 0 for k in fk.KERNELS} and op_rate.op_rate.launches == 0
     assert fk.KERNELS == ("bitplane_eq", "bits_matvec_semi", "mulcmp", "chain", "mul",
                           "limbs_matvec", "mul_digits", "reduce_digits", "bits_matvec_canonical", "verdict_fold",
-                          "operand_mulcmp")
+                          "operand_mulcmp", "addmany")
+
+
+def test_entry_points_match_the_sources():
+    """Every C entry point of csrc/*.cu is declared in cuda_lib with as
+    many arguments as its source takes, and nothing else is."""
+    import glob
+    import re
+
+    from bellpepper_tpu_torch.backend import cuda_lib
+
+    found = {}
+    for path in glob.glob(os.path.join(cuda_lib.CSRC, "*.cu")):
+        with open(path) as f:
+            for name, params in re.findall(r'extern "C" int (bp_\w+)\(([^)]*)\)', f.read()):
+                found[name] = len(params.split(","))
+    assert found == {name: len(args) for name, args in cuda_lib.ENTRY_POINTS.items()}
+
+
+def _addmany_tables(n_words, n_out, first_out, W=2):
+    """Tables of W sums of n_words random views of slots below first_out
+    (some negated, some constant), written from slot first_out on."""
+    shape = (W, n_words, 32)
+    arrs = {"idx": RNG.integers(0, first_out, shape), "neg": RNG.integers(0, 2, shape),
+            "isc": RNG.random(shape) < 0.2, "cv": RNG.integers(0, 2, shape)}
+    return fk.addmany_tables(arrs, first_out + np.arange(W * n_out).reshape(W, n_out), "cpu")
 
 
 def test_wrappers_check_their_inputs():
@@ -347,6 +376,26 @@ def test_wrappers_check_their_inputs():
         op_rate.op_rate(x[:3].contiguous(), "u32_add", 4)
     with pytest.raises(TypeError):  # the f32 classes take float32
         op_rate.op_rate(x, "f32_fma", 4)
+    desc, outs = _addmany_tables(3, 34, 40)
+    with pytest.raises(TypeError):  # words and tables are int32
+        fk.addmany(vals.to(torch.int64), (desc, outs), 3, 34)
+    with pytest.raises(TypeError):
+        fk.addmany(vals, (desc.to(torch.int64), outs), 3, 34)
+    with pytest.raises(ValueError):  # desc is [W, n_words, 32]
+        fk.addmany(vals, (desc, outs), 2, 34)
+    with pytest.raises(ValueError):  # outs is [W, n_out]
+        fk.addmany(vals, (desc, outs), 3, 35)
+    with pytest.raises(ValueError):  # every addend is a 32-bit word: n_out ≥ 32
+        fk.addmany(vals, (desc, outs[:, :31].contiguous()), 3, 31)
+    with pytest.raises(ValueError):
+        fk.addmany(vals[:, ::2], (desc, outs), 3, 34)
+    with pytest.raises(ValueError):  # vals is [S, Bw]
+        fk.addmany(vals[None], (desc, outs), 3, 34)
+    with pytest.raises(ValueError):  # one device for the words and the tables
+        fk.addmany(vals.to("meta"), (desc, outs), 3, 34)
+    with pytest.raises(ValueError):  # slots below 2^30
+        fk.addmany_tables({"idx": np.full((1, 1, 32), 1 << 30), "neg": np.zeros((1, 1, 32)),
+                           "isc": np.zeros((1, 1, 32)), "cv": np.zeros((1, 1, 32))}, np.arange(32)[None], "cpu")
 
 
 # --- the op-rate probe -----------------------------------------------------------

@@ -246,16 +246,86 @@ def test_stages_and_words_match_reference_fixtures(name, monkeypatch):
 
 
 def test_packed_words_match_reference_sha256(sha_ref, sha_port):
-    """B = 512 (16 words of 32 instances), random free bits."""
+    """B = 512 (16 words of 32 instances), random free bits; on CPU
+    tensors the 155 addmany stages take the plain version, no launch."""
+    from bellpepper_tpu_torch.backend import field_kernels as fk
+
     prog = WitnessProgram(sha_port[1])
     ref = RefProgram(sha_ref[1])
     free = RNG.integers(
         0, 1 << 32, size=(16, len(prog.free_slots)), dtype=np.uint64
     ).astype(np.uint32)
     want = np.asarray(ref.build_packed()(jnp.asarray(free)))
+    fk.reset_launch_counts()
     got = to_numpy_u32(prog.build_packed(device="cpu")(from_numpy_u32(free)))
     assert got.shape == (16, 26327)
     assert (got == want).all()
+    assert fk.launch_counts() == {k: 0 for k in fk.KERNELS}
+
+
+def _python_sums(vals, arrs, n_out):
+    """The sum planes of one addmany stage in numpy integers: each
+    instance's addend words decoded from the stage's view arrays, added
+    in uint64, bit k of the sum mod 2^n_out packed back into words ([W,
+    n_out, Bw] uint32)."""
+    k = np.arange(32, dtype=np.uint64)
+    words = vals[arrs["idx"]].astype(np.uint64)  # [W, n, 32 positions, Bw]
+    words ^= np.asarray(arrs["neg"], np.uint64)[..., None] * 0xFFFFFFFF
+    words = np.where(arrs["isc"][..., None] != 0, np.asarray(arrs["cv"], np.uint64)[..., None] * 0xFFFFFFFF, words)
+    lanes = (words[..., None] >> k) & 1  # [W, n, 32 positions, Bw, 32 instances]
+    total = (lanes << k[None, None, :, None, None]).sum(axis=(1, 2)) % (1 << n_out)  # [W, Bw, 32]
+    bits = (total[:, None] >> np.arange(n_out, dtype=np.uint64)[None, :, None, None]) & 1
+    return (bits << k).sum(axis=-1).astype(np.uint32)
+
+
+def _varied_views(arrs, rng):
+    """A copy of a stage's view arrays with about a quarter of the
+    variable views negated and a sixth made constant (0 or 1)."""
+    a = {k: np.array(v) for k, v in arrs.items()}
+    shape = a["idx"].shape
+    a["neg"] = (a["neg"] ^ (rng.random(shape) < 0.25)).astype(np.uint32)
+    to_const = rng.random(shape) < 1 / 6
+    a["isc"] = (a["isc"] | to_const).astype(np.uint32)
+    a["cv"] = np.where(to_const, rng.integers(0, 2, shape), a["cv"]).astype(np.uint32)
+    a["neg"] = np.where(a["isc"] != 0, 0, a["neg"]).astype(np.uint32)
+    return a
+
+
+@pytest.mark.parametrize("name", ["sha256", "blake2s", "config2", "config3", "addmany", "families"])
+def test_addmany_plain_matches_python_ints_and_the_eager_route(name, sha_port, monkeypatch):
+    """One addmany stage of each (n_words, n_out) the template compiles
+    to: ``field_kernels.addmany`` on CPU tensors (its plain version, no
+    launch) writes every sum plane as Python-style integer sums give it,
+    and equals the evaluator's route before the kernel (``_addmany`` over
+    ``PackedEvaluator._views``, then a copy into the slots), on the
+    stage's own views and on a copy with negated and constant views, for
+    random words and for all-ones words (the longest carry chains)."""
+    from bellpepper_tpu_torch.backend import field_kernels as fk
+
+    tape = (sha_port if name == "sha256" else _finish(NativeBuilder, name) if name in BIT_GADGETS
+            else fixture_tape(name, monkeypatch))[1]
+    prog = WitnessProgram(tape)
+    ev = (prog.build_packed if prog.is_packable else prog.build_packed_mixed)(device="cpu")
+    rng = np.random.default_rng(0x5EED_0023)
+    stages = {st.meta: st for st in prog.stages if st.opcode == "addmany"}
+    assert stages
+    before = fk.addmany.launches
+    for (n_words, n_out), st in sorted(stages.items()):
+        for arrs in (st.arrs, _varied_views(st.arrs, rng)):
+            for fill in ("random", "ones"):
+                vals = (rng.integers(0, 1 << 32, size=(prog.num_slots, 3), dtype=np.uint64).astype(np.uint32)
+                        if fill == "random" else np.full((prog.num_slots, 3), 0xFFFFFFFF, np.uint32))
+                want = vals.copy()
+                want[st.outs] = _python_sums(vals, arrs, n_out)
+                got = from_numpy_u32(vals)
+                assert fk.addmany(got, fk.addmany_tables(arrs, st.outs, "cpu"), n_words, n_out) is got
+                assert (to_numpy_u32(got) == want).all(), (n_words, n_out, fill)
+                eager = from_numpy_u32(vals)
+                bv = ev._views(eager, ev._view_tables(arrs, "", arrs["idx"].shape + (1,)))
+                eager.index_copy_(0, torch.from_numpy(st.outs.reshape(-1).astype(np.int64)),
+                                  fk._addmany(bv, n_out).reshape(-1, 3))
+                assert torch.equal(eager, got), (n_words, n_out, fill)
+    assert fk.addmany.launches == before
 
 
 def test_num_iszero_words_match_reference():
